@@ -1,0 +1,376 @@
+"""GPT-style CausalLM, inference path: the port of
+``distributed_deep_learning_tpu/models/transformer.py``.
+
+Same function as the flax model: pre-LN layers (``ln_eps`` 1e-6), q/k/v/out
+projections with biases, tanh-approximated GELU (flax's ``nn.gelu``
+default), learned or rotary positions (RoPE rotates split halves, not
+interleaved pairs), grouped-query attention, ``pad_id`` positions masked
+out of attention, a weight-tied head computed in f32.
+
+Every forward runs through :meth:`CausalLM.run`, which takes the
+attention as a function ``attend(layer, q, k, v) -> y``.  The full
+forward attends causally over its own tokens; :meth:`CausalLM.cached_forward`
+attends over a dense KV cache; the paged engine (``serve/engine.py``)
+attends over its block pools.  The model itself holds no cache.
+
+:func:`load_flax_params` carries weights over from a flax ``params`` tree
+(nested dicts of numpy arrays) without importing flax.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: ``attend(layer_index, q, k, v) -> y``: q ``(B, T, H, hd)``, k/v
+#: ``(B, T, Hkv, hd)``, y ``(B, T, H, hd)``
+Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
+                  torch.Tensor]
+
+MASK_FILL = -1e9   # the JAX package's fill: finite in bf16 as well
+
+
+def dot_product_attention(q, k, v, *, mask=None, key_valid=None,
+                          causal=False, window=None, dtype=torch.float32):
+    """Plain softmax attention; q/k/v are ``(B, T, H, D)``.
+
+    ``key_valid`` is a ``(B, Tk)`` bool padding mask, ``causal`` a flag,
+    ``window`` a causal sliding-window size; a dense ``mask``
+    broadcastable to ``(B, H, Tq, Tk)`` is combined with them.  Masked
+    logits are filled with -1e9, and the softmax runs in f32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    if key_valid is not None:
+        kv = key_valid[:, None, None, :]
+        mask = kv if mask is None else mask & kv
+    Tq, Tk = q.shape[1], k.shape[1]
+    if causal:
+        tril = torch.ones(Tq, Tk, dtype=torch.bool,
+                          device=q.device).tril()[None, None]
+        mask = tril if mask is None else mask & tril
+    if window is not None:
+        if not causal and mask is None:
+            raise ValueError("window requires causal attention")
+        qp = torch.arange(Tq, device=q.device)[:, None]
+        kp = torch.arange(Tk, device=q.device)[None, :]
+        band = ((qp - kp) < window)[None, None]
+        mask = band if mask is None else mask & band
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.tensor(MASK_FILL, dtype=logits.dtype,
+                                          device=logits.device))
+    weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def apply_rope(x, positions, base: float = 10000.0):
+    """Rotary embedding on ``(B, T, H, D)`` (D even): feature pairs
+    ``(x[..., :D/2], x[..., D/2:])`` rotate by ``position * base^(-2i/D)``.
+    ``positions`` is ``(T,)``, shared by the batch, or ``(B, T)``."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"RoPE requires an even head_dim, got "
+                         f"{x.shape[-1]} (pick num_heads so that "
+                         "d_model/num_heads is even)")
+    d2 = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(d2, dtype=torch.float32,
+                                   device=x.device) / d2)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     -1).to(x.dtype)
+
+
+def causal_prefix_attention(q, k, v, key_valid, start, *, window=None):
+    """Attention of a chunk of queries at positions ``start + arange(T)``
+    over a whole cache ``k``/``v`` ``(B, L, H, hd)``: key ``j`` is seen
+    iff ``j <= query position`` and ``key_valid[:, j]`` (and inside the
+    window).  The decode-mode attention of the flax model, used for
+    multi-token prefill chunks and for single-token steps alike."""
+    T, L = q.shape[1], k.shape[1]
+    qpos = start + torch.arange(T, device=q.device)
+    kpos = torch.arange(L, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return dot_product_attention(q, k, v, mask=mask[None, None],
+                                 key_valid=key_valid, dtype=q.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """q/k/v projections to heads, RoPE, and the output projection; the
+    attention between them is the caller's."""
+
+    def __init__(self, d_model: int, num_heads: int,
+                 num_kv_heads: Optional[int] = None, rope: bool = False):
+        super().__init__()
+        kv_heads = num_kv_heads or num_heads
+        if num_heads % kv_heads:
+            raise ValueError(f"num_kv_heads {kv_heads} must divide "
+                             f"num_heads {num_heads}")
+        self.num_heads, self.kv_heads = num_heads, kv_heads
+        self.head_dim = d_model // num_heads
+        self.rope = rope
+        hd = self.head_dim
+        self.q = nn.Linear(d_model, num_heads * hd)
+        self.k = nn.Linear(d_model, kv_heads * hd)
+        self.v = nn.Linear(d_model, kv_heads * hd)
+        self.out = nn.Linear(num_heads * hd, d_model)
+
+    @property
+    def group(self) -> int:
+        return self.num_heads // self.kv_heads
+
+    def project(self, x, positions):
+        """``x`` ``(B, T, d)`` -> q ``(B, T, H, hd)``, k/v ``(B, T, Hkv,
+        hd)``, rotated at ``positions`` under RoPE."""
+        B, T, _ = x.shape
+        q = self.q(x).view(B, T, self.num_heads, self.head_dim)
+        k = self.k(x).view(B, T, self.kv_heads, self.head_dim)
+        v = self.v(x).view(B, T, self.kv_heads, self.head_dim)
+        if self.rope:
+            q, k = apply_rope(q, positions), apply_rope(k, positions)
+        return q, k, v
+
+    def expand(self, kv):
+        """GQA on the dense path: repeat each kv head for its group."""
+        g = self.group
+        return kv if g == 1 else kv.repeat_interleave(g, dim=2)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LN block: self-attention then MLP, each with a residual."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_dim: int, *,
+                 num_kv_heads: Optional[int] = None, rope: bool = False,
+                 ln_eps: float = 1e-6):
+        super().__init__()
+        self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
+        self.self_attn = MultiHeadAttention(d_model, num_heads,
+                                            num_kv_heads, rope)
+        self.ln_mlp = nn.LayerNorm(d_model, eps=ln_eps)
+        self.mlp_in = nn.Linear(d_model, mlp_dim)
+        self.mlp_out = nn.Linear(mlp_dim, d_model)
+
+    def forward(self, x, positions, attend):
+        """``attend(q, k, v) -> y`` is the layer's attention."""
+        B, T, _ = x.shape
+        q, k, v = self.self_attn.project(self.ln_attn(x), positions)
+        y = attend(q, k, v)
+        x = x + self.self_attn.out(y.reshape(B, T, -1))
+        h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
+        return x + self.mlp_out(h)
+
+
+class CausalLM(nn.Module):
+    """Decoder-only LM with the flax ``CausalLM``'s fields.
+
+    ``forward(tokens)`` returns final hidden states ``(B, T, d)`` (logits
+    ``(B, T, V)`` with ``with_logits``); ``logits_from`` is the tied head
+    in f32."""
+
+    def __init__(self, vocab_size: int = 32000, num_layers: int = 12,
+                 d_model: int = 768, num_heads: int = 12,
+                 mlp_dim: int = 3072, max_len: int = 8192, *,
+                 pos_embedding: str = "learned",
+                 attention_window: Optional[int] = None,
+                 num_kv_heads: Optional[int] = None, ln_eps: float = 1e-6,
+                 pad_id: Optional[int] = 0, with_logits: bool = False):
+        super().__init__()
+        if pos_embedding not in ("learned", "rope"):
+            raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
+        self.vocab_size, self.num_layers = vocab_size, num_layers
+        self.d_model, self.num_heads, self.mlp_dim = d_model, num_heads, mlp_dim
+        self.max_len = max_len
+        self.pos_embedding = pos_embedding
+        self.attention_window = attention_window
+        self.num_kv_heads = num_kv_heads
+        self.pad_id, self.with_logits = pad_id, with_logits
+        rope = pos_embedding == "rope"
+        self.tok = nn.Embedding(vocab_size, d_model)
+        self.pos = None if rope else nn.Parameter(
+            torch.empty(max_len, d_model))
+        self.layers = nn.ModuleList(
+            TransformerLayer(d_model, num_heads, mlp_dim,
+                             num_kv_heads=num_kv_heads, rope=rope,
+                             ln_eps=ln_eps)
+            for _ in range(num_layers))
+        self.final_norm = nn.LayerNorm(d_model, eps=ln_eps)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The flax initialisers: N(0, 0.02) embeddings, Xavier-uniform
+        projections, zero biases, unit LayerNorm scales."""
+        with torch.no_grad():
+            self.tok.weight.normal_(0.0, 0.02, generator=generator)
+            if self.pos is not None:
+                self.pos.normal_(0.0, 0.02, generator=generator)
+            for mod in self.modules():
+                if isinstance(mod, nn.Linear):
+                    fan_in, fan_out = mod.in_features, mod.out_features
+                    a = float(np.sqrt(6.0 / (fan_in + fan_out)))
+                    mod.weight.uniform_(-a, a, generator=generator)
+                    mod.bias.zero_()
+                elif isinstance(mod, nn.LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+        return self
+
+    def token_valid(self, tokens):
+        """Attendable positions: ``tokens != pad_id`` (all with no pad)."""
+        if self.pad_id is None:
+            return torch.ones_like(tokens, dtype=torch.bool)
+        return tokens != self.pad_id
+
+    def run(self, tokens, positions, attend: Attend):
+        """Embed ``tokens`` ``(B, T)`` at absolute ``positions`` (``(T,)``
+        or ``(B, T)``), run every layer with ``attend(i, q, k, v)`` as its
+        attention, and return the final-norm hidden states."""
+        x = self.tok(tokens)
+        if self.pos is not None:
+            x = x + self.pos[positions].to(x.dtype)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, positions,
+                      lambda q, k, v, i=i: attend(i, q, k, v))
+        return self.final_norm(x)
+
+    def forward(self, tokens):
+        T = tokens.shape[1]
+        valid = self.token_valid(tokens) if self.pad_id is not None \
+            else None
+
+        def attend(i, q, k, v):
+            attn = self.layers[i].self_attn
+            return dot_product_attention(
+                q, attn.expand(k), attn.expand(v), key_valid=valid,
+                causal=True, window=self.attention_window, dtype=q.dtype)
+
+        h = self.run(tokens, torch.arange(T, device=tokens.device), attend)
+        return self.logits_from(h) if self.with_logits else h
+
+    def logits_from(self, hidden):
+        """Weight-tied output projection, f32 on both operands."""
+        return torch.einsum("...d,vd->...v", hidden.float(),
+                            self.tok.weight.float())
+
+    # --- dense KV cache (the flax decode-mode cache) ----------------------
+    def init_cache(self, batch: int, total_len: int) -> dict:
+        """Zeroed cache for ``batch`` rows of ``total_len`` positions:
+        per layer ``cached_key``/``cached_value`` ``(B, L, Hkv, hd)`` and
+        ``cached_valid`` ``(B, L)``, plus the shared ``index``."""
+        dev, dt = self.tok.weight.device, self.tok.weight.dtype
+        attn = self.layers[0].self_attn
+        shape = (batch, total_len, attn.kv_heads, attn.head_dim)
+        layers = [{"cached_key": torch.zeros(shape, dtype=dt, device=dev),
+                   "cached_value": torch.zeros(shape, dtype=dt, device=dev),
+                   "cached_valid": torch.zeros(shape[:2], dtype=torch.bool,
+                                               device=dev)}
+                  for _ in self.layers]
+        return {"layers": layers, "index": 0}
+
+    def cached_forward(self, tokens, cache: dict):
+        """One cached forward (a prompt chunk or a 1-token step): writes
+        the tokens' K/V and validity at ``cache["index"]``, attends each
+        query over the causal prefix of the cache, advances the index.
+        Updates ``cache`` in place and returns the hidden states."""
+        idx, T = cache["index"], tokens.shape[1]
+        if idx + T > cache["layers"][0]["cached_key"].shape[1]:
+            raise ValueError(f"cache of {cache['layers'][0]['cached_key'].shape[1]}"
+                             f" positions cannot take {T} more at {idx}")
+        valid = self.token_valid(tokens)
+
+        def attend(i, q, k, v):
+            c = cache["layers"][i]
+            c["cached_key"][:, idx:idx + T] = k
+            c["cached_value"][:, idx:idx + T] = v
+            c["cached_valid"][:, idx:idx + T] = valid
+            attn = self.layers[i].self_attn
+            return causal_prefix_attention(
+                q, attn.expand(c["cached_key"]),
+                attn.expand(c["cached_value"]), c["cached_valid"], idx,
+                window=self.attention_window)
+
+        positions = idx + torch.arange(T, device=tokens.device)
+        h = self.run(tokens, positions, attend)
+        cache["index"] = idx + T
+        return h
+
+
+def validate_sampling(top_k: int | None, top_p: float | None) -> None:
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def sample_tokens(model: CausalLM, hidden_last, *, temperature: float = 0.0,
+                  top_k: int | None = None, top_p: float | None = None,
+                  generator: Optional[torch.Generator] = None):
+    """Project ``(B, d)`` hidden states through the tied head and pick one
+    token per row: greedy at ``temperature == 0``, else sample from
+    ``softmax(logits / temperature)`` after top-k then top-p filtering.
+    The pad id is never picked."""
+    nl = model.logits_from(hidden_last)
+    if model.pad_id is not None:
+        nl[:, model.pad_id] = -torch.inf
+    if top_k is not None and top_k < nl.shape[-1]:
+        kth = torch.topk(nl, top_k, dim=-1).values[:, -1:]
+        nl = torch.where(nl >= kth, nl, -torch.inf)
+    if temperature == 0.0:
+        return nl.argmax(dim=-1)
+    scaled = nl / temperature
+    if top_p is not None and top_p < 1.0:
+        order = torch.argsort(scaled, dim=-1, descending=True)
+        sp = torch.softmax(scaled, dim=-1).gather(-1, order)
+        drop_sorted = torch.cumsum(sp, dim=-1) - sp > top_p
+        drop = torch.zeros_like(drop_sorted).scatter(-1, order, drop_sorted)
+        scaled = torch.where(drop, -torch.inf, scaled)
+    probs = torch.softmax(scaled, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def load_flax_params(params) -> dict:
+    """``state_dict`` for :class:`CausalLM` from the flax model's
+    ``params`` tree (nested dicts of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them; a ``{"params": ...}``
+    wrapper is accepted).  Dense kernels ``(in, out)`` and the
+    ``DenseGeneral`` head kernels ``(d, H, hd)`` / ``(H, hd, d)`` become
+    ``nn.Linear`` weights ``(out, in)``."""
+    if "params" in params and "embed" not in params:
+        params = params["params"]
+
+    def t(x):
+        return torch.from_numpy(np.array(x, copy=True))
+
+    def linear(node, prefix, n_in_axes=1):
+        kern = np.asarray(node["kernel"])
+        n_in = int(np.prod(kern.shape[:n_in_axes]))
+        return {f"{prefix}.weight": t(kern.reshape(n_in, -1).T),
+                f"{prefix}.bias": t(np.asarray(node["bias"]).reshape(-1))}
+
+    def norm(node, prefix):
+        return {f"{prefix}.weight": t(node["scale"]),
+                f"{prefix}.bias": t(node["bias"])}
+
+    sd = {"tok.weight": t(params["embed"]["tok"]["embedding"])}
+    if "pos" in params["embed"]:
+        sd["pos"] = t(params["embed"]["pos"])
+    i = 0
+    while f"layer_{i}" in params:
+        lp, pre = params[f"layer_{i}"], f"layers.{i}"
+        sd.update(norm(lp["LayerNorm_0"], f"{pre}.ln_attn"))
+        sd.update(norm(lp["LayerNorm_1"], f"{pre}.ln_mlp"))
+        for name in ("q", "k", "v"):
+            sd.update(linear(lp["self_attn"][name],
+                             f"{pre}.self_attn.{name}"))
+        sd.update(linear(lp["self_attn"]["out"], f"{pre}.self_attn.out",
+                         n_in_axes=2))
+        sd.update(linear(lp["Dense_0"], f"{pre}.mlp_in"))
+        sd.update(linear(lp["Dense_1"], f"{pre}.mlp_out"))
+        i += 1
+    sd.update(norm(params["final_norm"], "final_norm"))
+    return sd

@@ -1,0 +1,178 @@
+"""The port's paged decode (plain version and wrapper) against the JAX one.
+
+Inputs are made with numpy from a seed and fed to both packages.  The
+port's ``paged_decode_reference`` is held at atol 1e-5 against the JAX
+``paged_decode_reference`` and against the JAX Pallas kernel run in
+interpret mode on the CPU (f32 both sides; sums in different orders).
+On CPU tensors the wrapper takes the plain path and launches nothing;
+the CUDA kernel itself is checked against the plain version on the card
+by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_deep_learning_tpu.ops import paged_decode_pallas as jpd
+from distributed_deep_learning_tpu.serve import quant
+from distributed_deep_learning_tpu_torch.ops import paged_decode as tpd
+
+ATOL = 1e-5
+
+
+def _inputs(seed, B=3, Hkv=2, G=1, D=16, N=12, bs=8, Bps=3,
+            lens=(5, 24, 13)):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Hkv, G, D)).astype(np.float32)
+    kp = rng.normal(size=(N, bs, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(N, bs, Hkv, D)).astype(np.float32)
+    tables = np.zeros((B, Bps), np.int32)      # tails stay on trash block 0
+    ids = rng.permutation(np.arange(1, N))
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tables[b, :nb], ids = ids[:nb], ids[nb:]
+    return q, kp, vp, tables, np.asarray(lens, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+CASES = {"f32": dict(G=1), "gqa_g2": dict(G=2), "long_d": dict(D=64)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_reference_and_interpret_kernel(case):
+    q, kp, vp, tables, lens = _inputs(1, **CASES[case])
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, tables, lens)]
+    want_ref = np.asarray(jpd.paged_decode_reference(*jargs))
+    want_kern = np.asarray(jpd.paged_flash_decode(*jargs, interpret=True))
+    got = tpd.paged_decode_reference(*_t(q, kp, vp, tables, lens)).numpy()
+    np.testing.assert_allclose(got, want_ref, atol=ATOL)
+    np.testing.assert_allclose(got, want_kern, atol=ATOL)
+
+
+def test_int8_pools_match_jax_on_shared_quantized_input():
+    q, kp, vp, tables, lens = _inputs(2, G=2)
+    kq, vq = quant.quantize_rows(jnp.asarray(kp)), \
+        quant.quantize_rows(jnp.asarray(vp))
+    jargs = [jnp.asarray(q), kq, vq, jnp.asarray(tables), jnp.asarray(lens)]
+    want_ref = np.asarray(jpd.paged_decode_reference(*jargs))
+    want_kern = np.asarray(jpd.paged_flash_decode(*jargs, interpret=True))
+    k8, ks, v8, vs = (np.array(x) for x in (kq.q, kq.s, vq.q, vq.s))
+    assert k8.dtype == np.int8 and ks.shape == kp.shape[:3] + (1,)
+    got = tpd.paged_flash_decode(
+        *_t(q, k8, v8, tables, lens), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs)).numpy()
+    np.testing.assert_allclose(got, want_ref, atol=ATOL)
+    np.testing.assert_allclose(got, want_kern, atol=ATOL)
+
+
+def test_zero_length_slot_is_finite_and_matches_jax():
+    q, kp, vp, tables, lens = _inputs(3, lens=(0, 9, 1))
+    got = tpd.paged_flash_decode(*_t(q, kp, vp, tables, lens)).numpy()
+    assert np.isfinite(got).all()
+    want = np.asarray(jpd.paged_decode_reference(
+        *[jnp.asarray(a) for a in (q, kp, vp, tables, lens)]))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_valid_pool_masks_positions_like_a_dense_softmax():
+    q, kp, vp, tables, lens = _inputs(4, G=2)
+    rng = np.random.default_rng(5)
+    valid = rng.random(kp.shape[:2]) > 0.3
+    valid[tables[np.arange(3), (lens - 1) // 8], (lens - 1) % 8] = True
+    got = tpd.paged_decode_reference(*_t(q, kp, vp, tables, lens),
+                                     valid_pool=torch.from_numpy(valid))
+    B, Hkv, G, D = q.shape
+    for b in range(B):
+        pos = np.arange(lens[b])
+        phys, off = tables[b, pos // 8], pos % 8
+        keep = valid[phys, off]
+        k, v = kp[phys, off][keep], vp[phys, off][keep]    # (n, Hkv, D)
+        s = np.einsum("hgd,nhd->hgn", q[b], k) / np.sqrt(D)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        want = np.einsum("hgn,nhd->hgd", p, v)
+        np.testing.assert_allclose(got[b].numpy(), want, atol=ATOL)
+    # an all-true pool changes nothing
+    full = tpd.paged_decode_reference(
+        *_t(q, kp, vp, tables, lens),
+        valid_pool=torch.ones(kp.shape[:2], dtype=torch.bool))
+    plain = tpd.paged_decode_reference(*_t(q, kp, vp, tables, lens))
+    torch.testing.assert_close(full, plain, rtol=0, atol=0)
+
+
+def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
+    args = _t(*_inputs(6, G=2))
+    before = tpd.paged_flash_decode.launches
+    got = tpd.paged_flash_decode(*args)
+    torch.testing.assert_close(got, tpd.paged_decode_reference(*args),
+                               rtol=0, atol=0)
+    assert tpd.paged_flash_decode.launches == before
+
+
+def test_mismatched_quantization_raises_the_jax_message():
+    q, kp, vp, tables, lens = _t(*_inputs(7))
+    with pytest.raises(ValueError, match="agree on quantization"):
+        tpd.paged_flash_decode(q, kp, vp, tables, lens,
+                               k_scale=torch.ones(kp.shape[:3] + (1,)))
+    with pytest.raises(ValueError, match="agree on quantization"):
+        jpd.paged_flash_decode(*[jnp.asarray(t.numpy()) for t in
+                                 (q, kp, vp, tables, lens)],
+                               v_scale=jnp.ones(kp.shape[:3] + (1,)))
+
+
+def _good_kernel_args():
+    q, kp, vp, tables, lens = _t(*_inputs(8, D=32))
+    return dict(q=q, k_pool=kp, v_pool=vp, block_tables=tables,
+                seq_lens=lens, k_scale=None, v_scale=None,
+                valid_pool=torch.ones(kp.shape[:2], dtype=torch.bool))
+
+
+BAD_ARGS = {
+    "head_dim": (lambda a: a.update(q=a["q"][..., :16].contiguous()),
+                 "head_dim"),
+    "group": (lambda a: a.update(q=torch.zeros(3, 2, 9, 32)), "group"),
+    "q_dtype": (lambda a: a.update(q=a["q"].double()), "q dtype"),
+    "pool_dtypes": (lambda a: a.update(v_pool=a["v_pool"].half()),
+                    "pool dtypes"),
+    "pool_shape": (lambda a: a.update(k_pool=a["k_pool"][:, :, :1]
+                                      .contiguous(),
+                                      v_pool=a["v_pool"][:, :, :1]
+                                      .contiguous()), "pools must be"),
+    "tables_dtype": (lambda a: a.update(block_tables=a["block_tables"]
+                                        .long()), "block_tables"),
+    "lens_dtype": (lambda a: a.update(seq_lens=a["seq_lens"].long()),
+                   "seq_lens"),
+    "contiguity": (lambda a: a.update(q=a["q"].transpose(0, 1)),
+                   "contiguous"),
+    "int8_without_scales": (lambda a: a.update(
+        k_pool=a["k_pool"].to(torch.int8),
+        v_pool=a["v_pool"].to(torch.int8)), "int8 pools need scales"),
+    "valid_dtype": (lambda a: a.update(valid_pool=a["valid_pool"].int()),
+                    "valid_pool"),
+}
+
+
+def test_kernel_argument_checks_accept_the_engine_layout():
+    tpd._check_kernel_args(**_good_kernel_args())
+
+
+@pytest.mark.parametrize("case", sorted(BAD_ARGS))
+def test_kernel_argument_checks_reject(case):
+    edit, match = BAD_ARGS[case]
+    args = _good_kernel_args()
+    edit(args)
+    with pytest.raises(ValueError, match=match):
+        tpd._check_kernel_args(**args)
+
+
+def test_kernel_source_names_what_it_replaces_and_builds_at_first_use():
+    src = tpd._SOURCE.read_text()
+    assert "paged_decode_pallas.py" in src and "_decode_kernel" in src
+    assert "split-K" in src and "3.35 TB/s" in src
+    assert "compute_90a" in " ".join(tpd.NVCC_FLAGS)
+    # importing the module built nothing (no nvcc here)
+    assert tpd._library.cache_info().currsize == 0
