@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # all phases, one card
+    python3 chip_smoke.py --phases 1,6,7  # a subset (no result lines)
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
    no visible CUDA card is a failure;
-2. build: compile the paged flash-decode kernel from the sources in the
-   checkout (``nvcc``), with its build time and ``ptxas`` register report;
+2. build: compile the kernels from the sources in the checkout, one
+   ``nvcc`` per source, all started together; prints the paged
+   flash-decode library's build time and ``ptxas`` register report;
 3. kernel vs plain: ``paged_flash_decode`` against ``paged_decode_reference``
    on the card at the serving path's decode shape, plus GQA, bf16, int8,
    ``valid_pool`` holes and an empty slot; median times of the kernel, the
@@ -20,7 +22,23 @@ Phases, in order; any failure raises and exits non-zero:
    tick launched the kernel once per layer;
 5. the same trace with the decode attention switched to the plain
    version: first tokens must agree, and the overall greedy agreement is
-   printed.
+   printed;
+6. the flash-attention library's build time and ``ptxas`` report;
+7. flash forward, dQ and dK/dV kernels against their plain versions at
+   the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
+   f32 and bf16, plus padding with a fully padded row, GQA, a sliding
+   window, a ragged T and a non-causal cross shape; median times of each
+   kernel, its plain version and ``scaled_dot_product_attention`` (forward,
+   and forward plus backward: a yardstick the port never calls) beside the
+   operations bound;
+8. training at full width through the CLI entry point:
+   ``gpt -m sequential -l 12 -s 768 -e 1 -b 4 --attention flash`` on a
+   seeded ``tokens.npy`` of 48 rows of 2049 ids (vocab 32768): finite
+   losses, the last train step's below the first's, and every layer of
+   every step through the kernels (forward per train/val/test step, dQ and
+   dK/dV per train step);
+9. the same run with ``--attention dense``: the first step's loss within
+   1e-4 and the epoch's train loss within 1e-2 of the flash run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
@@ -28,21 +46,38 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
-#: NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores
+#: NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor
+#: cores, bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 KERNEL_SOURCE = "distributed_deep_learning_tpu_torch/csrc/paged_decode.cu"
 KERNEL_REPLACES = ("distributed_deep_learning_tpu/ops/paged_decode_pallas.py"
                    ":66 (_decode_kernel)")
+FLASH_SOURCE = "distributed_deep_learning_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_forward": "distributed_deep_learning_tpu/ops/attention_pallas.py"
+                     ":97 (_fwd_kernel, pallas_call :192)",
+    "flash_backward_dq": "distributed_deep_learning_tpu/ops/"
+                         "attention_pallas.py:213 (_dq_kernel, pallas_call "
+                         ":331)",
+    "flash_backward_dkv": "distributed_deep_learning_tpu/ops/"
+                          "attention_pallas.py:248 (_dkv_kernel, "
+                          "pallas_call :354)",
+}
 
 #: the serving slice's decode shape: 8 slots, GPT-2-small heads, 1024-token
 #: slots in 16-position blocks, pools sized as the engine sizes them
@@ -67,15 +102,30 @@ def phase_device():
     return line
 
 
-def phase_build():
-    from distributed_deep_learning_tpu_torch.ops import paged_decode as pd
+def start_builds():
+    """Start one ``nvcc`` per kernel source, all together; returns
+    futures of ``(path, log, seconds)`` by source name."""
+    from distributed_deep_learning_tpu_torch.ops import attention
+    from distributed_deep_learning_tpu_torch.ops import paged_decode
 
-    t0 = time.perf_counter()
-    path, log = pd.build()
-    print(f"build: {time.perf_counter() - t0:.2f}s -> "
-          f"{path.relative_to(pd.BUILD_DIR.parents[1])}")
+    def timed(build):
+        t0 = time.perf_counter()
+        path, log = build()
+        return path, log, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(2)
+    futures = {"paged_decode": pool.submit(timed, paged_decode.build),
+               "flash_attention": pool.submit(timed, attention.build)}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_build(future, label="build"):
+    """Wait for one library's build and print its time and ptxas report."""
+    path, log, seconds = future.result()
+    print(f"{label}: {seconds:.2f}s -> {path.relative_to(ROOT)}")
     for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln:
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print(f"  ptxas {ln.strip()}")
 
 
@@ -336,22 +386,340 @@ def phase_plain_replay(rec):
     return same / total
 
 
-def main() -> int:
+# --- phases 6 and 7: the flash-attention kernels ---------------------------
+
+#: the training path's attention shape: 4 rows of 2048 tokens, 12 heads of 64
+TRAIN_SHAPE = dict(B=4, H=12, Hkv=12, Tq=2048, Tk=2048, D=64)
+FLASH_CASES = [
+    ("f32", {}),
+    ("bf16", {"dtype": "bf16"}),
+    ("padding", {"pad": True}),
+    ("gqa_hkv4", {"Hkv": 4}),
+    ("window_256", {"window": 256}),
+    ("ragged_t2000", {"Tq": 2000, "Tk": 2000}),
+    ("cross_non_causal", {"Tq": 256, "causal": False}),
+]
+#: (O and LSE max abs error, gradients' max abs error / max |reference|)
+FLASH_TOL = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 2e-2)}
+
+
+def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
+                dtype="f32", pad=False, seed=0):
+    """Seeded q, k, v, key_valid and dO on the card.  ``pad``: rows 1 and
+    2 lose their last 300 keys, row 3 all of them."""
     import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn(B, Tq, H, D, generator=gen)
+    k = torch.randn(B, Tk, Hkv, D, generator=gen)
+    v = torch.randn(B, Tk, Hkv, D, generator=gen)
+    do = torch.randn(B, Tq, H, D, generator=gen)
+    valid = torch.ones(B, Tk, dtype=torch.bool)
+    if pad:
+        valid[1:3, Tk - 300:] = False
+        valid[3] = False
+    q, k, v, do = (x.to(dt).cuda() for x in (q, k, v, do))
+    return q, k, v, valid.cuda(), do, dict(causal=causal,
+                                            sm_scale=D ** -0.5,
+                                            window=window)
+
+
+def _flash_bounds(q, k, valid, kw):
+    """Least time of each kernel for these inputs: the larger of its bytes
+    (each input read once, each output written once) over HBM and its
+    flops on the visible (query, key) pairs over the dtype's peak."""
+    import torch
+
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    qp = torch.arange(Tq, device=q.device)[:, None]
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    band = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        band = qp >= kp
+        if kw["window"] is not None:
+            band = band & (qp - kp < kw["window"])
+    pairs = int((band[None] & valid[:, None, :]).sum()) * H
+    item = q.element_size()
+    q_el, kv_el, rows = q.numel(), k.numel(), B * H * Tq
+    extra = valid.numel()                                # key_valid bytes
+    work = {   # kernel: (bytes, flops)
+        "flash_forward": ((2 * q_el + 2 * kv_el) * item + 4 * rows + extra,
+                          4 * D * pairs),
+        "flash_backward_dq": ((3 * q_el + 2 * kv_el) * item + 8 * rows
+                              + extra, 6 * D * pairs),
+        "flash_backward_dkv": ((2 * q_el + 4 * kv_el) * item + 8 * rows
+                               + extra, 8 * D * pairs),
+    }
+    rate = BF16_FLOPS_PER_S if item == 2 else F32_FLOPS_PER_S
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / rate * 1e3
+        out[name] = (max(t_bytes, t_flops),
+                     "bytes" if t_bytes >= t_flops else "operations")
+    return out
+
+
+def _flash_timings(q, k, v, valid, do, kw):
+    """Median cold-L2 ms of each kernel, its plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    out, lse = fa.flash_forward(q, k, v, valid, **kw)
+    delta = fa._delta(out, do)
+    ms = {
+        "flash_forward": _time_ms(
+            lambda: fa.flash_forward(q, k, v, valid, **kw)),
+        "flash_backward_dq": _time_ms(lambda: fa.flash_backward_dq(
+            q, k, v, valid, do, lse, delta, **kw)),
+        "flash_backward_dkv": _time_ms(lambda: fa.flash_backward_dkv(
+            q, k, v, valid, do, lse, delta, **kw)),
+    }
+    plain_fwd = _time_ms(lambda: fa.flash_attention_reference(
+        q, k, v, key_valid=valid, **kw), reps=5)
+    plain_bwd = _time_ms(lambda: fa.flash_backward_reference(
+        q, k, v, valid, out, lse, do, **kw), reps=5)
+    qs, ks, vs, dos = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qs.requires_grad_(True)
+    ks.requires_grad_(True)
+    vs.requires_grad_(True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        return torch.autograd.grad(o, (qs, ks, vs), dos)
+
+    lib_fwd = _time_ms(sdpa_fwd)
+    lib_bwd = _time_ms(sdpa_fwd_bwd) - lib_fwd
+    return ms, {"flash_forward": plain_fwd, "flash_backward_dq": plain_bwd,
+                "flash_backward_dkv": plain_bwd}, {
+        "flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
+        "flash_backward_dkv": lib_bwd}
+
+
+def phase_flash_kernels():
+    """Every case against the plain versions; timings of the f32 and bf16
+    main cases.  Returns ``{dtype: {kernel: record}}``."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    records = {}
+    for name, spec in FLASH_CASES:
+        q, k, v, valid, do, kw = _flash_case(seed=len(name),
+                                             **{**TRAIN_SHAPE, **spec})
+        out, lse = fa.flash_forward(q, k, v, valid, **kw)
+        dq, dk, dv = fa.flash_backward(q, k, v, valid, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v,
+                                                        key_valid=valid, **kw)
+        ref = fa.flash_backward_reference(q, k, v, valid, out, lse, do, **kw)
+        live = valid.any(1)              # rows with at least one key
+        if not bool(torch.isfinite(out.float()).all()):
+            raise RuntimeError(f"flash case {name}: non-finite output")
+        err_o = float((out.float() - ref_out.float())[live].abs().max())
+        err_lse = float((lse - ref_lse)[live].abs().max())
+        errs = {}
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            diff = float((got.float() - want.float()).abs().max())
+            errs[gname] = (diff, diff / max(float(want.float().abs().max()),
+                                            1e-30))
+        tol_o, tol_g = FLASH_TOL[spec.get("dtype", "f32")]
+        print(f"flash {name}: O {err_o:.3e} LSE {err_lse:.3e} (tol "
+              f"{tol_o:g}); dq/dk/dv rel "
+              + "/".join(f"{r:.2e}" for _, r in errs.values())
+              + f" (tol {tol_g:g})")
+        if not (err_o <= tol_o and err_lse <= tol_o
+                and all(r <= tol_g for _, r in errs.values())):
+            raise RuntimeError(f"flash case {name}: kernel disagrees with "
+                               "its plain version")
+        if spec.get("pad"):
+            zero = all(bool((g[~live] == 0).all()) for g in (dq, dk, dv))
+            print(f"flash {name}: fully padded row finite, gradients "
+                  f"exactly zero: {zero}")
+            if not zero:
+                raise RuntimeError("fully padded row: non-zero gradients")
+        if name in ("f32", "bf16"):
+            ms, plain, lib = _flash_timings(q, k, v, valid, do, kw)
+            bounds = _flash_bounds(q, k, valid, kw)
+            abs_err = {"flash_forward": max(err_o, err_lse),
+                       "flash_backward_dq": errs["dq"][0],
+                       "flash_backward_dkv": max(errs["dk"][0],
+                                                 errs["dv"][0])}
+            records[name] = {}
+            for kname in ms:
+                rec = dict(max_abs_err=abs_err[kname], ms=ms[kname],
+                           plain_ms=plain[kname], bound_ms=bounds[kname][0],
+                           bound_by=bounds[kname][1],
+                           library_ms=lib[kname])
+                records[name][kname] = rec
+                print(f"flash {name} {kname}: kernel {rec['ms']:.4f} ms, "
+                      f"plain {rec['plain_ms']:.4f} ms, sdpa "
+                      f"{rec['library_ms']:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                      f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+    return records
+
+
+# --- phases 8 and 9: training through the CLI -------------------------------
+
+TRAIN_ROWS, TRAIN_T, TRAIN_VOCAB, TRAIN_BATCH, TRAIN_LAYERS = \
+    48, 2048, 32768, 4, 12
+
+
+def _write_tokens() -> Path:
+    """A seeded ``tokens.npy`` of +1 ramps over [1, vocab) (the synthetic
+    LM rule); row 0 crosses id vocab-1, so ``lm_dataset`` finds the whole
+    vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    start = rng.integers(1, TRAIN_VOCAB, size=(TRAIN_ROWS, 1))
+    start[0, 0] = TRAIN_VOCAB - 100
+    ramp = np.arange(TRAIN_T + 1)[None, :]
+    rows = ((start - 1 + ramp) % (TRAIN_VOCAB - 1) + 1).astype(np.int32)
+    assert rows.max() == TRAIN_VOCAB - 1 and rows.min() >= 1
+    out = ROOT / "build" / "chip_smoke_tokens"
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "tokens.npy", rows)
+    return out
+
+
+def _train(data_dir: Path, attention: str):
+    """One epoch through ``main(argv)``; returns the history, the kernels'
+    launches during it and the peak device memory."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.__main__ import main as cli
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    counters = (fa.flash_forward, fa.flash_backward_dq,
+                fa.flash_backward_dkv)
+    for c in counters:
+        c.launches = 0
+    gc.collect()            # the previous run's model and optimizer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, hist = cli(["gpt", "-m", "sequential", "-l", str(TRAIN_LAYERS),
+                   "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
+                   "--attention", attention, "--data-dir", str(data_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    train = hist[0]
+    losses = train.step_losses
+    step_s = statistics.median(train.step_seconds[1:])
+    tok_s = TRAIN_BATCH * TRAIN_T / step_s
+    print(f"train[{attention}]: {len(losses)} steps, losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"train[{attention}]: {step_s:.4f} s/step (median of steps 2-"
+          f"{len(losses)}), {tok_s:.1f} tokens/s, epoch loss "
+          f"{train.loss:.9f}, accuracy {train.accuracy:.3f}, val loss "
+          f"{hist[1].loss:.9f}, test loss {hist[2].loss:.9f}, peak memory "
+          f"{peak / 2**30:.2f} GiB, {wall:.1f} s with model build")
+    if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                   losses + [h.loss for h in hist])):
+        raise RuntimeError(f"train[{attention}]: a non-finite loss")
+    return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak)
+
+
+def phase_train_flash(data_dir: Path):
+    from distributed_deep_learning_tpu_torch.data.splits import \
+        train_val_test_split
+
+    hist, launches, perf = _train(data_dir, "flash")
+    steps = [len(s) // TRAIN_BATCH
+             for s in train_val_test_split(TRAIN_ROWS, seed=42)]
+    losses = hist[0].step_losses
+    if len(losses) != steps[0]:
+        raise RuntimeError(f"train: {len(losses)} steps, expected {steps[0]}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: loss did not fall ({losses[0]} -> "
+                           f"{losses[-1]})")
+    want = {"flash_forward": sum(steps) * TRAIN_LAYERS,
+            "flash_backward_dq": steps[0] * TRAIN_LAYERS,
+            "flash_backward_dkv": steps[0] * TRAIN_LAYERS}
+    print(f"train[flash]: launches {launches}, expected {want} "
+          f"(train/val/test steps {steps} x {TRAIN_LAYERS} layers)")
+    if launches != want:
+        raise RuntimeError("train: a layer of a step did not go through "
+                           "the flash kernels")
+    return hist, launches, perf
+
+
+def phase_train_dense(data_dir: Path, flash_hist, flash_perf):
+    hist, launches, perf = _train(data_dir, "dense")
+    if any(launches.values()):
+        raise RuntimeError(f"dense run launched flash kernels: {launches}")
+    first = (hist[0].step_losses[0], flash_hist[0].step_losses[0])
+    epoch = (hist[0].loss, flash_hist[0].loss)
+    rel_first = abs(first[0] - first[1]) / abs(first[1])
+    rel_epoch = abs(epoch[0] - epoch[1]) / abs(epoch[1])
+    print(f"dense vs flash: first step loss rel diff {rel_first:.2e} (tol "
+          f"1e-4), epoch train loss rel diff {rel_epoch:.2e} (tol 1e-2); "
+          f"tokens/s dense {perf['tokens_per_s']:.1f} vs flash "
+          f"{flash_perf['tokens_per_s']:.1f}; peak memory dense "
+          f"{perf['peak'] / 2**30:.2f} GiB vs flash "
+          f"{flash_perf['peak'] / 2**30:.2f} GiB")
+    if not (rel_first <= 1e-4 and rel_epoch <= 1e-2):
+        raise RuntimeError("dense and flash training disagree")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+                    help="comma-separated phases to run; the result lines "
+                         "are printed only when all run")
+    phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
+    complete = phases == set(range(1, 10))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device()
-    phase_build()
-    timing = phase_kernel()
-    rec, launches = phase_serve()
-    phase_plain_replay(rec)
-    print(f"phases done in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "paged_flash_decode", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, **timing}]}))
+    builds = start_builds()
+    kernels = []
+    if 2 in phases:
+        phase_build(builds["paged_decode"])
+    if phases & {3, 4, 5}:
+        timing = phase_kernel() if 3 in phases else {}
+        if 4 in phases:
+            rec, launches = phase_serve()
+            kernels.append({"name": "paged_flash_decode", "route": "cuda",
+                            "source": KERNEL_SOURCE,
+                            "replaces": KERNEL_REPLACES,
+                            "launches": launches, **timing})
+            if 5 in phases:
+                phase_plain_replay(rec)
+    if 6 in phases:
+        phase_build(builds["flash_attention"], label="build flash")
+    records = phase_flash_kernels() if 7 in phases else {}
+    if phases & {8, 9}:
+        data_dir = _write_tokens()
+        hist, launches, perf = phase_train_flash(data_dir)
+        if 9 in phases:
+            phase_train_dense(data_dir, hist, perf)
+        for name, n in launches.items():
+            rec = records.get("f32", {}).get(name, {})
+            kernels.append({"name": name, "route": "cuda",
+                            "source": FLASH_SOURCE,
+                            "replaces": FLASH_REPLACES[name],
+                            "launches": n, **rec,
+                            "bf16": records.get("bf16", {}).get(name)})
+    print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
+    if not complete:
+        return 0
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,18 @@
-"""GPT-style CausalLM, inference path: the port of
+"""GPT-style CausalLM, for training and inference: the port of
 ``distributed_deep_learning_tpu/models/transformer.py``.
 
 Same function as the flax model: pre-LN layers (``ln_eps`` 1e-6), q/k/v/out
 projections with biases, tanh-approximated GELU (flax's ``nn.gelu``
 default), learned or rotary positions (RoPE rotates split halves, not
 interleaved pairs), grouped-query attention, ``pad_id`` positions masked
-out of attention, a weight-tied head computed in f32.
+out of attention, a weight-tied head computed in f32, and dropout after
+the attention output and after the MLP while training.
 
 Every forward runs through :meth:`CausalLM.run`, which takes the
 attention as a function ``attend(layer, q, k, v) -> y``.  The full
-forward attends causally over its own tokens; :meth:`CausalLM.cached_forward`
+forward attends causally over its own tokens, densely or through the flash
+kernels (``attention="flash"``, which take unexpanded GQA K/V);
+:meth:`CausalLM.cached_forward`
 attends over a dense KV cache; the paged engine (``serve/engine.py``)
 attends over its block pools.  The model itself holds no cache.
 
@@ -26,12 +29,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
+
 #: ``attend(layer_index, q, k, v) -> y``: q ``(B, T, H, hd)``, k/v
 #: ``(B, T, Hkv, hd)``, y ``(B, T, H, hd)``
 Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
                   torch.Tensor]
 
 MASK_FILL = -1e9   # the JAX package's fill: finite in bf16 as well
+ATTENTIONS = ("dense", "flash")
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+    """flax's ``nn.Dropout`` in train mode: keep each element with
+    probability ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``;
+    the mask comes from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dot_product_attention(q, k, v, *, mask=None, key_valid=None,
@@ -157,14 +172,17 @@ class TransformerLayer(nn.Module):
         self.mlp_in = nn.Linear(d_model, mlp_dim)
         self.mlp_out = nn.Linear(mlp_dim, d_model)
 
-    def forward(self, x, positions, attend):
-        """``attend(q, k, v) -> y`` is the layer's attention."""
+    def forward(self, x, positions, attend, drop=None):
+        """``attend(q, k, v) -> y`` is the layer's attention; ``drop(h)``,
+        when given, is the dropout applied to the attention and MLP
+        outputs before their residual adds."""
         B, T, _ = x.shape
         q, k, v = self.self_attn.project(self.ln_attn(x), positions)
-        y = attend(q, k, v)
-        x = x + self.self_attn.out(y.reshape(B, T, -1))
+        h = self.self_attn.out(attend(q, k, v).reshape(B, T, -1))
+        x = x + (h if drop is None else drop(h))
         h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.mlp_out(h)
+        h = self.mlp_out(h)
+        return x + (h if drop is None else drop(h))
 
 
 class CausalLM(nn.Module):
@@ -172,7 +190,9 @@ class CausalLM(nn.Module):
 
     ``forward(tokens)`` returns final hidden states ``(B, T, d)`` (logits
     ``(B, T, V)`` with ``with_logits``); ``logits_from`` is the tied head
-    in f32."""
+    in f32.  ``attention`` picks the full forward's attention (``dense``
+    or the ``flash`` kernels); ``dropout_rate`` applies in training mode
+    only (``model.train()``)."""
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12,
@@ -180,10 +200,15 @@ class CausalLM(nn.Module):
                  pos_embedding: str = "learned",
                  attention_window: Optional[int] = None,
                  num_kv_heads: Optional[int] = None, ln_eps: float = 1e-6,
-                 pad_id: Optional[int] = 0, with_logits: bool = False):
+                 pad_id: Optional[int] = 0, with_logits: bool = False,
+                 attention: str = "dense", dropout_rate: float = 0.0):
         super().__init__()
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
+        if attention not in ATTENTIONS:
+            raise ValueError(f"unknown attention {attention!r}; choose from "
+                             f"{ATTENTIONS}")
+        self.attention, self.dropout_rate = attention, dropout_rate
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.d_model, self.num_heads, self.mlp_dim = d_model, num_heads, mlp_dim
         self.max_len = max_len
@@ -226,30 +251,42 @@ class CausalLM(nn.Module):
             return torch.ones_like(tokens, dtype=torch.bool)
         return tokens != self.pad_id
 
-    def run(self, tokens, positions, attend: Attend):
+    def run(self, tokens, positions, attend: Attend, drop=None):
         """Embed ``tokens`` ``(B, T)`` at absolute ``positions`` (``(T,)``
         or ``(B, T)``), run every layer with ``attend(i, q, k, v)`` as its
-        attention, and return the final-norm hidden states."""
+        attention (and ``drop`` as its dropout, when given), and return the
+        final-norm hidden states."""
         x = self.tok(tokens)
         if self.pos is not None:
             x = x + self.pos[positions].to(x.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions,
-                      lambda q, k, v, i=i: attend(i, q, k, v))
+                      lambda q, k, v, i=i: attend(i, q, k, v), drop)
         return self.final_norm(x)
 
-    def forward(self, tokens):
+    def forward(self, tokens, generator: Optional[torch.Generator] = None):
+        """The full causal forward; ``generator`` draws the dropout masks
+        in training mode."""
         T = tokens.shape[1]
         valid = self.token_valid(tokens) if self.pad_id is not None \
             else None
 
         def attend(i, q, k, v):
+            if self.attention == "flash":
+                return flash_attention(q, k, v, causal=True, key_valid=valid,
+                                       window=self.attention_window)
             attn = self.layers[i].self_attn
             return dot_product_attention(
                 q, attn.expand(k), attn.expand(v), key_valid=valid,
                 causal=True, window=self.attention_window, dtype=q.dtype)
 
-        h = self.run(tokens, torch.arange(T, device=tokens.device), attend)
+        drop = None
+        if self.training and self.dropout_rate > 0:
+            def drop(h):
+                return dropout(h, self.dropout_rate, generator)
+
+        h = self.run(tokens, torch.arange(T, device=tokens.device), attend,
+                     drop)
         return self.logits_from(h) if self.with_logits else h
 
     def logits_from(self, hidden):

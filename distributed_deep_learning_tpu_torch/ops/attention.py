@@ -1,0 +1,305 @@
+"""Flash attention, forward and backward: the port of
+``distributed_deep_learning_tpu/ops/attention_pallas.py``.
+
+Three CUDA kernels in ``csrc/flash_attention.cu`` replace the three TPU
+kernels: the forward (``_fwd_kernel``), dQ (``_dq_kernel``) and the fused
+dK/dV (``_dkv_kernel``).  :func:`flash_attention` is the public entry,
+a ``torch.autograd.Function`` whose forward saves ``q, k, v, key_valid,
+out, lse`` and whose backward computes ``delta = rowsum(dO * O)`` in
+torch, then runs dQ, then dK/dV.
+
+The semantics are the TPU kernels': masked logits are ``NEG_INF``
+(-1e30), ``lse = max(m, -1e20) + log(max(l, 1e-30))`` and ``out = acc /
+max(l, 1e-30)``, so a fully padded row gets exactly zero gradients;
+causal masking is top-left (query and key positions both count from 0);
+a sliding ``window`` keeps ``q_pos - k_pos < window``; ``key_valid``
+masks keys per batch row; GQA k/v carry ``Hkv`` heads and query head
+``h`` reads kv head ``h // (H // Hkv)``.
+
+CPU tensors go to the plain versions, :func:`flash_attention_reference`
+and :func:`flash_backward_reference`; CUDA tensors launch the kernels or
+raise.  ``flash_forward.launches``, ``flash_backward_dq.launches`` and
+``flash_backward_dkv.launches`` count the kernel launches.  The kernels
+build at first use (:mod:`.build`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from distributed_deep_learning_tpu_torch.ops.build import CSRC, build_library
+
+NEG_INF = -1e30
+
+_SOURCE = CSRC / "flash_attention.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+# --- plain versions ---------------------------------------------------------
+
+def _logits(q, k, key_valid, causal, window, sm_scale):
+    """Masked f32 logits ``(B, H, Tq, Tk)`` with k expanded over the
+    group; masked entries hold ``NEG_INF``."""
+    B, Tq, H, _ = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    kx = k.float().repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * sm_scale
+    ok = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        qp = torch.arange(Tq, device=q.device)[:, None]
+        kp = torch.arange(Tk, device=q.device)[None, :]
+        ok = qp >= kp
+        if window is not None:
+            ok = ok & (qp - kp < window)
+    ok = ok[None, None]
+    if key_valid is not None:
+        ok = ok & key_valid[:, None, None, :]
+    return torch.where(ok, s, NEG_INF)
+
+
+def _group_sum(x, Hkv):
+    """``(B, T, H, D)`` per-query-head gradients summed over each GQA group
+    to ``(B, T, Hkv, D)``, in f32."""
+    B, T, H, D = x.shape
+    return x.float().reshape(B, T, Hkv, H // Hkv, D).sum(3)
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = False,
+                              key_valid=None, sm_scale: float | None = None,
+                              window: int | None = None):
+    """The forward kernel's function in plain torch, in f32: returns
+    ``out`` ``(B, Tq, H, D)`` in q's dtype and ``lse`` ``(B, H, Tq)`` f32.
+    A row whose keys are all masked averages every key here and the
+    visited ones in the kernel; both are finite and have zero gradient."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    Hkv = k.shape[2]
+    s = _logits(q, k, key_valid, causal, window, sm_scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    vx = v.float().repeat_interleave(q.shape[2] // Hkv, dim=2)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vx)
+    lse = (m.clamp_min(-1e20) + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def flash_backward_reference(q, k, v, key_valid, out, lse, dout, *,
+                             causal: bool = False,
+                             sm_scale: float | None = None,
+                             window: int | None = None):
+    """The dQ and dK/dV kernels' function in plain torch, in f32:
+    ``p = exp(s - lse)``, ``ds = p * (dO.V^T - delta) * scale`` with
+    ``delta = rowsum(dO * O)``; dK/dV summed over each GQA group.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    H, Hkv = q.shape[2], k.shape[2]
+    delta = _delta(out, dout)
+    s = _logits(q, k, key_valid, causal, window, sm_scale)
+    p = torch.exp(s - lse[..., None])
+    do = dout.float()
+    vx = v.float().repeat_interleave(H // Hkv, dim=2)
+    kx = k.float().repeat_interleave(H // Hkv, dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vx)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return (dq.to(q.dtype), _group_sum(dk, Hkv).to(k.dtype),
+            _group_sum(dv, Hkv).to(v.dtype))
+
+
+def _delta(out, dout):
+    """``rowsum(dO * O)`` in f32, ``(B, H, Tq)``: computed once outside the
+    kernels, as the TPU wrapper does."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def flash_forward(q, k, v, key_valid, *, causal, sm_scale, window):
+    """``(out, lse)``: the plain version on CPU tensors, the forward kernel
+    on CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         key_valid=key_valid,
+                                         sm_scale=sm_scale, window=window)
+    _check_kernel_args(q, k, v, key_valid)
+    B, Tq, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_launch", q, k, v, key_valid, [out, lse],
+            causal=causal, sm_scale=sm_scale, window=window)
+    flash_forward.launches += 1
+    return out, lse
+
+
+def flash_backward_dq(q, k, v, key_valid, dout, lse, delta, *, causal,
+                      sm_scale, window):
+    """dQ kernel (CUDA tensors only)."""
+    _check_kernel_args(q, k, v, key_valid, dout, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("flash_dq_launch", q, k, v, key_valid, [dout, lse, delta, dq],
+            causal=causal, sm_scale=sm_scale, window=window)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, key_valid, dout, lse, delta, *, causal,
+                       sm_scale, window):
+    """dK/dV kernel (CUDA tensors only), summed over each GQA group."""
+    _check_kernel_args(q, k, v, key_valid, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_dkv_launch", q, k, v, key_valid,
+            [dout, lse, delta, dk, dv], causal=causal, sm_scale=sm_scale,
+            window=window)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+def flash_backward(q, k, v, key_valid, out, lse, dout, *, causal, sm_scale,
+                   window):
+    """``(dq, dk, dv)``: the plain version on CPU tensors; on CUDA tensors
+    ``delta`` in torch, then the dQ kernel, then the dK/dV kernel."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, key_valid, out, lse, dout,
+                                        causal=causal, sm_scale=sm_scale,
+                                        window=window)
+    dout = dout.contiguous()
+    delta = _delta(out, dout)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    dq = flash_backward_dq(q, k, v, key_valid, dout, lse, delta, **kw)
+    dk, dv = flash_backward_dkv(q, k, v, key_valid, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _launch(name, q, k, v, key_valid, tensors, *, causal, sm_scale, window):
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_valid.data_ptr() if key_valid is not None else None,
+            *(t.data_ptr() for t in tensors), B, H, Hkv, Tq, Tk, D,
+            float(sm_scale), int(causal), int(window or 0),
+            _DTYPES[q.dtype], stream)
+    if rc != 0:
+        msg = lib.flash_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg}")
+
+
+def _check_kernel_args(q, k, v, key_valid, *grads) -> None:
+    """Raise ValueError on anything the kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, got "
+                         f"{q.device}")
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v), ("key_valid", key_valid),
+                    *((f"grad{i}", g) for i, g in enumerate(grads))):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"kernels take f32 or bf16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kernels take head_dim in {HEAD_DIMS}, got {D}")
+    if k.shape != (B, Tk, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"k/v must be ({B}, Tk, Hkv, {D}), got "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    if B * H > 65535:
+        raise ValueError(f"kernels take B * H <= 65535, got {B * H}")
+    if key_valid is not None and (key_valid.dtype != torch.bool
+                                  or key_valid.shape != (B, Tk)):
+        raise ValueError(f"key_valid must be bool ({B}, {Tk})")
+    if grads:
+        dout, lse, delta = grads
+        if dout.shape != q.shape or dout.dtype != q.dtype:
+            raise ValueError("dout must match q's shape and dtype")
+        for name, t in (("lse", lse), ("delta", delta)):
+            if t.dtype != torch.float32 or t.shape != (B, H, Tq):
+                raise ValueError(f"{name} must be float32 ({B}, {H}, {Tq})")
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel library (see :func:`.build.build_library`)."""
+    return build_library(_SOURCE)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i32] * 6 + [f32] + [i32] * 3 + [ptr]
+    lib.flash_fwd_launch.argtypes = [ptr] * 6 + tail
+    lib.flash_dq_launch.argtypes = [ptr] * 8 + tail
+    lib.flash_dkv_launch.argtypes = [ptr] * 9 + tail
+    for fn in (lib.flash_fwd_launch, lib.flash_dq_launch,
+               lib.flash_dkv_launch):
+        fn.restype = i32
+    lib.flash_error_string.argtypes = [i32]
+    lib.flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# --- the autograd Function and the public entry -----------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, causal, sm_scale, window):
+        out, lse = flash_forward(q, k, v, key_valid, causal=causal,
+                                 sm_scale=sm_scale, window=window)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, key_valid, out, lse, dout,
+                                    **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False, key_valid=None,
+                    sm_scale: float | None = None, window: int | None = None):
+    """Fused attention on ``(B, Tq, H, D)`` q with ``(B, Tk, Hkv, D)`` k/v,
+    ``Hkv`` dividing H (GQA-native: k/v are never expanded).  ``key_valid``
+    is an optional ``(B, Tk)`` bool padding mask (True = attend).  Returns
+    ``(B, Tq, H, D)`` in q's dtype; differentiable in q, k and v."""
+    if window is not None:
+        if not causal:
+            raise ValueError("window (sliding-window attention) requires "
+                             "causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    H, Hkv = q.shape[2], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads not a multiple of {Hkv} KV "
+                         "heads (GQA groups must be uniform)")
+    if q.device.type == "cuda":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if key_valid is not None:
+            key_valid = key_valid.contiguous()
+    return _FlashAttention.apply(q, k, v, key_valid, bool(causal),
+                                 float(sm_scale), window)

@@ -24,20 +24,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from distributed_deep_learning_tpu_torch.ops.build import (  # noqa: F401
+    BUILD_DIR, CSRC, NVCC_FLAGS, build_library)
+
 NEG_INF = -1e30
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_SOURCE = CSRC / "paged_decode.cu"
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -173,35 +169,8 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel library unless this source and these flags were
-    built before; returns its path and ``nvcc``'s output (empty when it
-    was already built).  Needs ``nvcc`` (the CUDA toolkit)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libpaged_decode_{digest}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the paged decode kernel needs "
-                           "the CUDA toolkit to build")
-    return found
+    """Compile the kernel library (see :func:`.build.build_library`)."""
+    return build_library(_SOURCE)
 
 
 @functools.cache

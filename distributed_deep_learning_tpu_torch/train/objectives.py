@@ -1,0 +1,54 @@
+"""Losses and metrics: the port of
+``distributed_deep_learning_tpu/train/objectives.py`` (the parts the
+``gpt`` workload uses).
+
+* ``token_cross_entropy``: mean CE over non-pad token positions, with
+  optional label smoothing (ε on the target, ε/V spread over the rest).
+* ``prediction_metrics``: the per-step triple the loop sums — batch loss,
+  argmax matches, prediction sites (non-pad tokens for token targets, rows
+  for one-hot targets).  The loop keeps the reference's
+  Σ(batch-mean loss) / Σ(sites) formula (quirk Q9).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def token_cross_entropy(logits, targets, label_smoothing: float = 0.0,
+                        pad_id: int | None = 0):
+    """Mean CE of ``logits`` ``(..., T, V)`` against integer ``targets``
+    ``(..., T)``, positions equal to ``pad_id`` excluded (``None``: every
+    position counts).  Computed in f32."""
+    valid = (targets != pad_id if pad_id is not None
+             else torch.ones_like(targets, dtype=torch.bool)).float()
+    tgt = targets.clamp_min(0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = logp.gather(-1, tgt[..., None])[..., 0]
+    if label_smoothing:
+        eps, V = label_smoothing, logits.shape[-1]
+        per_tok = -(1.0 - eps) * picked - (eps / V) * logp.sum(-1)
+    else:
+        per_tok = -picked
+    return (per_tok * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def _correct_and_count(pred, targets):
+    pred_cls = pred.argmax(-1)
+    if targets.dim() == pred_cls.dim() and not targets.is_floating_point():
+        # token-level: id 0 is pad, neither correct nor counted
+        valid = targets != 0
+        return (((pred_cls == targets) & valid).sum(),
+                valid.sum().to(torch.int32))
+    n_sites = math.prod(pred.shape[:-1])
+    return ((pred_cls == targets.argmax(-1)).sum(),
+            torch.tensor(n_sites, dtype=torch.int32, device=pred.device))
+
+
+def prediction_metrics(pred, targets, loss) -> dict:
+    """``{"loss", "correct", "count"}`` as device tensors (no host sync)."""
+    correct, count = _correct_and_count(pred, targets)
+    return {"loss": loss.detach(), "correct": correct.to(torch.int32),
+            "count": count}

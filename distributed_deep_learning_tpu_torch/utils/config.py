@@ -1,0 +1,226 @@
+"""Run configuration and the workload CLI: the port of
+``distributed_deep_learning_tpu/utils/config.py`` for the flags this slice
+runs (``gpt -m sequential``).
+
+Flag names, defaults and the per-workload ``-l/-s`` defaults are the JAX
+CLI's, except ``-d``: ``cuda`` (the default; ``gpu`` is an alias) or
+``cpu``.  The JAX CLI's other flags are accepted by the parser only to be
+refused: :func:`parse_args` raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import enum
+from typing import Sequence
+
+
+class Mode(str, enum.Enum):
+    """Execution mode, 1:1 with the reference CLI (``-m``)."""
+
+    SEQUENTIAL = "sequential"
+    MODEL = "model"
+    PIPELINE = "pipeline"
+    DATA = "data"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """One run's configuration (the JAX ``Config``'s fields this slice
+    takes)."""
+
+    num_layers: int = 1
+    size: int = 38
+    epochs: int = 10
+    batch_size: int = 32
+    device: str = "cuda"
+    mode: Mode = Mode.SEQUENTIAL
+    seed: int = 42
+    learning_rate: float = 1e-3
+    dtype: str = "float32"
+    dropout: float = 0.0
+    data_dir: str | None = None
+    attention: str = "auto"
+    attention_window: int | None = None
+    optimizer: str = "auto"
+    pos_embedding: str = "learned"
+    num_kv_heads: int | None = None
+    label_smoothing: float = 0.0
+    lr_schedule: str = "none"
+    warmup_steps: int | None = None
+    clip_norm: float | None = None
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+#: per-workload -l/-s defaults, as in the JAX CLI
+WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
+    "cnn": {"nlayers": 2, "size": 4},
+    "lstm": {"nlayers": 1, "size": 128},
+    "mlp": {"nlayers": 1, "size": 38},
+    "mnist": {"nlayers": 2, "size": 32},
+    "resnet": {"nlayers": 4, "size": 18},
+    "transformer": {"nlayers": 6, "size": 512},
+    "bert": {"nlayers": 12, "size": 768},
+    "moe": {"nlayers": 4, "size": 256},
+    "gpt": {"nlayers": 12, "size": 768},
+}
+
+#: ROADMAP.md queue 1 items that port what this slice refuses
+ROADMAP_ITEMS = {
+    2: "ROADMAP.md queue 1 item 2 (bf16 model path)",
+    3: "ROADMAP.md queue 1 item 3 (train core: LAMB and Adafactor)",
+    5: "ROADMAP.md queue 1 item 5 (-m data, step variants and durability)",
+    6: "ROADMAP.md queue 1 item 6 (slot serving engine)",
+    7: "ROADMAP.md queue 1 item 7 (paged serving engine)",
+    9: "ROADMAP.md queue 1 item 9 (the reference's workloads and the "
+       "north-star zoo)",
+    10: "ROADMAP.md queue 1 item 10 (model and pipeline modes)",
+    11: "ROADMAP.md queue 1 item 11 (sharded parallelism)",
+    12: "ROADMAP.md queue 1 item 12 (training resilience)",
+    13: "ROADMAP.md queue 1 item 13 (serving resilience and fleet)",
+    14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
+}
+
+#: JAX CLI flags this slice refuses -> the item that ports them; a
+#: trailing "=" marks a flag that takes a value
+UNPORTED_FLAGS = {
+    "--no-sync": 5, "--remat": 5, "--remat-policy=": 5, "--grad-accum=": 5,
+    "--checkpoint-dir=": 5, "--checkpoint-every=": 5, "--resume": 5,
+    "--publish-weights=": 5, "--spawn": 5,
+    "--generate=": 6, "--serve": 6, "--max-slots=": 6,
+    "--prefill-buckets=": 6,
+    "--paged": 7, "--kv-block-size=": 7, "--prefill-chunk=": 7,
+    "--draft=": 7, "--spec-k=": 7, "--kv-dtype=": 7, "--weight-dtype=": 7,
+    "--slo-ttft-ms=": 7, "--slo-e2e-ms=": 7,
+    "--packed-cache=": 9, "--image-size=": 9, "--stem-s2d": 9,
+    "--double-softmax": 9,
+    "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
+    "--mesh=": 11, "--zero=": 11, "--grad-compress=": 11, "--comm=": 11,
+    "--comm-overlap": 11,
+    "--elastic": 12, "--sentinel=": 12, "--sentinel-window=": 12,
+    "--sentinel-factor=": 12, "--heartbeat-dir=": 12,
+    "--heartbeat-timeout=": 12,
+    "--serve-deadline-ms=": 13, "--serve-retries=": 13,
+    "--reload-watch=": 13, "--canary-slots=": 13, "--admission=": 13,
+    "--replicas=": 13, "--priority-classes=": 13, "--spill-dir=": 13,
+    "--autoscale=": 13, "--evacuate-on=": 13, "--disagg": 13,
+    "--pool-elastic": 13, "--prefill-workers=": 13, "--migrate=": 13,
+    "--reshard": 14, "--target-mesh=": 14, "--autotune": 14, "--plan=": 14,
+    "--metrics-file=": 14, "--obs": 14, "--obs-file=": 14, "--obs-trace=": 14,
+    "--obs-rotate-mb=": 14, "--obs-blackbox=": 14, "--profile-dir=": 14,
+}
+
+_UNPORTED_MODES = {"data": 5, "model": 10, "pipeline": 10}
+_UNPORTED_OPTIMIZERS = ("adafactor", "lamb")
+
+
+def _dest(flag: str) -> str:
+    return "unported_" + flag.strip("-=").replace("-", "_")
+
+
+def build_parser(workload: str = "") -> argparse.ArgumentParser:
+    """The JAX CLI's flags: those of this slice with their defaults, and
+    the refused ones (default None, so only a flag that is given counts)."""
+    wd = WORKLOAD_DEFAULTS.get(workload.lower(), WORKLOAD_DEFAULTS["mlp"])
+    p = argparse.ArgumentParser(
+        prog=workload or "ddl-torch",
+        description="PyTorch/CUDA port of the distributed deep learning "
+                    "trainer")
+    p.add_argument("-l", "--nlayers", type=int, default=wd["nlayers"],
+                   help="number of hidden/dense/LSTM layers")
+    p.add_argument("-s", "--size", type=int, default=wd["size"],
+                   help="hidden size / bottleneck size")
+    p.add_argument("-e", "--epochs", type=int, default=10)
+    p.add_argument("-b", "--batch", type=int, default=32,
+                   help="global batch size")
+    p.add_argument("-d", "--device", choices=["cuda", "gpu", "cpu"],
+                   default="cuda",
+                   help="cuda (gpu is an alias) or cpu; cuda without a "
+                        "card raises")
+    # -w, -p and -r are accepted as the JAX CLI accepts them; a sequential
+    # run on token data reads none of them
+    p.add_argument("-w", "--nworkers", type=int, default=0)
+    p.add_argument("-m", "--mode", choices=[m.value for m in Mode],
+                   default="sequential")
+    p.add_argument("-p", "--pipeline", type=int, default=2,
+                   help="pipeline microbatch size (ignored unless -m "
+                        "pipeline)")
+    p.add_argument("-r", "--run", type=int, default=1,
+                   help="world size for local data-parallel fan-out")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="dropout rate (masks from a generator seeded with "
+                        "seed + 1; 0 = deterministic)")
+    p.add_argument("--data-dir", type=str, default=None,
+                   help="directory holding tokens.npy (gpt); synthetic "
+                        "data without it")
+    p.add_argument("--attention", choices=["auto", "dense", "flash"],
+                   default="auto",
+                   help="auto = the flash kernels on cuda, dense on cpu; "
+                        "flash on cpu runs the kernels' plain versions")
+    p.add_argument("--window", dest="attention_window", type=int,
+                   default=None, metavar="W",
+                   help="sliding-window attention: each position attends "
+                        "its last W tokens")
+    p.add_argument("--optimizer",
+                   choices=["auto", "sgd", "momentum", "adam", "adamw",
+                            *_UNPORTED_OPTIMIZERS],
+                   default="auto")
+    p.add_argument("--label-smoothing", type=float, default=0.0,
+                   metavar="EPS")
+    p.add_argument("--kv-heads", dest="num_kv_heads", type=int,
+                   default=None, metavar="K")
+    p.add_argument("--pos", dest="pos_embedding",
+                   choices=["learned", "rope"], default="learned")
+    p.add_argument("--schedule", dest="lr_schedule",
+                   choices=["none", "cosine", "rsqrt", "step"],
+                   default="none")
+    p.add_argument("--warmup", dest="warmup_steps", type=int, default=None)
+    p.add_argument("--clip-norm", type=float, default=None)
+    for flag, item in UNPORTED_FLAGS.items():
+        kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
+              else {"action": "store_true", "default": None})
+        p.add_argument(flag.rstrip("="), dest=_dest(flag),
+                       help=f"not ported yet ({ROADMAP_ITEMS[item]})", **kw)
+    return p
+
+
+def parse_args(argv: Sequence[str] | None = None,
+               workload: str = "") -> Config:
+    args = build_parser(workload).parse_args(argv)
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, _dest(flag)) is not None:
+            raise NotImplementedError(
+                f"{flag.rstrip('=')} is not ported yet: {ROADMAP_ITEMS[item]}")
+    if args.mode in _UNPORTED_MODES:
+        raise NotImplementedError(
+            f"-m {args.mode} is not ported yet: "
+            f"{ROADMAP_ITEMS[_UNPORTED_MODES[args.mode]]}")
+    if args.dtype != "float32":
+        raise NotImplementedError(
+            f"--dtype {args.dtype} is not ported yet: {ROADMAP_ITEMS[2]}")
+    if args.optimizer in _UNPORTED_OPTIMIZERS:
+        raise NotImplementedError(
+            f"--optimizer {args.optimizer} is not ported yet: "
+            f"{ROADMAP_ITEMS[3]}")
+    return Config(
+        num_layers=args.nlayers, size=args.size, epochs=args.epochs,
+        batch_size=args.batch,
+        device="cuda" if args.device == "gpu" else args.device,
+        mode=Mode(args.mode), seed=args.seed,
+        learning_rate=args.lr, dtype=args.dtype, dropout=args.dropout,
+        data_dir=args.data_dir, attention=args.attention,
+        attention_window=args.attention_window, optimizer=args.optimizer,
+        pos_embedding=args.pos_embedding, num_kv_heads=args.num_kv_heads,
+        label_smoothing=args.label_smoothing, lr_schedule=args.lr_schedule,
+        warmup_steps=args.warmup_steps, clip_norm=args.clip_norm)

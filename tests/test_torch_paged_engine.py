@@ -196,6 +196,11 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch\n"
             "import distributed_deep_learning_tpu_torch.serve.bench\n"
             "import distributed_deep_learning_tpu_torch.serve.__main__\n"
+            "import distributed_deep_learning_tpu_torch.__main__\n"
+            "import distributed_deep_learning_tpu_torch.workloads.northstar\n"
+            "import distributed_deep_learning_tpu_torch.ops.attention\n"
+            "import distributed_deep_learning_tpu_torch.data.loader\n"
+            "import distributed_deep_learning_tpu_torch.train.loop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
