@@ -23,14 +23,19 @@ Phases, in order; any failure raises and exits non-zero:
 5. the same trace with the decode attention switched to the plain
    version: first tokens must agree, and the overall greedy agreement is
    printed;
-6. the flash-attention library's build time and ``ptxas`` report;
+6. the flash-attention library's build time and ``ptxas`` report, with
+   the registers, stack frame and spill bytes of every instantiation of
+   the two tensor-core kernels (forward, dK/dV);
 7. flash forward, dQ and dK/dV kernels against their plain versions at
    the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
    f32 and bf16, plus padding with a fully padded row, GQA, a sliding
-   window, a ragged T and a non-causal cross shape; median times of each
-   kernel, its plain version and ``scaled_dot_product_attention`` (forward,
-   and forward plus backward: a yardstick the port never calls) beside the
-   operations bound;
+   window, a ragged T, a non-causal cross shape and head dims 16, 32 and
+   128 in both dtypes (B 1, H 2, T 512); median times of each kernel, its
+   plain version and ``scaled_dot_product_attention`` (forward, and
+   forward plus backward: a yardstick the port never calls) beside the
+   operations bound (f32: three TF32 products at the TF32 rate, with the
+   f32-unit figure beside it), and a backward-total line (delta + dQ +
+   dK/dV against SDPA's whole backward);
 8. training at full width through the CLI entry point:
    ``gpt -m sequential -l 12 -s 768 -e 1 -b 4 --attention flash`` on a
    seeded ``tokens.npy`` of 48 rows of 2049 ids (vocab 32768): finite
@@ -49,6 +54,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -60,10 +66,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor
-#: cores, bf16 dense tensor-core rate
+#: cores, bf16 and TF32 dense tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 KERNEL_SOURCE = "distributed_deep_learning_tpu_torch/csrc/paged_decode.cu"
 KERNEL_REPLACES = ("distributed_deep_learning_tpu/ops/paged_decode_pallas.py"
                    ":66 (_decode_kernel)")
@@ -121,12 +128,38 @@ def start_builds():
 
 
 def phase_build(future, label="build"):
-    """Wait for one library's build and print its time and ptxas report."""
+    """Wait for one library's build and print its time and ptxas report;
+    returns the report."""
     path, log, seconds = future.result()
     print(f"{label}: {seconds:.2f}s -> {path.relative_to(ROOT)}")
     for ln in log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print(f"  ptxas {ln.strip()}")
+    return log
+
+
+def ptxas_summary(log, kernels):
+    """``{(kernel, dtype, D): (registers, stack frame bytes, spill store
+    bytes, spill load bytes)}`` for the named kernels, from ``nvcc
+    -Xptxas=-v`` output."""
+    name_re = re.compile(r"(" + "|".join(kernels)
+                         + r")I(f|13__nv_bfloat16)Li(\d+)E")
+    out, key, spill = {}, None, (0, 0, 0)
+    for ln in log.splitlines():
+        m = name_re.search(ln)
+        if m and ("Compiling entry" in ln or "Function properties" in ln):
+            key = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                   int(m.group(3)))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and key:
+            spill = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key:
+            out[key] = (int(m.group(1)), *spill)
+            key, spill = None, (0, 0, 0)
+    return out
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -398,6 +431,10 @@ FLASH_CASES = [
     ("window_256", {"window": 256}),
     ("ragged_t2000", {"Tq": 2000, "Tk": 2000}),
     ("cross_non_causal", {"Tq": 256, "causal": False}),
+    # every other head dim is a tile of its own: small shapes, both dtypes
+    *((f"d{d}_{dt}", {"B": 1, "H": 2, "Hkv": 2, "Tq": 512, "Tk": 512,
+                      "D": d, "dtype": dt})
+      for d in (16, 32, 128) for dt in ("f32", "bf16")),
 ]
 #: (O and LSE max abs error, gradients' max abs error / max |reference|)
 FLASH_TOL = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 2e-2)}
@@ -428,7 +465,10 @@ def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
 def _flash_bounds(q, k, valid, kw):
     """Least time of each kernel for these inputs: the larger of its bytes
     (each input read once, each output written once) over HBM and its
-    flops on the visible (query, key) pairs over the dtype's peak."""
+    flops on the visible (query, key) pairs over the dtype's peak: bf16's
+    tensor-core rate, and for f32 three TF32 products (3xTF32, the only
+    way the tensor cores keep f32 accuracy) at the TF32 rate.  Also
+    returns, for f32, the same flops on the f32 units."""
     import torch
 
     B, Tq, H, D = q.shape
@@ -452,18 +492,22 @@ def _flash_bounds(q, k, valid, kw):
         "flash_backward_dkv": ((2 * q_el + 4 * kv_el) * item + 8 * rows
                                + extra, 8 * D * pairs),
     }
-    rate = BF16_FLOPS_PER_S if item == 2 else F32_FLOPS_PER_S
+    rate = BF16_FLOPS_PER_S if item == 2 else TF32_FLOPS_PER_S / 3
     out = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_flops = flops / rate * 1e3
+        f32_units = (None if item == 2 else
+                     max(t_bytes, flops / F32_FLOPS_PER_S * 1e3))
         out[name] = (max(t_bytes, t_flops),
-                     "bytes" if t_bytes >= t_flops else "operations")
+                     "bytes" if t_bytes >= t_flops else "operations",
+                     f32_units)
     return out
 
 
 def _flash_timings(q, k, v, valid, do, kw):
-    """Median cold-L2 ms of each kernel, its plain version and SDPA."""
+    """Median cold-L2 ms of each kernel, its plain version and SDPA, and
+    of ``delta`` (the backward's one torch op besides the kernels)."""
     import torch
     import torch.nn.functional as F
 
@@ -478,6 +522,7 @@ def _flash_timings(q, k, v, valid, do, kw):
             q, k, v, valid, do, lse, delta, **kw)),
         "flash_backward_dkv": _time_ms(lambda: fa.flash_backward_dkv(
             q, k, v, valid, do, lse, delta, **kw)),
+        "delta": _time_ms(lambda: fa._delta(out, do)),
     }
     plain_fwd = _time_ms(lambda: fa.flash_attention_reference(
         q, k, v, key_valid=valid, **kw), reps=5)
@@ -498,10 +543,11 @@ def _flash_timings(q, k, v, valid, do, kw):
 
     lib_fwd = _time_ms(sdpa_fwd)
     lib_bwd = _time_ms(sdpa_fwd_bwd) - lib_fwd
-    return ms, {"flash_forward": plain_fwd, "flash_backward_dq": plain_bwd,
-                "flash_backward_dkv": plain_bwd}, {
+    plain_bwd = {"flash_backward_dq": plain_bwd,
+                 "flash_backward_dkv": plain_bwd, "backward": plain_bwd}
+    return ms, {"flash_forward": plain_fwd, **plain_bwd}, {
         "flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
-        "flash_backward_dkv": lib_bwd}
+        "flash_backward_dkv": lib_bwd, "backward": lib_bwd}
 
 
 def phase_flash_kernels():
@@ -554,17 +600,32 @@ def phase_flash_kernels():
                        "flash_backward_dkv": max(errs["dk"][0],
                                                  errs["dv"][0])}
             records[name] = {}
-            for kname in ms:
+            for kname in abs_err:
                 rec = dict(max_abs_err=abs_err[kname], ms=ms[kname],
                            plain_ms=plain[kname], bound_ms=bounds[kname][0],
                            bound_by=bounds[kname][1],
                            library_ms=lib[kname])
                 records[name][kname] = rec
+                f32_units = bounds[kname][2]
                 print(f"flash {name} {kname}: kernel {rec['ms']:.4f} ms, "
                       f"plain {rec['plain_ms']:.4f} ms, sdpa "
                       f"{rec['library_ms']:.4f} ms, bound "
-                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                      f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}"
+                      + (", 3xTF32" if f32_units else "") + "), "
+                      f"{rec['bound_ms'] / rec['ms']:.1%} of bound"
+                      + (f"; f32-unit bound {f32_units:.4f} ms"
+                         if f32_units else ""))
+            total = (ms["delta"] + ms["flash_backward_dq"]
+                     + ms["flash_backward_dkv"])
+            bound = (bounds["flash_backward_dq"][0]
+                     + bounds["flash_backward_dkv"][0])
+            print(f"flash {name} backward total: delta {ms['delta']:.4f} + "
+                  f"dq {ms['flash_backward_dq']:.4f} + dkv "
+                  f"{ms['flash_backward_dkv']:.4f} = {total:.4f} ms vs sdpa "
+                  f"backward {lib['backward']:.4f} ms "
+                  f"({total / lib['backward']:.2f}x), plain "
+                  f"{plain['backward']:.4f} ms, kernels' bound "
+                  f"{bound:.4f} ms")
     return records
 
 
@@ -702,7 +763,14 @@ def main(argv=None) -> int:
             if 5 in phases:
                 phase_plain_replay(rec)
     if 6 in phases:
-        phase_build(builds["flash_attention"], label="build flash")
+        log = phase_build(builds["flash_attention"], label="build flash")
+        tc = ptxas_summary(log, ("flash_fwd_kernel", "flash_dkv_kernel"))
+        for (kname, dt, d), (regs, frame, st, ld) in sorted(tc.items()):
+            print(f"ptxas {kname} {dt} D{d}: {regs} registers, stack "
+                  f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
+        if len(tc) != 16:
+            print(f"ptxas report: {len(tc)} of 16 tensor-core kernel "
+                  "instantiations parsed; see the lines above")
     records = phase_flash_kernels() if 7 in phases else {}
     if phases & {8, 9}:
         data_dir = _write_tokens()

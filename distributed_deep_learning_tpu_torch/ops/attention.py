@@ -14,7 +14,10 @@ max(l, 1e-30)``, so a fully padded row gets exactly zero gradients;
 causal masking is top-left (query and key positions both count from 0);
 a sliding ``window`` keeps ``q_pos - k_pos < window``; ``key_valid``
 masks keys per batch row; GQA k/v carry ``Hkv`` heads and query head
-``h`` reads kv head ``h // (H // Hkv)``.
+``h`` reads kv head ``h // (H // Hkv)``.  The forward and dK/dV kernels
+run on the tensor cores (bf16 natively, f32 as 3xTF32, which keeps f32
+accuracy); in bf16 they round P and dS to bf16 before the products that
+take them, as the TPU kernel does, and the plain versions round the same.
 
 CPU tensors go to the plain versions, :func:`flash_attention_reference`
 and :func:`flash_backward_reference`; CUDA tensors launch the kernels or
@@ -74,8 +77,10 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
                               window: int | None = None):
     """The forward kernel's function in plain torch, in f32: returns
     ``out`` ``(B, Tq, H, D)`` in q's dtype and ``lse`` ``(B, H, Tq)`` f32.
-    A row whose keys are all masked averages every key here and the
-    visited ones in the kernel; both are finite and have zero gradient."""
+    P is rounded to the input dtype before ``P.V`` (a no-op in f32), as
+    the kernels do; ``l`` sums the unrounded P.  A row whose keys are all
+    masked averages every key here and the visited ones in the kernel;
+    both are finite and have zero gradient."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     Hkv = k.shape[2]
@@ -84,7 +89,8 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     vx = v.float().repeat_interleave(q.shape[2] // Hkv, dim=2)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vx)
+    out = torch.einsum("bhqk,bkhd->bqhd", _rounded(p, q.dtype), vx)
+    out = out / l.permute(0, 2, 1, 3)
     lse = (m.clamp_min(-1e20) + torch.log(l))[..., 0]
     return out.to(q.dtype), lse
 
@@ -95,8 +101,10 @@ def flash_backward_reference(q, k, v, key_valid, out, lse, dout, *,
                              window: int | None = None):
     """The dQ and dK/dV kernels' function in plain torch, in f32:
     ``p = exp(s - lse)``, ``ds = p * (dO.V^T - delta) * scale`` with
-    ``delta = rowsum(dO * O)``; dK/dV summed over each GQA group.
-    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    ``delta = rowsum(dO * O)``; dK/dV summed over each GQA group.  P and
+    dS are rounded to the input dtype before the products that take them
+    (a no-op in f32), as the kernels do.  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     H, Hkv = q.shape[2], k.shape[2]
@@ -107,12 +115,19 @@ def flash_backward_reference(q, k, v, key_valid, out, lse, dout, *,
     vx = v.float().repeat_interleave(H // Hkv, dim=2)
     kx = k.float().repeat_interleave(H // Hkv, dim=2)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vx)
-    ds = p * (dp - delta[..., None]) * sm_scale
+    ds = _rounded(p * (dp - delta[..., None]) * sm_scale, q.dtype)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, q.dtype), do)
     return (dq.to(q.dtype), _group_sum(dk, Hkv).to(k.dtype),
             _group_sum(dv, Hkv).to(v.dtype))
+
+
+def _rounded(x, dtype):
+    """f32 ``x`` rounded to ``dtype`` and back: what a kernel hands a
+    product whose operands are in ``dtype`` (TPU kernel: ``p.astype(...)``,
+    ``ds.astype(...)``)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _delta(out, dout):
@@ -216,6 +231,9 @@ def _check_kernel_args(q, k, v, key_valid, *grads) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in ("q", "k", "v", "grad0") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the kernels copy rows by 16-byte cp.async)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"kernels take f32 or bf16 q/k/v of one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")

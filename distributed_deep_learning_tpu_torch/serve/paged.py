@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from distributed_deep_learning_tpu_torch import resolve_device
+
 #: physical id of the write-discard / read-garbage block (never allocated)
 TRASH = 0
 
@@ -57,10 +59,12 @@ def chain_hash(prev: bytes, tokens: Sequence[int]) -> bytes:
 
 def build_pools(num_layers: int, num_blocks: int, block_size: int,
                 kv_heads: int, head_dim: int, *, dtype=torch.float32,
-                device="cpu") -> list:
+                device="cuda") -> list:
     """Zeroed pools, one dict per layer: ``cached_key``/``cached_value``
     ``(num_blocks, block_size, kv_heads, head_dim)`` in ``dtype`` and
-    ``cached_valid`` ``(num_blocks, block_size)`` bool."""
+    ``cached_valid`` ``(num_blocks, block_size)`` bool, on ``device``
+    (``cuda`` unless the caller asks for the CPU; raises without a card)."""
+    device = resolve_device(device)
     shape = (num_blocks, block_size, kv_heads, head_dim)
     return [{"cached_key": torch.zeros(shape, dtype=dtype, device=device),
              "cached_value": torch.zeros(shape, dtype=dtype, device=device),

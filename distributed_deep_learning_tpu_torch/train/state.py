@@ -16,6 +16,8 @@ from typing import Callable, Iterable
 import torch
 from torch import nn
 
+from distributed_deep_learning_tpu_torch import resolve_device
+
 #: optax's defaults for adam/adamw
 BETAS, EPS = (0.9, 0.999), 1e-8
 
@@ -106,13 +108,15 @@ class TrainState:
 
 def create_train_state(model: nn.Module, seed: int, tx: Optimizer,
                        init_state_dict: dict | None = None, *,
-                       device="cpu",
+                       device="cuda",
                        dropout_seed: int | None = None) -> TrainState:
     """Initialise ``model`` from ``seed`` (its ``reset_parameters``), or
     load ``init_state_dict`` over it (the tests carry JAX weights across
-    with ``load_flax_params``), move it to ``device`` and build the
+    with ``load_flax_params``), move it to ``device`` (``cuda`` unless the
+    caller asks for the CPU; raises without a card) and build the
     optimizer.  ``dropout_seed`` seeds the dropout generator on ``device``
     (None: no generator, for models without dropout)."""
+    device = resolve_device(device)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)

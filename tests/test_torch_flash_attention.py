@@ -157,3 +157,72 @@ def test_non_cuda_device_raises_not_falls_back():
     with pytest.raises(ValueError, match="cpu or cuda"):
         tat.flash_forward(q, q, q, None, causal=True, sm_scale=0.25,
                           window=None)
+
+
+#: bf16: both sides round P (forward, dV) and dS (dQ, dK) to bf16 inside
+#: and every output once more; their f32 sums differ in order and in the
+#: running max at which P was rounded.  So they may differ by one bf16
+#: spacing at the largest magnitude, 2^-7 of max|ref| (8 significant bits):
+#: measured at most 4.6e-3 of max|ref| here, 6.9e-3 without the rounding
+#: of P and dS in the plain versions.
+BF16_REL_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("case", ["causal", "padding_causal", "gqa_hkv2",
+                                  "window_5", "non_causal"])
+def test_bf16_plain_version_matches_pallas_on_bf16_inputs(case):
+    Tq, Tk, Hkv, causal, padded, window = CASES[case]
+    q, k, v, g, valid = _inputs(Tq, Tk, Hkv, padded, seed=len(case))
+    kv = None if valid is None else torch.tensor(valid)
+    qt, kt, vt = (torch.tensor(x).to(torch.bfloat16).requires_grad_(True)
+                  for x in (q, k, v))
+    out = tat.flash_attention(qt, kt, vt, causal=causal, key_valid=kv,
+                              window=window)
+    out.backward(torch.tensor(g).to(torch.bfloat16))
+
+    def fwd(q, k, v):
+        return jap.flash_attention(
+            q, k, v, causal=causal,
+            key_valid=None if valid is None else jnp.asarray(valid),
+            block_q=BLOCK, block_k=BLOCK, window=window, interpret=True)
+
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g)]
+    jout, vjp = jax.vjp(fwd, *bf[:3])
+    want = [jout, *vjp(bf[3])]
+    for name, got, ref in zip(("out", "dq", "dk", "dv"),
+                              (out, qt.grad, kt.grad, vt.grad), want):
+        assert got.dtype == torch.bfloat16
+        ref = np.asarray(ref.astype(jnp.float32))
+        np.testing.assert_allclose(got.detach().float().numpy(), ref,
+                                   atol=BF16_REL_TOL * np.abs(ref).max(),
+                                   rtol=0, err_msg=name)
+
+
+def _tf32(x):
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def test_3xtf32_split_keeps_f32_accuracy():
+    """Why the f32 kernels may use the tensor cores: each operand is split
+    into a TF32 ``hi`` and a TF32 residual ``lo``, and a product is
+    ``hi.hi + hi.lo + lo.hi`` summed in f32 (TF32 products are exact in
+    f32).  On a seeded q.k^T the error stays within 1e-6 of max|ref|, far
+    inside the kernels' 1e-4 limit; one TF32 pass is ~3e-4 off."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((64, 64)).astype(np.float32)
+    k = rng.standard_normal((64, 64)).astype(np.float32)
+    ref = q.astype(np.float64) @ k.T.astype(np.float64)
+    qh, kh = _tf32(q), _tf32(k)
+    ql, kl = _tf32(q - qh), _tf32(k - kh)
+    assert np.all(np.abs(q - qh) <= np.abs(q) * 2.0 ** -11)
+    three = (ql @ kh.T + qh @ kl.T) + qh @ kh.T            # f32 sums
+    one = qh @ kh.T
+    scale = np.abs(ref).max()
+    err3 = np.abs(three - ref).max() / scale
+    err1 = np.abs(one - ref).max() / scale
+    assert err3 <= 1e-6, err3
+    assert 1e-4 <= err1 <= 1e-3, err1

@@ -267,3 +267,28 @@ def test_phase_logger_lines_match():
         return out.getvalue()
 
     assert lines(PhaseLogger) == lines(JLog)
+
+
+@pytest.mark.parametrize("entry", ["create_train_state", "build_pools"])
+def test_public_entries_default_to_cuda_and_raise_without_a_card(
+        entry, monkeypatch):
+    """No public function of the port runs on the CPU unless asked: the
+    default device is ``cuda``, which raises when no card is visible."""
+    from distributed_deep_learning_tpu_torch.serve import paged
+    from distributed_deep_learning_tpu_torch.train import state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "create_train_state":
+        class Tiny(torch.nn.Linear):
+            def reset_parameters(self, generator=None):
+                super().reset_parameters()
+
+        def call(**kw):
+            return state.create_train_state(Tiny(2, 2), 0,
+                                            tbase.adamw(1e-3), **kw)
+    else:
+        def call(**kw):
+            return paged.build_pools(1, 2, 4, 1, 8, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        call()
+    call(device="cpu")                   # the CPU only when asked for
