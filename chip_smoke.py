@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --phases 1,6,7  # a subset (no result lines)
+    python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -13,9 +14,14 @@ Phases, in order; any failure raises and exits non-zero:
    flash-decode library's build time and ``ptxas`` register report;
 3. kernel vs plain: ``paged_flash_decode`` against ``paged_decode_reference``
    on the card at the serving path's decode shape, plus GQA, bf16, int8,
-   ``valid_pool`` holes and an empty slot; median times of the kernel, the
-   plain version and ``scaled_dot_product_attention`` on pre-gathered K/V
-   (a yardstick the port never calls), beside the bytes bound;
+   ``valid_pool`` holes, an empty slot, a slot ending on a split boundary,
+   a slot shorter than one split beside long ones, and two full-length
+   slots (``f32_long``, the few-slots case split-K is for); median times
+   of the kernel, the plain version and ``scaled_dot_product_attention``
+   on pre-gathered K/V (a yardstick the port never calls), beside the
+   bytes bound, at the 8-slot shape and at ``f32_long``; the kernel's
+   device time with no host cost in it at both, and the host's cost of
+   one wrapper call at the 8-slot shape;
 4. the serving slice at full width (GPT-2-small shape, vocab 32768): the
    paged engine serves a seeded Poisson load with a shared prefix; checks
    errors, token budgets and ranges, prefix hits and that every decode
@@ -25,7 +31,9 @@ Phases, in order; any failure raises and exits non-zero:
    printed;
 6. the flash-attention library's build time and ``ptxas`` report, with
    the registers, stack frame and spill bytes of every instantiation of
-   the two tensor-core kernels (forward, dK/dV);
+   the three tensor-core kernels (forward, dQ, dK/dV) and of the paged
+   decode kernels (split and combine); a missing instantiation, or a
+   stack frame or spill in a tensor-core kernel, fails;
 7. flash forward, dQ and dK/dV kernels against their plain versions at
    the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
    f32 and bf16, plus padding with a fully padded row, GQA, a sliding
@@ -72,6 +80,8 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 KERNEL_SOURCE = "distributed_deep_learning_tpu_torch/csrc/paged_decode.cu"
+DECODE_KERNELS = ("paged_decode_kernel", "paged_combine_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 KERNEL_REPLACES = ("distributed_deep_learning_tpu/ops/paged_decode_pallas.py"
                    ":66 (_decode_kernel)")
 FLASH_SOURCE = "distributed_deep_learning_tpu_torch/csrc/flash_attention.cu"
@@ -138,18 +148,35 @@ def phase_build(future, label="build"):
     return log
 
 
+#: one template argument of a mangled kernel name: a type or an integer
+_TEMPLATE_ARG = re.compile(r"f|a|13__nv_bfloat16|S\d*_|Li(\d+)E")
+
+
+def _template_args(text):
+    """The template arguments of a mangled name, ``text`` starting just
+    after its ``I``: types as ``f32``, ``int8`` or ``bf16`` (the one class
+    type, so a substitution ``S.._`` names it too), integers as ints."""
+    args, i = [], 0
+    while i < len(text) and text[i] != "E":
+        m = _TEMPLATE_ARG.match(text, i)
+        if m is None:
+            break
+        args.append(int(m.group(1)) if m.group(1) is not None
+                    else {"f": "f32", "a": "int8"}.get(m.group(0), "bf16"))
+        i = m.end()
+    return tuple(args)
+
+
 def ptxas_summary(log, kernels):
-    """``{(kernel, dtype, D): (registers, stack frame bytes, spill store
-    bytes, spill load bytes)}`` for the named kernels, from ``nvcc
-    -Xptxas=-v`` output."""
-    name_re = re.compile(r"(" + "|".join(kernels)
-                         + r")I(f|13__nv_bfloat16)Li(\d+)E")
+    """``{(kernel, *template args): (registers, stack frame bytes, spill
+    store bytes, spill load bytes)}`` for the named kernels, from ``nvcc
+    -Xptxas=-v`` output; a flash kernel's key is ``(kernel, dtype, D)``."""
+    name_re = re.compile(r"(" + "|".join(kernels) + r")I")
     out, key, spill = {}, None, (0, 0, 0)
     for ln in log.splitlines():
         m = name_re.search(ln)
         if m and ("Compiling entry" in ln or "Function properties" in ln):
-            key = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
-                   int(m.group(3)))
+            key = (m.group(1), *_template_args(ln[m.end():]))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", ln)
@@ -160,6 +187,46 @@ def ptxas_summary(log, kernels):
             out[key] = (int(m.group(1)), *spill)
             key, spill = None, (0, 0, 0)
     return out
+
+
+#: instantiations phase 6 must find: 3 flash kernels x 2 dtypes x 4 head
+#: dims; the decode's 2 x 3 x 3 split kernels and 2 combines
+FLASH_INSTANTIATIONS, DECODE_INSTANTIATIONS = 24, 20
+
+
+def check_ptxas(flash_log, decode_log):
+    """Print registers, stack frame and spills of every instantiation;
+    raise if either library has fewer than expected or a tensor-core flash
+    kernel has a stack frame or spill (the decode kernels' small spill is
+    printed, not held against them)."""
+    for label, found, want, strict in (
+            ("flash tensor-core", ptxas_summary(flash_log, FLASH_KERNELS),
+             FLASH_INSTANTIATIONS, True),
+            ("paged decode", ptxas_summary(decode_log, DECODE_KERNELS),
+             DECODE_INSTANTIATIONS, False)):
+        for (kname, *args), (regs, frame, st, ld) in sorted(found.items()):
+            what = " ".join(f"D{a}" if isinstance(a, int) else a
+                            for a in args)
+            print(f"ptxas {kname} {what}: {regs} registers, stack frame "
+                  f"{frame} B, spill stores {st} B, spill loads {ld} B")
+        spilled = [k for k, (_, frame, st, ld) in found.items()
+                   if frame or st or ld]
+        print(f"ptxas {label}: {len(found)} of {want} instantiations "
+              f"parsed, {len(spilled)} with a stack frame or spill")
+        if len(found) < want:
+            raise RuntimeError(f"ptxas {label}: {len(found)} of {want} "
+                               "instantiations found in the build log")
+        if strict and spilled:
+            raise RuntimeError(f"ptxas {label}: stack frame or spill in "
+                               f"{sorted(spilled)}")
+
+
+def phase_ptxas(builds):
+    """Phase 6: the flash library's build, then :func:`check_ptxas` on both
+    libraries' reports."""
+    log = phase_build(builds["flash_attention"], label="build flash")
+    _, decode_log, _ = builds["paged_decode"].result()
+    check_ptxas(log, decode_log)
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -205,14 +272,21 @@ def _decode_case(*, B, Hkv, G, D, bs, Bps, N, lens, kv="f32", holes=False,
             {name: t.to(dev) for name, t in kw.items()})
 
 
-def _time_ms(fn, reps=20, rounds=5):
+#: GPU clock cycles (~50 ms on an H100) the card sleeps while the host
+#: enqueues a span of :func:`_time_ms` (``head_start``) or :func:`_host_us`
+HEAD_START_CYCLES = 100_000_000
+
+
+def _time_ms(fn, reps=20, rounds=5, head_start=False):
     """Device time of one call of ``fn`` with a cold L2 (the decode reads
     pools that the other layers pushed out): each round times ``reps``
     pairs of (256 MiB write, call) and ``reps`` writes alone between CUDA
     events; the call's time is the difference over ``reps``, median over
     rounds.  The write keeps the card busy while the host enqueues the
     next call, so host launch cost is hidden unless a call's host cost
-    exceeds the write (then it is counted, as for a many-op plain call)."""
+    exceeds the write (then it is counted, as for a many-op plain call).
+    ``head_start``: each span waits behind a device-side sleep until the
+    host has enqueued all of it, so no host cost is timed at all."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -223,6 +297,8 @@ def _time_ms(fn, reps=20, rounds=5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if head_start:
+            torch.cuda._sleep(HEAD_START_CYCLES)
         a.record()
         for _ in range(reps):
             flush.zero_()
@@ -234,6 +310,56 @@ def _time_ms(fn, reps=20, rounds=5):
 
     return statistics.median((span(True) - span(False)) / reps
                              for _ in range(rounds))
+
+
+def _host_us(fn, calls=100, rounds=10):
+    """Host cost of one call of ``fn`` in microseconds: the host clock
+    around ``calls`` calls enqueued while the card sleeps, so the launch
+    queue neither drains nor fills and only the host's work (Python,
+    allocation, launches) is timed; median over ``rounds``."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def decode_costs():
+    """The decode kernel's device ms at each timed case (``head_start``:
+    no host cost) and the host's us for one wrapper call at the 8-slot
+    shape, from whichever copy of the package is first on ``sys.path``, so
+    a parent commit's wrapper is timed the same way."""
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+
+    out = {}
+    for name, spec in _timed_decode_specs().items():
+        args, kw = _decode_case(seed=len(name), **spec)
+        out[name] = _time_ms(lambda: paged_flash_decode(*args, **kw),
+                             head_start=True)
+        if name == "f32":
+            out["host_us"] = _host_us(lambda: paged_flash_decode(*args, **kw))
+    return out
+
+
+def _timed_decode_specs():
+    """The timed decode cases: the serving shape with 8 slots of 1-600
+    positions, and ``f32_long``, 2 slots of the engine's 1024."""
+    import numpy as np
+
+    full = DECODE_SHAPE["Bps"] * DECODE_SHAPE["bs"]
+    spread = [int(x) for x in np.linspace(1, 600, DECODE_SHAPE["B"])]
+    return {"f32": dict(DECODE_SHAPE, lens=spread),
+            "f32_long": dict(DECODE_SHAPE, B=2, lens=[full, full])}
 
 
 def _bound_ms(args, kw):
@@ -279,22 +405,48 @@ def _library_ms(args, kw):
         q4, kd, vd, attn_mask=mask[:, None, None, :]))
 
 
-def phase_kernel():
-    import numpy as np
-    import torch
-
+def _decode_timing(args, kw, err):
+    """Median cold-L2 ms of the kernel, the plain version and SDPA on
+    these inputs, beside the bytes bound."""
     from distributed_deep_learning_tpu_torch.ops.paged_decode import (
         paged_decode_reference, paged_flash_decode)
 
+    rec = dict(max_abs_err=err,
+               ms=_time_ms(lambda: paged_flash_decode(*args, **kw)),
+               plain_ms=_time_ms(lambda: paged_decode_reference(*args, **kw)),
+               library_ms=_library_ms(args, kw))
+    rec["bound_ms"], rec["bound_by"] = _bound_ms(args, kw)
+    return rec
+
+
+def phase_kernel():
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import (
+        decode_splits, paged_decode_reference, paged_flash_decode, sm_count)
+
     shape = DECODE_SHAPE
-    spread = [int(x) for x in np.linspace(1, 600, shape["B"])]
+    full = shape["Bps"] * shape["bs"]
+    splits, per = decode_splits(shape["B"], shape["Hkv"], shape["Bps"],
+                                shape["bs"], sm_count(torch.device("cuda")))
+    run = per * shape["bs"]
+    print(f"kernel split-K at the {shape['B']}-slot shape: {splits} splits "
+          f"of {per} blocks ({run} positions) per (slot, kv head), "
+          f"{shape['B'] * shape['Hkv'] * splits} blocks")
+    timed = _timed_decode_specs()
+    spread = timed["f32"]["lens"]
+    long_tail = [full - 13 * i for i in range(1, shape["B"])]
     cases = [
-        ("f32", dict(shape, lens=spread)),
+        ("f32", timed["f32"]),
         ("gqa_g4", dict(shape, Hkv=3, G=4, lens=spread)),
         ("bf16", dict(shape, lens=spread, kv="bf16")),
         ("int8", dict(shape, lens=spread, kv="int8")),
         ("valid_holes", dict(shape, lens=spread, holes=True)),
         ("empty_slot", dict(shape, lens=[0] + spread[1:])),
+        ("split_boundary", dict(shape, lens=[run * max(1, splits // 2)]
+                                + spread[1:])),
+        ("short_slot", dict(shape, lens=[max(1, run // 3)] + long_tail)),
+        ("f32_long", timed["f32_long"]),
     ]
     main = None
     for name, spec in cases:
@@ -310,18 +462,24 @@ def phase_kernel():
         print(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise RuntimeError(f"kernel case {name}: error {err} > {tol}")
-        if name == "f32":
-            main = dict(max_abs_err=err,
-                        ms=_time_ms(lambda: paged_flash_decode(*args, **kw)),
-                        plain_ms=_time_ms(
-                            lambda: paged_decode_reference(*args, **kw)),
-                        library_ms=_library_ms(args, kw))
-            main["bound_ms"], main["bound_by"] = _bound_ms(args, kw)
-            print(f"kernel f32 timing: kernel {main['ms']:.4f} ms, plain "
-                  f"{main['plain_ms']:.4f} ms, sdpa {main['library_ms']:.4f}"
-                  f" ms, bound {main['bound_ms']:.4f} ms "
-                  f"({main['bound_by']}), {main['bound_ms'] / main['ms']:.1%}"
+        if name in ("f32", "f32_long"):
+            rec = _decode_timing(args, kw, err)
+            print(f"kernel {name} timing: kernel {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f}"
+                  f" ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.1%}"
                   " of bound")
+            if name == "f32":
+                main = rec
+            else:
+                main["f32_long"] = rec
+    costs = decode_costs()
+    main["device_ms"] = costs["f32"]
+    main["f32_long"]["device_ms"] = costs["f32_long"]
+    main["host_us"] = costs["host_us"]
+    print(f"kernel device time, no host cost: f32 {costs['f32']:.4f} ms, "
+          f"f32_long {costs['f32_long']:.4f} ms; host "
+          f"{costs['host_us']:.1f} us a wrapper call at the 8-slot shape")
     return main
 
 
@@ -741,8 +899,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
-    phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
-    complete = phases == set(range(1, 10))
+    ap.add_argument("--waves", type=int, default=None,
+                    help="the decode's split rule aims at this many blocks "
+                         "an SM instead of paged_decode.WAVES (a sweep; no "
+                         "result lines)")
+    opts = ap.parse_args(argv)
+    phases = {int(x) for x in opts.phases.split(",")}
+    complete = phases == set(range(1, 10)) and opts.waves is None
+    if opts.waves is not None:
+        from distributed_deep_learning_tpu_torch.ops import paged_decode
+        paged_decode.WAVES = opts.waves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -763,14 +929,7 @@ def main(argv=None) -> int:
             if 5 in phases:
                 phase_plain_replay(rec)
     if 6 in phases:
-        log = phase_build(builds["flash_attention"], label="build flash")
-        tc = ptxas_summary(log, ("flash_fwd_kernel", "flash_dkv_kernel"))
-        for (kname, dt, d), (regs, frame, st, ld) in sorted(tc.items()):
-            print(f"ptxas {kname} {dt} D{d}: {regs} registers, stack "
-                  f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
-        if len(tc) != 16:
-            print(f"ptxas report: {len(tc)} of 16 tensor-core kernel "
-                  "instantiations parsed; see the lines above")
+        phase_ptxas(builds)
     records = phase_flash_kernels() if 7 in phases else {}
     if phases & {8, 9}:
         data_dir = _write_tokens()

@@ -26,18 +26,18 @@
 // Bound: operations. At the training shape (B 4, H 12, T 2048, D 64, causal)
 // the forward does 4*D flops per visible (query, key) pair, dQ 6*D and dK/dV
 // 8*D, over ~25 MB of tensors each: ~1000 flops per byte, far above the
-// card's ~150 (TF32) or ~300 (bf16) flops per byte of HBM. So the forward and
-// dK/dV run on the tensor cores through warp-level mma.sync:
+// card's ~150 (TF32) or ~300 (bf16) flops per byte of HBM. So all three
+// kernels run on the tensor cores through warp-level mma.sync:
 //   * bf16: m16n8k16 with bf16 operands and f32 sums (989 TFLOP/s peak).
-//     P (forward, dV) and dS (dK) are rounded to bf16 before their products,
-//     as the TPU kernel rounds them (p.astype, ds.astype);
+//     P (forward, dV) and dS (dQ, dK) are rounded to bf16 before their
+//     products, as the TPU kernel rounds them (p.astype, ds.astype);
 //   * f32: 3xTF32, three m16n8k8.tf32 products per tile. Each operand x is
 //     split into hi = tf32(x) and lo = tf32(x - hi) and a product is
 //     lo.hi + hi.lo + hi.hi in f32 sums (the lo.lo term is below f32's
 //     rounding), which keeps f32 accuracy at a third of the 495 TFLOP/s TF32
 //     peak. One TF32 pass would keep ~3 decimal digits and change what f32
 //     training computes.
-// Tile design (both kernels, 4 warps of 16 rows each, 64 rows a block):
+// Tile design (all three kernels, 4 warps of 16 rows each, 64 rows a block):
 //   * forward: a block owns 64 query rows of one (batch, head); each warp
 //     holds its 16 rows of Q as mma A fragments in registers. K/V tiles of 64
 //     keys (32 at D 128) stream through a two-stage ring in dynamic shared
@@ -49,9 +49,20 @@
 //     accumulator layout, so no shared-memory round trip). The key loop stops
 //     at the causal diagonal and starts at the window's lower bound; causal
 //     blocks are launched heaviest (last query tile) first;
+//   * dQ: the forward's tiling with dK/dV's products, the roles of queries
+//     and keys swapped. A block owns 64 query rows of one (batch, head) and
+//     keeps their Q and dO in shared memory as mma A operands; K/V tiles of
+//     64 keys (32 in f32 and at D 128) stream through the same two-stage
+//     cp.async ring.
+//     Per tile S = Q.K^T and dP = dO.V^T come out of mma in f32 registers,
+//     P = exp2((S.scale - LSE).log2 e) and dS = P.(dP - delta).scale are
+//     formed on those fragments, and dS, already in accumulator layout,
+//     is the A operand of dQ += dS.K (rounded to bf16 first in bf16). Loop
+//     bounds and launch order are the forward's;
 //   * a warp whose tile has every (query, key) pair visible (no ragged tail,
 //     no key_valid hole, clear of the diagonal and the window's edge) skips
-//     the masks: in bf16 the masks, not the mma, were the longest part;
+//     the masks (forward and dQ): in bf16 the masks, not the mma, were the
+//     longest part;
 //   * dK/dV: a block owns 64 key rows of one (batch, kv head) in shared
 //     memory and loops over the query heads of its GQA group and their query
 //     tiles of 32 rows from the diagonal to the window's upper bound; Q, dO, LSE and delta tiles stream through the cp.async ring.
@@ -63,11 +74,7 @@
 //     fragment load touches in distinct banks; bf16 B fragments come from
 //     ldmatrix (.trans for V, dO and Q on the k side), f32 ones from 32-bit
 //     loads.
-// dQ still runs on the f32 units (67 TFLOP/s): a row's D features are split
-// over D/16 threads (one for small D) holding their part of q, dO and the
-// accumulator in registers, dot products summed over those lanes with
-// shuffles, K/V tiles widened to f32 in padded shared memory.
-// Next steps: dQ on the same tiles, then wgmma with TMA-fed stages.
+// The next step is wgmma with TMA-fed stages for the bf16 path.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (see ops/attention.py); each launcher runs on the caller's
@@ -83,20 +90,9 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
-constexpr int kRows = 64;          // rows a block owns (query or key rows)
-constexpr int kChunk = 8;          // streamed rows scored per inner step
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Shape {
   int B, H, Hkv, Tq, Tk;
@@ -105,93 +101,9 @@ struct Shape {
   int window;  // <= 0: no sliding window
 };
 
-// dQ's rows: a row's D features over TPR = D / DT threads. dQ holds three
-// row-sized arrays per thread and takes DT = 16 to stay clear of register
-// spills.
-template <int D_, int DT_>
-struct Tile {
-  static constexpr int D = D_;
-  static constexpr int DT = D < DT_ ? D : DT_;  // features a thread holds
-  static constexpr int TPR = D / DT;            // threads per row
-  static constexpr int THREADS = kRows * TPR;
-  static constexpr int PART = DT + 4;         // padded part in shared memory
-  static constexpr int SROW = TPR * PART;
-  static constexpr int BT = D == 128 ? 32 : 64;  // streamed rows per tile
-};
-
 __device__ __forceinline__ bool in_band(const Shape& s, int qi, int kj) {
   if (!s.causal) return true;
   return qi >= kj && (s.window <= 0 || qi - kj < s.window);
-}
-
-template <int D>
-using BwdTile = Tile<D, 16>;
-
-// rows [t0, t0 + BT) of head hn of a (B, T, Hn, D) tensor, as f32, zero past T
-template <typename L, typename E>
-__device__ __forceinline__ void load_tile(float* dst, const E* src, int b,
-                                          int hn, int Hn, int T, int t0) {
-  constexpr int D = L::D;
-  for (int i = threadIdx.x; i < L::BT * D; i += blockDim.x) {
-    const int j = i / D, d = i - j * D, t = t0 + j;
-    float x = 0.f;
-    if (t < T) x = to_f32(src[((static_cast<size_t>(b) * T + t) * Hn + hn) * D + d]);
-    dst[j * L::SROW + (d / L::DT) * L::PART + d % L::DT] = x;
-  }
-}
-
-template <int DT, typename E>
-__device__ __forceinline__ void load_row(float (&r)[DT], const E* src,
-                                         bool ok) {
-#pragma unroll
-  for (int e = 0; e < DT; ++e) r[e] = ok ? to_f32(src[e]) : 0.f;
-}
-
-template <int DT>
-__device__ __forceinline__ float dot_part(const float (&r)[DT],
-                                          const float* sh) {
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < DT; e += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(sh + e);
-    acc = fmaf(r[e], x.x, acc);
-    acc = fmaf(r[e + 1], x.y, acc);
-    acc = fmaf(r[e + 2], x.z, acc);
-    acc = fmaf(r[e + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// acc += sum over the chunk of w[u] * (row j0 + u of the tile), this part
-template <typename L>
-__device__ __forceinline__ void axpy_chunk(float (&acc)[L::DT],
-                                           const float (&w)[kChunk],
-                                           const float* tile, int j0,
-                                           int part) {
-#pragma unroll
-  for (int e = 0; e < L::DT; e += 4) {
-    float4 a = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      const float4 x = *reinterpret_cast<const float4*>(
-          tile + (j0 + u) * L::SROW + part * L::PART + e);
-      a.x = fmaf(w[u], x.x, a.x);
-      a.y = fmaf(w[u], x.y, a.y);
-      a.z = fmaf(w[u], x.z, a.z);
-      a.w = fmaf(w[u], x.w, a.w);
-    }
-    acc[e] = a.x;
-    acc[e + 1] = a.y;
-    acc[e + 2] = a.z;
-    acc[e + 3] = a.w;
-  }
-}
-
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -471,6 +383,10 @@ template <typename E, int D>
 using FwdTc = TcTile<E, D, D == 128 ? 32 : 64>;
 template <typename E, int D>
 using DkvTc = TcTile<E, D, 32>;
+// dQ, by measurement on the H100: 32 keys a tile in f32 and at D 128, 64
+// in bf16
+template <typename E, int D>
+using DqTc = TcTile<E, D, kF32In<E> || D == 128 ? 32 : 64>;
 
 // ---------------------------------------------------------------------------
 // forward: O and LSE
@@ -679,73 +595,154 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <typename E, int D>
-__global__ void __launch_bounds__(BwdTile<D>::THREADS)
+constexpr size_t dq_smem() {
+  using L = DqTc<E, D>;
+  return (2 * L::ROWS * L::DP + L::STAGES * 2 * L::TILE) * sizeof(E) +
+         L::STAGES * L::NS;
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(DqTc<E, D>::THREADS)
 flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                 const E* __restrict__ v, const uint8_t* __restrict__ valid,
                 const E* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, E* __restrict__ dq, Shape s) {
-  using L = BwdTile<D>;
-  __shared__ __align__(16) float ks[L::BT * L::SROW];
-  __shared__ __align__(16) float vs[L::BT * L::SROW];
+  using L = DqTc<E, D>;
+  constexpr int NT = L::NS / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* q_s = reinterpret_cast<E*>(smem);      // this block's 64 query rows
+  E* do_s = q_s + L::ROWS * L::DP;          // and their rows of dO
+  E* kv_s = do_s + L::ROWS * L::DP;         // stage st: K at 2*st, V at 2*st+1
+  uint8_t* mask_s =
+      reinterpret_cast<uint8_t*>(kv_s + L::STAGES * 2 * L::TILE);
 
-  const int bh = blockIdx.y, b = bh / s.H, h = bh - b * s.H;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh - b * s.H;
   const int hk = h / (s.H / s.Hkv);
-  const int q0 = blockIdx.x * kRows;
-  const int r = threadIdx.x / L::TPR, part = threadIdx.x - r * L::TPR;
-  const int qi = q0 + r;
-  const bool row_ok = qi < s.Tq;
+  // causal: the last query tiles see the most keys; launch them first
+  const int qt = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * L::ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's rows
+  const int qw0 = q0 + warp * 16;                   // this warp's first row
   if (valid != nullptr) valid += static_cast<size_t>(b) * s.Tk;
-  const size_t qoff =
-      ((static_cast<size_t>(b) * s.Tq + qi) * s.H + h) * D + part * L::DT;
-
-  float qr[L::DT], dor[L::DT], acc[L::DT];
-  load_row<L::DT>(qr, q + qoff, row_ok);
-  load_row<L::DT>(dor, dout + qoff, row_ok);
-#pragma unroll
-  for (int e = 0; e < L::DT; ++e) acc[e] = 0.f;
-  const size_t srow = static_cast<size_t>(bh) * s.Tq + qi;
-  const float lse_i = row_ok ? lse[srow] : 0.f;
-  const float delta_i = row_ok ? delta[srow] : 0.f;
+  // this thread's rows: -LSE.log2(e) and delta (zero past Tq, never stored)
+  const size_t srow = static_cast<size_t>(bh) * s.Tq;
+  const float nl0 = r0 < s.Tq ? -lse[srow + r0] * kLog2e : 0.f;
+  const float nl1 = r1 < s.Tq ? -lse[srow + r1] * kLog2e : 0.f;
+  const float dl0 = r0 < s.Tq ? delta[srow + r0] : 0.f;
+  const float dl1 = r1 < s.Tq ? delta[srow + r1] : 0.f;
 
   int lo = 0, hi = s.Tk;
   if (s.causal) {
-    hi = min(hi, min(q0 + kRows, s.Tq));
+    hi = min(hi, min(q0 + L::ROWS, s.Tq));  // stop at the diagonal
     if (s.window > 0) lo = max(0, q0 - (s.window - 1));
   }
-  for (int t0 = lo - lo % L::BT; t0 < hi; t0 += L::BT) {
-    __syncthreads();
-    load_tile<L>(ks, k, b, hk, s.Hkv, s.Tk, t0);
-    load_tile<L>(vs, v, b, hk, s.Hkv, s.Tk, t0);
-    __syncthreads();
-    const int n = min(L::BT, hi - t0);
-#pragma unroll 1
-    for (int j0 = 0; j0 < n; j0 += kChunk) {
-      float sc[kChunk], dp[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int off = (j0 + u) * L::SROW + part * L::PART;
-        sc[u] = row_sum<L::TPR>(dot_part<L::DT>(qr, ks + off));
-        dp[u] = row_sum<L::TPR>(dot_part<L::DT>(dor, vs + off));
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int kj = t0 + j0 + u;
-        float ds = 0.f;
-        if (kj < s.Tk) {
-          const float x = (valid == nullptr || valid[kj]) && in_band(s, qi, kj)
-                              ? sc[u] * s.scale
-                              : kNegInf;
-          const float p = expf(x - lse_i);
-          ds = p * (dp[u] - delta_i) * s.scale;
-        }
-        sc[u] = ds;
-      }
-      axpy_chunk<L>(acc, sc, ks, j0, part);
+  const int first = lo / L::NS;
+  const int n = max(0, (hi + L::NS - 1) / L::NS - first);
+
+  auto issue = [&](int i) {
+    const int st = i % L::STAGES, t0 = (first + i) * L::NS;
+    E* ks = kv_s + 2 * st * L::TILE;
+    copy_rows<E, D, L::DP, L::NS>(ks, k, b, hk, s.Hkv, s.Tk, t0);
+    copy_rows<E, D, L::DP, L::NS>(ks + L::TILE, v, b, hk, s.Hkv, s.Tk, t0);
+    // 0: past the end (-inf), 1: masked by key_valid (-1e30), 2: a key
+    bool all_keys = true;
+    for (int j = threadIdx.x; j < L::NS; j += blockDim.x) {
+      const int kj = t0 + j;
+      const uint8_t code =
+          kj >= s.Tk ? 0 : (valid == nullptr || valid[kj]) ? 2 : 1;
+      mask_s[st * L::NS + j] = code;
+      all_keys = all_keys && code == 2;
     }
-  }
-  if (row_ok) {
+    return all_keys;
+  };
+
+  // this warp's 16 rows of Q and dO, A operands read at each tile
+  copy_rows<E, D, L::DP, L::ROWS>(q_s, q, b, h, s.H, s.Tq, q0);
+  copy_rows<E, D, L::DP, L::ROWS>(do_s, dout, b, h, s.H, s.Tq, q0);
+  const E* qw = q_s + warp * 16 * L::DP;
+  const E* dow = do_s + warp * 16 * L::DP;
+
+  float dqa[D / 8][4];
 #pragma unroll
-    for (int e = 0; e < L::DT; ++e) store(dq + qoff + e, acc[e]);
+  for (int j = 0; j < D / 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  const float sl = s.scale * kLog2e;
+
+  // all_keys: the tile holds no masked or missing key
+  bool all_keys = n > 0 ? issue(0) : true;
+  cp_async_commit();
+  all_keys = __syncthreads_and(all_keys);
+  for (int i = 0; i < n; ++i) {
+    const bool next = i + 1 < n ? issue(i + 1) : true;
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i (and the query rows) have landed
+    const bool all_next = __syncthreads_and(next);
+    const int st = i % L::STAGES, t0 = (first + i) * L::NS;
+    const E* ks = kv_s + 2 * st * L::TILE;
+    const uint8_t* mk = mask_s + st * L::NS;
+
+    float sp[NT][4], dp[NT][4];  // S, then P; dP, then dS
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.f;
+    }
+    mma_abt<E, D, L::DP, NT>(
+        sp,
+        [&](int kk, uint32_t(&a)[4]) { frag_a<E>(a, qw, L::DP, kk, g, t); },
+        ks, lane);
+    mma_abt<E, D, L::DP, NT>(
+        dp,
+        [&](int kk, uint32_t(&a)[4]) { frag_a<E>(a, dow, L::DP, kk, g, t); },
+        ks + L::TILE, lane);
+
+    bool plain = all_keys;  // warp-uniform
+    if (s.causal) {
+      plain = plain && t0 + L::NS - 1 <= qw0;
+      if (s.window > 0) plain = plain && qw0 + 15 - t0 < s.window;
+    }
+    if (plain) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(fmaf(sp[j][e], sl, e < 2 ? nl0 : nl1));
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * s.scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const int code = mk[c];
+          const float x = code == 0 ? -INFINITY
+                          : code == 2 && in_band(s, e < 2 ? r0 : r1, t0 + c)
+                              ? sp[j][e] * s.scale
+                              : kNegInf;
+          const float p = exp2_approx(fmaf(x, kLog2e, e < 2 ? nl0 : nl1));
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * s.scale;
+        }
+      }
+    }
+    mma_px<E, D, L::DP, NT>(dqa, dp, ks, lane);  // dQ += dS . K
+    __syncthreads();  // stage st is refilled next iteration
+    all_keys = all_next;
+  }
+  cp_async_wait<0>();
+
+  const size_t ld = static_cast<size_t>(s.H) * D;
+  E* o0 = dq + ((static_cast<size_t>(b) * s.Tq + r0) * s.H + h) * D + 2 * t;
+  if (r0 < s.Tq) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) store2(o0 + 8 * j, dqa[j][0], dqa[j][1]);
+  }
+  if (r1 < s.Tq) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(o0 + 8 * ld + 8 * j, dqa[j][2], dqa[j][3]);
   }
 }
 
@@ -978,8 +975,12 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(dispatch(dtype, D, [&](auto e, auto d) {
     using E = decltype(e);
     constexpr int DD = decltype(d)::value;
-    const dim3 grid((Tq + kRows - 1) / kRows, B * H);
-    flash_dq_kernel<E, DD><<<grid, BwdTile<DD>::THREADS, 0, st>>>(
+    using L = DqTc<E, DD>;
+    constexpr size_t bytes = dq_smem<E, DD>();
+    static const cudaError_t allowed = allow_smem(flash_dq_kernel<E, DD>, bytes);
+    if (allowed != cudaSuccess) return allowed;
+    const dim3 grid(B * H, (Tq + L::ROWS - 1) / L::ROWS);
+    flash_dq_kernel<E, DD><<<grid, L::THREADS, bytes, st>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const uint8_t*>(valid),
         static_cast<const E*>(dout), static_cast<const float*>(lse),

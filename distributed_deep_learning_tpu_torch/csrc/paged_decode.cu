@@ -10,27 +10,40 @@
 // ~20 flops/byte at which the card's f32 units (67 TFLOP/s) rather than its
 // HBM (3.35 TB/s) would limit it. So the design aims at keeping every SM's
 // loads in flight and reading nothing twice:
-//   * one thread block per (slot, kv head), holding the G query rows of that
-//     head's group, so a K/V row is read once for all G queries (GQA-native);
-//   * the block reads its own row of the block table and visits only the
-//     ceil(seq_len / bs) logical blocks that hold live positions. Skipping the
-//     blocks past seq_len gives what masking them gives, except for a row with
-//     no live position at all: it comes out as zeros (finite), where the TPU
-//     kernel averages the masked garbage. Callers ignore such rows;
-//   * each of the 8 warps takes 4 positions at a time (independent loads for
-//     memory-level parallelism) and keeps its own m, l and acc in f32
-//     registers, lanes splitting D. The warps' partial softmax states are
-//     merged once at the end through shared memory;
+//   * split-K (flash-decoding): the grid is (slot x kv head, split). A block
+//     holds the G query rows of one kv head's group, so a K/V row is read
+//     once for all G queries (GQA-native), and walks one contiguous run of
+//     `per` logical blocks of its slot's block table, clipped to seq_len; a
+//     block whose run starts at or past seq_len returns at once. The host
+//     picks the split count from the shapes alone (B * Hkv, Bps, bs and the
+//     SM count; never seq_lens, so a decode tick does not wait on the
+//     card): a few slots with long contexts spread over many SMs instead of
+//     being walked by one block each;
+//   * within a block each of the 8 warps takes 4 positions at a time
+//     (independent loads for memory-level parallelism) and keeps its own m,
+//     l and acc in f32 registers, lanes splitting D. The warps' states are
+//     merged once through shared memory into the block's (m, l, acc[G][D]);
+//   * the block writes that partial state, in f32, to a workspace the
+//     wrapper allocates, and paged_combine_kernel merges the splits that
+//     cover [0, seq_len) with the same formula (two launches on the
+//     caller's stream, one after the other);
+//   * variants timed on the H100 and not kept: the last block to arrive
+//     doing the combine (an atomic counter, one launch), 16-byte loads, 2
+//     positions a warp step, and launch bounds that give ptxas the
+//     registers to drop the small spill it leaves here; each was slower or
+//     no faster. A programmatic dependent launch of the combine saved about
+//     a microsecond a call, which no serving metric can see;
+//   * positions past seq_len are never visited. That gives what masking them
+//     gives, except for a row with no live position at all: it comes out as
+//     zeros (finite), where the TPU kernel averages the masked garbage.
+//     Callers ignore such rows;
 //   * int8 pools are dequantized in registers as q8 * scale, bf16 widened to
-//     f32; all arithmetic is f32. Masked positions (past seq_len, invalid in
-//     valid_pool, or an out-of-range physical id) contribute nothing.
-// The next design step is split-K (flash-decoding): with few slots and long
-// contexts B * Hkv blocks do not fill 132 SMs, so the position loop should be
-// cut across blocks and reduced in a second pass.
+//     f32; all arithmetic is f32. Masked positions (invalid in valid_pool,
+//     or an out-of-range physical id) contribute nothing.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (see ops/paged_decode.py); the launcher runs on the caller's
-// stream, allocates nothing, and returns cudaGetLastError() after the launch.
+// stream, allocates nothing, and returns cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,9 +71,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// q and out: (B, Hkv, G, D); pools: (N, bs, Hkv, D); scales: (N, bs, Hkv) or
+// q: (B, Hkv, G, D); pools: (N, bs, Hkv, D); scales: (N, bs, Hkv) or
 // null; valid: (N, bs) bytes or null; tables: (B, Bps) int32; seq_lens: (B,).
-template <typename QT, typename KT, int VEC>
+// part: acc (B * Hkv, splits, G, D), then (m, l) (B * Hkv, splits, G, 2),
+// f32. Block (x, y) walks positions [y * per * bs, (y + 1) * per * bs) of
+// slot x / Hkv.
+template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
                     const KT* __restrict__ v_pool,
@@ -69,19 +85,24 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
                     const uint8_t* __restrict__ valid,
                     const int32_t* __restrict__ tables,
                     const int32_t* __restrict__ seq_lens,
-                    QT* __restrict__ out, int Hkv, int G, int N, int bs,
-                    int Bps, float sm_scale) {
-  constexpr int D = VEC * 32;
+                    float* __restrict__ part, int Hkv, int G, int N, int bs,
+                    int Bps, int per, float sm_scale) {
+  constexpr int VEC = D / 32;
   __shared__ float sh_m[kWarps][kMaxG];
   __shared__ float sh_l[kWarps][kMaxG];
   __shared__ float sh_acc[kWarps][kMaxG][D];
 
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x - b * Hkv;
+  const int bh = blockIdx.x, b = bh / Hkv, h = bh - b * Hkv;
+  const int split = blockIdx.y, splits = gridDim.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const QT* qb = q + (static_cast<size_t>(b) * Hkv + h) * G * D;
+  const int len = min(max(seq_lens[b], 0), Bps * bs);
+  const int p0 = split * per * bs;
+  if (p0 >= len) return;  // the combine reads no such split
+  const int p1 = min(len, p0 + per * bs);
+
+  const QT* qb = q + static_cast<size_t>(bh) * G * D;
   float qr[kMaxG][VEC];
   float m[kMaxG], l[kMaxG], acc[kMaxG][VEC];
 #pragma unroll
@@ -95,11 +116,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
     }
   }
 
-  int len = seq_lens[b];
-  len = len < 0 ? 0 : (len > Bps * bs ? Bps * bs : len);
   const int32_t* tb = tables + static_cast<size_t>(b) * Bps;
-
-  for (int base = warp * kUnroll; base < len; base += kWarps * kUnroll) {
+  for (int base = p0 + warp * kUnroll; base < p1; base += kWarps * kUnroll) {
     float kf[kUnroll][VEC], vf[kUnroll][VEC];
     bool live[kUnroll];
 #pragma unroll
@@ -108,7 +126,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       live[u] = false;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) kf[u][e] = vf[u][e] = 0.f;
-      if (t < len) {
+      if (t < p1) {
         const int j = t / bs;
         const int off = t - j * bs;
         const int p = tb[j];
@@ -185,7 +203,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
     }
   }
   __syncthreads();
-  QT* ob = out + (static_cast<size_t>(b) * Hkv + h) * G * D;
+  const size_t cell = static_cast<size_t>(bh) * splits + split;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D;
     const int d = i - g * D;
@@ -199,55 +217,85 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       den += sh_l[w][g] * c;
       num += sh_acc[w][g][d] * c;
     }
-    store(ob + i, num / fmaxf(den, 1e-30f));
+    part[cell * G * D + i] = num;
+    if (d == 0) {
+      float* ml = part + static_cast<size_t>(gridDim.x) * splits * G * D +
+                  (cell * G + g) * 2;
+      ml[0] = mx;
+      ml[1] = den;
+    }
   }
 }
 
-template <typename QT, typename KT>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const void* ks, const void* vs, const void* valid,
-                         const void* tables, const void* lens, void* out,
-                         int B, int Hkv, int G, int D, int N, int bs, int Bps,
-                         float sm_scale, cudaStream_t stream) {
-  const dim3 grid(B * Hkv), block(kWarps * 32);
-#define PAGED_DECODE_LAUNCH(VEC)                                            \
-  paged_decode_kernel<QT, KT, VEC><<<grid, block, 0, stream>>>(             \
-      static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
-      static_cast<const KT*>(v), static_cast<const float*>(ks),             \
-      static_cast<const float*>(vs), static_cast<const uint8_t*>(valid),    \
-      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lens), \
-      static_cast<QT*>(out), Hkv, G, N, bs, Bps, sm_scale)
-  switch (D) {
-    case 32: PAGED_DECODE_LAUNCH(1); break;
-    case 64: PAGED_DECODE_LAUNCH(2); break;
-    case 128: PAGED_DECODE_LAUNCH(4); break;
-    default: return cudaErrorInvalidValue;
+// out[b, h] from the partial states of the splits of (b, h) that cover
+// [0, seq_len), merged as the warps' states are; no split: zeros. One
+// thread an output element.
+template <typename QT>
+__global__ void paged_combine_kernel(const float* __restrict__ part,
+                                     const int32_t* __restrict__ seq_lens,
+                                     QT* __restrict__ out, int Hkv, int G,
+                                     int D, int bs, int Bps, int per,
+                                     int splits) {
+  const int bh = blockIdx.x, b = bh / Hkv;
+  const int i = threadIdx.x, g = i / D, d = i - g * D;
+  const int len = min(max(seq_lens[b], 0), Bps * bs);
+  const int live = (len + per * bs - 1) / (per * bs);
+  const float* acc = part + static_cast<size_t>(bh) * splits * G * D;
+  const float* ml = part + static_cast<size_t>(gridDim.x) * splits * G * D +
+                    static_cast<size_t>(bh) * splits * G * 2;
+  float mx = kNegInf;
+  for (int sp = 0; sp < live; ++sp) mx = fmaxf(mx, ml[(sp * G + g) * 2]);
+  float den = 0.f, num = 0.f;
+  for (int sp = 0; sp < live; ++sp) {
+    const float c = expf(ml[(sp * G + g) * 2] - mx);
+    den += ml[(sp * G + g) * 2 + 1] * c;
+    num += acc[(sp * G + g) * D + d] * c;
   }
-#undef PAGED_DECODE_LAUNCH
+  store(out + static_cast<size_t>(bh) * G * D + i, num / fmaxf(den, 1e-30f));
+}
+
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *valid, *tables, *lens;
+  void *out, *part;
+  int B, Hkv, G, D, N, bs, Bps, splits, per;
+  float sm_scale;
+};
+
+template <typename QT, typename KT, int D>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.Hkv, a.splits);
+  paged_decode_kernel<QT, KT, D><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const uint8_t*>(a.valid),
+      static_cast<const int32_t*>(a.tables),
+      static_cast<const int32_t*>(a.lens), static_cast<float*>(a.part), a.Hkv,
+      a.G, a.N, a.bs, a.Bps, a.per, a.sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_combine_kernel<QT><<<a.B * a.Hkv, a.G * a.D, 0, stream>>>(
+      static_cast<const float*>(a.part), static_cast<const int32_t*>(a.lens),
+      static_cast<QT*>(a.out), a.Hkv, a.G, a.D, a.bs, a.Bps, a.per, a.splits);
   return cudaGetLastError();
 }
 
+template <typename QT, typename KT>
+cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 32: return launch_d<QT, KT, 32>(a, stream);
+    case 64: return launch_d<QT, KT, 64>(a, stream);
+    case 128: return launch_d<QT, KT, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename QT>
-cudaError_t launch_q(int kv_dtype, const void* q, const void* k,
-                     const void* v, const void* ks, const void* vs,
-                     const void* valid, const void* tables, const void* lens,
-                     void* out, int B, int Hkv, int G, int D, int N, int bs,
-                     int Bps, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_q(int kv_dtype, const Args& a, cudaStream_t stream) {
   switch (kv_dtype) {
-    case kF32:
-      return launch_typed<QT, float>(q, k, v, ks, vs, valid, tables, lens,
-                                     out, B, Hkv, G, D, N, bs, Bps, sm_scale,
-                                     stream);
-    case kBF16:
-      return launch_typed<QT, __nv_bfloat16>(q, k, v, ks, vs, valid, tables,
-                                             lens, out, B, Hkv, G, D, N, bs,
-                                             Bps, sm_scale, stream);
-    case kI8:
-      return launch_typed<QT, int8_t>(q, k, v, ks, vs, valid, tables, lens,
-                                      out, B, Hkv, G, D, N, bs, Bps,
-                                      sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case kF32: return launch_typed<QT, float>(a, stream);
+    case kBF16: return launch_typed<QT, __nv_bfloat16>(a, stream);
+    case kI8: return launch_typed<QT, int8_t>(a, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -257,26 +305,23 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* k_scale,
                                    const void* v_scale, const void* valid,
                                    const void* tables, const void* seq_lens,
-                                   void* out, int B, int Hkv, int G, int D,
-                                   int N, int bs, int Bps, float sm_scale,
+                                   void* out, void* part, int B, int Hkv,
+                                   int G, int D, int N, int bs, int Bps,
+                                   int splits, int per, float sm_scale,
                                    int q_dtype, int kv_dtype, void* stream) {
-  if (B < 1 || Hkv < 1 || G < 1 || G > kMaxG || N < 1 || bs < 1 || Bps < 1)
+  // splits runs of per blocks cover the table, none of them empty
+  if (B < 1 || Hkv < 1 || G < 1 || G > kMaxG || N < 1 || bs < 1 || Bps < 1 ||
+      per < 1 || splits < 1 || splits > 65535 || splits * per < Bps ||
+      (splits - 1) * per >= Bps || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, valid, tables, seq_lens,
+               out, part, B, Hkv, G, D, N, bs, Bps, splits, per, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (q_dtype) {
-    case kF32:
-      err = launch_q<float>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale,
-                            valid, tables, seq_lens, out, B, Hkv, G, D, N, bs,
-                            Bps, sm_scale, s);
-      break;
-    case kBF16:
-      err = launch_q<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, k_scale,
-                                    v_scale, valid, tables, seq_lens, out, B,
-                                    Hkv, G, D, N, bs, Bps, sm_scale, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+    case kF32: err = launch_q<float>(kv_dtype, a, s); break;
+    case kBF16: err = launch_q<__nv_bfloat16>(kv_dtype, a, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -14,10 +14,10 @@ max(l, 1e-30)``, so a fully padded row gets exactly zero gradients;
 causal masking is top-left (query and key positions both count from 0);
 a sliding ``window`` keeps ``q_pos - k_pos < window``; ``key_valid``
 masks keys per batch row; GQA k/v carry ``Hkv`` heads and query head
-``h`` reads kv head ``h // (H // Hkv)``.  The forward and dK/dV kernels
-run on the tensor cores (bf16 natively, f32 as 3xTF32, which keeps f32
-accuracy); in bf16 they round P and dS to bf16 before the products that
-take them, as the TPU kernel does, and the plain versions round the same.
+``h`` reads kv head ``h // (H // Hkv)``.  All three kernels run on the
+tensor cores (bf16 natively, f32 as 3xTF32, which keeps f32 accuracy);
+in bf16 they round P and dS to bf16 before the products that take them,
+as the TPU kernel does, and the plain versions round the same.
 
 CPU tensors go to the plain versions, :func:`flash_attention_reference`
 and :func:`flash_backward_reference`; CUDA tensors launch the kernels or

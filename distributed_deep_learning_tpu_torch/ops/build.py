@@ -23,13 +23,15 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def build_library(source: Path) -> tuple[Path, str]:
     """Compile ``source`` unless this source and these flags were built
-    before; returns the library's path and ``nvcc``'s output (empty when
-    it was already built).  Needs ``nvcc`` (the CUDA toolkit)."""
+    before; returns the library's path and ``nvcc``'s output (kept beside
+    the library, so a library built before returns it too).  Needs
+    ``nvcc`` (the CUDA toolkit)."""
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
-        return lib_path, ""
+        return lib_path, (log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
@@ -37,6 +39,7 @@ def build_library(source: Path) -> tuple[Path, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode})"
                            f":\n{proc.stdout}{proc.stderr}")
+    log_path.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib_path)
     return lib_path, proc.stdout + proc.stderr
 

@@ -12,7 +12,10 @@ design and what bounds it on the card.
 :func:`paged_decode_reference`, the plain version with the same
 semantics (gather, dequantize, mask, one f32 softmax); CUDA tensors
 launch the kernel or raise.  ``paged_flash_decode.launches`` counts the
-kernel launches.
+wrapper's calls that launched it.  The kernel splits each slot's positions
+over :func:`decode_splits` blocks (split-K); a call makes two CUDA
+launches: the splits, into an f32 workspace allocated here, then their
+combine.
 
 The kernel is compiled at first use with ``nvcc`` into
 ``build/torch_kernels/`` at the repository root (one shared library with a
@@ -39,6 +42,24 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+#: split-K: the blocks per SM the split count aims for, and the positions
+#: a block's run is a multiple of (one step of its 8 warps x 4 positions)
+WAVES = 8
+RUN_STEP = 32
+
+
+def decode_splits(B: int, Hkv: int, Bps: int, bs: int,
+                  sms: int) -> tuple[int, int]:
+    """``(splits, per)``: each slot's ``Bps`` logical blocks cut into
+    ``splits`` runs of ``per`` blocks (the last may be shorter), from the
+    shapes alone, never from ``seq_lens``, so a decode tick does not wait
+    on the card.  Aims at ``WAVES`` blocks per SM over the ``B * Hkv``
+    (slot, kv head) pairs; a run is a multiple of ``RUN_STEP`` positions
+    where ``bs`` divides it."""
+    want = max(1, -(-WAVES * sms // (B * Hkv)))
+    step = max(1, RUN_STEP // bs)
+    per = min(Bps, -(-max(1, -(-Bps // want)) // step) * step)
+    return -(-Bps // per), per
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
@@ -100,6 +121,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens, *,
         return out
     B, Hkv, G, D = q.shape
     N, bs = k_pool.shape[:2]
+    Bps = block_tables.shape[1]
+    splits, per = decode_splits(B, Hkv, Bps, bs, sm_count(q.device))
+    # per (slot, head, split): acc (G, D), then (m, l) per query head
+    part = torch.empty(B * Hkv * splits * G * (D + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -109,7 +135,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens, *,
             v_scale.data_ptr() if v_scale is not None else None,
             valid_pool.data_ptr() if valid_pool is not None else None,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, Hkv, G, D, N, bs, block_tables.shape[1], float(sm_scale),
+            part.data_ptr(),
+            B, Hkv, G, D, N, bs, Bps, splits, per, float(sm_scale),
             _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
     if rc != 0:
         msg = lib.paged_decode_error_string(rc).decode()
@@ -168,6 +195,12 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
         raise ValueError(f"valid_pool must be bool ({N}, {bs})")
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """The card's SM count (a property query, no sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel library (see :func:`.build.build_library`)."""
     return build_library(_SOURCE)
@@ -179,7 +212,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [ptr] * 9 + [i32] * 7 + [ctypes.c_float] + [i32] * 2 + [ptr])
+        [ptr] * 10 + [i32] * 9 + [ctypes.c_float] + [i32] * 2 + [ptr])
     lib.paged_decode_launch.restype = i32
     lib.paged_decode_error_string.argtypes = [i32]
     lib.paged_decode_error_string.restype = ctypes.c_char_p

@@ -6,7 +6,9 @@ port's ``paged_decode_reference`` is held at atol 1e-5 against the JAX
 interpret mode on the CPU (f32 both sides; sums in different orders).
 On CPU tensors the wrapper takes the plain path and launches nothing;
 the CUDA kernel itself is checked against the plain version on the card
-by ``chip_smoke.py``.
+by ``chip_smoke.py``.  Its split-K algebra (per-split partial softmax
+states merged by a combine step) is emulated here in numpy and held
+against the plain version, as is the host's split rule.
 """
 
 import jax.numpy as jnp
@@ -167,6 +169,111 @@ def test_kernel_argument_checks_reject(case):
     edit(args)
     with pytest.raises(ValueError, match=match):
         tpd._check_kernel_args(**args)
+
+
+# --- split-K: the kernel's algebra, emulated in numpy ------------------------
+
+def _split_k(q, kp, vp, tables, lens, splits, k_scale=None, v_scale=None,
+             valid=None):
+    """What the CUDA kernel computes, step by step: each slot's ``Bps``
+    logical blocks cut into runs of ``per = ceil(Bps / splits)``; a block
+    walks its run clipped to ``seq_len`` and keeps (m, l, acc) in f32,
+    masked positions skipped (a split with none live keeps m = -1e30,
+    l = 0); the combine merges the splits that cover ``[0, seq_len)`` with
+    ``c = exp(m_s - max m)``, ``out = sum(acc_s c) / max(sum(l_s c), 1e-30)``.
+    Returns ``(B, Hkv, G, D)`` f32."""
+    B, Hkv, G, D = q.shape
+    bs, Bps = kp.shape[1], tables.shape[1]
+    per = -(-Bps // splits)
+    run = per * bs
+    out = np.zeros((B, Hkv, G, D), np.float32)
+    for b in range(B):
+        n = min(max(int(lens[b]), 0), Bps * bs)
+        parts = []
+        for sp in range(-(-n // run)):              # the live splits only
+            m = np.full((Hkv, G), -1e30, np.float32)
+            l = np.zeros((Hkv, G), np.float32)
+            acc = np.zeros((Hkv, G, D), np.float32)
+            for t in range(sp * run, min(n, (sp + 1) * run)):
+                phys, off = tables[b, t // bs], t % bs
+                if valid is not None and not valid[phys, off]:
+                    continue
+                k = kp[phys, off].astype(np.float32)
+                v = vp[phys, off].astype(np.float32)
+                if k_scale is not None:
+                    k, v = k * k_scale[phys, off], v * v_scale[phys, off]
+                s = np.einsum("hgd,hd->hg", q[b], k) / np.float32(D ** 0.5)
+                mx = np.maximum(m, s)
+                c, p = np.exp(m - mx), np.exp(s - mx)
+                l = l * c + p
+                acc = acc * c[..., None] + p[..., None] * v[:, None, :]
+                m = mx
+            parts.append((m, l, acc))
+        if not parts:
+            continue                                # no live split: zeros
+        mx = np.max([m for m, _, _ in parts], axis=0)
+        den = sum(l * np.exp(m - mx) for m, l, _ in parts)
+        num = sum(a * np.exp(m - mx)[..., None] for m, _, a in parts)
+        out[b] = num / np.maximum(den, 1e-30)[..., None]
+    return out
+
+
+def _quantize(x):
+    scale = np.abs(x).max(-1, keepdims=True).clip(1e-8) / 127.0
+    return (np.clip(np.round(x / scale), -127, 127).astype(np.int8),
+            scale.astype(np.float32))
+
+
+#: Bps 8 of bs 4: an empty slot, a slot shorter than one split, one ending
+#: on the 3-split boundary (12 = 3 blocks x 4) and on the 8-split ones, one
+#: whose end falls inside a split, and a full one
+SPLIT_LENS = (0, 2, 12, 27, 32)
+SPLIT_CASES = {"f32": {}, "valid_holes": {"holes": True},
+               "int8_scales": {"int8": True}}
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_k_partials_merge_to_the_plain_version(case, splits):
+    spec = SPLIT_CASES[case]
+    q, kp, vp, tables, lens = _inputs(11, B=5, G=2, N=40, bs=4, Bps=8,
+                                      lens=SPLIT_LENS)
+    kw, emu = {}, {}
+    if spec.get("int8"):
+        (kp, ks), (vp, vs) = _quantize(kp), _quantize(vp)
+        kw = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+        emu = dict(k_scale=ks, v_scale=vs)
+    if spec.get("holes"):
+        valid = np.random.default_rng(12).random(kp.shape[:2]) > 0.3
+        for b, n in enumerate(lens):      # the query's own position is valid
+            if n:
+                valid[tables[b, (n - 1) // 4], (n - 1) % 4] = True
+        kw["valid_pool"] = torch.from_numpy(valid)
+        emu["valid"] = valid
+    got = _split_k(q, kp, vp, tables, lens, splits, **emu)
+    want = tpd.paged_decode_reference(*_t(q, kp, vp, tables, lens),
+                                      **kw).numpy()
+    live = lens > 0
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=0)
+    assert np.all(got[~live] == 0)        # the empty slot: finite zeros
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 12, 64, 16, 132),    # the serving slice's 8 slots
+    (2, 12, 64, 16, 132),    # f32_long: two slots of 1024 positions
+    (64, 12, 64, 16, 132),   # many slots: one or two long runs each
+    (3, 2, 3, 8, 132),       # the CPU tests' shape
+    (1, 1, 64, 1, 4),        # one position a block
+])
+def test_split_rule_covers_each_table_from_the_shapes_alone(shape):
+    B, Hkv, Bps, bs, sms = shape
+    splits, per = tpd.decode_splits(*shape)
+    assert 1 <= splits <= Bps and 1 <= per <= Bps
+    assert (splits - 1) * per < Bps <= splits * per    # no empty run
+    if per < Bps and tpd.RUN_STEP % bs == 0:
+        assert per * bs % tpd.RUN_STEP == 0   # whole steps of the 8 warps
+    if per > max(1, tpd.RUN_STEP // bs):      # not cut finer than a step
+        assert B * Hkv * splits >= tpd.WAVES * sms // 2
 
 
 def test_kernel_source_names_what_it_replaces_and_builds_at_first_use():
