@@ -51,18 +51,40 @@ Phases, in order; any failure raises and exits non-zero:
    every step through the kernels (forward per train/val/test step, dQ and
    dK/dV per train step);
 9. the same run with ``--attention dense``: the first step's loss within
-   1e-4 and the epoch's train loss within 1e-2 of the flash run.
+   1e-4 and the epoch's train loss within 1e-2 of the flash run;
+10. phase 8's run in bf16 (``--dtype bfloat16``): finite losses falling
+    from the first train step to the last, every kernel launch on the bf16
+    instantiations at phase 8's counts, the first step's loss within 2e-2
+    of phase 8's;
+11. ``-m data --dtype bfloat16`` at world 1 on NCCL (DDP): the first loss
+    within 1e-6 of phase 10's; then with ``--remat`` under the policies
+    ``nothing`` and ``dots`` (the forward launched twice a layer a train
+    step: (2 x train + eval steps) x 12, the first loss within 1e-6, peak
+    memory beside phase 10's); then with ``--grad-accum 2`` (epoch loss
+    within 1e-2 of phase 10's, and each train step's loss within
+    ``ACCUM_STEP_TOL`` of the plain ``-m data`` run's), and once more with
+    a planted fault (the second microbatch's gradient dropped), which
+    this check must fail;
+12. ``-m data --dtype bfloat16 --dropout 0.1 --checkpoint-every 4`` into a
+    ``--checkpoint-dir`` under ``build/``: the final step removed, a
+    ``--resume`` run continues from batch 4 and its steps 5-8 give the
+    losses of the run that was never stopped within 1e-6; the final step's
+    manifest (CRC32 of every leaf) verifies.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
+Phases 8-12 print step time, tokens/s and peak memory.  The line before
+the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
+"device": {...}}``.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -811,14 +833,36 @@ def _write_tokens() -> Path:
     return out
 
 
-def _train(data_dir: Path, attention: str):
+@contextlib.contextmanager
+def _launch_dtypes():
+    """Count the flash kernels' launches by (launcher, input dtype) while
+    the block runs."""
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    seen, real = collections.Counter(), fa._launch
+
+    def counting(name, q, *args, **kw):
+        seen[(name, str(q.dtype).replace("torch.", ""))] += 1
+        return real(name, q, *args, **kw)
+
+    fa._launch = counting
+    try:
+        yield seen
+    finally:
+        fa._launch = real
+
+
+def _train(data_dir: Path, attention: str, *flags, label=None,
+           mode="sequential"):
     """One epoch through ``main(argv)``; returns the history, the kernels'
-    launches during it and the peak device memory."""
+    launches during it (zeroed just before) and step time, tokens/s and
+    peak device memory."""
     import torch
 
     from distributed_deep_learning_tpu_torch.__main__ import main as cli
     from distributed_deep_learning_tpu_torch.ops import attention as fa
 
+    label = label or attention
     counters = (fa.flash_forward, fa.flash_backward_dq,
                 fa.flash_backward_dkv)
     for c in counters:
@@ -826,9 +870,10 @@ def _train(data_dir: Path, attention: str):
     gc.collect()            # the previous run's model and optimizer
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, hist = cli(["gpt", "-m", "sequential", "-l", str(TRAIN_LAYERS),
+    _, hist = cli(["gpt", "-m", mode, "-l", str(TRAIN_LAYERS),
                    "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
-                   "--attention", attention, "--data-dir", str(data_dir)])
+                   "--attention", attention, "--data-dir", str(data_dir),
+                   *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -837,35 +882,51 @@ def _train(data_dir: Path, attention: str):
     losses = train.step_losses
     step_s = statistics.median(train.step_seconds[1:])
     tok_s = TRAIN_BATCH * TRAIN_T / step_s
-    print(f"train[{attention}]: {len(losses)} steps, losses "
+    print(f"train[{label}]: {len(losses)} steps, losses "
           + " ".join(f"{x:.4f}" for x in losses))
-    print(f"train[{attention}]: {step_s:.4f} s/step (median of steps 2-"
+    print(f"train[{label}]: {step_s:.4f} s/step (median of steps 2-"
           f"{len(losses)}), {tok_s:.1f} tokens/s, epoch loss "
           f"{train.loss:.9f}, accuracy {train.accuracy:.3f}, val loss "
-          f"{hist[1].loss:.9f}, test loss {hist[2].loss:.9f}, peak memory "
+          f"{hist[-2].loss:.9f}, test loss {hist[-1].loss:.9f}, peak memory "
           f"{peak / 2**30:.2f} GiB, {wall:.1f} s with model build")
     if not all(map(lambda x: x == x and abs(x) != float("inf"),
                    losses + [h.loss for h in hist])):
-        raise RuntimeError(f"train[{attention}]: a non-finite loss")
+        raise RuntimeError(f"train[{label}]: a non-finite loss")
     return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak)
 
 
-def phase_train_flash(data_dir: Path):
+def _phase_steps():
+    """Train, validation and test steps of the smoke epoch."""
     from distributed_deep_learning_tpu_torch.data.splits import \
         train_val_test_split
 
+    return [len(s) // TRAIN_BATCH
+            for s in train_val_test_split(TRAIN_ROWS, seed=42)]
+
+
+def _expected_launches(forward_per_train_step=1, backward_per_step=1):
+    steps = _phase_steps()
+    return {"flash_forward": (forward_per_train_step * steps[0]
+                              + sum(steps[1:])) * TRAIN_LAYERS,
+            "flash_backward_dq": backward_per_step * steps[0] * TRAIN_LAYERS,
+            "flash_backward_dkv": backward_per_step * steps[0]
+            * TRAIN_LAYERS}
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_train_flash(data_dir: Path):
     hist, launches, perf = _train(data_dir, "flash")
-    steps = [len(s) // TRAIN_BATCH
-             for s in train_val_test_split(TRAIN_ROWS, seed=42)]
+    steps = _phase_steps()
     losses = hist[0].step_losses
     if len(losses) != steps[0]:
         raise RuntimeError(f"train: {len(losses)} steps, expected {steps[0]}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train: loss did not fall ({losses[0]} -> "
                            f"{losses[-1]})")
-    want = {"flash_forward": sum(steps) * TRAIN_LAYERS,
-            "flash_backward_dq": steps[0] * TRAIN_LAYERS,
-            "flash_backward_dkv": steps[0] * TRAIN_LAYERS}
+    want = _expected_launches()
     print(f"train[flash]: launches {launches}, expected {want} "
           f"(train/val/test steps {steps} x {TRAIN_LAYERS} layers)")
     if launches != want:
@@ -892,11 +953,184 @@ def phase_train_dense(data_dir: Path, flash_hist, flash_perf):
         raise RuntimeError("dense and flash training disagree")
 
 
+# --- phases 10-12: bf16, -m data, remat, accumulation, checkpoints ---------
+
+
+def phase_train_bf16(data_dir: Path, f32_hist):
+    """Phase 10: phase 8's run in bf16, every launch on the bf16
+    instantiations."""
+    with _launch_dtypes() as seen:
+        hist, launches, perf = _train(data_dir, "flash", "--dtype",
+                                      "bfloat16", label="bf16")
+    losses = hist[0].step_losses
+    want = _expected_launches()
+    print(f"train[bf16]: launches {launches}, expected {want}; by launcher "
+          f"and dtype {dict(sorted(seen.items()))}")
+    if launches != want or {dt for _, dt in seen} != {"bfloat16"} \
+            or sum(seen.values()) != sum(launches.values()):
+        raise RuntimeError("train[bf16]: a layer of a step did not go "
+                           "through the bf16 flash kernels")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train[bf16]: loss did not fall ({losses[0]} "
+                           f"-> {losses[-1]})")
+    if f32_hist is not None:
+        rel = _rel(losses[0], f32_hist[0].step_losses[0])
+        print(f"bf16 vs f32: first step loss rel diff {rel:.2e} (tol 2e-2)")
+        if not rel <= 2e-2:
+            raise RuntimeError("bf16 and f32 training disagree")
+    return hist, launches, perf
+
+
+#: ``--grad-accum 2`` against the plain ``-m data`` run, each train step's
+#: loss (relative): the same tokens (none padded, so the mean of the
+#: microbatch means is the batch mean) through GEMMs of half the rows
+ACCUM_STEP_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def _planted_half_batch():
+    """A planted fault: every second train-mode loss (the second
+    microbatch of each step) keeps its value but sends a zero gradient,
+    so the update sees half the batch.  Phase 11's check of
+    ``--grad-accum 2`` must fail under it."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    real, calls = TokenCrossEntropy.__call__, [0]
+
+    def planted(self, pred, y):
+        loss = real(self, pred, y)
+        if not torch.is_grad_enabled():
+            return loss
+        calls[0] += 1
+        return loss if calls[0] % 2 else loss.detach() + 0.0 * loss
+
+    TokenCrossEntropy.__call__ = planted
+    try:
+        yield
+    finally:
+        TokenCrossEntropy.__call__ = real
+
+
+def phase_data_parallel(data_dir: Path, bf16_hist, bf16_perf):
+    """Phase 11: ``-m data`` at world 1 on NCCL, plain, ``--remat`` under
+    the policies ``nothing`` and ``dots`` (the flash Function inside a
+    selective checkpoint), and ``--grad-accum 2``."""
+    import torch.distributed as dist
+
+    bf16 = ("--dtype", "bfloat16")
+    plain, launches, perf = _train(data_dir, "flash", *bf16,
+                                   label="data bf16", mode="data")
+    if dist.is_initialized():
+        raise RuntimeError("-m data left its process group behind")
+    if launches != _expected_launches():
+        raise RuntimeError(f"train[data bf16]: launches {launches}")
+    first = plain[0].step_losses[0]
+    if bf16_hist is not None:
+        rel = _rel(first, bf16_hist[0].step_losses[0])
+        print(f"data vs sequential (bf16): first step loss rel diff "
+              f"{rel:.2e} (tol 1e-6); tokens/s {perf['tokens_per_s']:.1f} "
+              f"vs {bf16_perf['tokens_per_s']:.1f}")
+        if not rel <= 1e-6:
+            raise RuntimeError("-m data and -m sequential disagree")
+    remat_perf = {}
+    for policy in ("nothing", "dots"):
+        label = "data bf16 remat" + ("" if policy == "nothing"
+                                     else f" {policy}")
+        remat, r_launches, r_perf = _train(
+            data_dir, "flash", *bf16, "--remat", "--remat-policy", policy,
+            label=label, mode="data")
+        want = _expected_launches(forward_per_train_step=2)
+        rel = _rel(remat[0].step_losses[0], first)
+        print(f"remat {policy}: launches {r_launches}, expected {want}; "
+              f"first step loss rel diff {rel:.2e} (tol 1e-6); peak memory "
+              f"{r_perf['peak'] / 2**30:.2f} GiB vs "
+              f"{perf['peak'] / 2**30:.2f} GiB without remat and "
+              + (f"{bf16_perf['peak'] / 2**30:.2f} GiB in phase 10"
+                 if bf16_perf else "phase 10 not run"))
+        if r_launches != want or not rel <= 1e-6:
+            raise RuntimeError(f"--remat --remat-policy {policy}: wrong "
+                               "launches or a different loss")
+        remat_perf[policy] = r_perf
+    want = _expected_launches(forward_per_train_step=2, backward_per_step=2)
+    ref = bf16_hist if bf16_hist is not None else plain
+    passed = {}
+    for planted in (False, True):
+        label = "data bf16 grad-accum 2" + (" planted" if planted else "")
+        with _planted_half_batch() if planted else contextlib.nullcontext():
+            accum, a_launches, _ = _train(data_dir, "flash", *bf16,
+                                          "--grad-accum", "2", label=label,
+                                          mode="data")
+        rel = _rel(accum[0].loss, ref[0].loss)
+        steps = [_rel(a, b) for a, b in zip(accum[0].step_losses,
+                                             plain[0].step_losses)]
+        print(f"{label}: launches {a_launches}, expected {want}; epoch loss "
+              f"rel diff {rel:.2e} from phase 10's (tol 1e-2); per-step "
+              "loss rel diff from the plain -m data run "
+              + " ".join(f"{x:.2e}" for x in steps)
+              + f" (tol {ACCUM_STEP_TOL:.0e} each)")
+        passed[planted] = (a_launches == want and rel <= 1e-2
+                         and max(steps) <= ACCUM_STEP_TOL)
+    if not passed[False]:
+        raise RuntimeError("--grad-accum 2: wrong launches, epoch loss or "
+                           "step losses")
+    if passed[True]:
+        raise RuntimeError("--grad-accum 2: the check passed a planted "
+                           "fault (the second microbatch's gradient "
+                           "dropped)")
+    return perf, remat_perf
+
+
+def phase_checkpoint(data_dir: Path):
+    """Phase 12: a mid-epoch save, the final step removed, ``--resume``."""
+    from distributed_deep_learning_tpu_torch.utils.checkpoint import \
+        Checkpointer
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    flags = ("--dtype", "bfloat16", "--dropout", "0.1", "--checkpoint-dir",
+             str(ckdir), "--checkpoint-every", "4")
+    t0 = time.perf_counter()
+    whole, _, _ = _train(data_dir, "flash", *flags, label="ckpt whole",
+                         mode="data")
+    ckpt = Checkpointer(ckdir)
+    steps = _phase_steps()[0]
+    print(f"checkpoint: steps {ckpt.all_steps()} after the whole run "
+          f"({time.perf_counter() - t0:.1f} s with saves)")
+    if ckpt.all_steps() != [4, steps]:
+        raise RuntimeError(f"checkpoint: steps {ckpt.all_steps()}, expected "
+                           f"[4, {steps}]")
+    first_manifest = ckpt.read_manifest(steps)
+    for name in (f"ckpt-{steps}.pt", f"extra-{steps}.json",
+                 f"manifest-{steps}.json"):
+        (ckdir / name).unlink()
+    resumed, _, _ = _train(data_dir, "flash", *flags, "--resume",
+                           label="ckpt resumed", mode="data")
+    got, want = resumed[0].step_losses, whole[0].step_losses[4:]
+    worst = max(_rel(a, b) for a, b in zip(got, want)) if got else 1.0
+    print(f"checkpoint: resumed at batch 4, steps 5-{steps} losses rel diff "
+          f"{worst:.2e} from the run never stopped (tol 1e-6)")
+    if len(got) != steps - 4 or not worst <= 1e-6:
+        raise RuntimeError("checkpoint: the resumed run differs")
+    t0 = time.perf_counter()
+    ckpt.load(steps)                    # raises unless every CRC matches
+    manifest = ckpt.read_manifest(steps)
+    same = sum(manifest["leaves"][k]["crc32"] == r["crc32"]
+               for k, r in first_manifest["leaves"].items())
+    print(f"checkpoint: step {steps} verifies against its manifest "
+          f"({len(manifest['leaves'])} leaves, {time.perf_counter() - t0:.1f}"
+          f" s); {same} of {len(first_manifest['leaves'])} leaf CRCs equal "
+          "to the uninterrupted run's")
+    shutil.rmtree(ckdir)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -905,7 +1139,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 10)) and opts.waves is None
+    complete = phases == set(range(1, 13)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -931,18 +1165,30 @@ def main(argv=None) -> int:
     if 6 in phases:
         phase_ptxas(builds)
     records = phase_flash_kernels() if 7 in phases else {}
-    if phases & {8, 9}:
+    if phases & {8, 9, 10, 11, 12}:
         data_dir = _write_tokens()
-        hist, launches, perf = phase_train_flash(data_dir)
+        hist = launches = perf = None
+        if phases & {8, 9}:
+            hist, launches, perf = phase_train_flash(data_dir)
         if 9 in phases:
             phase_train_dense(data_dir, hist, perf)
-        for name, n in launches.items():
+        bf16_hist = bf16_launches = bf16_perf = None
+        if phases & {10, 11}:
+            bf16_hist, bf16_launches, bf16_perf = phase_train_bf16(data_dir,
+                                                                   hist)
+        if 11 in phases:
+            phase_data_parallel(data_dir, bf16_hist, bf16_perf)
+        if 12 in phases:
+            phase_checkpoint(data_dir)
+        for name in FLASH_REPLACES:
             rec = records.get("f32", {}).get(name, {})
             kernels.append({"name": name, "route": "cuda",
                             "source": FLASH_SOURCE,
                             "replaces": FLASH_REPLACES[name],
-                            "launches": n, **rec,
-                            "bf16": records.get("bf16", {}).get(name)})
+                            "launches": (launches or {}).get(name), **rec,
+                            "bf16": records.get("bf16", {}).get(name),
+                            "bf16_train_launches":
+                                (bf16_launches or {}).get(name)})
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -1,6 +1,6 @@
-"""Seeded 70/10/20 train/val/test split: a copy of
-``distributed_deep_learning_tpu/data/splits.py``'s
-``train_val_test_split``, so both packages split alike for a seed."""
+"""Seeded 70/10/20 train/val/test split and per-rank shards: copies of
+``distributed_deep_learning_tpu/data/splits.py``'s ``train_val_test_split``
+and ``shard_indices``, so both packages split alike for a seed."""
 
 from __future__ import annotations
 
@@ -33,3 +33,13 @@ def train_val_test_split(n: int, seed: int = 42,
     return Splits(train=perm[:n_train],
                   val=perm[n_train:n_train + n_val],
                   test=perm[n_train + n_val:])
+
+
+def shard_indices(indices: np.ndarray, num_shards: int,
+                  shard: int) -> np.ndarray:
+    """Disjoint per-rank shard of a split (``--no-sync``'s quirk Q1), every
+    shard of the same length (the remainder dropped)."""
+    if not 0 <= shard < num_shards:
+        raise ValueError(f"shard {shard} out of range for {num_shards}")
+    per = len(indices) // num_shards
+    return indices[shard * per:(shard + 1) * per]

@@ -8,6 +8,16 @@ interleaved pairs), grouped-query attention, ``pad_id`` positions masked
 out of attention, a weight-tied head computed in f32, and dropout after
 the attention output and after the MLP while training.
 
+``dtype=torch.bfloat16`` follows flax's ``dtype=bf16`` with f32
+parameters: the embedding row and the ``pos`` table are cast to bf16 and
+the residual stream stays bf16, each Linear casts its weight and bias to
+its input's dtype and returns bf16, each LayerNorm takes its statistics in
+f32 and returns its input's dtype, the dense attention's softmax runs in
+f32, and the tied head stays f32 on both operands.  The casts are explicit
+(not ``torch.autocast``, whose op lists put them elsewhere: under it
+``layer_norm`` returns f32).  ``remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``), replaying its dropout masks.
+
 Every forward runs through :meth:`CausalLM.run`, which takes the
 attention as a function ``attend(layer, q, k, v) -> y``.  The full
 forward attends causally over its own tokens, densely or through the flash
@@ -28,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
 
@@ -38,6 +50,67 @@ Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 
 MASK_FILL = -1e9   # the JAX package's fill: finite in bf16 as well
 ATTENTIONS = ("dense", "flash")
+DTYPES = (torch.float32, torch.bfloat16)
+
+_aten = torch.ops.aten
+#: ``--remat-policy`` -> the matmul outputs the backward keeps (jax's
+#: ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``); "nothing"
+#: recomputes every op of the layer
+REMAT_SAVED_OPS = {
+    "nothing": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype
+    (flax's ``Dense(dtype=...)`` over f32 parameters)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with f32 statistics and f32 scale/bias, returning
+    the input's dtype (flax's ``LayerNorm(dtype=...)``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+def remat_call(fn, x, policy: str, generator: Optional[torch.Generator]):
+    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes it, keeping only the outputs of ``policy``'s
+    matmuls.  ``checkpoint`` restores the default generators' state, not
+    ``generator``'s, so the recompute rewinds ``generator`` to where the
+    forward found it (the same dropout masks) and puts it back after."""
+    if policy not in REMAT_SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy!r}; choose from "
+                         f"{sorted(REMAT_SAVED_OPS)}")
+    saved = REMAT_SAVED_OPS[policy]
+    kw = {}
+    if saved:
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            list(saved))
+    if generator is None:
+        return checkpoint(fn, x, use_reentrant=False, **kw)
+    before, ran = generator.get_state(), []
+
+    def replay(x):
+        if not ran:                 # the forward: draw as usual
+            ran.append(True)
+            return fn(x)
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            return fn(x)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(replay, x, use_reentrant=False, **kw)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
@@ -132,10 +205,10 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = d_model // num_heads
         self.rope = rope
         hd = self.head_dim
-        self.q = nn.Linear(d_model, num_heads * hd)
-        self.k = nn.Linear(d_model, kv_heads * hd)
-        self.v = nn.Linear(d_model, kv_heads * hd)
-        self.out = nn.Linear(num_heads * hd, d_model)
+        self.q = Dense(d_model, num_heads * hd)
+        self.k = Dense(d_model, kv_heads * hd)
+        self.v = Dense(d_model, kv_heads * hd)
+        self.out = Dense(num_heads * hd, d_model)
 
     @property
     def group(self) -> int:
@@ -165,12 +238,12 @@ class TransformerLayer(nn.Module):
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  ln_eps: float = 1e-6):
         super().__init__()
-        self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
+        self.ln_attn = LayerNorm(d_model, eps=ln_eps)
         self.self_attn = MultiHeadAttention(d_model, num_heads,
                                             num_kv_heads, rope)
-        self.ln_mlp = nn.LayerNorm(d_model, eps=ln_eps)
-        self.mlp_in = nn.Linear(d_model, mlp_dim)
-        self.mlp_out = nn.Linear(mlp_dim, d_model)
+        self.ln_mlp = LayerNorm(d_model, eps=ln_eps)
+        self.mlp_in = Dense(d_model, mlp_dim)
+        self.mlp_out = Dense(mlp_dim, d_model)
 
     def forward(self, x, positions, attend, drop=None):
         """``attend(q, k, v) -> y`` is the layer's attention; ``drop(h)``,
@@ -192,7 +265,8 @@ class CausalLM(nn.Module):
     ``(B, T, V)`` with ``with_logits``); ``logits_from`` is the tied head
     in f32.  ``attention`` picks the full forward's attention (``dense``
     or the ``flash`` kernels); ``dropout_rate`` applies in training mode
-    only (``model.train()``)."""
+    only (``model.train()``); ``dtype`` is the compute dtype (f32 or
+    bf16; the parameters stay f32)."""
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12,
@@ -201,14 +275,19 @@ class CausalLM(nn.Module):
                  attention_window: Optional[int] = None,
                  num_kv_heads: Optional[int] = None, ln_eps: float = 1e-6,
                  pad_id: Optional[int] = 0, with_logits: bool = False,
-                 attention: str = "dense", dropout_rate: float = 0.0):
+                 attention: str = "dense", dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown compute dtype {dtype}; choose from "
+                             f"{DTYPES}")
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
         if attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}; choose from "
                              f"{ATTENTIONS}")
         self.attention, self.dropout_rate = attention, dropout_rate
+        self.dtype = dtype
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.d_model, self.num_heads, self.mlp_dim = d_model, num_heads, mlp_dim
         self.max_len = max_len
@@ -225,7 +304,7 @@ class CausalLM(nn.Module):
                              num_kv_heads=num_kv_heads, rope=rope,
                              ln_eps=ln_eps)
             for _ in range(num_layers))
-        self.final_norm = nn.LayerNorm(d_model, eps=ln_eps)
+        self.final_norm = LayerNorm(d_model, eps=ln_eps)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The flax initialisers: N(0, 0.02) embeddings, Xavier-uniform
@@ -251,22 +330,32 @@ class CausalLM(nn.Module):
             return torch.ones_like(tokens, dtype=torch.bool)
         return tokens != self.pad_id
 
-    def run(self, tokens, positions, attend: Attend, drop=None):
+    def run(self, tokens, positions, attend: Attend, drop=None, *,
+            remat: Optional[str] = None,
+            generator: Optional[torch.Generator] = None):
         """Embed ``tokens`` ``(B, T)`` at absolute ``positions`` (``(T,)``
         or ``(B, T)``), run every layer with ``attend(i, q, k, v)`` as its
         attention (and ``drop`` as its dropout, when given), and return the
-        final-norm hidden states."""
-        x = self.tok(tokens)
+        final-norm hidden states in the compute dtype.  ``remat`` (a
+        policy of :data:`REMAT_SAVED_OPS`) checkpoints each layer;
+        ``generator`` is the one ``drop`` draws from, replayed in the
+        recompute."""
+        x = self.tok(tokens).to(self.dtype)
         if self.pos is not None:
             x = x + self.pos[positions].to(x.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions,
-                      lambda q, k, v, i=i: attend(i, q, k, v), drop)
+            def block(x, layer=layer, i=i):
+                return layer(x, positions,
+                             lambda q, k, v: attend(i, q, k, v), drop)
+            x = block(x) if remat is None else \
+                remat_call(block, x, remat, generator)
         return self.final_norm(x)
 
-    def forward(self, tokens, generator: Optional[torch.Generator] = None):
+    def forward(self, tokens, generator: Optional[torch.Generator] = None,
+                remat: Optional[str] = None):
         """The full causal forward; ``generator`` draws the dropout masks
-        in training mode."""
+        in training mode; ``remat`` (a policy name) recomputes each layer
+        in the backward."""
         T = tokens.shape[1]
         valid = self.token_valid(tokens) if self.pad_id is not None \
             else None
@@ -286,7 +375,7 @@ class CausalLM(nn.Module):
                 return dropout(h, self.dropout_rate, generator)
 
         h = self.run(tokens, torch.arange(T, device=tokens.device), attend,
-                     drop)
+                     drop, remat=remat, generator=generator)
         return self.logits_from(h) if self.with_logits else h
 
     def logits_from(self, hidden):

@@ -1,6 +1,6 @@
 """Epoch loop with the reference's phase/metric semantics: the port of
-``distributed_deep_learning_tpu/train/loop.py`` (without checkpointing,
-resume, chaos, sentinel or telemetry, which later slices port).
+``distributed_deep_learning_tpu/train/loop.py`` with its checkpointing and
+resume (without chaos, sentinel or telemetry, which later slices port).
 
 Per epoch a train phase and a validation phase, then one final test
 phase; accuracy = argmax matches × 100 / sites, and the logged loss keeps
@@ -9,6 +9,14 @@ steps' metric tensors stay on the device during a phase and are fetched
 once at its end, with each train step's loss and time: on the card the
 step times come from CUDA events recorded between steps, so timing adds
 no host sync either.
+
+With a checkpointer the state is saved after every epoch, and with
+``checkpoint_every=N`` also every N train steps, with the loader position
+and the phase's running totals in the sidecar; ids are global step
+numbers then, epoch numbers otherwise.  Resuming mid-epoch, the seeded
+loader replays the epoch's batch order and skips the first
+``resume_batch`` batches without gathering them, so the continuation is
+the uninterrupted run's.
 """
 
 from __future__ import annotations
@@ -65,11 +73,30 @@ class _StepClock:
         return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
-def _run_phase(step_fn, state, loader, *, train: bool):
+def _sum_totals(metrics, init_totals=None):
+    """Fetch and sum the steps' metrics (one host sync), plus the totals
+    restored for a resumed phase; returns ``(totals, host tensors)``."""
+    totals = {"loss": 0.0, "correct": 0, "count": 0}
+    host = {}
+    if metrics:
+        stacked = {k: torch.stack([m[k] for m in metrics])
+                   for k in metrics[0]}
+        host = {k: v.cpu() for k, v in stacked.items()}
+        totals = {k: v.sum().item() for k, v in host.items()}
+    for k, v in (init_totals or {}).items():
+        totals[k] = totals.get(k, 0) + v
+    return totals, host
+
+
+def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
+               init_totals=None, on_step=None):
     """Drive one phase; returns ``(state, totals, step_losses,
-    step_seconds)`` with one host sync at the end."""
+    step_seconds)`` with one host sync at the end.  The first ``skip``
+    batches are skipped (mid-epoch resume; ``init_totals`` holds what
+    they added).  ``on_step(batch_number, state, totals_fn)`` runs after
+    each train step; ``totals_fn()`` syncs only when called."""
     metrics, clock = [], None
-    for x, y in loader:
+    for i, (x, y) in enumerate(loader.iter_batches(skip), start=skip + 1):
         if train:
             if clock is None:
                 clock = _StepClock(x.device)
@@ -78,12 +105,11 @@ def _run_phase(step_fn, state, loader, *, train: bool):
         else:
             m = step_fn(state, x, y)
         metrics.append(m)
-    if not metrics:
-        return state, {"loss": 0.0, "correct": 0, "count": 0}, [], []
-    stacked = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
-    host = {k: v.cpu() for k, v in stacked.items()}
-    totals = {k: v.sum().item() for k, v in host.items()}
-    losses = host["loss"].tolist() if train else []
+        if on_step is not None:
+            on_step(i, state,
+                    lambda: _sum_totals(metrics, init_totals)[0])
+    totals, host = _sum_totals(metrics, init_totals)
+    losses = host["loss"].tolist() if train and host else []
     return state, totals, losses, clock.seconds() if clock else []
 
 
@@ -101,18 +127,55 @@ def _result(phase: str, epoch: int | None, totals, t0: float, t1: float,
 
 
 def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
-        test_loader, epochs: int, logger: PhaseLogger | None = None
+        test_loader, epochs: int, logger: PhaseLogger | None = None, *,
+        checkpointer=None, start_epoch: int = 1,
+        checkpoint_every: int | None = None, resume_batch: int = 0,
+        resume_totals: dict | None = None
         ) -> tuple[TrainState, list[EpochResult]]:
-    """Drive the epoch loop; returns the final state and every phase's
-    :class:`EpochResult` in order (train, validation per epoch, then
-    test).  The log lines follow the reference's grammar."""
+    """Drive the epoch loop from ``start_epoch``; returns the final state
+    and every phase's :class:`EpochResult` in order (train, validation
+    per epoch, then test).  The log lines follow the reference's grammar.
+    ``checkpointer`` (:class:`..utils.checkpoint.Checkpointer`) saves as
+    the module docstring says; ``resume_batch``/``resume_totals`` (from
+    :func:`..elastic.resume_point`) resume inside ``start_epoch``."""
     logger = logger or PhaseLogger(verbose=False)
     history: list[EpochResult] = []
-    for epoch in range(1, epochs + 1):   # the reference counts from 1
-        train_loader.set_epoch(epoch)
+    spe = len(train_loader)                  # steps per epoch
+    if start_epoch > epochs + 1:
+        logger.info(
+            f"checkpoint resume point (epoch {start_epoch - 1}) is past "
+            f"epochs={epochs}; nothing left to train — running the final "
+            "test only (rerun with more -e epochs to continue)")
+        start_epoch = epochs + 1
+    if checkpointer is not None and start_epoch <= epochs:
+        last = checkpointer.latest_step()
+        final_id = epochs * spe if checkpoint_every else epochs
+        if last is not None and last >= final_id:
+            raise ValueError(
+                f"existing checkpoint id {last} >= this run's final id "
+                f"{final_id}: saves could never advance past it (the "
+                "directory was written with a different --checkpoint-every "
+                "or batch size) — use a fresh --checkpoint-dir or the "
+                "original flags")
+    for epoch in range(start_epoch, epochs + 1):   # the reference counts
+        train_loader.set_epoch(epoch)              # from 1
+        skip = resume_batch if epoch == start_epoch else 0
+        init_totals = resume_totals if epoch == start_epoch else None
+
+        def on_step(b, st, totals_fn, _epoch=epoch):
+            if checkpointer is not None and checkpoint_every \
+                    and b % checkpoint_every == 0 and b < spe:
+                checkpointer.save(
+                    (_epoch - 1) * spe + b, st,
+                    extra={"epoch": _epoch, "batch": b,
+                           "epoch_complete": False,
+                           "totals": {k: float(v)
+                                      for k, v in totals_fn().items()}})
+
         t0 = logger.phase_begin("train", epoch)
-        state, totals, losses, secs = _run_phase(train_step, state,
-                                                 train_loader, train=True)
+        state, totals, losses, secs = _run_phase(
+            train_step, state, train_loader, train=True, skip=skip,
+            init_totals=init_totals, on_step=on_step)
         t1 = logger.clock()
         res = _result("train", epoch, totals, t0, t1, losses, secs)
         logger.phase_end("train", epoch, accuracy=res.accuracy, loss=res.loss)
@@ -130,6 +193,10 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
         logger.phase_end("validation", epoch, accuracy=res.accuracy,
                          loss=res.loss)
         history.append(res)
+        if checkpointer is not None:
+            checkpointer.save(epoch * spe if checkpoint_every else epoch,
+                              state, extra={"epoch": epoch, "batch": spe,
+                                            "epoch_complete": True})
 
     t0 = logger.clock()
     _, totals, _, _ = _run_phase(eval_step, state, test_loader, train=False)

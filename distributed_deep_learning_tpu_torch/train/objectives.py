@@ -3,7 +3,12 @@
 ``gpt`` workload uses).
 
 * ``token_cross_entropy``: mean CE over non-pad token positions, with
-  optional label smoothing (ε on the target, ε/V spread over the rest).
+  optional label smoothing (ε on the target, ε/V spread over the rest),
+  always in f32: a bf16 model's logits arrive f32 (its tied head), and
+  nothing here casts to the model's dtype.
+* ``TokenCrossEntropy``: that loss as an object that also counts the
+  sites its mean is over, which ``-m data`` needs for the global-batch
+  mean (:mod:`.step`).
 * ``prediction_metrics``: the per-step triple the loop sums — batch loss,
   argmax matches, prediction sites (non-pad tokens for token targets, rows
   for one-hot targets).  The loop keeps the reference's
@@ -12,6 +17,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -33,6 +39,26 @@ def token_cross_entropy(logits, targets, label_smoothing: float = 0.0,
     else:
         per_tok = -picked
     return (per_tok * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenCrossEntropy:
+    """``token_cross_entropy`` with fixed options; ``sites(targets)`` is
+    the count its mean divides by."""
+
+    label_smoothing: float = 0.0
+    pad_id: int | None = 0
+
+    def __call__(self, logits, targets):
+        return token_cross_entropy(logits, targets, self.label_smoothing,
+                                   self.pad_id)
+
+    def sites(self, targets):
+        """The count of ``targets != pad_id`` (every position with
+        ``pad_id`` None)."""
+        if self.pad_id is None:
+            return torch.tensor(targets.numel(), device=targets.device)
+        return (targets != self.pad_id).sum()
 
 
 def _correct_and_count(pred, targets):

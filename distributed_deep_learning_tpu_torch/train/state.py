@@ -6,6 +6,11 @@ place), the update count and the dropout generator.  :class:`Optimizer`
 is the optax-style recipe the optimizer is built from: the learning rate
 is set from the schedule at each update's count, and a global-norm clip
 follows ``optax.clip_by_global_norm``.
+
+The parameters are f32 whatever the model computes in: a bf16 model
+(``CausalLM(dtype=torch.bfloat16)``) casts them on the way in, so its
+gradients arrive f32 on these master weights, and the clip's norm and the
+optimizer's moments stay f32, as under flax's ``param_dtype=f32``.
 """
 
 from __future__ import annotations

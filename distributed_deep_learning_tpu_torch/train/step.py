@@ -3,13 +3,28 @@
 A train step is forward, loss, backward and the optimizer update, all
 enqueued on the device; its metrics stay device tensors, so a step never
 waits for the card (the loop fetches them once per phase).
+
+Under ``-m data`` the model runs wrapped in ``DistributedDataParallel``
+(``ddp``), each rank on its rows of the global batch.  JAX's ``-m data``
+is one program over the global batch, so its loss is the mean over every
+counted site of the global batch; DDP averages each rank's own mean,
+which differs as soon as ranks hold different numbers of pad tokens.  So
+before the backward the ranks all-reduce ``[local loss × local sites,
+local sites, correct, count]`` (the sites depend on the targets only) and
+each rank backpropagates ``local loss × sites × world / global sites``:
+DDP's average of those gradients is the gradient of the global mean, and
+the metrics are the global batch's, as JAX logs them.  At world 1 the
+scale is exactly 1.  ``loss_fn.sites(targets)`` gives the count (see
+:class:`..objectives.TokenCrossEntropy`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from distributed_deep_learning_tpu_torch.train.objectives import \
     prediction_metrics
@@ -18,26 +33,81 @@ from distributed_deep_learning_tpu_torch.train.state import TrainState
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def make_step_fns(loss_fn: LossFn):
+def global_mean(loss, pred, y, loss_fn, world: int):
+    """``(objective, metrics)`` of one rank's share of a global batch: one
+    all-reduce of ``[loss × sites, sites, correct, count]`` (f64), the
+    objective whose DDP-averaged gradient is the global mean's, and the
+    global metrics."""
+    m = prediction_metrics(pred.detach(), y, loss)
+    sites = loss_fn.sites(y)
+    stats = torch.stack([loss.detach().double() * sites, sites.double(),
+                         m["correct"].double(), m["count"].double()])
+    dist.all_reduce(stats)
+    total = stats[1].clamp_min(1.0)
+    objective = loss * (sites * world / total).float()
+    return objective, {"loss": (stats[0] / total).float(),
+                       "correct": stats[2].to(torch.int32),
+                       "count": stats[3].to(torch.int32)}
+
+
+def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
+                  remat_policy: str = "nothing", accum_steps: int = 1):
     """``(train_step, eval_step)``: ``train_step(state, x, y) -> (state,
     metrics)`` updates ``state`` in place; ``eval_step(state, x, y) ->
-    metrics``.  The gradients of a train step stay on the parameters until
-    the next one starts."""
+    metrics``.  ``ddp`` (``DistributedDataParallel`` over ``state.model``)
+    makes them ``-m data`` steps over this rank's rows, with the global
+    batch's loss and metrics.  ``remat`` recomputes each layer in the
+    backward, keeping what ``remat_policy`` names (one of
+    ``utils.config.REMAT_POLICIES``); numerics do not change.
+    ``accum_steps`` cuts the batch into that many microbatches before one
+    update (:mod:`.accumulate`).  The gradients of a train step stay on
+    the parameters until the next one starts."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    kw = {"remat": remat_policy} if remat else {}
+    world = dist.get_world_size() if ddp is not None else 1
 
     def train_step(state: TrainState, x, y):
-        model = state.model
-        model.train()
+        B = x.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} not divisible by accumulation "
+                             f"factor {accum_steps}")
+        m = B // accum_steps
+        net = ddp if ddp is not None else state.model
+        net.train()
         state.optimizer.zero_grad(set_to_none=True)
-        pred = model(x, generator=state.generator)
-        loss = loss_fn(pred, y)
-        loss.backward()
+        metrics = []
+        for i in range(accum_steps):
+            mx, my = x[i * m:(i + 1) * m], y[i * m:(i + 1) * m]
+            # one gradient all-reduce a step: DDP syncs the last backward
+            sync = contextlib.nullcontext() if ddp is None \
+                or i == accum_steps - 1 else ddp.no_sync()
+            with sync:
+                pred = net(mx, generator=state.generator, **kw)
+                loss = loss_fn(pred, my)
+                if ddp is None:
+                    objective = loss
+                    metrics.append(prediction_metrics(pred.detach(), my,
+                                                      loss))
+                else:
+                    objective, mm = global_mean(loss, pred, my, loss_fn,
+                                                world)
+                    metrics.append(mm)
+                (objective / accum_steps).backward()   # exact at 1
         state.apply_gradients()
-        return state, prediction_metrics(pred.detach(), y, loss)
+        # JAX's accumulated metrics: mean loss, summed correct and count
+        return state, {
+            "loss": torch.stack([mm["loss"] for mm in metrics]).mean(),
+            "correct": sum(mm["correct"] for mm in metrics),
+            "count": sum(mm["count"] for mm in metrics)}
 
     @torch.no_grad()
     def eval_step(state: TrainState, x, y):
         state.model.eval()
         pred = state.model(x)
-        return prediction_metrics(pred, y, loss_fn(pred, y))
+        loss = loss_fn(pred, y)
+        if ddp is None:
+            return prediction_metrics(pred, y, loss)
+        return global_mean(loss, pred, y, loss_fn, world)[1]
 
     return train_step, eval_step

@@ -1,0 +1,335 @@
+"""Checkpoint / resume, torch-native: the port of
+``distributed_deep_learning_tpu/utils/checkpoint.py`` without orbax.
+
+A checkpoint of step ``s`` is one file, ``ckpt-<s>.pt``: the update count,
+the f32 parameters, the optimizer's state and the dropout generator's
+state of every rank (each rank draws its own masks), written to a
+temporary file and renamed into place, so a step either exists whole or
+not at all.  Beside it, written before it:
+
+* ``manifest-<s>.json``: per-leaf CRC32, shape, dtype and finiteness of
+  everything in the file; restores verify against it;
+* ``extra-<s>.json`` (optional): the loader position and partial-phase
+  totals of a mid-epoch save (:meth:`Checkpointer.read_extra`).
+
+:meth:`Checkpointer.restore_verified` falls back to the newest step that
+verifies, quarantining (renaming under ``quarantine/``, never deleting) a
+torn, bit-flipped or non-finite one.  A checkpointer ``shared`` by the
+ranks of a process group (``-m data``): the ranks gather their generator
+states, rank 0 writes and renames, every rank waits at a barrier after a
+save, loads the same file and takes its own generator state; a
+checkpoint of another world size is refused.  Otherwise (one process, or
+a ``--no-sync`` rank training its own replica) the process writes and
+reads its directory alone.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+import zlib
+
+import torch
+import torch.distributed as dist
+
+from distributed_deep_learning_tpu_torch.train.state import TrainState
+
+_CKPT = re.compile(r"ckpt-(\d+)\.pt")
+
+
+class CheckpointCorruption(RuntimeError):
+    """A checkpoint failed manifest verification."""
+
+    def __init__(self, step: int, detail: str):
+        self.step = step
+        super().__init__(f"checkpoint step {step} failed integrity "
+                         f"verification: {detail}")
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _leaves(obj, prefix=""):
+    """``(path, leaf)`` of a nested dict/list payload, in a fixed order."""
+    if isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            yield from _leaves(obj[k], f"{prefix}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, obj
+
+
+def leaf_records(payload) -> dict:
+    """Per-leaf integrity records: CRC32 of a tensor's bytes with its
+    shape, dtype and (floating point) finiteness; CRC32 of ``repr`` for a
+    Python value."""
+    records = {}
+    for path, leaf in _leaves(payload):
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.contiguous().reshape(-1)
+            records[path] = {
+                "crc32": zlib.crc32(t.view(torch.uint8).numpy()),
+                "shape": list(leaf.shape), "dtype": str(leaf.dtype),
+                "finite": bool(torch.isfinite(t).all())
+                if t.is_floating_point() else True}
+        else:
+            records[path] = {"crc32": zlib.crc32(repr(leaf).encode())}
+    return records
+
+
+def state_payload(state: TrainState, generators=None) -> dict:
+    """What a checkpoint holds, on the host.  ``generators``: every rank's
+    dropout generator state, in rank order (default: this process's)."""
+    if generators is None and state.generator is not None:
+        generators = [state.generator.get_state()]
+    return _to_cpu({"step": int(state.step),
+                    "params": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "generator": generators})
+
+
+def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
+                 world: int = 1) -> TrainState:
+    """Copy a checkpoint's contents into ``state`` (in place), the dropout
+    generator from the state that ``rank`` of ``world`` saved.  Raises
+    ``ValueError`` when the checkpoint and the run disagree on dropout or
+    on the number of ranks that draw masks."""
+    gens = payload["generator"]
+    if (gens is None) != (state.generator is None):
+        raise ValueError("checkpoint and run disagree on dropout: one has a "
+                         "dropout generator and the other none")
+    if gens is not None and len(gens) != world:
+        raise ValueError(f"checkpoint holds the dropout streams of "
+                         f"{len(gens)} rank(s), this run has {world}: "
+                         "resume at the world size that saved it")
+    state.model.load_state_dict(payload["params"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    if gens is not None:
+        state.generator.set_state(gens[rank])
+    return state
+
+
+class Checkpointer:
+    """Checkpoints of one run directory, the newest ``keep`` kept."""
+
+    def __init__(self, directory: str | os.PathLike, *, keep: int = 3,
+                 shared: bool = True):
+        self._dir = os.path.abspath(os.fspath(directory))
+        self.keep = keep
+        self._shared = shared and dist.is_initialized()
+        self._rank, self._world = (
+            (dist.get_rank(), dist.get_world_size()) if self._shared
+            else (0, 1))
+        self._writer = self._rank == 0
+        if self._writer:
+            os.makedirs(self._dir, exist_ok=True)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self._shared:
+            dist.barrier()
+
+    def _generator_states(self, state: TrainState):
+        """Every rank's dropout generator state, in rank order (one
+        collective when shared), or None without dropout."""
+        if state.generator is None:
+            return None
+        mine = state.generator.get_state()
+        if not self._shared:
+            return [mine]
+        states = [None] * self._world
+        dist.all_gather_object(states, mine)
+        return states
+
+    def _path(self, kind: str, step: int) -> str:
+        ext = "pt" if kind == "ckpt" else "json"
+        return os.path.join(self._dir, f"{kind}-{step}.{ext}")
+
+    # -- save ---------------------------------------------------------------
+    def save(self, step: int, state: TrainState, *,
+             extra: dict | None = None) -> bool:
+        """Persist ``state`` under ``step`` (synchronously).  A step that
+        exists is skipped, not rewritten (a run never reuses a dirty
+        directory without ``--resume``, so a replayed id holds identical
+        state).  ``extra`` is the small JSON sidecar.  Returns whether it
+        wrote."""
+        generators = self._generator_states(state)
+        if step in self.all_steps():
+            self._barrier()
+            return False
+        if self._writer:
+            payload = state_payload(state, generators)
+            if extra is not None:
+                self._write_json(self._path("extra", step), extra)
+            records = leaf_records(payload)
+            self._write_json(self._path("manifest", step), {
+                "format": 1,
+                "all_finite": all(r.get("finite", True)
+                                  for r in records.values()),
+                "leaves": records})
+            path = self._path("ckpt", step)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)                 # atomic on POSIX
+            self._collect(newest=step)
+        self._barrier()
+        return True
+
+    @staticmethod
+    def _write_json(path: str, payload: dict) -> None:
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)
+
+    def _collect(self, newest: int) -> None:
+        """Drop all but the newest ``keep`` steps, and sidecars orphaned
+        below ``newest`` (a kill between a sidecar and its step)."""
+        steps = self.all_steps()
+        keep = set(steps[-self.keep:])
+        for name in os.listdir(self._dir):
+            m = re.fullmatch(r"(ckpt|extra|manifest)-(\d+)\.(pt|json)", name)
+            if m and int(m.group(2)) not in keep \
+                    and int(m.group(2)) < newest:
+                os.remove(os.path.join(self._dir, name))
+
+    # -- read ---------------------------------------------------------------
+    def all_steps(self) -> list[int]:
+        """Step ids with a finished checkpoint file, ascending."""
+        if not os.path.isdir(self._dir):
+            return []
+        return sorted(int(m.group(1)) for m in map(_CKPT.fullmatch,
+                                                   os.listdir(self._dir))
+                      if m)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def _read_json(self, kind: str, step: int | None) -> dict | None:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        try:
+            with open(self._path(kind, step)) as f:
+                return json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return None
+
+    def read_extra(self, step: int | None = None) -> dict | None:
+        """The ``extra`` sidecar of ``step`` (default: latest), or None."""
+        return self._read_json("extra", step)
+
+    def read_manifest(self, step: int | None = None) -> dict | None:
+        """The integrity manifest of ``step`` (default: latest), or None."""
+        return self._read_json("manifest", step)
+
+    # -- restore ------------------------------------------------------------
+    def load(self, step: int) -> dict:
+        """The payload of ``step``, checked against its manifest (raises
+        :class:`CheckpointCorruption`; a torn file raises from
+        ``torch.load``)."""
+        payload = torch.load(self._path("ckpt", step), map_location="cpu",
+                             weights_only=True)
+        self._verify(step, payload)
+        return payload
+
+    def restore(self, state: TrainState,
+                step: int | None = None) -> TrainState | None:
+        """Load ``step`` (default: latest), verified, into ``state``; None
+        when the directory holds no checkpoint."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return self._into(state, self.load(step))
+
+    def _into(self, state: TrainState, payload: dict) -> TrainState:
+        return load_payload(state, payload, rank=self._rank,
+                            world=self._world)
+
+    def _verify(self, step: int, payload: dict) -> None:
+        manifest = self.read_manifest(step)
+        if manifest is None:
+            raise CheckpointCorruption(step, "missing or unreadable "
+                                       "manifest")
+        if not manifest.get("all_finite", True):
+            raise CheckpointCorruption(
+                step, "manifest records non-finite values at save time")
+        expected, actual = manifest.get("leaves", {}), leaf_records(payload)
+        if set(expected) != set(actual):
+            raise CheckpointCorruption(
+                step, f"leaf set changed: manifest has {len(expected)} "
+                f"leaves, the file {len(actual)}")
+        for key, rec in expected.items():
+            if rec["crc32"] != actual[key]["crc32"]:
+                raise CheckpointCorruption(step, f"checksum mismatch at "
+                                           f"leaf {key!r}")
+            if not actual[key].get("finite", True):
+                raise CheckpointCorruption(step, f"non-finite values at "
+                                           f"leaf {key!r}")
+
+    def restore_verified(self, state: TrainState, step: int | None = None
+                         ) -> tuple[TrainState | None, int | None]:
+        """Restore the newest step at or below ``step`` that verifies.  A
+        step that fails to load or to verify is quarantined and the next
+        older one tried.  Returns ``(state, step)``, or ``(None, None)``
+        when none survives.  Every rank calls it."""
+        candidates = sorted((s for s in self.all_steps()
+                             if step is None or s <= step), reverse=True)
+        try:
+            for s in candidates:
+                try:
+                    payload = self.load(s)
+                # a torn file fails inside torch.load with whatever its
+                # reader raises; any failure makes the step unusable
+                except Exception as e:  # noqa: BLE001
+                    print(f"checkpoint: step {s} unusable "
+                          f"({type(e).__name__}: {e}); quarantining and "
+                          "falling back", file=sys.stderr, flush=True)
+                    self.quarantine(s, reason=f"{type(e).__name__}: {e}")
+                    continue
+                # a step that verifies but does not fit the run (dropout,
+                # world size) is the run's fault, not the step's: it raises
+                return self._into(state, payload), s
+            return None, None
+        finally:
+            self._barrier()
+
+    # -- quarantine ---------------------------------------------------------
+    def quarantine(self, step: int, reason: str = "") -> str | None:
+        """Move ``step``'s file and sidecars under ``<dir>/quarantine/``
+        (the writer; rename, never delete: the bad file is evidence).
+        Returns the new path of the checkpoint file."""
+        if not self._writer:
+            return None
+        src = self._path("ckpt", step)
+        if not os.path.exists(src):
+            return None
+        qdir = os.path.join(self._dir, "quarantine")
+        os.makedirs(qdir, exist_ok=True)
+        base, n = os.path.basename(src), 0
+        while os.path.exists(os.path.join(qdir, base)):
+            n += 1
+            base = f"{os.path.basename(src)}.{n}"
+        dst = os.path.join(qdir, base)
+        os.rename(src, dst)
+        for kind in ("extra", "manifest"):
+            side = self._path(kind, step)
+            if os.path.exists(side):
+                os.rename(side, f"{dst}-{os.path.basename(side)}")
+        if reason:
+            self._write_json(f"{dst}.reason.json",
+                             {"step": step, "reason": reason})
+        return dst

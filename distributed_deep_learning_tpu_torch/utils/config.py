@@ -1,12 +1,15 @@
 """Run configuration and the workload CLI: the port of
-``distributed_deep_learning_tpu/utils/config.py`` for the flags this slice
-runs (``gpt -m sequential``).
+``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
+runs (``gpt -m sequential|data``, ``--dtype``, the step variants and
+checkpointing).
 
-Flag names, defaults and the per-workload ``-l/-s`` defaults are the JAX
-CLI's, except ``-d``: ``cuda`` (the default; ``gpu`` is an alias) or
-``cpu``.  The JAX CLI's other flags are accepted by the parser only to be
-refused: :func:`parse_args` raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that will port them.
+Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
+defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
+is an alias) or ``cpu``.  ``--spawn`` is taken off the command line by
+``__main__`` before parsing, as in the JAX package.  The JAX CLI's other
+flags are accepted by the parser only to be refused: :func:`parse_args`
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
+port them.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ import argparse
 import dataclasses
 import enum
 from typing import Sequence
+
+#: ``--remat-policy`` names, as the JAX CLI's; the model maps each to the
+#: matmuls its backward keeps (``models.transformer.REMAT_SAVED_OPS``)
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
 
 
 class Mode(str, enum.Enum):
@@ -54,6 +61,14 @@ class Config:
     lr_schedule: str = "none"
     warmup_steps: int | None = None
     clip_norm: float | None = None
+    world_size: int = 1                 # -r: ranks of a -m data run
+    sync_in_local_data_mode: bool = True  # False: --no-sync (quirk Q1)
+    remat: bool = False
+    remat_policy: str = "nothing"
+    grad_accum: int = 1
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0           # also save every N train steps
+    resume: bool = False
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -72,11 +87,9 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
     "gpt": {"nlayers": 12, "size": 768},
 }
 
-#: ROADMAP.md queue 1 items that port what this slice refuses
+#: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    2: "ROADMAP.md queue 1 item 2 (bf16 model path)",
     3: "ROADMAP.md queue 1 item 3 (train core: LAMB and Adafactor)",
-    5: "ROADMAP.md queue 1 item 5 (-m data, step variants and durability)",
     6: "ROADMAP.md queue 1 item 6 (slot serving engine)",
     7: "ROADMAP.md queue 1 item 7 (paged serving engine)",
     9: "ROADMAP.md queue 1 item 9 (the reference's workloads and the "
@@ -88,12 +101,10 @@ ROADMAP_ITEMS = {
     14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
 }
 
-#: JAX CLI flags this slice refuses -> the item that ports them; a
+#: JAX CLI flags the port refuses -> the item that ports them; a
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
-    "--no-sync": 5, "--remat": 5, "--remat-policy=": 5, "--grad-accum=": 5,
-    "--checkpoint-dir=": 5, "--checkpoint-every=": 5, "--resume": 5,
-    "--publish-weights=": 5, "--spawn": 5,
+    "--publish-weights=": 13,
     "--generate=": 6, "--serve": 6, "--max-slots=": 6,
     "--prefill-buckets=": 6,
     "--paged": 7, "--kv-block-size=": 7, "--prefill-chunk=": 7,
@@ -117,7 +128,7 @@ UNPORTED_FLAGS = {
     "--obs-rotate-mb=": 14, "--obs-blackbox=": 14, "--profile-dir=": 14,
 }
 
-_UNPORTED_MODES = {"data": 5, "model": 10, "pipeline": 10}
+_UNPORTED_MODES = {"model": 10, "pipeline": 10}
 _UNPORTED_OPTIMIZERS = ("adafactor", "lamb")
 
 
@@ -144,8 +155,8 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    default="cuda",
                    help="cuda (gpu is an alias) or cpu; cuda without a "
                         "card raises")
-    # -w, -p and -r are accepted as the JAX CLI accepts them; a sequential
-    # run on token data reads none of them
+    # -w and -p are accepted as the JAX CLI accepts them; a run on token
+    # data reads neither
     p.add_argument("-w", "--nworkers", type=int, default=0)
     p.add_argument("-m", "--mode", choices=[m.value for m in Mode],
                    default="sequential")
@@ -153,7 +164,9 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    help="pipeline microbatch size (ignored unless -m "
                         "pipeline)")
     p.add_argument("-r", "--run", type=int, default=1,
-                   help="world size for local data-parallel fan-out")
+                   help="ranks of a -m data run: with --spawn, this many "
+                        "local processes; without, a launcher's environment "
+                        "must say so")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
@@ -187,6 +200,27 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    default="none")
     p.add_argument("--warmup", dest="warmup_steps", type=int, default=None)
     p.add_argument("--clip-norm", type=float, default=None)
+    p.add_argument("--no-sync", dest="sync", action="store_false",
+                   help="replicate reference quirk Q1 (-m data trains "
+                        "independent replicas; rank 0's 1/N shard is "
+                        "logged)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each layer in the backward "
+                        "(torch.utils.checkpoint)")
+    p.add_argument("--remat-policy", dest="remat_policy", default="nothing",
+                   choices=REMAT_POLICIES,
+                   help="with --remat: what the backward may keep; "
+                        "'nothing' recomputes all, 'dots'/'dots_no_batch' "
+                        "keep matmul outputs")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="split each batch into this many sequential "
+                        "microbatches, accumulating gradients")
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also checkpoint every N train steps (0 = per "
+                        "epoch only); resume replays the loader to the "
+                        "exact batch")
+    p.add_argument("--resume", action="store_true")
     for flag, item in UNPORTED_FLAGS.items():
         kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
               else {"action": "store_true", "default": None})
@@ -198,6 +232,18 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
 def parse_args(argv: Sequence[str] | None = None,
                workload: str = "") -> Config:
     args = build_parser(workload).parse_args(argv)
+    # the JAX CLI's parse-time checks (utils/config.py:932-943 there)
+    if args.checkpoint_every and not args.checkpoint_dir:
+        raise SystemExit("--checkpoint-every requires --checkpoint-dir "
+                         "(silently dropping the cadence would be worse "
+                         "than an error)")
+    if args.checkpoint_every < 0:
+        raise SystemExit(f"--checkpoint-every {args.checkpoint_every}: "
+                         "must be >= 0")
+    if args.remat_policy != "nothing" and not args.remat:
+        raise SystemExit("--remat-policy requires --remat (a policy "
+                         "without rematerialisation would be a silent "
+                         "no-op)")
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
@@ -206,9 +252,6 @@ def parse_args(argv: Sequence[str] | None = None,
         raise NotImplementedError(
             f"-m {args.mode} is not ported yet: "
             f"{ROADMAP_ITEMS[_UNPORTED_MODES[args.mode]]}")
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype} is not ported yet: {ROADMAP_ITEMS[2]}")
     if args.optimizer in _UNPORTED_OPTIMIZERS:
         raise NotImplementedError(
             f"--optimizer {args.optimizer} is not ported yet: "
@@ -223,4 +266,8 @@ def parse_args(argv: Sequence[str] | None = None,
         attention_window=args.attention_window, optimizer=args.optimizer,
         pos_embedding=args.pos_embedding, num_kv_heads=args.num_kv_heads,
         label_smoothing=args.label_smoothing, lr_schedule=args.lr_schedule,
-        warmup_steps=args.warmup_steps, clip_norm=args.clip_norm)
+        warmup_steps=args.warmup_steps, clip_norm=args.clip_norm,
+        world_size=args.run, sync_in_local_data_mode=args.sync,
+        remat=args.remat, remat_policy=args.remat_policy,
+        grad_accum=args.grad_accum, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, resume=args.resume)

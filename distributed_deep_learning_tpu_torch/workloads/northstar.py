@@ -11,7 +11,7 @@ measured-speedup gate does not carry over to this card).
 
 from __future__ import annotations
 
-from functools import partial
+import torch
 
 from distributed_deep_learning_tpu_torch import resolve_device
 from distributed_deep_learning_tpu_torch.data.datasets import synthetic_lm
@@ -19,7 +19,7 @@ from distributed_deep_learning_tpu_torch.data.tokens import (lm_dataset,
                                                              load_tokens)
 from distributed_deep_learning_tpu_torch.models.transformer import CausalLM
 from distributed_deep_learning_tpu_torch.train.objectives import \
-    token_cross_entropy
+    TokenCrossEntropy
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
@@ -28,7 +28,12 @@ from distributed_deep_learning_tpu_torch.workloads.base import (
 
 def _token_ce_loss(c: Config):
     """Token cross-entropy with ``--label-smoothing`` (pad id 0 excluded)."""
-    return partial(token_cross_entropy, label_smoothing=c.label_smoothing)
+    return TokenCrossEntropy(label_smoothing=c.label_smoothing)
+
+
+def config_dtype(config: Config) -> torch.dtype:
+    """The compute dtype ``--dtype`` selects."""
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
 def _attention_fn(config: Config) -> str:
@@ -64,7 +69,7 @@ def _gpt_model(config: Config, dataset) -> CausalLM:
                     attention_window=config.attention_window,
                     num_kv_heads=config.num_kv_heads, with_logits=True,
                     attention=_attention_fn(config),
-                    dropout_rate=config.dropout)
+                    dropout_rate=config.dropout, dtype=config_dtype(config))
 
 
 GPT_SPEC = WorkloadSpec(

@@ -238,10 +238,10 @@ def test_cli_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["-m", "data"], "item 5"), (["-m", "pipeline"], "item 10"),
-    (["--dtype", "bfloat16"], "item 2"), (["--remat"], "item 5"),
-    (["--grad-accum", "2"], "item 5"), (["--zero", "1"], "item 11"),
-    (["--mesh", "data=2"], "item 11"), (["--checkpoint-dir", "x"], "item 5"),
+    (["-m", "model"], "item 10"), (["-m", "pipeline"], "item 10"),
+    (["--publish-weights", "p"], "item 13"), (["--nstages", "2"], "item 10"),
+    (["--heartbeat-dir", "d"], "item 12"), (["--zero", "1"], "item 11"),
+    (["--mesh", "data=2"], "item 11"), (["--comm", "int8"], "item 11"),
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
     (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
     (["--packed-cache", "f"], "item 9"), (["--obs"], "item 14"),
