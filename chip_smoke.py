@@ -15,17 +15,21 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernel vs plain: ``paged_flash_decode`` against ``paged_decode_reference``
    on the card at the serving path's decode shape, plus GQA, bf16, int8,
    ``valid_pool`` holes, an empty slot, a slot ending on a split boundary,
-   a slot shorter than one split beside long ones, and two full-length
-   slots (``f32_long``, the few-slots case split-K is for); median times
+   a slot shorter than one split beside long ones, two full-length slots
+   (``f32_long``, the few-slots case split-K is for) and phase 15's shape
+   (``bf16_serve``: bf16 queries and pools, 128 blocks a slot, 2-24 live
+   positions, the split count that shape gives); median times
    of the kernel, the plain version and ``scaled_dot_product_attention``
    on pre-gathered K/V (a yardstick the port never calls), beside the
    bytes bound, at the 8-slot shape and at ``f32_long``; the kernel's
    device time with no host cost in it at both, and the host's cost of
    one wrapper call at the 8-slot shape;
 4. the serving slice at full width (GPT-2-small shape, vocab 32768): the
-   paged engine serves a seeded Poisson load with a shared prefix; checks
-   errors, token budgets and ranges, prefix hits and that every decode
-   tick launched the kernel once per layer;
+   paged engine serves a seeded Poisson load with a shared prefix, its
+   decode tick captured once in a CUDA graph and replayed; checks errors,
+   token budgets and ranges, prefix hits, one capture, finite outputs and
+   that every decode tick launched the kernel once per layer; prints the
+   mean tick time;
 5. the same trace with the decode attention switched to the plain
    version: first tokens must agree, and the overall greedy agreement is
    printed;
@@ -69,7 +73,34 @@ Phases, in order; any failure raises and exits non-zero:
     ``--checkpoint-dir`` under ``build/``: the final step removed, a
     ``--resume`` run continues from batch 4 and its steps 5-8 give the
     losses of the run that was never stopped within 1e-6; the final step's
-    manifest (CRC32 of every leaf) verifies.
+    manifest (CRC32 of every leaf) verifies;
+13. phase 4's trace through ``PagedEngine`` with its decode tick eager
+    (``DecodeTick.graphed`` set false: the same body, no capture), in
+    turns with the graphed tick (eager, graphed, graphed, eager): greedy
+    tokens identical to phase 4's for every request in every run (the
+    proof that the graph recorded the ``ctypes`` kernel launches), one
+    kernel launch per layer per tick; tokens/s, tick time, ITL and TTFT of
+    each run; each graphed engine's captured tick, and a slot engine's,
+    replayed alone between CUDA events: its device time beside its host
+    tick; every engine's device memory freed when it is dropped;
+14. the slot engine at full width on phase 4's trace (the bench's
+    comparison leg, run in phase 4's call): no errors, every budget met,
+    tokens in [1, vocab), one capture, first tokens equal to phase 4's;
+    greedy agreement, tokens/s, TTFT, ITL and KV bytes beside phase 4's;
+15. post-train serving through the CLI, riding on earlier runs: phase
+    10's run gains ``--generate 16 --serve --paged --prefill-chunk 64``
+    (bf16 queries and pools through the kernel) and phase 11's plain
+    ``-m data`` run ``--serve`` (the slot engine on bf16 weights); their
+    logged ``generate``, ``serve(paged):`` and ``serve:`` lines must show
+    two 16-token continuations, every request served, one decode capture
+    and one kernel launch per layer per tick.  What each run served is
+    held too, right after it: every budget met, tokens in [1, vocab), each
+    greedy token within one bf16 step (2^-8 of max|logit|) of the plain
+    forward's argmax on its own prefix; the paged engine's geometry is
+    phase 3's ``bf16_serve`` case, and its trace replayed with the plain
+    decode attention gives the same first tokens (the greedy agreement
+    printed) within the same limit, which a planted fault (each slot
+    reading its neighbour's blocks) must break.
 
 Phases 8-12 print step time, tokens/s and peak memory.  The line before
 the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
@@ -441,20 +472,33 @@ def _decode_timing(args, kw, err):
     return rec
 
 
-def phase_kernel():
+def _print_splits(label, shape):
+    """The split-K count the decode's rule gives at ``shape``; returns the
+    count and the positions a split covers."""
     import torch
 
     from distributed_deep_learning_tpu_torch.ops.paged_decode import (
-        decode_splits, paged_decode_reference, paged_flash_decode, sm_count)
+        decode_splits, sm_count)
+
+    splits, per = decode_splits(shape["B"], shape["Hkv"], shape["Bps"],
+                                shape["bs"], sm_count(torch.device("cuda")))
+    print(f"kernel split-K at {label}: {splits} splits of {per} blocks "
+          f"({per * shape['bs']} positions) per (slot, kv head), "
+          f"{shape['B'] * shape['Hkv'] * splits} blocks")
+    return splits, per * shape["bs"]
+
+
+def phase_kernel():
+    import numpy as np
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import (
+        paged_decode_reference, paged_flash_decode)
 
     shape = DECODE_SHAPE
     full = shape["Bps"] * shape["bs"]
-    splits, per = decode_splits(shape["B"], shape["Hkv"], shape["Bps"],
-                                shape["bs"], sm_count(torch.device("cuda")))
-    run = per * shape["bs"]
-    print(f"kernel split-K at the {shape['B']}-slot shape: {splits} splits "
-          f"of {per} blocks ({run} positions) per (slot, kv head), "
-          f"{shape['B'] * shape['Hkv'] * splits} blocks")
+    splits, run = _print_splits(f"the {shape['B']}-slot shape", shape)
+    _print_splits("phase 15's shape", SERVE_BF16_SHAPE)
     timed = _timed_decode_specs()
     spread = timed["f32"]["lens"]
     long_tail = [full - 13 * i for i in range(1, shape["B"])]
@@ -469,8 +513,11 @@ def phase_kernel():
                                 + spread[1:])),
         ("short_slot", dict(shape, lens=[max(1, run // 3)] + long_tail)),
         ("f32_long", timed["f32_long"]),
+        ("bf16_serve", dict(SERVE_BF16_SHAPE, kv="bf16", lens=[
+            int(x) for x in np.linspace(*SERVE_BF16_LENS,
+                                        SERVE_BF16_SHAPE["B"])])),
     ]
-    main = None
+    main, errs = None, {}
     for name, spec in cases:
         args, kw = _decode_case(seed=len(name), **spec)
         out = paged_flash_decode(*args, **kw)
@@ -484,6 +531,7 @@ def phase_kernel():
         print(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise RuntimeError(f"kernel case {name}: error {err} > {tol}")
+        errs[name] = err
         if name in ("f32", "f32_long"):
             rec = _decode_timing(args, kw, err)
             print(f"kernel {name} timing: kernel {rec['ms']:.4f} ms, plain "
@@ -495,6 +543,7 @@ def phase_kernel():
                 main = rec
             else:
                 main["f32_long"] = rec
+    main["bf16_serve_max_abs_err"] = errs["bf16_serve"]
     costs = decode_costs()
     main["device_ms"] = costs["f32"]
     main["f32_long"]["device_ms"] = costs["f32_long"]
@@ -505,7 +554,7 @@ def phase_kernel():
     return main
 
 
-# --- phases 4 and 5 ---------------------------------------------------------
+# --- phases 4, 5, 13 and 14: serving ----------------------------------------
 
 #: the ``gpt`` CLI default (-l 12 -s 768: 12 heads of 64, MLP 3072) with the
 #: bench ``lm`` vocabulary, 1024 positions, f32, random weights from seed 0
@@ -517,52 +566,95 @@ FULL_LOAD = dict(n_requests=16, arrival="poisson", prompt_short=(16, 64),
 FULL_ENGINE = dict(max_slots=8, kv_block_size=16, prefill_chunk=64)
 
 
-def _serve(decode_attention):
+def _serve(label, *, compare_engine=False):
+    """Phase 4's bench call with the decode attention ``label`` ("kernel"
+    or "plain")."""
     from distributed_deep_learning_tpu_torch.serve.bench import \
         paged_serving_bench
 
     t0 = time.perf_counter()
     rec = paged_serving_bench(seed=0, device="cuda", load_kw=FULL_LOAD,
                               model_kw=FULL_MODEL,
-                              decode_attention=decode_attention,
-                              **FULL_ENGINE)
-    pe, lat = rec["paged_engine"], rec["paged_engine"]["latency"]
-    print(f"serve[{decode_attention}]: {pe['generated_tokens']} tokens at "
+                              decode_attention=label,
+                              compare_engine=compare_engine, **FULL_ENGINE)
+    pe = rec["paged_engine"]
+    print(f"serve[{label}]: {pe['generated_tokens']} tokens at "
           f"{pe['tokens_per_sec']:.1f} tok/s ({pe['total_seconds']:.2f} s "
           f"serving, {time.perf_counter() - t0:.1f} s with model build), "
           f"decode {pe['decode_seconds']:.3f} s over {pe['decode_ticks']} "
-          f"ticks, prefill {pe['prefill_seconds']:.3f} s over "
-          f"{pe['prefill_chunks']} chunks")
-    print(f"serve[{decode_attention}]: ttft p50 {lat['ttft_p50_s']:.4f} s "
-          f"p99 {lat['ttft_p99_s']:.4f} s | itl p50 {lat['itl_p50_s']:.5f} s"
-          f" p99 {lat['itl_p99_s']:.5f} s | e2e p50 {lat['e2e_p50_s']:.4f} s"
-          f" p99 {lat['e2e_p99_s']:.4f} s | kv_cache_bytes "
-          f"{pe['kv_cache_bytes']} | prefix_hit_rate "
-          f"{pe['prefix_hit_rate']:.4f} | mean occupancy "
-          f"{pe['mean_slot_occupancy']:.3f}")
+          f"ticks ({_tick_ms(pe):.3f} ms a tick, decode captures "
+          f"{pe['decode_captures']}), prefill {pe['prefill_seconds']:.3f} s"
+          f" over {pe['prefill_chunks']} chunks")
+    print(f"serve[{label}]: {_latency_text(pe)} | prefix_hit_rate "
+          f"{pe['prefix_hit_rate']:.4f}")
     return rec
 
 
-def phase_serve():
-    """The main path at full width; returns its record and the kernel
-    launches counted during it (the count is zeroed just before)."""
+def _tick_ms(rec):
+    return rec["decode_seconds"] / rec["decode_ticks"] * 1e3
+
+
+def _latency_text(rec):
+    lat = rec["latency"]
+    return (f"ttft p50 {lat['ttft_p50_s']:.4f} s p99 {lat['ttft_p99_s']:.4f}"
+            f" s | itl p50 {lat['itl_p50_s']:.5f} s p99 "
+            f"{lat['itl_p99_s']:.5f} s | e2e p50 {lat['e2e_p50_s']:.4f} s "
+            f"p99 {lat['e2e_p99_s']:.4f} s | kv_cache_bytes "
+            f"{rec['kv_cache_bytes']} | mean occupancy "
+            f"{rec['mean_slot_occupancy']:.3f}")
+
+
+def _check_results(label, results, budgets, vocab=FULL_MODEL["vocab_size"]):
+    """Every request served to its budget, every token in [1, vocab)."""
+    for uid, budget in budgets.items():
+        toks = results.get(uid, [])
+        if len(toks) != budget:
+            raise RuntimeError(f"{label}: request {uid}: {len(toks)} tokens "
+                               f"of {budget}")
+        if not all(1 <= t < vocab for t in toks):
+            raise RuntimeError(f"{label}: request {uid}: token outside "
+                               f"[1, {vocab})")
+
+
+def _check_tick(label, rec, captures):
+    if rec["decode_captures"] != captures or rec["nonfinite_tokens"]:
+        raise RuntimeError(f"{label}: decode captures "
+                           f"{rec['decode_captures']} (expected {captures}),"
+                           f" {rec['nonfinite_tokens']} non-finite tokens")
+
+
+def _agreement(a, b, label):
+    """Greedy agreement of two result maps; raises unless every first
+    token agrees."""
+    same = total = 0
+    for uid, toks in a.items():
+        other = b[uid]
+        if toks[0] != other[0]:
+            raise RuntimeError(f"{label}: request {uid}: first token "
+                               f"{toks[0]} vs {other[0]}")
+        same += sum(x == y for x, y in zip(toks, other))
+        total += len(toks)
+    print(f"{label}: first tokens identical for {len(a)} requests; greedy "
+          f"agreement {same}/{total} = {same / total:.4f}")
+    return same / total
+
+
+def phase_serve(compare_engine=False):
+    """The main path at full width, its decode tick graphed; returns its
+    record and the kernel launches counted during it (the count is zeroed
+    just before).  ``compare_engine``: the slot engine serves the same
+    trace after it (phase 14's run), launching no kernel."""
     from distributed_deep_learning_tpu_torch.ops.paged_decode import \
         paged_flash_decode
 
     paged_flash_decode.launches = 0
-    rec = _serve("kernel")
+    rec = _serve("kernel", compare_engine=compare_engine)
     launches = paged_flash_decode.launches
     pe = rec["paged_engine"]
     if rec["errors"]:
         raise RuntimeError(f"serving: {rec['errors']} requests rejected")
-    vocab = FULL_MODEL["vocab_size"]
-    for uid, budget in rec["budgets"].items():
-        toks = rec["results"].get(uid, [])
-        if len(toks) != budget:
-            raise RuntimeError(f"request {uid}: {len(toks)} tokens of "
-                               f"{budget}")
-        if not all(1 <= t < vocab for t in toks):
-            raise RuntimeError(f"request {uid}: token outside [1, {vocab})")
+    _check_results("serving", rec["results"], rec["budgets"])
+    _check_tick("serving", pe, captures=1)
     if not pe["prefix_hit_rate"] > 0:
         raise RuntimeError("serving: no prefix-cache hit")
     want = pe["decode_ticks"] * FULL_MODEL["num_layers"]
@@ -586,17 +678,156 @@ def phase_plain_replay(rec):
         raise RuntimeError("plain replay launched the kernel")
     if plain["errors"]:
         raise RuntimeError(f"plain replay: {plain['errors']} rejected")
-    same = total = 0
-    for uid, toks in rec["results"].items():
-        other = plain["results"][uid]
-        if toks[0] != other[0]:
-            raise RuntimeError(f"request {uid}: first token {toks[0]} "
-                               f"(kernel) vs {other[0]} (plain)")
-        same += sum(a == b for a, b in zip(toks, other))
-        total += len(toks)
-    print(f"plain replay: first tokens identical for {len(rec['results'])}"
-          f" requests; greedy agreement {same}/{total} = {same / total:.4f}")
-    return same / total
+    _check_tick("plain replay", plain["paged_engine"], captures=1)
+    return _agreement(rec["results"], plain["results"], "plain replay")
+
+
+#: phase 13's paged runs once the process is warm (phase 4 pays its
+#: first-use costs inside its prefill): the tick eager and graphed in turns
+EAGER_AB = (False, True, True, False)
+
+
+def _full_width():
+    """Phase 4's model (seed 0), trace and paged capacity, built once for
+    phase 13's engines."""
+    from distributed_deep_learning_tpu_torch.serve.bench import (
+        DEFAULT_LOAD, build_model, paged_max_len)
+    from distributed_deep_learning_tpu_torch.serve.load import (LoadSpec,
+                                                                make_load)
+
+    model = build_model(0, "cuda", **FULL_MODEL)
+    trace = make_load(LoadSpec(**{**DEFAULT_LOAD, **FULL_LOAD}),
+                      vocab_size=model.vocab_size, seed=0)
+    return model, trace, paged_max_len(model.max_len,
+                                       FULL_ENGINE["kv_block_size"])
+
+
+def _replay_ms(graph, reps=50):
+    """Device ms of one replay of a captured tick: ``reps`` replays back to
+    back between CUDA events, on the tick's last staged inputs (the K/V
+    writes repeat in place).  A replay is enqueued in microseconds, so the
+    events time the card alone."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _engine_lifetime(make, trace, label, graphed=True):
+    """One engine's lifetime over ``trace``: ``make()`` builds it, its tick
+    graphed or eager (``DecodeTick.graphed``).  Returns the run's output
+    and, graphed, the device ms of a replay of its captured tick.  The
+    device memory allocated before the engine is built and after it is
+    dropped (no cyclic collection between) must agree within a tenth of
+    its KV cache: a dropped engine frees its caches and its graph."""
+    import torch
+
+    before = torch.cuda.memory_allocated()
+    engine = make()
+    engine._tick.graphed = graphed
+    out = engine.run(trace)
+    replay = _replay_ms(engine._tick._graph) if graphed else None
+    kv = engine.kv_cache_bytes
+    del engine
+    after = torch.cuda.memory_allocated()
+    print(f"{label}: device memory allocated {before / 2**20:.1f} MiB "
+          f"before the engine, {after / 2**20:.1f} MiB after it is dropped "
+          f"(its KV cache {kv / 2**20:.1f} MiB)")
+    if after - before > kv / 10:
+        raise RuntimeError(f"{label}: a dropped engine kept "
+                           f"{(after - before) / 2**20:.1f} MiB")
+    return out, replay
+
+
+def _print_replay(name, replay, stats):
+    print(f"graphed tick [{name}]: {replay:.3f} ms on the card a replay, "
+          f"{_tick_ms(stats):.3f} ms a tick on the host clock (replay / "
+          f"host tick {replay / _tick_ms(stats):.1%}: an estimate from "
+          "back-to-back replays on fixed inputs, not a trace)")
+
+
+def phase_eager_replay(rec):
+    """Phase 13: phase 4's trace through ``PagedEngine`` with the decode
+    tick eager and graphed in turns (``EAGER_AB``); every run's greedy
+    tokens must be phase 4's, request for request, and its kernel
+    launches one per layer per tick.  Each graphed run, and a slot engine
+    on the same trace, then replays its captured tick alone; every engine
+    must free its device memory when dropped."""
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+    from distributed_deep_learning_tpu_torch.serve.engine import (
+        PagedEngine, ServeEngine)
+
+    model, trace, cap = _full_width()
+    runs = {"graphed": [], "eager": []}
+    for graphed in EAGER_AB:
+        name = "graphed" if graphed else "eager"
+        paged_flash_decode.launches = 0
+        r, replay = _engine_lifetime(
+            lambda: PagedEngine(model, max_len=cap, **FULL_ENGINE), trace,
+            f"graph vs eager [{name}]", graphed=graphed)
+        launches, pe = paged_flash_decode.launches, r["stats"]
+        if r["errors"]:
+            raise RuntimeError(f"{name} replay: {r['errors']} rejected")
+        _check_tick(f"{name} replay", pe, captures=int(graphed))
+        want = pe["decode_ticks"] * FULL_MODEL["num_layers"]
+        if not launches == pe["paged_decode_launches"] == want:
+            raise RuntimeError(f"{name} replay: {launches} kernel launches,"
+                               f" expected {want}")
+        differ = [uid for uid, toks in rec["results"].items()
+                  if list(r["results"][uid]) != toks]
+        if differ:
+            raise RuntimeError(f"graph vs eager: {name} requests {differ} "
+                               "differ from phase 4's")
+        runs[name].append(pe)
+        if graphed:
+            _print_replay("paged", replay, pe)
+    print(f"graph vs eager: greedy tokens identical to phase 4's for all "
+          f"{len(rec['results'])} requests in {len(EAGER_AB)} runs, one "
+          "launch per layer per tick in each")
+    for name, rs in runs.items():
+        for r in rs:
+            lat = r["latency"]
+            print(f"graph vs eager [{name}]: {r['tokens_per_sec']:.1f} "
+                  f"tok/s, tick {_tick_ms(r):.3f} ms, itl p50 "
+                  f"{lat['itl_p50_s']:.5f} s p99 {lat['itl_p99_s']:.5f} s, "
+                  f"ttft p50 {lat['ttft_p50_s']:.4f} s p99 "
+                  f"{lat['ttft_p99_s']:.4f} s, decode "
+                  f"{r['decode_seconds']:.3f} s, prefill "
+                  f"{r['prefill_seconds']:.3f} s")
+    slot, replay = _engine_lifetime(
+        lambda: ServeEngine(model, max_slots=FULL_ENGINE["max_slots"]),
+        trace, "slot engine")
+    _print_replay("slot", replay, slot["stats"])
+
+
+def phase_slot_engine(rec):
+    """Phase 14: the slot engine's leg of phase 4's bench call."""
+    v1, pe = rec.get("engine_v1"), rec["paged_engine"]
+    if v1 is None:
+        raise RuntimeError("slot engine: phase 4 ran without its "
+                           "comparison leg")
+    if v1["errors"]:
+        raise RuntimeError(f"slot engine: {v1['errors']} rejected")
+    _check_results("slot engine", rec["results_v1"], rec["budgets"])
+    _check_tick("slot engine", v1, captures=1)
+    _agreement(rec["results"], rec["results_v1"], "slot vs paged")
+    for name, r in (("paged", pe), ("slot", v1)):
+        print(f"slot vs paged [{name}]: {r['tokens_per_sec']:.1f} tok/s, "
+              f"tick {_tick_ms(r):.3f} ms over {r['decode_ticks']} ticks, "
+              f"prefill {r['prefill_seconds']:.3f} s | {_latency_text(r)}")
+    print(f"slot vs paged: speedup_vs_v1 {rec['speedup_vs_v1']:.3f}, "
+          f"prefill tokens computed paged "
+          f"{pe['paged']['prefill_tokens_computed']} vs slot "
+          f"{v1['prefill_tokens_computed']} (saved fraction "
+          f"{rec['prefill_tokens_saved_frac']:.4f})")
 
 
 # --- phases 6 and 7: the flash-attention kernels ---------------------------
@@ -813,6 +1044,14 @@ def phase_flash_kernels():
 
 TRAIN_ROWS, TRAIN_T, TRAIN_VOCAB, TRAIN_BATCH, TRAIN_LAYERS = \
     48, 2048, 32768, 4, 12
+#: phase 15's decode shape, held against the plain version in phase 3: the
+#: CLI's paged engine on the model trained at T 2048 (max_len 2048, so 128
+#: blocks of 16 a slot, pools of 2 x 8 x 128 blocks and the trash block), 8
+#: slots, bf16 queries and pools; the CLI trace's prompts of 2-8 tokens and
+#: 1-16 new ones keep 2-24 positions live
+SERVE_BF16_SHAPE = dict(DECODE_SHAPE, Bps=TRAIN_T // 16,
+                        N=2 * 8 * (TRAIN_T // 16) + 1)
+SERVE_BF16_LENS = (2, 24)
 
 
 def _write_tokens() -> Path:
@@ -852,28 +1091,48 @@ def _launch_dtypes():
         fa._launch = real
 
 
+class _Tee:
+    """A text stream that writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.out, self.kept = sys.stdout, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def _train(data_dir: Path, attention: str, *flags, label=None,
            mode="sequential"):
-    """One epoch through ``main(argv)``; returns the history, the kernels'
-    launches during it (zeroed just before) and step time, tokens/s and
-    peak device memory."""
+    """One epoch through ``main(argv)``; returns the history, the flash
+    kernels' launches during it (zeroed just before) and step time,
+    tokens/s, peak device memory, the decode kernel's launches (zeroed
+    just before: a post-train ``--serve --paged`` launches it), the run's
+    log and what its post-train serving served (:func:`_served_runs`)."""
     import torch
 
     from distributed_deep_learning_tpu_torch.__main__ import main as cli
     from distributed_deep_learning_tpu_torch.ops import attention as fa
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
 
     label = label or attention
     counters = (fa.flash_forward, fa.flash_backward_dq,
                 fa.flash_backward_dkv)
-    for c in counters:
+    for c in counters + (paged_flash_decode,):
         c.launches = 0
     gc.collect()            # the previous run's model and optimizer
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, hist = cli(["gpt", "-m", mode, "-l", str(TRAIN_LAYERS),
-                   "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
-                   "--attention", attention, "--data-dir", str(data_dir),
-                   *flags])
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee), _served_runs() as served:
+        _, hist = cli(["gpt", "-m", mode, "-l", str(TRAIN_LAYERS),
+                       "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
+                       "--attention", attention, "--data-dir",
+                       str(data_dir), *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -892,7 +1151,9 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
     if not all(map(lambda x: x == x and abs(x) != float("inf"),
                    losses + [h.loss for h in hist])):
         raise RuntimeError(f"train[{label}]: a non-finite loss")
-    return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak)
+    return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak,
+                                decode_launches=paged_flash_decode.launches,
+                                log="".join(tee.kept), served=served)
 
 
 def _phase_steps():
@@ -956,12 +1217,23 @@ def phase_train_dense(data_dir: Path, flash_hist, flash_perf):
 # --- phases 10-12: bf16, -m data, remat, accumulation, checkpoints ---------
 
 
-def phase_train_bf16(data_dir: Path, f32_hist):
+#: phase 15's post-train flags on phase 10's and phase 11's runs
+SERVE_PAGED_FLAGS = ("--generate", "16", "--serve", "--paged",
+                     "--prefill-chunk", "64")
+SERVE_SLOT_FLAGS = ("--serve",)
+
+
+def phase_train_bf16(data_dir: Path, f32_hist, serve=False):
     """Phase 10: phase 8's run in bf16, every launch on the bf16
-    instantiations."""
+    instantiations; ``serve``: with phase 15's post-train flags."""
     with _launch_dtypes() as seen:
-        hist, launches, perf = _train(data_dir, "flash", "--dtype",
-                                      "bfloat16", label="bf16")
+        hist, launches, perf = _train(
+            data_dir, "flash", "--dtype", "bfloat16",
+            *(SERVE_PAGED_FLAGS if serve else ()), label="bf16")
+    served = perf.pop("served")
+    if serve:
+        perf["served"] = _hold_served(served, "post-train [bf16 serve "
+                                              "--paged]")
     losses = hist[0].step_losses
     want = _expected_launches()
     print(f"train[bf16]: launches {launches}, expected {want}; by launcher "
@@ -1014,15 +1286,20 @@ def _planted_half_batch():
         TokenCrossEntropy.__call__ = real
 
 
-def phase_data_parallel(data_dir: Path, bf16_hist, bf16_perf):
-    """Phase 11: ``-m data`` at world 1 on NCCL, plain, ``--remat`` under
-    the policies ``nothing`` and ``dots`` (the flash Function inside a
-    selective checkpoint), and ``--grad-accum 2``."""
+def phase_data_parallel(data_dir: Path, bf16_hist, bf16_perf, serve=False):
+    """Phase 11: ``-m data`` at world 1 on NCCL, plain (``serve``: with
+    phase 15's post-train flag), ``--remat`` under the policies
+    ``nothing`` and ``dots`` (the flash Function inside a selective
+    checkpoint), and ``--grad-accum 2``."""
     import torch.distributed as dist
 
     bf16 = ("--dtype", "bfloat16")
-    plain, launches, perf = _train(data_dir, "flash", *bf16,
-                                   label="data bf16", mode="data")
+    plain, launches, perf = _train(
+        data_dir, "flash", *bf16, *(SERVE_SLOT_FLAGS if serve else ()),
+        label="data bf16", mode="data")
+    served = perf.pop("served")
+    if serve:
+        perf["served"] = _hold_served(served, "post-train [data bf16 serve]")
     if dist.is_initialized():
         raise RuntimeError("-m data left its process group behind")
     if launches != _expected_launches():
@@ -1083,6 +1360,237 @@ def phase_data_parallel(data_dir: Path, bf16_hist, bf16_perf):
     return perf, remat_perf
 
 
+# --- phase 15: serving after training, through the CLI ---------------------
+
+_GENERATE_LINE = re.compile(r'"generate prompt=\[([\d, ]+)\] '
+                            r'continuation=\[([\d, ]*)\]"')
+_SERVE_PAGED_LINE = re.compile(
+    r'"serve\(paged\): (\d+) requests, (\d+) tokens at ([\d.]+) tok/s, '
+    r'prefix hit ([\d.]+), cow (\d+), decode captures=(\d+) ticks=(\d+) '
+    r'launches=(\d+)')
+_SERVE_SLOT_LINE = re.compile(
+    r'"serve: (\d+) requests, (\d+) tokens at ([\d.]+) tok/s, occupancy '
+    r'([\d.]+)/(\d+), decode captures=(\d+) ticks=(\d+)"')
+#: the CLI's serve trace: max(2 x --max-slots, 8) requests
+SERVE_REQUESTS = 16
+
+
+def _one(pattern, log, label):
+    found = pattern.findall(log)
+    if len(found) != 1:
+        raise RuntimeError(f"{label}: {len(found)} matching log lines")
+    return [float(x) for x in found[0]]
+
+
+#: a served greedy token against the plain forward on its own prefix: the
+#: reference's top logit minus the token's, over the row's max|logit|, at
+#: most one bf16 step (2^-8).  The tests' 2e-2 near-tie rule is too loose
+#: here: 8 steps on uniform random ids leave logits whose top tokens crowd
+#: within 1% of max|logit|, so any token near the top would pass it.
+SERVE_GAP_TOL = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def _served_runs():
+    """Record what each engine ``run`` serves while the block runs: the
+    engine's class, its model and geometry, the trace and the output (not
+    the engine, so its caches go when its caller drops it)."""
+    from distributed_deep_learning_tpu_torch.serve.engine import (
+        PagedEngine, ServeEngine)
+
+    runs, real = [], {cls: cls.run for cls in (PagedEngine, ServeEngine)}
+
+    def recording(cls):
+        def run(self, requests, *args, **kw):
+            requests = list(requests)
+            out = real[cls](self, requests, *args, **kw)
+            geometry = dict(max_slots=self.max_slots, max_len=self.max_len)
+            if cls is PagedEngine:
+                geometry.update(
+                    kv_block_size=self.block_size, num_blocks=self.num_blocks,
+                    prefill_chunk=self.chunk,
+                    blocks_per_slot=self.blocks_per_slot,
+                    kv_dtype=str(self.pools[0]["cached_key"].dtype))
+            runs.append(dict(engine=cls.__name__, model=self.model,
+                             requests=requests, out=out, geometry=geometry))
+            return out
+        return run
+
+    for cls in real:
+        cls.run = recording(cls)
+    try:
+        yield runs
+    finally:
+        for cls, fn in real.items():
+            cls.run = fn
+
+
+def served_margins(model, requests, results):
+    """Hold served greedy tokens against ``model``'s plain cached forward
+    of each request's prompt and tokens in one call, position by position
+    on the served prefix (so one flipped near-tie does not part the rest of
+    a stream).  Returns the worst gap (the reference's top logit minus the
+    served token's, over the row's max|logit|; 0 where the token is the
+    reference's argmax) and the fraction of tokens with gap 0."""
+    import numpy as np
+    import torch
+
+    dev = next(model.parameters()).device
+    worst, same, total = 0.0, 0, 0
+    with torch.no_grad():
+        for r in requests:
+            toks = torch.as_tensor(np.asarray(results[r.uid]),
+                                   device=dev).long()
+            seq = torch.cat([torch.as_tensor(np.asarray(r.prompt),
+                                             device=dev).long(), toks[:-1]])
+            hidden = model.cached_forward(
+                seq[None], model.init_cache(1, seq.shape[0]))
+            logits = model.logits_from(hidden[0, len(r.prompt) - 1:])
+            scale = logits.abs().amax(-1)
+            if model.pad_id is not None:       # never picked by an engine
+                logits[:, model.pad_id] = -torch.inf
+            top = logits.amax(-1)
+            gap = (top - logits.gather(1, toks[:, None])[:, 0]) / scale
+            worst = max(worst, float(gap.max()))
+            same += int((gap == 0).sum())
+            total += toks.numel()
+    return worst, same / total
+
+
+def _slots_swapped(q, k, v, tables, seq_lens, **kw):
+    """A planted decode fault: the plain decode attention with each slot
+    reading the next slot's blocks and length (a staging mix-up)."""
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_decode_reference
+
+    return paged_decode_reference(q, k, v, tables.roll(1, 0),
+                                  seq_lens.roll(1, 0), **kw)
+
+
+def _hold_served(runs, label):
+    """Phase 15's hold on what one post-train CLI run served (recorded by
+    :func:`_served_runs`): no request rejected, every budget met, tokens in
+    [1, vocab), each greedy token within ``SERVE_GAP_TOL`` of the plain
+    forward's argmax on its prefix (:func:`served_margins`).  For the
+    paged engine also: its geometry is phase 3's ``bf16_serve`` case, and
+    the trace replayed with the plain decode attention gives the same
+    first tokens (the greedy agreement printed) and gaps within the
+    limit, while a planted fault (:func:`_slots_swapped`) must break
+    it.  Returns a summary for phase 15's report."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+
+    if len(runs) != 1:
+        raise RuntimeError(f"{label}: {len(runs)} serving runs recorded")
+    run = runs.pop()
+    model, reqs, out, geo = (run[k] for k in ("model", "requests", "out",
+                                              "geometry"))
+    if out["errors"]:
+        raise RuntimeError(f"{label}: {out['errors']} rejected")
+    _check_results(label, out["results"], {r.uid: r.max_new_tokens
+                                           for r in reqs},
+                   vocab=model.vocab_size)
+    gap, agree = served_margins(model, reqs, out["results"])
+    print(f"{label}: {run['engine']} {geo}; greedy tokens against the "
+          f"plain forward on their prefix: worst gap {gap:.3e} of "
+          f"max|logit| (tol {SERVE_GAP_TOL:g}), argmax agreement "
+          f"{agree:.4f}")
+    if not gap <= SERVE_GAP_TOL:
+        raise RuntimeError(f"{label}: a served token {gap:.3e} of "
+                           "max|logit| below the reference's argmax")
+    summary = dict(engine=run["engine"], gap=gap, agreement=agree)
+    if run["engine"] != "PagedEngine":
+        return summary
+    shape = SERVE_BF16_SHAPE
+    want = dict(max_slots=shape["B"], kv_block_size=shape["bs"],
+                blocks_per_slot=shape["Bps"], num_blocks=shape["N"] - 1,
+                kv_dtype=str(torch.bfloat16))
+    if any(geo[k] != v for k, v in want.items()):
+        raise RuntimeError(f"{label}: engine geometry {geo} is not phase "
+                           f"3's bf16_serve case {want}")
+    before = paged_flash_decode.launches
+    for name, attention in (("plain", None), ("planted", _slots_swapped)):
+        engine = PagedEngine(
+            model, device=next(model.parameters()).device,
+            max_slots=geo["max_slots"], max_len=geo["max_len"],
+            kv_block_size=geo["kv_block_size"],
+            num_blocks=geo["num_blocks"],
+            prefill_chunk=geo["prefill_chunk"], decode_attention="plain")
+        if attention is not None:
+            engine.attention = attention
+        replay = engine.run(reqs)
+        del engine
+        if replay["errors"]:
+            raise RuntimeError(f"{label} {name}: {replay['errors']} "
+                               "rejected")
+        r_gap, r_agree = served_margins(model, reqs, replay["results"])
+        print(f"{label} {name} replay: worst gap {r_gap:.3e} of "
+              f"max|logit|, argmax agreement {r_agree:.4f}")
+        summary[name] = dict(gap=r_gap, agreement=r_agree)
+        if name == "plain":
+            summary["plain_agreement"] = _agreement(
+                out["results"], replay["results"], f"{label} vs plain")
+            if not r_gap <= SERVE_GAP_TOL:
+                raise RuntimeError(f"{label}: the plain replay is outside "
+                                   "the gap limit")
+        elif r_gap <= SERVE_GAP_TOL:
+            raise RuntimeError(f"{label}: the gap check passed a planted "
+                               "fault (each slot read its neighbour's "
+                               "blocks)")
+    if paged_flash_decode.launches != before:
+        raise RuntimeError(f"{label}: a plain replay launched the kernel")
+    return summary
+
+
+def phase_post_train_serving(bf16_perf, data_perf):
+    """Phase 15: the ``generate``, ``serve(paged):`` and ``serve:`` lines
+    of phase 10's and phase 11's runs (each given when it ran), and that
+    :func:`_hold_served` held what each served.  Returns the decode
+    kernel's launches in phase 10's run."""
+    for perf, engine in ((bf16_perf, "PagedEngine"),
+                         (data_perf, "ServeEngine")):
+        if perf is not None and perf.get("served", {}).get("engine") \
+                != engine:
+            raise RuntimeError(f"post-train: no {engine} run was held")
+    launches = None
+    if bf16_perf is not None:
+        log = bf16_perf["log"]
+        lens = [len(c.split(",")) for _, c in _GENERATE_LINE.findall(log)]
+        print(f"post-train [bf16]: {len(lens)} generate lines, "
+              f"continuations of {lens} tokens")
+        if lens != [16, 16]:
+            raise RuntimeError("post-train generate: expected two "
+                               "continuations of 16 tokens")
+        req, tok, tps, hit, _, cap, ticks, logged = _one(
+            _SERVE_PAGED_LINE, log, "serve(paged)")
+        launches = bf16_perf["decode_launches"]
+        want = int(ticks) * TRAIN_LAYERS
+        print(f"post-train [bf16 serve --paged]: {int(req)} requests, "
+              f"{int(tok)} tokens at {tps:.1f} tok/s, prefix hit {hit:.3f},"
+              f" decode captures {int(cap)}, {int(ticks)} ticks, "
+              f"paged_flash_decode launches {launches} (logged "
+              f"{int(logged)}), ticks x layers {want}")
+        if int(req) != SERVE_REQUESTS or int(cap) != 1 or \
+                not launches == int(logged) == want:
+            raise RuntimeError("post-train serve --paged: a request "
+                               "rejected, not one capture, or not one "
+                               "kernel launch per layer per tick")
+    if data_perf is not None:
+        req, tok, tps, occ, slots, cap, ticks = _one(
+            _SERVE_SLOT_LINE, data_perf["log"], "serve")
+        print(f"post-train [data bf16 serve]: {int(req)} requests, "
+              f"{int(tok)} tokens at {tps:.1f} tok/s, occupancy "
+              f"{occ:.2f}/{int(slots)}, decode captures {int(cap)}, "
+              f"{int(ticks)} ticks")
+        if int(req) != SERVE_REQUESTS or int(cap) != 1:
+            raise RuntimeError("post-train serve: a request rejected or "
+                               "not one capture")
+    return launches
+
+
 def phase_checkpoint(data_dir: Path):
     """Phase 12: a mid-epoch save, the final step removed, ``--resume``."""
     from distributed_deep_learning_tpu_torch.utils.checkpoint import \
@@ -1130,7 +1638,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases",
+                    default=",".join(str(i) for i in range(1, 16)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -1139,7 +1648,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 13)) and opts.waves is None
+    complete = phases == set(range(1, 16)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -1152,32 +1661,42 @@ def main(argv=None) -> int:
     kernels = []
     if 2 in phases:
         phase_build(builds["paged_decode"])
-    if phases & {3, 4, 5}:
+    decode = None
+    if phases & {3, 4, 5, 13, 14}:
         timing = phase_kernel() if 3 in phases else {}
-        if 4 in phases:
-            rec, launches = phase_serve()
-            kernels.append({"name": "paged_flash_decode", "route": "cuda",
-                            "source": KERNEL_SOURCE,
-                            "replaces": KERNEL_REPLACES,
-                            "launches": launches, **timing})
+        if phases & {4, 5, 13, 14}:
+            rec, launches = phase_serve(compare_engine=14 in phases)
+            decode = {"name": "paged_flash_decode", "route": "cuda",
+                      "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+                      "launches": launches, **timing}
+            kernels.append(decode)
             if 5 in phases:
                 phase_plain_replay(rec)
+            if 13 in phases:
+                phase_eager_replay(rec)
+            if 14 in phases:
+                phase_slot_engine(rec)
     if 6 in phases:
         phase_ptxas(builds)
     records = phase_flash_kernels() if 7 in phases else {}
-    if phases & {8, 9, 10, 11, 12}:
+    if phases & {8, 9, 10, 11, 12, 15}:
         data_dir = _write_tokens()
         hist = launches = perf = None
         if phases & {8, 9}:
             hist, launches, perf = phase_train_flash(data_dir)
         if 9 in phases:
             phase_train_dense(data_dir, hist, perf)
-        bf16_hist = bf16_launches = bf16_perf = None
-        if phases & {10, 11}:
-            bf16_hist, bf16_launches, bf16_perf = phase_train_bf16(data_dir,
-                                                                   hist)
+        bf16_hist = bf16_launches = bf16_perf = data_perf = None
+        if phases & {10, 11, 15}:
+            bf16_hist, bf16_launches, bf16_perf = phase_train_bf16(
+                data_dir, hist, serve=15 in phases)
         if 11 in phases:
-            phase_data_parallel(data_dir, bf16_hist, bf16_perf)
+            data_perf, _ = phase_data_parallel(data_dir, bf16_hist, bf16_perf,
+                                               serve=15 in phases)
+        if 15 in phases:
+            serve_launches = phase_post_train_serving(bf16_perf, data_perf)
+            if decode is not None:
+                decode["bf16_serve_launches"] = serve_launches
         if 12 in phases:
             phase_checkpoint(data_dir)
         for name in FLASH_REPLACES:

@@ -23,8 +23,9 @@ attention as a function ``attend(layer, q, k, v) -> y``.  The full
 forward attends causally over its own tokens, densely or through the flash
 kernels (``attention="flash"``, which take unexpanded GQA K/V);
 :meth:`CausalLM.cached_forward`
-attends over a dense KV cache; the paged engine (``serve/engine.py``)
-attends over its block pools.  The model itself holds no cache.
+attends over a dense KV cache (:func:`generate`'s); the serving engines
+(``serve/engine.py``) attend over their slot table or block pools.  The
+model itself holds no cache.
 
 :func:`load_flax_params` carries weights over from a flax ``params`` tree
 (nested dicts of numpy arrays) without importing flax.
@@ -147,9 +148,9 @@ def dot_product_attention(q, k, v, *, mask=None, key_valid=None,
         band = ((qp - kp) < window)[None, None]
         mask = band if mask is None else mask & band
     if mask is not None:
-        logits = torch.where(mask, logits,
-                             torch.tensor(MASK_FILL, dtype=logits.dtype,
-                                          device=logits.device))
+        # a scalar fill, not a tensor made from host data: a CUDA graph
+        # (serve/graphs.py) cannot capture a host-to-device copy
+        logits = logits.masked_fill(~mask, MASK_FILL)
     weights = torch.softmax(logits.float(), dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
@@ -179,14 +180,19 @@ def causal_prefix_attention(q, k, v, key_valid, start, *, window=None):
     over a whole cache ``k``/``v`` ``(B, L, H, hd)``: key ``j`` is seen
     iff ``j <= query position`` and ``key_valid[:, j]`` (and inside the
     window).  The decode-mode attention of the flax model, used for
-    multi-token prefill chunks and for single-token steps alike."""
+    multi-token prefill chunks and for single-token steps alike.
+    ``start`` is an int shared by the batch, or a ``(B,)`` tensor giving
+    each row its own (the slot engine's per-slot positions, where the flax
+    engine vmaps a per-slot ``cache_index``)."""
     T, L = q.shape[1], k.shape[1]
-    qpos = start + torch.arange(T, device=q.device)
+    steps = torch.arange(T, device=q.device)
+    qpos = (start[:, None] + steps if isinstance(start, torch.Tensor)
+            else (start + steps)[None])                      # (B or 1, T)
     kpos = torch.arange(L, device=q.device)
-    mask = kpos[None, :] <= qpos[:, None]
+    mask = kpos <= qpos[..., None]                           # (B or 1, T, L)
     if window is not None:
-        mask = mask & (qpos[:, None] - kpos[None, :] < window)
-    return dot_product_attention(q, k, v, mask=mask[None, None],
+        mask = mask & (qpos[..., None] - kpos < window)
+    return dot_product_attention(q, k, v, mask=mask[:, None],
                                  key_valid=key_valid, dtype=q.dtype)
 
 
@@ -386,9 +392,10 @@ class CausalLM(nn.Module):
     # --- dense KV cache (the flax decode-mode cache) ----------------------
     def init_cache(self, batch: int, total_len: int) -> dict:
         """Zeroed cache for ``batch`` rows of ``total_len`` positions:
-        per layer ``cached_key``/``cached_value`` ``(B, L, Hkv, hd)`` and
-        ``cached_valid`` ``(B, L)``, plus the shared ``index``."""
-        dev, dt = self.tok.weight.device, self.tok.weight.dtype
+        per layer ``cached_key``/``cached_value`` ``(B, L, Hkv, hd)`` in
+        the compute dtype (the flax decode cache's) and ``cached_valid``
+        ``(B, L)``, plus the shared ``index``."""
+        dev, dt = self.tok.weight.device, self.dtype
         attn = self.layers[0].self_attn
         shape = (batch, total_len, attn.kv_heads, attn.head_dim)
         layers = [{"cached_key": torch.zeros(shape, dtype=dt, device=dev),
@@ -440,9 +447,19 @@ def sample_tokens(model: CausalLM, hidden_last, *, temperature: float = 0.0,
     token per row: greedy at ``temperature == 0``, else sample from
     ``softmax(logits / temperature)`` after top-k then top-p filtering.
     The pad id is never picked."""
-    nl = model.logits_from(hidden_last)
+    return pick_tokens(model, model.logits_from(hidden_last),
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       generator=generator)
+
+
+def pick_tokens(model: CausalLM, nl, *, temperature: float = 0.0,
+                top_k: int | None = None, top_p: float | None = None,
+                generator: Optional[torch.Generator] = None):
+    """The choice half of :func:`sample_tokens`, on ``(B, V)`` f32 logits,
+    which it masks in place.  Greedy without ``top_k`` it makes no host
+    copy and no sync, so a CUDA graph can capture it."""
     if model.pad_id is not None:
-        nl[:, model.pad_id] = -torch.inf
+        nl[:, model.pad_id].fill_(-torch.inf)
     if top_k is not None and top_k < nl.shape[-1]:
         kth = torch.topk(nl, top_k, dim=-1).values[:, -1:]
         nl = torch.where(nl >= kth, nl, -torch.inf)
@@ -457,6 +474,43 @@ def sample_tokens(model: CausalLM, hidden_last, *, temperature: float = 0.0,
         scaled = torch.where(drop, -torch.inf, scaled)
     probs = torch.softmax(scaled, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(model: CausalLM, prompt, *, max_new_tokens: int,
+             temperature: float = 0.0, top_k: int | None = None,
+             top_p: float | None = None,
+             generator: Optional[torch.Generator] = None):
+    """KV-cached generation: the port of the flax package's
+    ``generate``.  ``prompt`` is ``(B, P)`` token ids on the model's
+    device; returns the ``(B, max_new_tokens)`` continuation in the
+    prompt's dtype.  The whole prompt is prefilled in one
+    :meth:`CausalLM.cached_forward` (the causal prefix mask keeps it
+    causal), then each new token is a 1-token step; every row continues
+    from its final position, pad positions in the prompt are masked out.
+    Greedy at ``temperature == 0``, else sampled (top-k, then top-p) from
+    ``generator``, which defaults to one seeded with 0 on the prompt's
+    device (the flax default is ``jax.random.key(0)``)."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+    validate_sampling(top_k, top_p)
+    B, P = prompt.shape
+    if P + max_new_tokens > model.max_len:
+        raise ValueError(f"prompt {P} + {max_new_tokens} new tokens "
+                         f"exceeds max_len {model.max_len}")
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
+
+    def pick(hidden):
+        return sample_tokens(model, hidden[:, -1], temperature=temperature,
+                             top_k=top_k, top_p=top_p, generator=generator)
+
+    cache = model.init_cache(B, P + max_new_tokens)
+    out = [pick(model.cached_forward(prompt.long(), cache))]
+    for _ in range(max_new_tokens - 1):
+        out.append(pick(model.cached_forward(out[-1][:, None], cache)))
+    return torch.stack(out, 1).to(prompt.dtype)
 
 
 def load_flax_params(params) -> dict:

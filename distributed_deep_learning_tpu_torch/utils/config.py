@@ -1,7 +1,8 @@
 """Run configuration and the workload CLI: the port of
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
-runs (``gpt -m sequential|data``, ``--dtype``, the step variants and
-checkpointing).
+runs (``gpt -m sequential|data``, ``--dtype``, the step variants,
+checkpointing, and the post-train ``--generate`` and ``--serve
+[--paged]``).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
@@ -69,6 +70,17 @@ class Config:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0           # also save every N train steps
     resume: bool = False
+    generate_tokens: int = 0            # gpt: sample N tokens post-train
+    serve: bool = False                 # gpt: serve a trace post-train
+    max_slots: int = 8                  # serving: concurrent decode slots
+    prefill_buckets: tuple[int, ...] | None = None  # parsed as the JAX
+                                                    #   CLI's; the port's
+                                                    #   engines ignore it
+    paged: bool = False                 # serving: the paged engine
+    kv_block_size: int = 16             # paged serving: block tokens
+    prefill_chunk: int = 32             # paged serving: chunk width
+    slo_ttft_ms: float | None = None    # serving: per-request TTFT SLO
+    slo_e2e_ms: float | None = None     # serving: per-request e2e SLO
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -90,8 +102,8 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
     3: "ROADMAP.md queue 1 item 3 (train core: LAMB and Adafactor)",
-    6: "ROADMAP.md queue 1 item 6 (slot serving engine)",
-    7: "ROADMAP.md queue 1 item 7 (paged serving engine)",
+    7: "ROADMAP.md queue 1 item 7 (serving options: speculation, "
+       "quantized KV and weights)",
     9: "ROADMAP.md queue 1 item 9 (the reference's workloads and the "
        "north-star zoo)",
     10: "ROADMAP.md queue 1 item 10 (model and pipeline modes)",
@@ -105,11 +117,7 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--generate=": 6, "--serve": 6, "--max-slots=": 6,
-    "--prefill-buckets=": 6,
-    "--paged": 7, "--kv-block-size=": 7, "--prefill-chunk=": 7,
     "--draft=": 7, "--spec-k=": 7, "--kv-dtype=": 7, "--weight-dtype=": 7,
-    "--slo-ttft-ms=": 7, "--slo-e2e-ms=": 7,
     "--packed-cache=": 9, "--image-size=": 9, "--stem-s2d": 9,
     "--double-softmax": 9,
     "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
@@ -221,6 +229,37 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                         "epoch only); resume replays the loader to the "
                         "exact batch")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--generate", dest="generate_tokens", type=int,
+                   default=0, metavar="N",
+                   help="gpt: after training, print N-token greedy "
+                        "continuations of two dataset prompts (KV-cached "
+                        "decode)")
+    p.add_argument("--serve", action="store_true",
+                   help="gpt: after training, serve a seeded mixed-length "
+                        "trace through the slot engine (or --paged) and "
+                        "log tokens/s, occupancy and decode captures")
+    p.add_argument("--max-slots", dest="max_slots", type=int, default=8,
+                   metavar="S", help="serving: concurrent decode slots")
+    p.add_argument("--prefill-buckets", dest="prefill_buckets", type=str,
+                   default=None, metavar="L1,L2,...",
+                   help="accepted and checked as the JAX CLI's, so its "
+                        "command lines parse; the port prefills at the "
+                        "true prompt length and has no buckets")
+    p.add_argument("--paged", action="store_true",
+                   help="serving: the paged-KV engine (prefix reuse, "
+                        "chunked prefill, the paged flash-decode kernel)")
+    p.add_argument("--kv-block-size", dest="kv_block_size", type=int,
+                   default=16, metavar="B",
+                   help="paged serving: tokens per KV block")
+    p.add_argument("--prefill-chunk", dest="prefill_chunk", type=int,
+                   default=32, metavar="C",
+                   help="paged serving: prefill slice width")
+    p.add_argument("--slo-ttft-ms", dest="slo_ttft_ms", type=float,
+                   default=None, metavar="MS",
+                   help="serving: per-request time-to-first-token SLO")
+    p.add_argument("--slo-e2e-ms", dest="slo_e2e_ms", type=float,
+                   default=None, metavar="MS",
+                   help="serving: per-request end-to-end latency SLO")
     for flag, item in UNPORTED_FLAGS.items():
         kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
               else {"action": "store_true", "default": None})
@@ -244,6 +283,20 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit("--remat-policy requires --remat (a policy "
                          "without rematerialisation would be a silent "
                          "no-op)")
+    # the JAX CLI's serving checks (utils/config.py:1012-1020, 1029-1033)
+    if args.max_slots <= 0:
+        raise SystemExit(f"--max-slots {args.max_slots}: must be >= 1 "
+                         "(the engine's static batch dimension)")
+    if args.kv_block_size < 1:
+        raise SystemExit(f"--kv-block-size {args.kv_block_size}: must "
+                         "be >= 1")
+    if args.prefill_chunk < 1:
+        raise SystemExit(f"--prefill-chunk {args.prefill_chunk}: must "
+                         "be >= 1")
+    for flag, v in (("--slo-ttft-ms", args.slo_ttft_ms),
+                    ("--slo-e2e-ms", args.slo_e2e_ms)):
+        if v is not None and v <= 0:
+            raise SystemExit(f"{flag} {v}: must be positive milliseconds")
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
@@ -270,4 +323,33 @@ def parse_args(argv: Sequence[str] | None = None,
         world_size=args.run, sync_in_local_data_mode=args.sync,
         remat=args.remat, remat_policy=args.remat_policy,
         grad_accum=args.grad_accum, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every, resume=args.resume)
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        generate_tokens=args.generate_tokens, serve=args.serve,
+        max_slots=args.max_slots,
+        prefill_buckets=parse_buckets_arg(args.prefill_buckets),
+        paged=args.paged, kv_block_size=args.kv_block_size,
+        prefill_chunk=args.prefill_chunk, slo_ttft_ms=args.slo_ttft_ms,
+        slo_e2e_ms=args.slo_e2e_ms)
+
+
+def parse_buckets_arg(text: str | None) -> tuple[int, ...] | None:
+    """``--prefill-buckets`` string -> ascending lengths, validated at
+    parse time (a copy of the JAX CLI's)."""
+    if not text:
+        return None
+    try:
+        buckets = tuple(int(b) for b in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--prefill-buckets {text!r}: expected "
+                         "comma-separated integers") from None
+    if any(b < 1 for b in buckets):
+        raise SystemExit(f"--prefill-buckets {text!r}: lengths must be "
+                         ">= 1")
+    for a, b in zip(buckets, buckets[1:]):
+        if b == a:
+            raise SystemExit(f"--prefill-buckets {text!r}: duplicate "
+                             f"bucket {a}")
+        if b < a:
+            raise SystemExit(f"--prefill-buckets {text!r}: lengths must "
+                             f"be strictly ascending, got {b} after {a}")
+    return buckets

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
@@ -43,13 +43,17 @@ from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
     """What differs between workloads (the JAX spec's fields that the
-    sequential path reads)."""
+    ported paths read).  ``pre_train_check(config, dataset)`` rejects a
+    run before training; ``post_train(config, state, logger, dataset)``
+    runs ``--generate``/``--serve`` after it."""
 
     name: str
     build_dataset: Callable[[Config], Any]
     build_model: Callable[[Config, Any], nn.Module]
     build_loss: Callable[[Config], Callable]
     build_optimizer: Callable[[Config, int], Optimizer]
+    pre_train_check: Optional[Callable[[Config, Any], None]] = None
+    post_train: Optional[Callable[..., None]] = None
 
 
 #: flax's DenseGeneral keeps the q/k/v biases as (heads, head_dim), so
@@ -176,6 +180,10 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
     if config.mode not in (Mode.SEQUENTIAL, Mode.DATA):
         raise NotImplementedError(f"-m {config.mode.value} is not ported "
                                   f"yet: {ROADMAP_ITEMS[10]}")
+    if (config.generate_tokens or config.serve) and spec.post_train is None:
+        flag = "--generate" if config.generate_tokens else "--serve"
+        raise ValueError(f"{flag} is not supported by workload "
+                         f"{spec.name!r} (gpt only)")
     if config.attention_window is not None and config.attention_window < 1:
         raise ValueError(f"--window must be >= 1, got "
                          f"{config.attention_window}")
@@ -203,6 +211,8 @@ def _train(spec, config, env, init_state_dict):
     device = env.device
     logger = PhaseLogger(verbose=bootstrap.is_coordinator())
     dataset = spec.build_dataset(config)
+    if spec.pre_train_check is not None:
+        spec.pre_train_check(config, dataset)
     # DDL_DATA_LIMIT caps the examples considered (CI / smoke runs)
     limit = int(os.environ.get("DDL_DATA_LIMIT", "0"))
     n = min(len(dataset), limit) if limit else len(dataset)
@@ -248,7 +258,14 @@ def _train(spec, config, env, init_state_dict):
     train_step, eval_step = make_step_fns(
         loss_fn, ddp=ddp, remat=config.remat,
         remat_policy=config.remat_policy, accum_steps=config.grad_accum)
-    return fit(state, train_step, eval_step, *loaders, epochs=config.epochs,
-               logger=logger, checkpointer=ckpt, start_epoch=start_epoch,
-               checkpoint_every=config.checkpoint_every,
-               resume_batch=resume_batch, resume_totals=resume_totals)
+    state, history = fit(state, train_step, eval_step, *loaders,
+                         epochs=config.epochs, logger=logger,
+                         checkpointer=ckpt, start_epoch=start_epoch,
+                         checkpoint_every=config.checkpoint_every,
+                         resume_batch=resume_batch,
+                         resume_totals=resume_totals)
+    # every rank runs the hook, as in the JAX package; rank 0 logs
+    if (config.generate_tokens or config.serve) and \
+            spec.post_train is not None:
+        spec.post_train(config, state, logger, dataset)
+    return state, history

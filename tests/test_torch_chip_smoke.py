@@ -137,3 +137,42 @@ def test_chip_smoke_imports_only_the_standard_library_at_the_top():
         elif isinstance(node, ast.ImportFrom):
             top.add((node.module or "").split(".")[0])
     assert top and top <= set(sys.stdlib_module_names) | {"__future__"}, top
+
+
+def _served_tiny():
+    """A tiny seeded CausalLM, a trace and what the slot engine served on
+    the CPU."""
+    from distributed_deep_learning_tpu_torch.serve.bench import (build_model,
+                                                                 make_trace)
+    from distributed_deep_learning_tpu_torch.serve.engine import ServeEngine
+
+    model = build_model(3, "cpu", vocab_size=61, num_layers=2, d_model=32,
+                        num_heads=4, mlp_dim=64, max_len=48)
+    reqs = make_trace(6, vocab_size=61, seed=4, prompt_lens=(2, 12),
+                      new_tokens=(3, 10))
+    with chip_smoke._served_runs() as runs:
+        ServeEngine(model, device="cpu", max_slots=3).run(iter(reqs))
+    return model, reqs, runs
+
+
+def test_served_runs_records_the_trace_and_output():
+    model, reqs, runs = _served_tiny()
+    (run,) = runs
+    assert run["engine"] == "ServeEngine" and run["model"] is model
+    assert [r.uid for r in run["requests"]] == [r.uid for r in reqs]
+    assert run["geometry"] == dict(max_slots=3, max_len=48)
+    assert set(run["out"]["results"]) == {r.uid for r in reqs}
+
+
+def test_served_margins_pass_served_tokens_and_fail_shuffled_ones():
+    """Greedy tokens served on the CPU are the plain forward's argmax on
+    their prefix; tokens from another request are far outside the limit."""
+    model, reqs, runs = _served_tiny()
+    results = runs[0]["out"]["results"]
+    gap, agree = chip_smoke.served_margins(model, reqs, results)
+    assert gap == 0.0 and agree == 1.0
+    uids = [r.uid for r in reqs]
+    shuffled = {u: (list(results[v]) * 10)[:len(results[u])]
+                for u, v in zip(uids, uids[1:] + uids[:1])}
+    gap, agree = chip_smoke.served_margins(model, reqs, shuffled)
+    assert gap > chip_smoke.SERVE_GAP_TOL and agree < 0.5

@@ -38,11 +38,15 @@ LOAD = dict(n_requests=10, arrival="poisson", rate=1.5,
 
 
 @functools.lru_cache(maxsize=None)
-def _models(**kw):
-    jm = jtr.CausalLM(**{**MODEL, **kw})
+def _models(bf16=False, **kw):
+    """The JAX model, its params and the port's model on them; ``bf16``:
+    both compute in bf16 (f32 parameters)."""
+    jm = jtr.CausalLM(**{**MODEL, **kw},
+                      dtype=jnp.bfloat16 if bf16 else jnp.float32)
     params = jm.init(jax.random.key(11), jnp.ones((1, 8), jnp.int32))
     params = jax.tree.map(np.asarray, params["params"])
-    tm = ttr.CausalLM(**{**MODEL, **kw})
+    tm = ttr.CausalLM(**{**MODEL, **kw},
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
     tm.load_state_dict(ttr.load_flax_params(params))
     return jm, params, tm
 
@@ -72,7 +76,10 @@ def _serve_both(pad_inside=False, **model_kw):
 
 
 CASES = {"shared_prefix": {}, "pad_inside_prompt": {"pad_inside": True},
-         "rope_gqa": {"pos_embedding": "rope", "num_kv_heads": 2}}
+         "rope_gqa": {"pos_embedding": "rope", "num_kv_heads": 2},
+         # a bf16-compute model: pools in bf16, as the JAX pools take the
+         # decode model's cache dtype
+         "bf16": {"bf16": True}}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -126,8 +133,22 @@ def test_serve_cli_prints_one_record(capsys):
     out = capsys.readouterr().out.strip().splitlines()
     rec = json.loads(out[-1])
     assert rec["errors"] == 0 and "results" not in rec
-    with pytest.raises(SystemExit):
-        main(["--requests", "4"])        # only the paged engine is ported
+    assert rec["engine_v1"]["errors"] == 0 and "results_v1" not in rec
+    # without --paged: the slot engine against generate()
+    rc = main(["--device", "cpu", "--requests", "4", "--max-slots", "2",
+               "--prompt-min", "2", "--prompt-max", "8", "--new-min", "2",
+               "--new-max", "6", "--layers", "1", "--d-model", "32",
+               "--heads", "2", "--mlp-dim", "64", "--vocab", "64",
+               "--max-len", "32", "--stagger", "1"])
+    assert rc == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    rec = json.loads(out[0])
+    assert rec["errors"] == 0 and "results" not in rec
+    assert rec["engine"]["decode_captures"] == 0
+    assert rec["engine"]["tokens_per_sec"] > 0
+    assert rec["naive"]["tokens_per_sec"] > 0 and rec["speedup"] is not None
+    assert 0 < rec["engine"]["mean_slot_occupancy"] <= 2
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -195,6 +216,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import distributed_deep_learning_tpu_torch\n"
             "import distributed_deep_learning_tpu_torch.serve.bench\n"
+            "import distributed_deep_learning_tpu_torch.serve.cache\n"
+            "import distributed_deep_learning_tpu_torch.serve.graphs\n"
             "import distributed_deep_learning_tpu_torch.serve.__main__\n"
             "import distributed_deep_learning_tpu_torch.__main__\n"
             "import distributed_deep_learning_tpu_torch.workloads.northstar\n"

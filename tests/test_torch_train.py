@@ -247,8 +247,8 @@ def test_cli_defaults_match_jax():
     (["--packed-cache", "f"], "item 9"), (["--obs"], "item 14"),
     (["--optimizer", "lamb"], "item 3"), (["--optimizer", "adafactor"],
                                           "item 3"),
-    (["--generate", "4"], "item 6"), (["--serve"], "item 6"),
-    (["--paged"], "item 7"), (["--replicas", "2"], "item 13"),
+    (["--draft", "1"], "item 7"), (["--kv-dtype", "int8"], "item 7"),
+    (["--weight-dtype", "int8"], "item 7"), (["--replicas", "2"], "item 13"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
