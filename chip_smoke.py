@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --phases 1,6,7  # a subset (no result lines)
+    python3 chip_smoke.py --phases 3,16,18,19,20  # this slice's options
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -16,12 +17,15 @@ Phases, in order; any failure raises and exits non-zero:
    on the card at the serving path's decode shape, plus GQA, bf16, int8,
    ``valid_pool`` holes, an empty slot, a slot ending on a split boundary,
    a slot shorter than one split beside long ones, two full-length slots
-   (``f32_long``, the few-slots case split-K is for) and phase 15's shape
+   (``f32_long``, the few-slots case split-K is for), phase 15's shape
    (``bf16_serve``: bf16 queries and pools, 128 blocks a slot, 2-24 live
-   positions, the split count that shape gives); median times
+   positions, the split count that shape gives), a sliding window of 256
+   at the 8-slot shape (``window``, phase 20's) and int8 pools quantized
+   by the engines' rule at phase 18's shape (``int8_serve``); median times
    of the kernel, the plain version and ``scaled_dot_product_attention``
    on pre-gathered K/V (a yardstick the port never calls), beside the
-   bytes bound, at the 8-slot shape and at ``f32_long``; the kernel's
+   bytes bound, at the 8-slot shape, at ``f32_long`` and ``window``; the
+   kernel's
    device time with no host cost in it at both, and the host's cost of
    one wrapper call at the 8-slot shape;
 4. the serving slice at full width (GPT-2-small shape, vocab 32768): the
@@ -100,9 +104,41 @@ Phases, in order; any failure raises and exits non-zero:
     phase 3's ``bf16_serve`` case, and its trace replayed with the plain
     decode attention gives the same first tokens (the greedy agreement
     printed) within the same limit, which a planted fault (each slot
-    reading its neighbour's blocks) must break.
+    reading its neighbour's blocks) must break.  Phase 10's run is made
+    once more with a second post-train leg, ``--serve --paged --draft 6
+    --spec-k 4 --kv-dtype int8 --weight-dtype int8``: its logged line shows
+    every request served, the draft round and the verify captured once,
+    the decode tick never, and 6 x 5 kernel launches a tick; what it served
+    is held against the plain forward of the engine's int8 weights within
+    the same limit;
+16. the fused head (``CausalLM.loss``) against the logits path at the
+    training shape (B 4, T 2048, V 32768, d 768), f32 and bf16 hidden
+    states: the loss within 1e-5 (relative), each gradient within 1e-4 of
+    its largest element (bf16 dh within one bf16 step), peak memory and
+    time of each; then 8 bf16 train steps of the 12-layer model through
+    ``loss``, their step time and peak beside phase 10's;
+17. phase 10's run with ``--optimizer lamb`` and with ``--optimizer
+    adafactor`` (``--lr 1e-2``): finite losses that fall, phase 10's kernel
+    launches, step time, peak and optimizer state beside AdamW's
+    (Adafactor's must be smaller);
+18. phase 4's trace through ``PagedEngine`` with int8 KV, bf16 KV and int8
+    weights over int8 KV, and through the slot engine with bf16 KV: no
+    errors, every budget met, tokens in [1, vocab), one capture, one kernel
+    launch a layer a tick on the paged engine; each int8 run replayed with
+    the plain decode attention gives the same first tokens; agreement,
+    tokens/s, tick, a replay's device time, KV and weight bytes beside
+    phase 4's;
+19. phase 4's trace with a 2-layer draft proposing 4 tokens a round: first
+    tokens equal to phase 4's, every token within ``SPEC_GAP_TOL`` of the
+    plain forward's argmax on its prefix, one capture each of the draft
+    round and the verify and none of the decode tick, draft launches
+    ``ticks x (spec_k + 1) x draft_layers``; acceptance and tokens/s beside
+    phase 4's;
+20. phase 4's trace on the model with a 256-position sliding window: the
+    kernel against the plain decode (first tokens identical, agreement
+    printed), one launch a layer a tick.
 
-Phases 8-12 print step time, tokens/s and peak memory.  The line before
+Phases 8-12, 16 and 17 print step time, tokens/s and peak memory.  The line before
 the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.  Nothing here imports JAX.
 """
@@ -112,6 +148,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import gc
 import json
 import re
@@ -153,7 +190,9 @@ FLASH_REPLACES = {
 #: slots in 16-position blocks, pools sized as the engine sizes them
 DECODE_SHAPE = dict(B=8, Hkv=12, G=1, D=64, bs=16, Bps=64,
                     N=2 * 8 * 64 + 1)
-TOL = {"f32": 1e-4, "int8": 1e-4, "bf16": 2e-2}
+TOL = {"f32": 1e-4, "int8": 1e-4, "int8_serve": 1e-4, "bf16": 2e-2}
+#: phase 20's sliding window, held in phase 3 at the 8-slot shape
+SERVE_WINDOW = 256
 
 
 def phase_device():
@@ -286,11 +325,14 @@ def phase_ptxas(builds):
 
 
 def _decode_case(*, B, Hkv, G, D, bs, Bps, N, lens, kv="f32", holes=False,
-                 seed=0, device="cuda"):
+                 window=None, seed=0, device="cuda"):
     """Seeded decode inputs on the card: pools of N blocks (block 0 the
     trash block), each slot's live blocks at distinct random physical ids,
-    table tails trash-padded."""
+    table tails trash-padded.  ``kv="int8_serve"``: int8 pools quantized
+    by the serving engines' rule (``serve.quant.quantize_rows``)."""
     import torch
+
+    from distributed_deep_learning_tpu_torch.serve import quant
 
     gen = torch.Generator().manual_seed(seed)
     dev = torch.device(device)
@@ -311,6 +353,10 @@ def _decode_case(*, B, Hkv, G, D, bs, Bps, N, lens, kv="f32", holes=False,
             return torch.round(x / s).clamp(-127, 127).to(torch.int8), s
         k, scales["k_scale"] = quantize(k)
         v, scales["v_scale"] = quantize(v)
+    elif kv == "int8_serve":
+        (k, scales["k_scale"]), (v, scales["v_scale"]) = (
+            (qt.q, qt.s) for qt in (quant.quantize_rows(k),
+                                    quant.quantize_rows(v)))
     elif kv == "bf16":
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     valid = torch.ones(N, bs, dtype=torch.bool)
@@ -322,7 +368,8 @@ def _decode_case(*, B, Hkv, G, D, bs, Bps, N, lens, kv="f32", holes=False,
     args = [q, k, v, tables, torch.tensor(lens, dtype=torch.int32)]
     kw = {"valid_pool": valid, **scales}
     return ([a.to(dev) for a in args],
-            {name: t.to(dev) for name, t in kw.items()})
+            {**{name: t.to(dev) for name, t in kw.items()},
+             **({"window": window} if window is not None else {})})
 
 
 #: GPU clock cycles (~50 ms on an H100) the card sleeps while the host
@@ -421,9 +468,11 @@ def _bound_ms(args, kw):
     q, k, _, tables, lens = args
     B, Hkv, G, D = q.shape
     bs = k.shape[1]
-    n = [int(x) for x in lens.tolist()]
-    pos = sum(n)
-    blocks = sum(-(-x // bs) for x in n)
+    window = kw.get("window")
+    spans = [(max(0, x - window) if window else 0, x)
+             for x in (int(y) for y in lens.tolist())]
+    pos = sum(hi - lo for lo, hi in spans)
+    blocks = sum(-(-hi // bs) - lo // bs for lo, hi in spans if hi > lo)
     nbytes = 2 * q.numel() * q.element_size()               # q in, out
     nbytes += 2 * pos * Hkv * D * k.element_size()         # live K and V
     if "k_scale" in kw:
@@ -451,7 +500,10 @@ def _library_ms(args, kw):
     kd = k[t].reshape(B, T, Hkv, D).repeat_interleave(G, 2).transpose(1, 2)
     vd = v[t].reshape(B, T, Hkv, D).repeat_interleave(G, 2).transpose(1, 2)
     kd, vd = kd.contiguous(), vd.contiguous()
-    mask = torch.arange(T, device=q.device)[None, :] < lens.long()[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = kpos < lens.long()[:, None]
+    if kw.get("window"):
+        mask = mask & (kpos >= lens.long()[:, None] - kw["window"])
     mask = mask & kw["valid_pool"][t].reshape(B, T)
     q4 = q.reshape(B, Hkv * G, 1, D)
     return _time_ms(lambda: F.scaled_dot_product_attention(
@@ -516,6 +568,10 @@ def phase_kernel():
         ("bf16_serve", dict(SERVE_BF16_SHAPE, kv="bf16", lens=[
             int(x) for x in np.linspace(*SERVE_BF16_LENS,
                                         SERVE_BF16_SHAPE["B"])])),
+        ("window", dict(shape, lens=[full - 7] + spread[1:],
+                        window=SERVE_WINDOW)),
+        ("int8_serve", dict(shape, kv="int8_serve", lens=[
+            int(x) for x in np.linspace(1, full, shape["B"])])),
     ]
     main, errs = None, {}
     for name, spec in cases:
@@ -532,7 +588,7 @@ def phase_kernel():
         if not err <= tol:
             raise RuntimeError(f"kernel case {name}: error {err} > {tol}")
         errs[name] = err
-        if name in ("f32", "f32_long"):
+        if name in ("f32", "f32_long", "window"):
             rec = _decode_timing(args, kw, err)
             print(f"kernel {name} timing: kernel {rec['ms']:.4f} ms, plain "
                   f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f}"
@@ -542,8 +598,9 @@ def phase_kernel():
             if name == "f32":
                 main = rec
             else:
-                main["f32_long"] = rec
+                main[name] = rec
     main["bf16_serve_max_abs_err"] = errs["bf16_serve"]
+    main["int8_serve_max_abs_err"] = errs["int8_serve"]
     costs = decode_costs()
     main["device_ms"] = costs["f32"]
     main["f32_long"]["device_ms"] = costs["f32_long"]
@@ -687,9 +744,10 @@ def phase_plain_replay(rec):
 EAGER_AB = (False, True, True, False)
 
 
+@functools.cache
 def _full_width():
     """Phase 4's model (seed 0), trace and paged capacity, built once for
-    phase 13's engines."""
+    the engines of phases 13 and 18-20."""
     from distributed_deep_learning_tpu_torch.serve.bench import (
         DEFAULT_LOAD, build_model, paged_max_len)
     from distributed_deep_learning_tpu_torch.serve.load import (LoadSpec,
@@ -1129,13 +1187,17 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
     t0 = time.perf_counter()
     tee = _Tee()
     with contextlib.redirect_stdout(tee), _served_runs() as served:
-        _, hist = cli(["gpt", "-m", mode, "-l", str(TRAIN_LAYERS),
-                       "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
-                       "--attention", attention, "--data-dir",
-                       str(data_dir), *flags])
+        state, hist = cli(["gpt", "-m", mode, "-l", str(TRAIN_LAYERS),
+                           "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH),
+                           "--attention", attention, "--data-dir",
+                           str(data_dir), *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    opt_state_bytes = sum(t.numel() * t.element_size()
+                          for st in state.optimizer.state.values()
+                          for t in st.values() if torch.is_tensor(t))
+    del state
     peak = torch.cuda.max_memory_allocated()
     train = hist[0]
     losses = train.step_losses
@@ -1153,7 +1215,8 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
         raise RuntimeError(f"train[{label}]: a non-finite loss")
     return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak,
                                 decode_launches=paged_flash_decode.launches,
-                                log="".join(tee.kept), served=served)
+                                log="".join(tee.kept), served=served,
+                                opt_state_bytes=opt_state_bytes)
 
 
 def _phase_steps():
@@ -1634,12 +1697,472 @@ def phase_checkpoint(data_dir: Path):
     shutil.rmtree(ckdir)
 
 
+# --- phase 16: the fused head at the training shape -----------------------
+
+#: fused head vs the logits path: the loss (relative) and each gradient
+#: over its largest |element|; dh of bf16 hidden states is bf16 on both
+#: sides, each rounded from f32 sums in other orders, so it is held to one
+#: bf16 step (2^-7 of an element, at most 2^-7 of the largest)
+FUSED_TOL = {"loss": 1e-5, "grad": 1e-4, "bf16_dh": 2.0 ** -7}
+
+
+def _head_pass(model, h, targets, fused):
+    """Loss, dh, dW, the peak bytes allocated above the start and the
+    median ms of 3 forward+backward passes of the tied head with the token
+    cross-entropy: ``CausalLM.loss`` (fused) or the training path's
+    ``token_cross_entropy`` over ``logits_from``."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    ce, times, peak = TokenCrossEntropy(), [], 0
+    for _ in range(3):
+        x = h.detach().requires_grad_()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = model.loss(x, targets) if fused else \
+            ce(model.logits_from(x), targets)
+        loss.backward()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return (loss.item(), x.grad.float(), model.tok.weight.grad.float(),
+            peak, statistics.median(times))
+
+
+def phase_fused_head(data_dir: Path, bf16_perf):
+    """Phase 16: ``CausalLM.loss`` against the logits path at the training
+    shape (B 4, T 2048, V 32768, d 768; the last 64 targets of each row
+    are pad), f32 and bf16 hidden states: loss, gradients, peak memory and
+    time; then 8 bf16 train steps of the 12-layer model through
+    ``loss`` (flash attention, AdamW) beside phase 10's.  Returns a
+    summary."""
+    import numpy as np
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.transformer import \
+        CausalLM
+    from distributed_deep_learning_tpu_torch.workloads.base import adamw
+
+    gen = torch.Generator().manual_seed(16)
+    model = CausalLM(vocab_size=TRAIN_VOCAB, num_layers=TRAIN_LAYERS,
+                     d_model=768, num_heads=12, mlp_dim=3072,
+                     max_len=TRAIN_T, attention="flash")
+    model.reset_parameters(gen)
+    model.cuda()
+    h32 = torch.randn(TRAIN_BATCH, TRAIN_T, 768, generator=gen).cuda()
+    targets = torch.randint(1, TRAIN_VOCAB, (TRAIN_BATCH, TRAIN_T),
+                            generator=gen)
+    targets[:, -64:] = 0
+    targets = targets.cuda()
+    summary = {}
+    for label, h in (("f32", h32), ("bf16", h32.bfloat16())):
+        fused = _head_pass(model, h, targets, fused=True)
+        ref = _head_pass(model, h, targets, fused=False)
+        rel = abs(fused[0] - ref[0]) / abs(ref[0])
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(fused[1:3], ref[1:3])]
+        dh_tol = FUSED_TOL["bf16_dh" if label == "bf16" else "grad"]
+        print(f"fused head [{label}]: loss {fused[0]:.7f} vs logits path "
+              f"{ref[0]:.7f}, rel diff {rel:.2e} (tol {FUSED_TOL['loss']:g});"
+              f" dh max err {errs[0]:.2e} of max|ref| (tol {dh_tol:g}), dW "
+              f"{errs[1]:.2e} (tol {FUSED_TOL['grad']:g}); peak "
+              f"{fused[3] / 2**20:.1f} MiB vs {ref[3] / 2**20:.1f} MiB; "
+              f"forward+backward {fused[4]:.3f} ms vs {ref[4]:.3f} ms")
+        if not (rel <= FUSED_TOL["loss"] and errs[0] <= dh_tol
+                and errs[1] <= FUSED_TOL["grad"]):
+            raise RuntimeError(f"fused head [{label}]: disagrees with the "
+                               "logits path")
+        summary[label] = dict(rel=rel, dh=errs[0], dw=errs[1],
+                              peak=fused[3], ref_peak=ref[3], ms=fused[4],
+                              ref_ms=ref[4])
+    del model, h32, h
+    gc.collect()
+
+    model = CausalLM(vocab_size=TRAIN_VOCAB, num_layers=TRAIN_LAYERS,
+                     d_model=768, num_heads=12, mlp_dim=3072,
+                     max_len=TRAIN_T, attention="flash",
+                     dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(42))
+    model.cuda().train()
+    opt = adamw(1e-3).build(model.named_parameters())
+    rows = torch.as_tensor(np.load(data_dir / "tokens.npy")[:TRAIN_BATCH],
+                           device="cuda").long()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(8):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(model(rows[:, :-1]), rows[:, 1:])
+        loss.backward()
+        opt.step()
+        b.record()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    losses = [float(x) for x in losses]
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train[bf16 fused head]: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {step_s:.4f} s/step, {TRAIN_BATCH * TRAIN_T / step_s:.1f} "
+          f"tokens/s, peak {peak / 2**30:.2f} GiB"
+          + (f" | phase 10 (logits head, CLI): {bf16_perf['step_s']:.4f} "
+             f"s/step, {bf16_perf['tokens_per_s']:.1f} tokens/s, peak "
+             f"{bf16_perf['peak'] / 2**30:.2f} GiB" if bf16_perf else ""))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("train[bf16 fused head]: a non-finite loss")
+    summary["train"] = dict(step_s=step_s, peak=peak, losses=losses)
+    del model, opt
+    gc.collect()
+    return summary
+
+
+# --- phase 17: LAMB and Adafactor through the CLI ---------------------------
+
+#: phase 17's learning rate, ten times phase 10's: LAMB's trust ratio and
+#: Adafactor's parameter scale make a step about lr times a parameter's
+#: norm.  The losses' fall over 8 different batches is mostly the batches'
+#: own (phase 11's runs all fall alike), so it is no check of the
+#: optimizers' arithmetic: :func:`_optimizer_gap` is.
+OPT_LR = "1e-2"
+#: the hold of each optimizer's arithmetic on the card: OPT_HOLD_STEPS
+#: updates of a full-width CausalLM cut to OPT_HOLD_LAYERS layers, the same
+#: seeded gradients on the card and on the CPU; the parameters must agree
+#: within OPT_HOLD_ATOL (absolute, test_torch_optimizers' limit), and the
+#: planted control, the card's run at learning rate 0, must not
+OPT_HOLD_STEPS, OPT_HOLD_LAYERS, OPT_HOLD_ATOL = 3, 2, 1e-5
+
+
+def _optimizer_params(opt, lr, device):
+    """The parameters (on the CPU) after OPT_HOLD_STEPS updates of the
+    CLI's ``--optimizer opt --lr lr`` recipe on ``device``, from seed 0,
+    each step's gradients N(0, 1e-3) drawn on the CPU from one seed."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.transformer import \
+        CausalLM
+    from distributed_deep_learning_tpu_torch.train.state import \
+        create_train_state
+    from distributed_deep_learning_tpu_torch.utils import config as tconfig
+    from distributed_deep_learning_tpu_torch.workloads import base, northstar
+
+    cfg = tconfig.parse_args(["--optimizer", opt, "--lr", lr], "gpt")
+    tx = base.build_optimizer(northstar.GPT_SPEC, cfg, epoch_steps=8)
+    model = CausalLM(**{**FULL_MODEL, "num_layers": OPT_HOLD_LAYERS})
+    state = create_train_state(model, 0, tx, device=device)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(OPT_HOLD_STEPS):
+        for p in state.model.parameters():
+            p.grad = (torch.randn(p.shape, generator=gen) * 1e-3).to(device)
+        state.apply_gradients()
+    return [p.detach().cpu() for p in state.model.parameters()]
+
+
+def _optimizer_gap(opt):
+    """``(gap, control)``: max |card - CPU| over the parameters after
+    :func:`_optimizer_params` at ``OPT_LR``, and the same with the card at
+    learning rate 0 (the planted control)."""
+    want = _optimizer_params(opt, OPT_LR, "cpu")
+
+    def gap(lr):
+        got = _optimizer_params(opt, lr, "cuda")
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    return gap(OPT_LR), gap("0")
+
+
+def phase_optimizers(data_dir: Path, bf16_perf):
+    """Phase 17: each optimizer's steps on the card held against the CPU's
+    (:func:`_optimizer_gap`); then phase 10's run with ``--optimizer
+    lamb`` and ``adafactor`` (``--lr`` ``OPT_LR``): finite losses that
+    fall, phase 10's kernel launches; step time, peak memory and optimizer
+    state beside AdamW's."""
+    out = {}
+    for opt in ("lamb", "adafactor"):
+        gap, control = _optimizer_gap(opt)
+        print(f"optimizer[{opt}]: {OPT_HOLD_STEPS} steps of a "
+              f"{OPT_HOLD_LAYERS}-layer full-width model, card vs CPU max "
+              f"|diff| {gap:.3e} (limit {OPT_HOLD_ATOL:g}); planted control "
+              f"(card at lr 0) {control:.3e}")
+        if not gap <= OPT_HOLD_ATOL:
+            raise RuntimeError(f"optimizer[{opt}]: the card's steps differ "
+                               f"from the CPU's by {gap:.3e}")
+        if not control > OPT_HOLD_ATOL:
+            raise RuntimeError(f"optimizer[{opt}]: the hold cannot tell a "
+                               "step at lr 0 from the CPU's")
+    for opt in ("lamb", "adafactor"):
+        hist, launches, perf = _train(
+            data_dir, "flash", "--dtype", "bfloat16", "--optimizer", opt,
+            "--lr", OPT_LR, label=f"bf16 {opt}")
+        perf.pop("served")
+        losses = hist[0].step_losses
+        print(f"train[bf16 {opt}]: launches {launches}; optimizer state "
+              f"{perf['opt_state_bytes'] / 2**20:.1f} MiB"
+              + (f" | AdamW (phase 10): {bf16_perf['step_s']:.4f} s/step, "
+                 f"peak {bf16_perf['peak'] / 2**30:.2f} GiB, state "
+                 f"{bf16_perf['opt_state_bytes'] / 2**20:.1f} MiB"
+                 if bf16_perf else ""))
+        if launches != _expected_launches():
+            raise RuntimeError(f"train[bf16 {opt}]: a layer of a step did "
+                               "not go through the flash kernels")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"train[bf16 {opt}]: loss did not fall "
+                               f"({losses[0]} -> {losses[-1]})")
+        out[opt] = perf
+    if bf16_perf and not out["adafactor"]["opt_state_bytes"] < \
+            bf16_perf["opt_state_bytes"]:
+        raise RuntimeError("adafactor: its state is not smaller than "
+                           "AdamW's")
+    return out
+
+
+# --- phases 18-20: quantized, speculative and windowed serving --------------
+
+
+def _serve_run(label, make, trace, layers=FULL_MODEL["num_layers"],
+               launches_per_tick=None):
+    """One engine lifetime over phase 4's trace with the decode counter
+    zeroed just before: no request rejected, every budget met, tokens in
+    [1, vocab), finite outputs, and ``launches_per_tick`` decode kernel
+    launches a tick (one a layer unless given; 0 for the slot engine).
+    Returns the output and the launches; the stats gain ``replay_ms``, the
+    card's ms a replay of each captured tick (:func:`_replay_ms`), which
+    a run's first-use costs do not reach."""
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+
+    paged_flash_decode.launches = 0
+    engine = make()
+    out = engine.run(trace)
+    launches, s = paged_flash_decode.launches, out["stats"]
+    s["replay_ms"] = {
+        name: _replay_ms(tick._graph)
+        for name, tick in (("decode", engine._tick),
+                           ("draft", getattr(engine, "_draft_tick", None)),
+                           ("verify", getattr(engine, "_verify_tick", None)))
+        if tick is not None and tick._graph is not None}
+    del engine
+    if out["errors"]:
+        raise RuntimeError(f"{label}: {out['errors']} rejected")
+    _check_results(label, out["results"],
+                   {r.uid: r.max_new_tokens for r in trace})
+    if s["nonfinite_tokens"]:
+        raise RuntimeError(f"{label}: {s['nonfinite_tokens']} non-finite")
+    per_tick = layers if launches_per_tick is None else launches_per_tick
+    if not launches == s.get("paged_decode_launches", 0) == \
+            s["decode_ticks"] * per_tick:
+        raise RuntimeError(f"{label}: {launches} decode launches, expected "
+                           f"{s['decode_ticks']} ticks x {per_tick}")
+    return out, launches
+
+
+def _serve_line(label, s, rec4, results):
+    pe = rec4["paged_engine"]
+    same = sum(a == b for uid, toks in rec4["results"].items()
+               for a, b in zip(toks, results[uid]))
+    total = sum(len(t) for t in rec4["results"].values())
+    print(f"{label}: agreement with phase 4 {same}/{total} = "
+          f"{same / total:.4f}; {s['tokens_per_sec']:.1f} tok/s vs "
+          f"{pe['tokens_per_sec']:.1f}; tick {_tick_ms(s):.3f} ms vs "
+          f"{_tick_ms(pe):.3f} ms over {s['decode_ticks']} ticks; on the "
+          f"card a replay of " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                           s["replay_ms"].items())
+          + f"; kv_cache_bytes {s['kv_cache_bytes']} vs "
+          f"{pe['kv_cache_bytes']}; weight_bytes {s['weight_bytes']}")
+
+
+def phase_quant_serving(rec4):
+    """Phase 18: phase 4's trace through ``PagedEngine`` with int8 KV, bf16
+    KV and int8 weights over int8 KV, and through the slot engine with
+    bf16 KV: each graphed tick captured once, one kernel launch a layer a
+    tick (none for the slot engine); each int8 run replayed with the plain
+    decode attention gives the same first tokens.  Returns the kernel's
+    launches in the paged runs."""
+    from distributed_deep_learning_tpu_torch.serve.engine import (
+        PagedEngine, ServeEngine)
+
+    model, trace, cap = _full_width()
+    runs = [("paged kv int8", dict(kv_dtype="int8")),
+            ("paged kv bf16", dict(kv_dtype="bf16")),
+            ("paged kv int8 weights int8",
+             dict(kv_dtype="int8", weight_dtype="int8"))]
+    launches = 0
+    for label, opts in runs:
+        out, n = _serve_run(f"quantized [{label}]", lambda: PagedEngine(
+            model, max_len=cap, **FULL_ENGINE, **opts), trace)
+        launches += n
+        s = out["stats"]
+        _check_tick(f"quantized [{label}]", s, captures=1)
+        _serve_line(f"quantized [{label}]", s, rec4, out["results"])
+        if "int8" in opts.values():
+            plain, _ = _serve_run(
+                f"quantized [{label}] plain", lambda: PagedEngine(
+                    model, max_len=cap, decode_attention="plain",
+                    **FULL_ENGINE, **opts), trace, launches_per_tick=0)
+            _agreement(out["results"], plain["results"],
+                       f"quantized [{label}] vs plain")
+    slot, _ = _serve_run("quantized [slot kv bf16]", lambda: ServeEngine(
+        model, max_slots=FULL_ENGINE["max_slots"], kv_dtype="bf16"), trace,
+        launches_per_tick=0)
+    _check_tick("quantized [slot kv bf16]", slot["stats"], captures=1)
+    _serve_line("quantized [slot kv bf16]", slot["stats"], rec4,
+                slot["results"])
+    return launches
+
+
+#: phase 19's draft and proposals a round
+SPEC = dict(draft_layers=2, spec_k=4)
+#: a speculatively served f32 token against the plain forward's argmax on
+#: its own prefix (``served_margins``), over max|logit|: the verify is the
+#: plain forward's arithmetic over the same f32 cache, in another order,
+#: so only a top-2 tie within f32 rounding may flip (measured: 0 on the
+#: H100, every token the reference's argmax)
+SPEC_GAP_TOL = 1e-5
+
+
+def phase_spec(rec4):
+    """Phase 19: phase 4's trace with a 2-layer draft proposing 4 tokens a
+    round: first tokens equal phase 4's, every token within
+    ``SPEC_GAP_TOL`` of the plain forward's argmax on its prefix, one
+    capture each of the draft round and the verify and none of the decode
+    tick, and the kernel launched ``spec_k + 1`` times a draft layer a
+    speculative tick.  Returns the launches."""
+    from distributed_deep_learning_tpu_torch.serve.bench import paged_max_len
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+
+    model, trace, _ = _full_width()
+    cap = paged_max_len(model.max_len, FULL_ENGINE["kv_block_size"], True,
+                        SPEC["spec_k"])
+    out, launches = _serve_run(
+        "spec", lambda: PagedEngine(model, max_len=cap, **FULL_ENGINE,
+                                    **SPEC), trace,
+        launches_per_tick=(SPEC["spec_k"] + 1) * SPEC["draft_layers"])
+    s, sp = out["stats"], out["stats"]["spec"]
+    captures = (s["decode_captures"], s["draft_captures"],
+                s["verify_captures"])
+    print(f"spec: captures decode/draft/verify {captures}; "
+          f"{launches} draft launches = {s['decode_ticks']} speculative "
+          f"ticks x {SPEC['spec_k'] + 1} steps x {SPEC['draft_layers']} "
+          f"layers; rounds {sp['rounds']}, proposed {sp['proposed']}, "
+          f"accepted {sp['accepted']}, acceptance {sp['acceptance_rate']:.4f}")
+    if captures != (0, 1, 1) or sp["proposed"] != \
+            sp["rounds"] * SPEC["spec_k"]:
+        raise RuntimeError("spec: not one capture of the draft round and "
+                           "of the verify and none of the decode tick, or "
+                           "proposals not spec_k a round")
+    _agreement(rec4["results"], out["results"], "spec vs phase 4")
+    gap, agree = served_margins(model, trace, out["results"])
+    print(f"spec: greedy tokens against the plain forward on their prefix: "
+          f"worst gap {gap:.3e} of max|logit| (tol {SPEC_GAP_TOL:g}), "
+          f"argmax agreement {agree:.4f}")
+    if not gap <= SPEC_GAP_TOL:
+        raise RuntimeError(f"spec: a served token {gap:.3e} of max|logit| "
+                           "below the reference's argmax")
+    _serve_line("spec", s, rec4, out["results"])
+    return launches
+
+
+def phase_window(rec4):
+    """Phase 20: phase 4's trace on the same model with a 256-position
+    sliding window (prompts reach 512 past a 64-token prefix): the kernel
+    against the plain decode, the same first tokens and agreement
+    printed, one launch a layer a tick.  Returns the launches."""
+    from distributed_deep_learning_tpu_torch.serve.bench import build_model
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+
+    _, trace, cap = _full_width()
+    model = build_model(0, "cuda", **FULL_MODEL,
+                        attention_window=SERVE_WINDOW)
+    runs = {}
+    for label in ("kernel", "plain"):
+        out, n = _serve_run(
+            f"window [{label}]", lambda: PagedEngine(
+                model, max_len=cap, decode_attention=label, **FULL_ENGINE),
+            trace, launches_per_tick=None if label == "kernel" else 0)
+        _check_tick(f"window [{label}]", out["stats"], captures=1)
+        runs[label] = (out, n)
+    _agreement(runs["kernel"][0]["results"], runs["plain"][0]["results"],
+               f"window {SERVE_WINDOW} kernel vs plain")
+    s = runs["kernel"][0]["stats"]
+    print(f"window [kernel]: {s['tokens_per_sec']:.1f} tok/s, tick "
+          f"{_tick_ms(s):.3f} ms over {s['decode_ticks']} ticks (a replay "
+          f"{s['replay_ms']['decode']:.3f} ms on the card), "
+          f"{runs['kernel'][1]} launches")
+    return runs["kernel"][1]
+
+
+#: the CLI's second post-train leg on phase 10's run: speculation with a
+#: 6-layer draft over int8 KV and int8 weights
+SERVE_SPEC_FLAGS = ("--serve", "--paged", "--prefill-chunk", "64", "--draft",
+                    "6", "--spec-k", "4", "--kv-dtype", "int8",
+                    "--weight-dtype", "int8")
+_SERVE_SPEC_LINE = re.compile(
+    r'"serve\(paged\): (\d+) requests, (\d+) tokens at ([\d.]+) tok/s, '
+    r'prefix hit ([\d.]+), cow (\d+), decode captures=(\d+) ticks=(\d+) '
+    r'launches=(\d+), draft captures=(\d+) verify captures=(\d+), spec '
+    r'acceptance ([\d.]+)')
+
+
+def phase_cli_spec_quant(data_dir: Path):
+    """Phase 10's run with ``SERVE_SPEC_FLAGS``: its ``serve(paged):`` line
+    shows every request served, the draft round and the verify captured
+    once and the decode tick never, and 6 x 5 kernel launches a tick;
+    what it served is held as phase 15 holds it."""
+    hist, _, perf = _train(data_dir, "flash", "--dtype", "bfloat16",
+                           *SERVE_SPEC_FLAGS, label="bf16 serve spec int8")
+    runs = perf.pop("served")
+    req, tok, tps, hit, _, dcap, ticks, logged, drcap, vcap, acc = _one(
+        _SERVE_SPEC_LINE, perf["log"], "serve(paged) spec")
+    launches = perf["decode_launches"]
+    want = int(ticks) * 6 * 5
+    print(f"post-train [bf16 serve --paged --draft 6 --spec-k 4 --kv-dtype "
+          f"int8 --weight-dtype int8]: {int(req)} requests, {int(tok)} "
+          f"tokens at {tps:.1f} tok/s, captures decode/draft/verify "
+          f"{int(dcap)}/{int(drcap)}/{int(vcap)}, {int(ticks)} ticks, "
+          f"launches {launches} (logged {int(logged)}, expected {want}), "
+          f"spec acceptance {acc:.3f}")
+    if int(req) != SERVE_REQUESTS or (int(dcap), int(drcap), int(vcap)) \
+            != (0, 1, 1) or not launches == int(logged) == want:
+        raise RuntimeError("post-train spec int8: a request rejected, "
+                           "wrong captures or launches")
+    if len(runs) != 1:
+        raise RuntimeError(f"post-train spec int8: {len(runs)} runs")
+    run = runs.pop()
+    model, reqs, out = run["model"], run["requests"], run["out"]
+    if out["errors"]:
+        raise RuntimeError(f"post-train spec int8: {out['errors']}")
+    _check_results("post-train spec int8", out["results"],
+                   {r.uid: r.max_new_tokens for r in reqs},
+                   vocab=model.vocab_size)
+    gap, agree = served_margins(model, reqs, out["results"])
+    print(f"post-train spec int8: {run['engine']} {run['geometry']}; "
+          f"greedy tokens against the plain forward (int8 weights) on their"
+          f" prefix: worst gap {gap:.3e} of max|logit| (tol "
+          f"{SERVE_GAP_TOL:g}), argmax agreement {agree:.4f}")
+    if not gap <= SERVE_GAP_TOL:
+        raise RuntimeError(f"post-train spec int8: a served token {gap:.3e}"
+                           " of max|logit| below the reference's argmax")
+    return dict(launches=launches, gap=gap, agreement=agree,
+                acceptance=acc)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 16)),
+                    default=",".join(str(i) for i in range(1, 21)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -1648,7 +2171,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 16)) and opts.waves is None
+    complete = phases == set(range(1, 21)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -1661,10 +2184,10 @@ def main(argv=None) -> int:
     kernels = []
     if 2 in phases:
         phase_build(builds["paged_decode"])
-    decode = None
-    if phases & {3, 4, 5, 13, 14}:
+    decode = rec = None
+    if phases & {3, 4, 5, 13, 14, 18, 19, 20}:
         timing = phase_kernel() if 3 in phases else {}
-        if phases & {4, 5, 13, 14}:
+        if phases & {4, 5, 13, 14, 18, 19, 20}:
             rec, launches = phase_serve(compare_engine=14 in phases)
             decode = {"name": "paged_flash_decode", "route": "cuda",
                       "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1676,10 +2199,21 @@ def main(argv=None) -> int:
                 phase_eager_replay(rec)
             if 14 in phases:
                 phase_slot_engine(rec)
+            if 18 in phases:
+                decode["quant_serve_launches"] = phase_quant_serving(rec)
+            if 19 in phases:
+                decode["spec_launches"] = phase_spec(rec)
+            if 20 in phases:
+                decode["window_launches"] = phase_window(rec)
+        # phases 13 and 18-20's model: off the card before the training
+        # phases read their peaks
+        _full_width.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
     if 6 in phases:
         phase_ptxas(builds)
     records = phase_flash_kernels() if 7 in phases else {}
-    if phases & {8, 9, 10, 11, 12, 15}:
+    if phases & {8, 9, 10, 11, 12, 15, 16, 17}:
         data_dir = _write_tokens()
         hist = launches = perf = None
         if phases & {8, 9}:
@@ -1687,7 +2221,7 @@ def main(argv=None) -> int:
         if 9 in phases:
             phase_train_dense(data_dir, hist, perf)
         bf16_hist = bf16_launches = bf16_perf = data_perf = None
-        if phases & {10, 11, 15}:
+        if phases & {10, 11, 15, 16, 17}:
             bf16_hist, bf16_launches, bf16_perf = phase_train_bf16(
                 data_dir, hist, serve=15 in phases)
         if 11 in phases:
@@ -1695,8 +2229,14 @@ def main(argv=None) -> int:
                                                serve=15 in phases)
         if 15 in phases:
             serve_launches = phase_post_train_serving(bf16_perf, data_perf)
+            spec_cli = phase_cli_spec_quant(data_dir)
             if decode is not None:
                 decode["bf16_serve_launches"] = serve_launches
+                decode["cli_spec_int8_launches"] = spec_cli["launches"]
+        if 16 in phases:
+            phase_fused_head(data_dir, bf16_perf)
+        if 17 in phases:
+            phase_optimizers(data_dir, bf16_perf)
         if 12 in phases:
             phase_checkpoint(data_dir)
         for name in FLASH_REPLACES:

@@ -37,6 +37,12 @@
 //     gives, except for a row with no live position at all: it comes out as
 //     zeros (finite), where the TPU kernel averages the masked garbage.
 //     Callers ignore such rows;
+//   * a sliding window (window > 0) keeps positions [seq_len - window,
+//     seq_len): the query sits at seq_len - 1 and sees a key when
+//     qpos - kpos < window, the model's cached mask. Positions below the
+//     bound are never visited either: a block whose run ends at or below
+//     it returns at once, and the combine starts at the first split that
+//     reaches past it. The split count does not depend on the window;
 //   * int8 pools are dequantized in registers as q8 * scale, bf16 widened to
 //     f32; all arithmetic is f32. Masked positions (invalid in valid_pool,
 //     or an out-of-range physical id) contribute nothing.
@@ -66,6 +72,11 @@ __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 
+// The first position a query at seq_len - 1 sees: 0 without a window.
+__device__ __forceinline__ int window_lo(int len, int window) {
+  return window > 0 ? max(0, len - window) : 0;
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -75,7 +86,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // null; valid: (N, bs) bytes or null; tables: (B, Bps) int32; seq_lens: (B,).
 // part: acc (B * Hkv, splits, G, D), then (m, l) (B * Hkv, splits, G, 2),
 // f32. Block (x, y) walks positions [y * per * bs, (y + 1) * per * bs) of
-// slot x / Hkv.
+// slot x / Hkv, clipped to [window_lo(len, window), len).
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
@@ -86,7 +97,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
                     const int32_t* __restrict__ tables,
                     const int32_t* __restrict__ seq_lens,
                     float* __restrict__ part, int Hkv, int G, int N, int bs,
-                    int Bps, int per, float sm_scale) {
+                    int Bps, int per, int window, float sm_scale) {
   constexpr int VEC = D / 32;
   __shared__ float sh_m[kWarps][kMaxG];
   __shared__ float sh_l[kWarps][kMaxG];
@@ -98,9 +109,11 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   const int lane = threadIdx.x & 31;
 
   const int len = min(max(seq_lens[b], 0), Bps * bs);
-  const int p0 = split * per * bs;
-  if (p0 >= len) return;  // the combine reads no such split
-  const int p1 = min(len, p0 + per * bs);
+  const int lo = window_lo(len, window);
+  const int p1 = min(len, (split + 1) * per * bs);
+  // the combine reads no split wholly past len or below lo
+  if (split * per * bs >= len || p1 <= lo) return;
+  const int p0 = max(split * per * bs, lo);
 
   const QT* qb = q + static_cast<size_t>(bh) * G * D;
   float qr[kMaxG][VEC];
@@ -228,25 +241,26 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
 }
 
 // out[b, h] from the partial states of the splits of (b, h) that cover
-// [0, seq_len), merged as the warps' states are; no split: zeros. One
-// thread an output element.
+// [window_lo, seq_len), merged as the warps' states are; no split: zeros.
+// One thread an output element.
 template <typename QT>
 __global__ void paged_combine_kernel(const float* __restrict__ part,
                                      const int32_t* __restrict__ seq_lens,
                                      QT* __restrict__ out, int Hkv, int G,
                                      int D, int bs, int Bps, int per,
-                                     int splits) {
+                                     int splits, int window) {
   const int bh = blockIdx.x, b = bh / Hkv;
   const int i = threadIdx.x, g = i / D, d = i - g * D;
   const int len = min(max(seq_lens[b], 0), Bps * bs);
+  const int first = window_lo(len, window) / (per * bs);
   const int live = (len + per * bs - 1) / (per * bs);
   const float* acc = part + static_cast<size_t>(bh) * splits * G * D;
   const float* ml = part + static_cast<size_t>(gridDim.x) * splits * G * D +
                     static_cast<size_t>(bh) * splits * G * 2;
   float mx = kNegInf;
-  for (int sp = 0; sp < live; ++sp) mx = fmaxf(mx, ml[(sp * G + g) * 2]);
+  for (int sp = first; sp < live; ++sp) mx = fmaxf(mx, ml[(sp * G + g) * 2]);
   float den = 0.f, num = 0.f;
-  for (int sp = 0; sp < live; ++sp) {
+  for (int sp = first; sp < live; ++sp) {
     const float c = expf(ml[(sp * G + g) * 2] - mx);
     den += ml[(sp * G + g) * 2 + 1] * c;
     num += acc[(sp * G + g) * D + d] * c;
@@ -257,7 +271,7 @@ __global__ void paged_combine_kernel(const float* __restrict__ part,
 struct Args {
   const void *q, *k, *v, *ks, *vs, *valid, *tables, *lens;
   void *out, *part;
-  int B, Hkv, G, D, N, bs, Bps, splits, per;
+  int B, Hkv, G, D, N, bs, Bps, splits, per, window;
   float sm_scale;
 };
 
@@ -270,12 +284,13 @@ cudaError_t launch_d(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.vs), static_cast<const uint8_t*>(a.valid),
       static_cast<const int32_t*>(a.tables),
       static_cast<const int32_t*>(a.lens), static_cast<float*>(a.part), a.Hkv,
-      a.G, a.N, a.bs, a.Bps, a.per, a.sm_scale);
+      a.G, a.N, a.bs, a.Bps, a.per, a.window, a.sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<QT><<<a.B * a.Hkv, a.G * a.D, 0, stream>>>(
       static_cast<const float*>(a.part), static_cast<const int32_t*>(a.lens),
-      static_cast<QT*>(a.out), a.Hkv, a.G, a.D, a.bs, a.Bps, a.per, a.splits);
+      static_cast<QT*>(a.out), a.Hkv, a.G, a.D, a.bs, a.Bps, a.per, a.splits,
+      a.window);
   return cudaGetLastError();
 }
 
@@ -308,14 +323,16 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    void* out, void* part, int B, int Hkv,
                                    int G, int D, int N, int bs, int Bps,
                                    int splits, int per, float sm_scale,
-                                   int q_dtype, int kv_dtype, void* stream) {
+                                   int window, int q_dtype, int kv_dtype,
+                                   void* stream) {
   // splits runs of per blocks cover the table, none of them empty
   if (B < 1 || Hkv < 1 || G < 1 || G > kMaxG || N < 1 || bs < 1 || Bps < 1 ||
       per < 1 || splits < 1 || splits > 65535 || splits * per < Bps ||
       (splits - 1) * per >= Bps || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k_pool, v_pool, k_scale, v_scale, valid, tables, seq_lens,
-               out, part, B, Hkv, G, D, N, bs, Bps, splits, per, sm_scale};
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, valid, tables,
+               seq_lens, out, part, B, Hkv, G, D, N, bs, Bps, splits, per,
+               window, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (q_dtype) {

@@ -16,7 +16,11 @@ f32 and returns its input's dtype, the dense attention's softmax runs in
 f32, and the tied head stays f32 on both operands.  The casts are explicit
 (not ``torch.autocast``, whose op lists put them elsewhere: under it
 ``layer_norm`` returns f32).  ``remat`` recomputes each layer in the
-backward (``torch.utils.checkpoint``), replaying its dropout masks.
+backward: under the policy ``nothing`` all of it (``torch.utils.checkpoint``,
+replaying its dropout masks), under ``dots`` only what lies between the
+``Dense`` products (:func:`remat_call`).  :meth:`CausalLM.loss` is the
+tied head fused with the token cross-entropy (:mod:`..ops.fused_ce`),
+which never holds the ``(N, V)`` logits.
 
 Every forward runs through :meth:`CausalLM.run`, which takes the
 attention as a function ``attend(layer, q, k, v) -> y``.  The full
@@ -39,10 +43,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
 from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
+from distributed_deep_learning_tpu_torch.ops.fused_ce import \
+    fused_linear_cross_entropy
 
 #: ``attend(layer_index, q, k, v) -> y``: q ``(B, T, H, hd)``, k/v
 #: ``(B, T, Hkv, hd)``, y ``(B, T, H, hd)``
@@ -53,16 +58,104 @@ MASK_FILL = -1e9   # the JAX package's fill: finite in bf16 as well
 ATTENTIONS = ("dense", "flash")
 DTYPES = (torch.float32, torch.bfloat16)
 
-_aten = torch.ops.aten
-#: ``--remat-policy`` -> the matmul outputs the backward keeps (jax's
-#: ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``); "nothing"
-#: recomputes every op of the layer
+#: ``--remat-policy`` -> the products whose outputs the backward keeps
+#: (jax's ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``: in
+#: this model the batched dots are the dense attention's, whose output the
+#: port recomputes under either); "nothing" recomputes every op of the layer
 REMAT_SAVED_OPS = {
     "nothing": (),
-    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
-             _aten.baddbmm.default),
-    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "dots": ("Dense",),
+    "dots_no_batch": ("Dense",),
 }
+
+
+class _Recompute:
+    """The ``dots`` policy for one layer's forward: every tensor autograd
+    saves passes through :meth:`pack`, and the outputs the layer marks
+    recomputable (:func:`recomputable`: its LayerNorms, casts, attention
+    and GELU, everything but a ``Dense`` product) are dropped when the
+    layer's forward ends and computed again when the backward unpacks one
+    of them.  A saved tensor is matched to a marked output by its storage
+    (device and address, both alive until :meth:`finish`), so views of it
+    (a reshape a matmul saves) are rebuilt from the recomputed tensor with
+    the same strides."""
+
+    active: Optional["_Recompute"] = None
+
+    def __init__(self):
+        self.marked = []       # (tensor, fn, args)
+        self.saved = []        # every pack's handle, resolved in finish()
+
+    def mark(self, out, fn, args):
+        # only a non-empty tensor that owns its whole storage: anything
+        # else sharing that storage is a view of it
+        if out.numel() and out.is_contiguous() and \
+                out.storage_offset() == 0 and \
+                out.untyped_storage().nbytes() == \
+                out.numel() * out.element_size():
+            self.marked.append((out, fn, args))
+
+    def pack(self, t):
+        handle = [t, None]     # the tensor, or a recipe once finished
+        self.saved.append(handle)
+        return handle
+
+    @staticmethod
+    def unpack(handle):
+        t, recipe = handle
+        if recipe is None:
+            return t
+        return recipe.view(id(handle))
+
+    def finish(self):
+        recipes = {}
+        for out, fn, args in self.marked:
+            recipes[_storage_key(out)] = _Recipe(fn, args)
+        for handle in self.saved:
+            t = handle[0]
+            recipe = recipes.get(_storage_key(t))
+            if recipe is None:
+                continue
+            recipe.views[id(handle)] = (t.size(), t.stride(),
+                                        t.storage_offset())
+            recipe.waiting.add(id(handle))
+            handle[:] = [None, recipe]
+        self.marked = self.saved = None
+
+
+def _storage_key(t):
+    return t.device, t.untyped_storage().data_ptr()
+
+
+class _Recipe:
+    """How to compute one dropped output again, cached until each saved
+    view of it has been unpacked once (a second backward through a
+    retained graph computes it again at each unpack)."""
+
+    def __init__(self, fn, args):
+        self.fn, self.args, self.out = fn, args, None
+        self.views = {}        # handle id -> (size, stride, offset)
+        self.waiting = set()   # handle ids not unpacked yet
+
+    def view(self, key):
+        out = self.out
+        if out is None:
+            with torch.no_grad():
+                out = self.fn(*self.args)
+        self.waiting.discard(key)
+        self.out = out if self.waiting else None
+        return out.as_strided(*self.views[key])
+
+
+def recomputable(fn, *args):
+    """``fn(*args)``; under the ``dots`` policy the backward computes it
+    again instead of keeping it (see :class:`_Recompute`)."""
+    out = fn(*args)
+    rc = _Recompute.active
+    if rc is not None and out.grad_fn is not None and \
+            all(out is not a for a in args):
+        rc.mark(out, fn, args)
+    return out
 
 
 class Dense(nn.Linear):
@@ -70,7 +163,8 @@ class Dense(nn.Linear):
     (flax's ``Dense(dtype=...)`` over f32 parameters)."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, recomputable(self.weight.to, x.dtype),
+                        self.bias.to(x.dtype))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -78,26 +172,41 @@ class LayerNorm(nn.LayerNorm):
     the input's dtype (flax's ``LayerNorm(dtype=...)``)."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(recomputable(torch.Tensor.float, x),
+                            self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
 
 
 def remat_call(fn, x, policy: str, generator: Optional[torch.Generator]):
-    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
-    backward recomputes it, keeping only the outputs of ``policy``'s
-    matmuls.  ``checkpoint`` restores the default generators' state, not
-    ``generator``'s, so the recompute rewinds ``generator`` to where the
-    forward found it (the same dropout masks) and puts it back after."""
+    """``fn(x)`` with its activations recomputed in the backward.
+
+    ``nothing``: ``torch.utils.checkpoint`` (non-reentrant) keeps only
+    ``x`` and recomputes all of ``fn``.  ``checkpoint`` restores the
+    default generators' state, not ``generator``'s, so the recompute
+    rewinds ``generator`` to where the forward found it (the same dropout
+    masks) and puts it back after.
+
+    ``dots`` and ``dots_no_batch``: the outputs of the ``Dense`` products
+    are kept, and what lies between them (LayerNorms, casts, the attention
+    and the GELU) is computed again when the backward needs it
+    (:class:`_Recompute`, through saved-tensor hooks; no op-level
+    dispatch).  Dropout masks are kept, so nothing random is replayed."""
     if policy not in REMAT_SAVED_OPS:
         raise ValueError(f"unknown remat policy {policy!r}; choose from "
                          f"{sorted(REMAT_SAVED_OPS)}")
-    saved = REMAT_SAVED_OPS[policy]
-    kw = {}
-    if saved:
-        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
-            list(saved))
+    if REMAT_SAVED_OPS[policy]:
+        rc, outer = _Recompute(), _Recompute.active
+        _Recompute.active = rc
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(rc.pack,
+                                                          rc.unpack):
+                y = fn(x)
+        finally:
+            _Recompute.active = outer
+        rc.finish()
+        return y
     if generator is None:
-        return checkpoint(fn, x, use_reentrant=False, **kw)
+        return checkpoint(fn, x, use_reentrant=False)
     before, ran = generator.get_state(), []
 
     def replay(x):
@@ -111,7 +220,7 @@ def remat_call(fn, x, policy: str, generator: Optional[torch.Generator]):
         finally:
             generator.set_state(after)
 
-    return checkpoint(replay, x, use_reentrant=False, **kw)
+    return checkpoint(replay, x, use_reentrant=False)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
@@ -237,6 +346,10 @@ class MultiHeadAttention(nn.Module):
         return kv if g == 1 else kv.repeat_interleave(g, dim=2)
 
 
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
 class TransformerLayer(nn.Module):
     """Pre-LN block: self-attention then MLP, each with a residual."""
 
@@ -256,10 +369,15 @@ class TransformerLayer(nn.Module):
         when given, is the dropout applied to the attention and MLP
         outputs before their residual adds."""
         B, T, _ = x.shape
-        q, k, v = self.self_attn.project(self.ln_attn(x), positions)
-        h = self.self_attn.out(attend(q, k, v).reshape(B, T, -1))
+        q, k, v = self.self_attn.project(recomputable(self.ln_attn, x),
+                                         positions)
+        # flattened inside the recipe: the dense attention's output is a
+        # transposed product, and its contiguous copy is what out() saves
+        o = recomputable(lambda q, k, v: attend(q, k, v).reshape(B, T, -1),
+                         q, k, v)
+        h = self.self_attn.out(o)
         x = x + (h if drop is None else drop(h))
-        h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
+        h = recomputable(_gelu, self.mlp_in(recomputable(self.ln_mlp, x)))
         h = self.mlp_out(h)
         return x + (h if drop is None else drop(h))
 
@@ -330,6 +448,33 @@ class CausalLM(nn.Module):
                     mod.bias.zero_()
         return self
 
+    def flax_layout(self, name: str):
+        """``(to_flax, from_flax)`` for the parameter ``name``: maps
+        between its tensor and the flax parameter's layout, the inverse of
+        :func:`load_flax_params` (``Dense`` kernels ``(in, out)``, the q/k/v
+        ``DenseGeneral`` kernels ``(d, H, hd)`` with biases ``(H, hd)``,
+        ``out``'s kernel ``(H, hd, d)``; every other parameter as it is).
+        Per-axis rules of the flax package that take a parameter's shape
+        (Adafactor's factoring, per-channel int8 scales) go through it."""
+        parts = name.split(".")
+        if len(parts) < 2 or parts[0] != "layers":
+            return _same, _same
+        layer = self.layers[int(parts[1])]
+        hd = layer.self_attn.head_dim
+        kind, leaf = parts[-2], parts[-1]
+        if kind in ("q", "k", "v"):
+            if leaf == "bias":
+                return (lambda t: t.reshape(-1, hd),
+                        lambda t: t.reshape(-1))
+            return (lambda t: t.T.reshape(t.shape[1], -1, hd),
+                    lambda t: t.reshape(t.shape[0], -1).T)
+        if kind == "out" and leaf == "weight":
+            return (lambda t: t.T.reshape(-1, hd, t.shape[0]),
+                    lambda t: t.reshape(-1, t.shape[-1]).T)
+        if leaf == "weight" and kind in ("mlp_in", "mlp_out"):
+            return (lambda t: t.T, lambda t: t.T)
+        return _same, _same
+
     def token_valid(self, tokens):
         """Attendable positions: ``tokens != pad_id`` (all with no pad)."""
         if self.pad_id is None:
@@ -343,7 +488,7 @@ class CausalLM(nn.Module):
         or ``(B, T)``), run every layer with ``attend(i, q, k, v)`` as its
         attention (and ``drop`` as its dropout, when given), and return the
         final-norm hidden states in the compute dtype.  ``remat`` (a
-        policy of :data:`REMAT_SAVED_OPS`) checkpoints each layer;
+        policy of :data:`REMAT_SAVED_OPS`) recomputes each layer;
         ``generator`` is the one ``drop`` draws from, replayed in the
         recompute."""
         x = self.tok(tokens).to(self.dtype)
@@ -389,6 +534,18 @@ class CausalLM(nn.Module):
         return torch.einsum("...d,vd->...v", hidden.float(),
                             self.tok.weight.float())
 
+    def loss(self, hidden, targets):
+        """Mean next-token cross-entropy through the fused head
+        (:func:`..ops.fused_ce.fused_linear_cross_entropy`, f32 hidden and
+        table): positions whose target is ``pad_id`` are left out, and with
+        ``pad_id=None`` every position counts.  Pass the hidden states of
+        ``tokens[:, :-1]`` against ``tokens[:, 1:]``."""
+        # -1 never equals a vocabulary id, so it excludes nothing
+        ignore_id = self.pad_id if self.pad_id is not None else -1
+        return fused_linear_cross_entropy(hidden.float(),
+                                          self.tok.weight.float(), targets,
+                                          ignore_id)
+
     # --- dense KV cache (the flax decode-mode cache) ----------------------
     def init_cache(self, batch: int, total_len: int) -> dict:
         """Zeroed cache for ``batch`` rows of ``total_len`` positions:
@@ -431,6 +588,10 @@ class CausalLM(nn.Module):
         h = self.run(tokens, positions, attend)
         cache["index"] = idx + T
         return h
+
+
+def _same(t):
+    return t
 
 
 def validate_sampling(top_k: int | None, top_p: float | None) -> None:

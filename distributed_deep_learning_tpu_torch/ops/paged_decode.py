@@ -4,8 +4,9 @@ The CUDA kernel (``csrc/paged_decode.cu``) replaces the TPU kernel
 ``distributed_deep_learning_tpu/ops/paged_decode_pallas.py::_decode_kernel``.
 Each slot's query reads the physical blocks its block table names, masks
 positions at or past ``seq_lens[b]`` (and, when given, positions the
-``valid_pool`` marks as padding), and keeps an online softmax in f32, so
-no slot's logical cache is gathered into a copy.  The source explains the
+``valid_pool`` marks as padding, and those a sliding ``window`` leaves
+out), and keeps an online softmax in f32, so no slot's logical cache is
+gathered into a copy.  The source explains the
 design and what bounds it on the card.
 
 :func:`paged_flash_decode` is the wrapper: CPU tensors go to
@@ -64,13 +65,16 @@ def decode_splits(B: int, Hkv: int, Bps: int, bs: int,
 
 def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
                            k_scale=None, v_scale=None, valid_pool=None,
-                           sm_scale: float | None = None):
+                           sm_scale: float | None = None,
+                           window: int | None = None):
     """Gather each slot's logical KV (``pool[table]``), dequantize, mask
     positions ``>= seq_lens`` (and invalid ones when ``valid_pool`` is
-    given), one dense f32 softmax.  ``q`` is ``(B, Hkv, G, D)``, pools
-    ``(N, bs, Hkv, D)`` (int8 with ``(N, bs, Hkv, 1)`` f32 scales),
-    ``block_tables`` ``(B, Bps)``, ``seq_lens`` ``(B,)``, ``valid_pool``
-    ``(N, bs)`` bool.  Returns ``(B, Hkv, G, D)`` in ``q``'s dtype."""
+    given, and with a ``window`` those below ``seq_lens - window``: the
+    query at ``seq_lens - 1`` sees ``qpos - kpos < window``), one dense f32
+    softmax.  ``q`` is ``(B, Hkv, G, D)``, pools ``(N, bs, Hkv, D)`` (int8
+    with ``(N, bs, Hkv, 1)`` f32 scales), ``block_tables`` ``(B, Bps)``,
+    ``seq_lens`` ``(B,)``, ``valid_pool`` ``(N, bs)`` bool.  Returns ``(B,
+    Hkv, G, D)`` in ``q``'s dtype."""
     B, Hkv, G, D = q.shape
     bs = k_pool.shape[1]
     Bps = block_tables.shape[1]
@@ -87,8 +91,10 @@ def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
     k = logical(k_pool, k_scale)
     v = logical(v_pool, v_scale)
     s = torch.einsum("bhgd,bthd->bhgt", q.float(), k) * sm_scale
-    live = (torch.arange(Bps * bs, device=q.device)[None, :]
-            < seq_lens.long()[:, None])
+    kpos = torch.arange(Bps * bs, device=q.device)[None, :]
+    live = kpos < seq_lens.long()[:, None]
+    if window is not None:
+        live = live & (kpos >= seq_lens.long()[:, None] - window)
     if valid_pool is not None:
         live = live & valid_pool[tables].reshape(B, Bps * bs)
     s = torch.where(live[:, None, None, :], s, NEG_INF)
@@ -98,7 +104,8 @@ def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens, *,
                        k_scale=None, v_scale=None, valid_pool=None,
-                       sm_scale: float | None = None):
+                       sm_scale: float | None = None,
+                       window: int | None = None):
     """Decode attention straight off the paged pools (arguments as in
     :func:`paged_decode_reference`).  On CPU tensors this is the plain
     version; on CUDA tensors it launches the kernel on the current stream
@@ -107,10 +114,13 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens, *,
         raise ValueError("k and v pools must agree on quantization")
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
         return paged_decode_reference(
             q, k_pool, v_pool, block_tables, seq_lens, k_scale=k_scale,
-            v_scale=v_scale, valid_pool=valid_pool, sm_scale=sm_scale)
+            v_scale=v_scale, valid_pool=valid_pool, sm_scale=sm_scale,
+            window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode runs on cpu or cuda tensors, "
                          f"got {q.device}")
@@ -137,7 +147,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens, *,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             part.data_ptr(),
             B, Hkv, G, D, N, bs, Bps, splits, per, float(sm_scale),
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
+            window or 0, _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype],
+            stream)
     if rc != 0:
         msg = lib.paged_decode_error_string(rc).decode()
         raise RuntimeError(f"paged_decode kernel launch failed: {msg}")
@@ -212,7 +223,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [ptr] * 10 + [i32] * 9 + [ctypes.c_float] + [i32] * 2 + [ptr])
+        [ptr] * 10 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr])
     lib.paged_decode_launch.restype = i32
     lib.paged_decode_error_string.argtypes = [i32]
     lib.paged_decode_error_string.restype = ctypes.c_char_p

@@ -5,16 +5,20 @@
     python -m distributed_deep_learning_tpu_torch.serve --paged \\
         --layers 12 --d-model 768 --heads 12 --mlp-dim 3072 --vocab 32768 \\
         --max-len 1024 --prefill-chunk 64 --shared-prefix-len 64
+    python -m distributed_deep_learning_tpu_torch.serve --paged --draft 2 \\
+        --spec-k 4 --kv-dtype int8 --weight-dtype int8
 
 Without ``--paged`` the slot engine serves a mixed-length trace against
 the batch-synchronous ``generate()`` baseline (``serving_bench``;
 ``--stagger``, ``--skip-naive``); with it the paged engine
 serves a trace-driven SLO load, compared with the slot engine on the same
-trace unless ``--skip-v1`` (``paged_serving_bench``).  The flags are the
-subset of ``scripts/serve_bench.py`` that the port's engines support,
-plus ``--device`` (``cuda`` unless given).  Speculation, quantization and
-telemetry are not ported (ROADMAP.md queue 1 items 7 and 14).  A human
-latency line goes to stderr.
+trace unless ``--skip-v1`` (``paged_serving_bench``).  ``--draft N``
+speculates with the target's first N layers (paged only), ``--kv-dtype``
+and ``--weight-dtype`` store the KV cache and the weights in bf16 or int8
+(int8 KV needs ``--paged``).  The flags are the subset of
+``scripts/serve_bench.py`` that the port's engines support, plus
+``--device`` (``cuda`` unless given); telemetry is not ported (ROADMAP.md
+queue 1 item 14).  A human latency line goes to stderr.
 """
 
 from __future__ import annotations
@@ -49,6 +53,10 @@ def main(argv=None) -> int:
                    help="paged mode: skip the slot-engine comparison leg")
     p.add_argument("--kv-block-size", type=int, default=16)
     p.add_argument("--prefill-chunk", type=int, default=32)
+    p.add_argument("--draft", type=int, default=0,
+                   help="speculative decoding: draft layer count "
+                        "(0 = off; the draft shares the target's weights)")
+    p.add_argument("--spec-k", type=int, default=4)
     p.add_argument("--arrival", choices=("front", "poisson", "bursty"),
                    default=None)
     p.add_argument("--rate", type=float, default=None)
@@ -56,6 +64,14 @@ def main(argv=None) -> int:
     p.add_argument("--shared-frac", type=float, default=None)
     p.add_argument("--slo-ttft-ms", type=float, default=None)
     p.add_argument("--slo-e2e-ms", type=float, default=None)
+    p.add_argument("--kv-dtype", default=None,
+                   help="KV-cache storage dtype: bf16 or int8 (int8 "
+                        "stores per-position scales in the block pools, "
+                        "so it requires --paged; unset = full precision)")
+    p.add_argument("--weight-dtype", default=None,
+                   help="weight storage dtype: bf16 or int8 (int8 = "
+                        "per-channel scales, each weight dequantized at "
+                        "its use; unset = full precision)")
     p.add_argument("--layers", type=int, default=None)
     p.add_argument("--d-model", type=int, default=None)
     p.add_argument("--heads", type=int, default=None)
@@ -67,6 +83,13 @@ def main(argv=None) -> int:
 
     from distributed_deep_learning_tpu_torch.serve.bench import (
         paged_serving_bench, serving_bench)
+    from distributed_deep_learning_tpu_torch.utils.config import (
+        serve_dtype_error)
+
+    err = serve_dtype_error(args.kv_dtype, args.weight_dtype, args.paged)
+    if err:
+        p.error(err)
+    quant_kw = dict(kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
 
     model_kw = {k: v for k, v in (
         ("num_layers", args.layers), ("d_model", args.d_model),
@@ -84,7 +107,7 @@ def main(argv=None) -> int:
                 new_tokens=(4 if args.new_min is None else args.new_min,
                             64 if args.new_max is None else args.new_max),
                 max_slots=args.max_slots, stagger=args.stagger,
-                skip_naive=args.skip_naive)
+                skip_naive=args.skip_naive, **quant_kw)
         except ValueError as e:
             p.error(f"{e} — shrink the trace (--prompt-max / --new-max) or "
                     "raise --max-len")
@@ -121,7 +144,8 @@ def main(argv=None) -> int:
             model_kw=model_kw, max_slots=args.max_slots,
             kv_block_size=args.kv_block_size,
             prefill_chunk=args.prefill_chunk,
-            compare_engine=not args.skip_v1)
+            draft_layers=args.draft or None, spec_k=args.spec_k,
+            compare_engine=not args.skip_v1, **quant_kw)
     except ValueError as e:
         p.error(f"{e} — shrink the trace (--prompt-max / --new-max / "
                 "--shared-prefix-len) or raise --max-len")
@@ -129,7 +153,9 @@ def main(argv=None) -> int:
         record.pop(key, None)
     pe = record["paged_engine"]
     _latency_line("paged", record["device"], pe)
-    print(f"prefix_hit_rate={pe['prefix_hit_rate']:.3f}", file=sys.stderr)
+    print(f"prefix_hit_rate={pe['prefix_hit_rate']:.3f} "
+          f"slo_attainment={pe['slo_attainment']} "
+          f"spec_acceptance={pe['spec_acceptance']}", file=sys.stderr)
     print(json.dumps(record))
     return _write(args.out, record)
 

@@ -14,6 +14,13 @@
   prompt, per-request SLOs) through :class:`.engine.PagedEngine` and, as
   its comparison leg, through the slot engine on the same trace.
 
+Both take the engines' serving options: ``kv_dtype`` and ``weight_dtype``
+(the records carry the KV and weight bytes, and under int8 weights the
+:func:`.quant.calibrate_weight_drift` record on a probe of the trace's
+prompts), and for the paged bench ``draft_layers``/``spec_k`` (the
+capacity keeps ``spec_k + 1`` positions of headroom; the record carries
+the ``spec`` stats).
+
 Each returns one JSON-able record.  Load shapes live here
 (``DEFAULT_LOAD``), as in the JAX package, so every caller benches the
 same story.  The JAX record's compile counts become ``decode_captures``
@@ -32,6 +39,7 @@ import torch
 from distributed_deep_learning_tpu_torch import resolve_device
 from distributed_deep_learning_tpu_torch.models.transformer import (CausalLM,
                                                                      generate)
+from distributed_deep_learning_tpu_torch.serve import quant
 from distributed_deep_learning_tpu_torch.serve.engine import (PagedEngine,
                                                               ServeEngine)
 from distributed_deep_learning_tpu_torch.serve.load import (LoadSpec,
@@ -125,12 +133,24 @@ def run_naive(model, requests: Sequence[Request], batch_size: int) -> dict:
     }}
 
 
+def _weight_drift(model, trace, weight_dtype):
+    """The declared int8 weight-drift record on a probe of the trace's
+    first prompts (at most 64 tokens), as the JAX quantized bench makes
+    it; None for other weights."""
+    if weight_dtype != "int8":
+        return None
+    probe = np.concatenate([np.asarray(r.prompt) for r in trace[:4]])[:64]
+    return quant.calibrate_weight_drift(
+        model, quant.quantize_weights(model, weight_dtype), probe)
+
+
 def serving_bench(*, seed: int = 0, device="cuda", n_requests: int = 32,
                   model_kw: Optional[dict] = None,
                   prompt_lens: tuple[int, int] = (4, 48),
                   new_tokens: tuple[int, int] = (4, 64),
                   max_slots: int = 8, stagger: int = 0,
-                  skip_naive: bool = False) -> dict:
+                  skip_naive: bool = False, kv_dtype: Optional[str] = None,
+                  weight_dtype: Optional[str] = None) -> dict:
     """The slot engine against the naive baseline on one seeded
     mixed-length trace (:func:`make_trace`) and a seeded model
     (``DEFAULT_MODEL`` overridden by ``model_kw``).  Besides the summary
@@ -144,11 +164,15 @@ def serving_bench(*, seed: int = 0, device="cuda", n_requests: int = 32,
     trace = make_trace(n_requests, vocab_size=model.vocab_size, seed=seed,
                        prompt_lens=prompt_lens, new_tokens=new_tokens,
                        stagger=stagger)
-    eng = run_engine(model, trace, device=device, max_slots=max_slots)
+    eng = run_engine(model, trace, device=device, max_slots=max_slots,
+                     kv_dtype=kv_dtype, weight_dtype=weight_dtype)
     record = {
         "metric": "serving throughput tokens/sec (mixed-length trace)",
         "device": eng["stats"]["device"],
         "model": {**DEFAULT_MODEL, **(model_kw or {})},
+        "kv_dtype": kv_dtype,
+        "weight_dtype": weight_dtype,
+        "weight_drift": _weight_drift(model, trace, weight_dtype),
         "requests": n_requests,
         "prompt_lens": list(prompt_lens),
         "new_tokens": list(new_tokens),
@@ -175,6 +199,7 @@ def _slot_summary(es: dict) -> dict:
         "generated_tokens": es["generated_tokens"],
         "total_seconds": es["total_seconds"],
         "kv_cache_bytes": es["kv_cache_bytes"],
+        "weight_bytes": es["weight_bytes"],
         "prefill_seconds": es["prefill_seconds"],
         "decode_seconds": es["decode_seconds"],
         "mean_slot_occupancy": es["mean_slot_occupancy"],
@@ -192,13 +217,18 @@ def run_paged(model, requests: Sequence[Request], **engine_kw) -> dict:
     return PagedEngine(model, **engine_kw).run(requests)
 
 
-def paged_max_len(model_max_len: int, kv_block_size: int) -> int:
+def paged_max_len(model_max_len: int, kv_block_size: int,
+                  draft: bool = False, spec_k: int = 4) -> int:
     """Largest engine ``max_len`` a model geometry supports: the paged
-    cache rounds capacity to whole blocks inside the model's positions."""
-    cap = (model_max_len // kv_block_size) * kv_block_size
+    cache rounds capacity up to whole blocks and, speculating, needs
+    ``spec_k + 1`` positions of verify headroom, all inside the model's
+    positions."""
+    head = spec_k + 1 if draft else 0
+    cap = (model_max_len // kv_block_size) * kv_block_size - head
     if cap < kv_block_size:
-        raise ValueError(f"model max_len {model_max_len} too small for "
-                         f"block size {kv_block_size}")
+        raise ValueError(
+            f"model max_len {model_max_len} too small for block size "
+            f"{kv_block_size} (+{head} speculative headroom)")
     return cap
 
 
@@ -213,6 +243,9 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
                         max_slots: int = 8, kv_block_size: int = 16,
                         prefill_chunk: int = 32,
                         decode_attention: str = "kernel",
+                        draft_layers: Optional[int] = None, spec_k: int = 4,
+                        kv_dtype: Optional[str] = None,
+                        weight_dtype: Optional[str] = None,
                         compare_engine: bool = True) -> dict:
     """One trace-driven load (``DEFAULT_LOAD`` overridden by ``load_kw``)
     through :class:`PagedEngine` on a seeded model (``DEFAULT_MODEL``
@@ -227,7 +260,8 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
     bucket), so its ``prefill_tokens_computed`` is the prompts' total."""
     model = build_model(seed, device, **(model_kw or {}))
     spec = LoadSpec(**{**DEFAULT_LOAD, **(load_kw or {})})
-    cap = paged_max_len(model.max_len, kv_block_size)
+    cap = paged_max_len(model.max_len, kv_block_size,
+                        draft_layers is not None, spec_k)
     need = spec.shared_prefix_len + spec.prompt_long[1] + spec.new_tokens[1]
     if need > cap:
         raise ValueError(
@@ -237,7 +271,9 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
     res = run_paged(model, trace, device=device, max_slots=max_slots,
                     max_len=cap, kv_block_size=kv_block_size,
                     prefill_chunk=min(prefill_chunk, cap),
-                    decode_attention=decode_attention)
+                    decode_attention=decode_attention,
+                    draft_layers=draft_layers, spec_k=spec_k,
+                    kv_dtype=kv_dtype, weight_dtype=weight_dtype)
     ps = res["stats"]
     record = {
         "metric": "paged serving under trace-driven SLO load",
@@ -248,12 +284,16 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
         "kv_block_size": kv_block_size,
         "prefill_chunk": prefill_chunk,
         "decode_attention": decode_attention,
+        "kv_dtype": kv_dtype,
+        "weight_dtype": weight_dtype,
+        "weight_drift": _weight_drift(model, trace, weight_dtype),
         "errors": len(res["errors"]),
         "paged_engine": {
             "tokens_per_sec": ps["tokens_per_sec"],
             "generated_tokens": ps["generated_tokens"],
             "total_seconds": ps["total_seconds"],
             "kv_cache_bytes": ps["kv_cache_bytes"],
+            "weight_bytes": ps["weight_bytes"],
             "prefill_seconds": ps["prefill_seconds"],
             "decode_seconds": ps["decode_seconds"],
             "mean_slot_occupancy": ps["mean_slot_occupancy"],
@@ -261,10 +301,14 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
             "decode_ticks": ps["decode_ticks"],
             "paged_decode_launches": ps["paged_decode_launches"],
             "decode_captures": ps["decode_captures"],
+            "draft_captures": ps["draft_captures"],
+            "verify_captures": ps["verify_captures"],
             "nonfinite_tokens": ps["nonfinite_tokens"],
             "prefix_hit_rate": ps["paged"]["prefix_hit_rate"],
             "slo_attainment": ps["slo"]["slo_attainment"],
+            "spec_acceptance": ps["spec"]["acceptance_rate"],
             "paged": ps["paged"],
+            "spec": ps["spec"],
             "slo": ps["slo"],
             "latency": _rounded(ps["latency"]),
         },

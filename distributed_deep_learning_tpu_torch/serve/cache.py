@@ -33,16 +33,18 @@ KV_LEAVES = ("cached_key", "cached_value")
 VALID_LEAF = "cached_valid"
 
 
-def allocate_slots(model, max_slots: int, max_len: int, device) -> dict:
+def allocate_slots(model, max_slots: int, max_len: int, device,
+                   dtype=None) -> dict:
     """Zeroed slot table for ``max_slots`` sequences of up to ``max_len``
     positions of ``model`` (a :class:`..models.transformer.CausalLM`) on
-    ``device``: ``{"layers": [{leaf: tensor}], "index": (max_slots,)
-    int64 numpy}``."""
+    ``device``, K/V in ``dtype`` (the compute dtype unless given):
+    ``{"layers": [{leaf: tensor}], "index": (max_slots,) int64 numpy}``."""
     attn = model.layers[0].self_attn
     shape = (max_slots, max_len, attn.kv_heads, attn.head_dim)
+    dtype = dtype or model.dtype
 
     def layer():
-        out = {name: torch.zeros(shape, dtype=model.dtype, device=device)
+        out = {name: torch.zeros(shape, dtype=dtype, device=device)
                for name in KV_LEAVES}
         out[VALID_LEAF] = torch.zeros(shape[:2], dtype=torch.bool,
                                       device=device)
@@ -62,8 +64,9 @@ def kv_cache_bytes(slots: dict) -> int:
 
 def write_slot(slots: dict, cache: dict, slot: int) -> None:
     """Write a one-row model-layout cache (``CausalLM.init_cache(1,
-    max_len)`` after a prefill) into row ``slot`` of the table, in place,
-    and pin the row's position to the cache's ``index``.  The whole row is
+    max_len)`` after a prefill) into row ``slot`` of the table, in place
+    (cast to the table's dtype: a bf16 table stores the prefill's K/V
+    rounded), and pin the row's position to the cache's ``index``.  The whole row is
     written, so the previous occupant leaves nothing behind; the position
     is the prefill's true length (the flax engine pins it with
     ``fix_counters`` after its bucket-padded prefill)."""

@@ -33,11 +33,31 @@ arrival tick is first reached, so queue wait counts.
 Both decode ticks run through :class:`.graphs.DecodeTick`: staged host
 numbers, then a body captured once in a CUDA graph on the card and
 replayed every tick (``stats["decode_captures"]`` is 1 for an engine's
-lifetime there and 0 on the CPU).  Caches are in the model's compute
-dtype.  The configuration is the JAX default: full-precision KV and
-weights, no speculation, no preemption, no sliding window on the paged
-path, no supervision hooks; those options raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+lifetime there and 0 on the CPU).
+
+The JAX engines' serving options:
+
+* ``kv_dtype`` (:mod:`.quant`): caches at rest in bf16, or in int8 with a
+  scale per position per head (the paged engine only).  Computed K/V are
+  quantized where they are written and dequantized to the compute dtype
+  where a prefill or a verify gathers them; the decode kernel reads the
+  int8 or bf16 pools itself.
+* ``weight_dtype``: the engine serves an at-rest copy of the model
+  (:func:`.quant.quantize_weights`) whose weights are dequantized where
+  each is used.
+* ``draft_layers`` (:mod:`.spec`, paged engine): speculative decoding.  A
+  truncated draft sharing the target's weights proposes ``spec_k`` tokens
+  in ``spec_k + 1`` steps, each attending off the draft's own pools through
+  the decode kernel; the target verifies all ``spec_k + 1`` positions in
+  one cached forward over each slot's gathered cache, in plain torch as
+  the chunk prefill is.  The draft round and the verify are each captured
+  once in a CUDA graph (``draft_captures``, ``verify_captures``), and the
+  plain decode tick is then never run.  Greedy only.
+* a model's ``attention_window``: every path attends over the last
+  ``window`` positions, ``qpos - kpos < window``.
+
+Preemption and migration, and the supervision hooks, raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -56,13 +76,15 @@ from distributed_deep_learning_tpu_torch.obs.metrics import Histogram
 from distributed_deep_learning_tpu_torch.ops.paged_decode import (
     paged_decode_reference, paged_flash_decode)
 from distributed_deep_learning_tpu_torch.serve import cache as slot_cache
-from distributed_deep_learning_tpu_torch.serve import paged
+from distributed_deep_learning_tpu_torch.serve import paged, quant
 from distributed_deep_learning_tpu_torch.serve.graphs import DecodeTick, head
 from distributed_deep_learning_tpu_torch.serve.load import slo_report
 from distributed_deep_learning_tpu_torch.serve.prefill import (
     chunk_tokens, plan_chunks, write_targets)
 from distributed_deep_learning_tpu_torch.serve.scheduler import (
     PagedScheduler, Request, SlotScheduler)
+from distributed_deep_learning_tpu_torch.serve.spec import (greedy_accept,
+                                                            truncated_draft)
 
 #: decode attention implementations; "plain" exists so that tests and
 #: chip_smoke.py can hold the kernel against its plain version in place
@@ -91,14 +113,22 @@ def _latency(h_ttft: Histogram, h_itl: Histogram, h_e2e: Histogram) -> dict:
 
 
 class _Engine:
-    """What the two engines share: the model on its device, sampling, and
-    the end of a decode tick."""
+    """What the two engines share: the model (or its at-rest copy under
+    ``weight_dtype``) on its device, sampling, and the end of a decode
+    tick."""
 
     def __init__(self, model: CausalLM, device, max_slots: int, eos_id,
-                 temperature: float, top_k, top_p, generator):
+                 temperature: float, top_k, top_p, generator, kv_dtype,
+                 weight_dtype):
         validate_sampling(top_k, top_p)
+        quant.check_dtype("kv_dtype", kv_dtype)
+        quant.check_dtype("weight_dtype", weight_dtype)
+        self.kv_dtype, self.weight_dtype = kv_dtype, weight_dtype
         self.device = resolve_device(device)
+        if weight_dtype is not None:
+            model = quant.quantize_weights(model, weight_dtype)
         self.model = model.to(self.device).eval()
+        self.weight_bytes = quant.weight_bytes(self.model)
         self.max_slots = int(max_slots)
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -134,7 +164,10 @@ class ServeEngine(_Engine):
     docstring) for a :class:`..models.transformer.CausalLM` holding its
     weights; the engine moves it to ``device`` (``cuda`` unless the caller
     passes ``"cpu"``).  The table persists across ``run()`` calls, and
-    every run replays the one captured decode tick."""
+    every run replays the one captured decode tick.  ``kv_dtype="bf16"``
+    stores the table in bf16 (the attention reads it back in the compute
+    dtype, the tick's own position unrounded, as the flax engine's cached
+    forward does); int8 KV needs the paged engine."""
 
     def __init__(self, model: CausalLM, *, device="cuda", max_slots: int = 8,
                  max_len: Optional[int] = None,
@@ -143,17 +176,21 @@ class ServeEngine(_Engine):
                  generator: Optional[torch.Generator] = None,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None):
-        if kv_dtype is not None or weight_dtype is not None:
-            raise _unported("bf16/int8 KV and weights (kv_dtype, "
-                            "weight_dtype)", "queue 1 item 7")
+        quant.check_dtype("kv_dtype", kv_dtype)
+        if kv_dtype == "int8":
+            raise ValueError(
+                "kv_dtype='int8' requires the paged engine (PagedEngine /"
+                " --paged): int8 KV stores per-position scales alongside "
+                "the block pools; the v1 slot table supports bf16 only")
         super().__init__(model, device, max_slots, eos_id, temperature,
-                         top_k, top_p, generator)
+                         top_k, top_p, generator, kv_dtype, weight_dtype)
         self.max_len = int(max_len if max_len is not None else model.max_len)
         if self.max_len > model.max_len:
             raise ValueError(f"max_len {self.max_len} exceeds the model's "
                              f"max_len {model.max_len}")
-        self.slots = slot_cache.allocate_slots(self.model, self.max_slots,
-                                               self.max_len, self.device)
+        self.slots = slot_cache.allocate_slots(
+            self.model, self.max_slots, self.max_len, self.device,
+            dtype=torch.bfloat16 if kv_dtype == "bf16" else None)
         self.kv_cache_bytes = slot_cache.kv_cache_bytes(self.slots)
         self._rows = torch.arange(self.max_slots, device=self.device)
         # staged: row 0 the slots' tokens, row 1 their positions
@@ -182,13 +219,18 @@ class ServeEngine(_Engine):
 
         def attend(i, q, k, v):
             layer = self.slots["layers"][i]
-            layer["cached_key"][rows, pos] = k[:, 0]
-            layer["cached_value"][rows, pos] = v[:, 0]
+            ck, cv = layer["cached_key"], layer["cached_value"]
+            ck[rows, pos] = k[:, 0].to(ck.dtype)
+            cv[rows, pos] = v[:, 0].to(cv.dtype)
             layer[slot_cache.VALID_LEAF][rows, pos] = valid
+            if ck.dtype != k.dtype:           # a bf16 table: read it back
+                read = quant.cast_kv(layer, k.dtype)
+                ck, cv = read["cached_key"], read["cached_value"]
+                ck[rows, pos] = k[:, 0]
+                cv[rows, pos] = v[:, 0]
             a = self.model.layers[i].self_attn
             return causal_prefix_attention(
-                q, a.expand(layer["cached_key"]),
-                a.expand(layer["cached_value"]),
+                q, a.expand(ck), a.expand(cv),
                 layer[slot_cache.VALID_LEAF], pos, window=window)
 
         hidden = self.model.run(toks, pos[:, None], attend)
@@ -305,8 +347,9 @@ class ServeEngine(_Engine):
                 occupancy_sum / decode_ticks if decode_ticks else 0.0,
             "max_slots": self.max_slots,
             "kv_cache_bytes": self.kv_cache_bytes,
-            "kv_dtype": None,
-            "weight_dtype": None,
+            "kv_dtype": self.kv_dtype,
+            "weight_dtype": self.weight_dtype,
+            "weight_bytes": self.weight_bytes,
             "decode_captures": self._tick.captures,
             "nonfinite_tokens": nonfinite,
             "latency": _latency(h_ttft, h_itl, h_e2e),
@@ -322,39 +365,45 @@ class PagedEngine(_Engine):
     weights; the engine moves it to ``device`` (``cuda`` unless the caller
     passes ``"cpu"``).  The block pools and the prefix index persist
     across ``run()`` calls, so a later trace sharing prompts with an
-    earlier one starts with a warm prefix cache."""
+    earlier one starts with a warm prefix cache.
+
+    ``draft_layers`` turns speculative decoding on (``spec_k`` proposals a
+    round, greedy only); each slot's logical buffer then gets ``spec_k +
+    1`` positions of headroom past ``max_len``, in whole blocks, and the
+    draft's pools inherit ``kv_dtype``."""
 
     def __init__(self, model: CausalLM, *, device="cuda", max_slots: int = 8,
                  max_len: Optional[int] = None, kv_block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
                  prefill_chunks_per_tick: int = 1,
+                 draft_layers: Optional[int] = None, spec_k: int = 4,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  generator: Optional[torch.Generator] = None,
-                 draft_layers: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  preempt: bool = False, migrate: str = "host",
                  decode_attention: str = "kernel"):
-        if draft_layers is not None:
-            raise _unported("speculative decoding (draft_layers)",
-                            "queue 1 item 7")
-        if kv_dtype is not None or weight_dtype is not None:
-            raise _unported("bf16/int8 KV and weights (kv_dtype, "
-                            "weight_dtype)", "queue 1 item 7")
         if preempt or migrate != "host":
             raise _unported("preemption and KV spill (preempt, migrate)",
                             "queue 1 item 13")
-        if model.attention_window is not None:
-            raise _unported("sliding-window attention on the paged path",
-                            "queue 1 item 7")
         if decode_attention not in DECODE_ATTENTION:
             raise ValueError(f"decode_attention must be one of "
                              f"{sorted(DECODE_ATTENTION)}, got "
                              f"{decode_attention!r}")
+        self.spec_k = int(spec_k)
+        self.draft_layers = draft_layers
+        if draft_layers is not None:
+            if temperature != 0.0:
+                raise ValueError("speculative decoding is greedy-only "
+                                 "(acceptance is exact-match against the "
+                                 "target argmax); set temperature=0")
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         super().__init__(model, device, max_slots, eos_id, temperature,
-                         top_k, top_p, generator)
+                         top_k, top_p, generator, kv_dtype, weight_dtype)
         self.attention = DECODE_ATTENTION[decode_attention]
+        self.window = model.attention_window
         self.max_len = int(max_len if max_len is not None else model.max_len)
 
         bs = int(kv_block_size)
@@ -366,11 +415,15 @@ class PagedEngine(_Engine):
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
         self.chunks_per_tick = max(1, int(prefill_chunks_per_tick))
-        self.padded_len = -(-self.max_len // bs) * bs
+        # speculation writes up to spec_k positions past the stream's tip
+        headroom = self.spec_k + 1 if draft_layers is not None else 0
+        self.padded_len = -(-(self.max_len + headroom) // bs) * bs
         if self.padded_len > model.max_len:
             raise ValueError(
-                f"slot buffer {self.padded_len} (max_len {self.max_len} in "
-                f"whole blocks) exceeds the model's max_len {model.max_len}")
+                f"slot buffer {self.padded_len} (max_len {self.max_len} + "
+                f"speculative headroom {headroom}, in whole blocks) "
+                f"exceeds the model's max_len {model.max_len}; lower "
+                f"max_len or spec_k")
         if self.chunk > self.padded_len:
             raise ValueError(f"prefill_chunk {self.chunk} exceeds the "
                              f"slot buffer {self.padded_len}")
@@ -382,45 +435,115 @@ class PagedEngine(_Engine):
         self.num_blocks = int(num_blocks)
         self.manager = paged.BlockManager(num_blocks, bs, self.max_slots,
                                           self.blocks_per_slot)
-        attn = model.layers[0].self_attn
-        self.pools = paged.build_pools(
-            model.num_layers, self.num_blocks + 1, bs, attn.kv_heads,
-            attn.head_dim, dtype=model.dtype, device=self.device)
+        self.pools = self._build_pools(self.model)
         self.kv_cache_bytes = paged.pool_bytes(self.pools)
         # staged, a row per slot: its block table, then position, token,
         # write block and write offset
         self._tick = DecodeTick(PagedEngine._decode_body,
                                 (self.max_slots, self.blocks_per_slot + 4),
                                 self.device, counters=(paged_flash_decode,))
+        self.draft = self.draft_pools = None
+        if draft_layers is not None:
+            self.draft = truncated_draft(self.model, draft_layers)
+            self.draft_pools = self._build_pools(self.draft)
+            self.kv_cache_bytes += paged.pool_bytes(self.draft_pools)
+            # staged, a row per slot: its block table, position, pending
+            # token, then the round's spec_k + 1 write blocks and offsets
+            T = self.spec_k + 1
+            shape = (self.max_slots, self.blocks_per_slot + 2 + 2 * T)
+            self._draft_tick = DecodeTick(PagedEngine._draft_body, shape,
+                                          self.device,
+                                          counters=(paged_flash_decode,))
+            self._verify_tick = DecodeTick(PagedEngine._verify_body, shape,
+                                           self.device)
+            self._verify_tick.host = self._draft_tick.host
+            # the draft round's proposals, read by the verify
+            self._props = torch.zeros(self.max_slots, self.spec_k,
+                                      dtype=torch.int64, device=self.device)
+
+    def _build_pools(self, model):
+        attn = model.layers[0].self_attn
+        return paged.build_pools(
+            model.num_layers, self.num_blocks + 1, self.block_size,
+            attn.kv_heads, attn.head_dim, dtype=model.dtype,
+            device=self.device, kv_dtype=self.kv_dtype)
 
     # --- device programs ----------------------------------------------------
-    @torch.no_grad()
-    def _chunk(self, tokens, table, pos: int, logit_idx: int, wb, wo):
-        """One prefill chunk for one slot; returns the token sampled at
-        ``logit_idx`` as a device scalar (meaningful on the final chunk)."""
-        toks = self._tensor(tokens, torch.long)[None]
-        table = self._tensor(table, torch.long)
-        wb, wo = self._tensor(wb, torch.long), self._tensor(wo, torch.long)
-        valid = self.model.token_valid(toks)
+    def _scatter(self, layer, k, v, valid, wb, wo):
+        """Write fresh K/V rows into one layer's pools in their at-rest
+        form."""
+        if self.kv_dtype is not None:
+            k = quant.quantize_kv(k, self.kv_dtype)
+            v = quant.quantize_kv(v, self.kv_dtype)
+        paged.scatter_span(layer, k, v, valid, wb, wo)
+
+    def _gather(self, layer, tables, dtype):
+        """The slots' logical caches from one layer's pools in the
+        compute dtype (int8 dequantized as ``q * s`` in f32)."""
+        return quant.dequant_cache(paged.gather_slot(layer, tables.long()),
+                                   dtype)
+
+    def _prefill_chunk(self, model, pools, toks, table, pos: int, wb, wo):
+        """``model``'s hidden states for one slot's chunk ``toks`` ``(1,
+        n)`` at ``pos``: each layer gathers the slot's cache, overlays the
+        chunk's fresh K/V, attends with the causal prefix mask, the stored
+        validity and the window, and scatters the live positions."""
+        valid = model.token_valid(toks)
         n = toks.shape[1]
 
         def attend(i, q, k, v):
-            layer = self.pools[i]
-            cache = paged.gather_slot(layer, table)
+            layer = pools[i]
+            cache = self._gather(layer, table, k.dtype)
             ck, cv, cvalid = (cache["cached_key"], cache["cached_value"],
                               cache[paged.VALID_LEAF])
             ck[:, pos:pos + n] = k
             cv[:, pos:pos + n] = v
             cvalid[:, pos:pos + n] = valid
-            a = self.model.layers[i].self_attn
+            a = model.layers[i].self_attn
             y = causal_prefix_attention(q, a.expand(ck), a.expand(cv),
-                                        cvalid, pos)
-            paged.scatter_span(layer, k[0], v[0], valid[0], wb, wo)
+                                        cvalid, pos, window=self.window)
+            self._scatter(layer, k[0], v[0], valid[0], wb, wo)
             return y
 
         positions = pos + torch.arange(n, device=self.device)
-        hidden = self.model.run(toks, positions, attend)
+        return model.run(toks, positions, attend)
+
+    @torch.no_grad()
+    def _chunk(self, tokens, table, pos: int, logit_idx: int, wb, wo):
+        """One prefill chunk for one slot (the draft's K/V for it too,
+        when speculating); returns the token sampled at ``logit_idx`` as a
+        device scalar (meaningful on the final chunk)."""
+        toks = self._tensor(tokens, torch.long)[None]
+        table = self._tensor(table, torch.long)
+        wb, wo = self._tensor(wb, torch.long), self._tensor(wo, torch.long)
+        hidden = self._prefill_chunk(self.model, self.pools, toks, table,
+                                     pos, wb, wo)
+        if self.draft is not None:
+            self._prefill_chunk(self.draft, self.draft_pools, toks, table,
+                                pos, wb, wo)
         return self._sample(hidden[0, logit_idx:logit_idx + 1])[0]
+
+    def _paged_attend(self, model, pools, tables, seq_lens, wb, wo, valid):
+        """``attend(i, q, k, v)`` for one new position a slot: write its
+        K/V (validity ``valid``) at ``wb``/``wo``, then attend off the
+        pools through the decode attention."""
+        S = tables.shape[0]
+
+        def attend(i, q, k, v):
+            layer = pools[i]
+            self._scatter(layer, k[:, 0], v[:, 0], valid, wb, wo)
+            a = model.layers[i].self_attn
+            qg = q[:, 0].reshape(S, a.kv_heads, a.group, a.head_dim)
+            kp, vp = layer["cached_key"], layer["cached_value"]
+            kw = {}
+            if quant.is_quant(kp):
+                kp, vp, kw = kp.q, vp.q, dict(k_scale=kp.s, v_scale=vp.s)
+            out = self.attention(qg.contiguous(), kp, vp, tables, seq_lens,
+                                 valid_pool=layer[paged.VALID_LEAF],
+                                 window=self.window, **kw)
+            return out.reshape(S, 1, a.num_heads, a.head_dim)
+
+        return attend
 
     @torch.no_grad()
     def _decode_body(self, staged):
@@ -429,23 +552,80 @@ class PagedEngine(_Engine):
         bps = self.blocks_per_slot
         tables = staged[:, :bps].to(torch.int32).contiguous()
         pos, toks = staged[:, bps], staged[:, bps + 1:bps + 2]
-        wb, wo = staged[:, bps + 2], staged[:, bps + 3]
-        seq_lens = (pos + 1).to(torch.int32)
-        valid = self.model.token_valid(toks)[:, 0]
-        S = toks.shape[0]
+        attend = self._paged_attend(
+            self.model, self.pools, tables, (pos + 1).to(torch.int32),
+            staged[:, bps + 2], staged[:, bps + 3],
+            self.model.token_valid(toks)[:, 0])
+        hidden = self.model.run(toks, pos[:, None], attend)
+        return head(self.model, hidden[:, 0])
+
+    def _staged_round(self, staged):
+        """A speculative round's staged row per slot: block table,
+        position, pending token, ``spec_k + 1`` write blocks and offsets."""
+        bps, T = self.blocks_per_slot, self.spec_k + 1
+        return (staged[:, :bps].to(torch.int32).contiguous(),
+                staged[:, bps], staged[:, bps + 1],
+                staged[:, bps + 2:bps + 2 + T],
+                staged[:, bps + 2 + T:bps + 2 + 2 * T])
+
+    @torch.no_grad()
+    def _draft_body(self, staged):
+        """The draft's round: ``spec_k + 1`` greedy steps a slot, each
+        writing the draft's K/V at ``pos + j`` and attending off the
+        draft's pools through the decode attention; the first ``spec_k``
+        proposals go to :attr:`_props` (the last step only writes its
+        K/V)."""
+        tables, pos, tok, wb, wo = self._staged_round(staged)
+        draft, outs = self.draft, []
+        for j in range(self.spec_k + 1):
+            toks = tok[:, None]
+            attend = self._paged_attend(
+                draft, self.draft_pools, tables,
+                (pos + j + 1).to(torch.int32), wb[:, j], wo[:, j],
+                draft.token_valid(toks)[:, 0])
+            hidden = draft.run(toks, (pos + j)[:, None], attend)
+            tok = pick_tokens(draft, draft.logits_from(hidden[:, 0]))
+            outs.append(tok)
+        self._props.copy_(torch.stack(outs[:self.spec_k], 1))
+        return self._props
+
+    @torch.no_grad()
+    def _verify_body(self, staged):
+        """The target's verify: one cached forward a slot of the pending
+        token and the ``spec_k`` proposals at ``pos .. pos + spec_k``, over
+        the slot's gathered cache with the fresh K/V overlaid (plain torch,
+        as the chunk prefill); writes their K/V.  Returns ``(S, 2 spec_k +
+        2)``: the proposals, the target's greedy token at each of the
+        ``spec_k + 1`` positions, and a 0/1 flag that the slot's hidden
+        states are finite."""
+        tables, pos, tok, wb, wo = self._staged_round(staged)
+        T = self.spec_k + 1
+        model = self.model
+        toks = torch.cat([tok[:, None], self._props], 1)          # (S, T)
+        valid = model.token_valid(toks)
+        positions = pos[:, None] + torch.arange(T, device=self.device)
+        rows = torch.arange(toks.shape[0], device=self.device)[:, None]
 
         def attend(i, q, k, v):
             layer = self.pools[i]
-            paged.scatter_span(layer, k[:, 0], v[:, 0], valid, wb, wo)
-            a = self.model.layers[i].self_attn
-            qg = q[:, 0].reshape(S, a.kv_heads, a.group, a.head_dim)
-            out = self.attention(qg.contiguous(), layer["cached_key"],
-                                 layer["cached_value"], tables, seq_lens,
-                                 valid_pool=layer[paged.VALID_LEAF])
-            return out.reshape(S, 1, a.num_heads, a.head_dim)
+            cache = self._gather(layer, tables, k.dtype)
+            ck, cv, cvalid = (cache["cached_key"], cache["cached_value"],
+                              cache[paged.VALID_LEAF])
+            ck[rows, positions] = k
+            cv[rows, positions] = v
+            cvalid[rows, positions] = valid
+            a = model.layers[i].self_attn
+            y = causal_prefix_attention(q, a.expand(ck), a.expand(cv),
+                                        cvalid, pos, window=self.window)
+            self._scatter(layer, k.flatten(0, 1), v.flatten(0, 1),
+                          valid.flatten(), wb.flatten(), wo.flatten())
+            return y
 
-        hidden = self.model.run(toks, pos[:, None], attend)
-        return head(self.model, hidden[:, 0])
+        hidden = model.run(toks, positions, attend)                # (S, T, d)
+        logits = model.logits_from(hidden).flatten(0, 1)
+        greedy = pick_tokens(model, logits).view(-1, T)
+        finite = torch.isfinite(hidden).all(-1).all(-1)
+        return torch.cat([self._props, greedy, finite[:, None].long()], 1)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -462,13 +642,18 @@ class PagedEngine(_Engine):
             pair = self.manager.writable(idx, lg)
             if pair is not None:
                 paged.copy_block(self.pools, *pair)
+                if self.draft_pools is not None:   # the tables are shared
+                    paged.copy_block(self.draft_pools, *pair)
                 copies += 1
         return copies
 
     def _capacity_len(self, req: Request) -> int:
-        """Stream positions a request may ever write: its whole block
-        budget, reserved at admission (so the pool cannot deadlock)."""
-        return min(len(req.prompt) + req.max_new_tokens, self.padded_len)
+        """Stream positions a request may ever write (with the speculative
+        headroom): its whole block budget, reserved at admission (so the
+        pool cannot deadlock)."""
+        extra = self.spec_k + 1 if self.draft is not None else 0
+        return min(len(req.prompt) + req.max_new_tokens + extra,
+                   self.padded_len)
 
     def _validate(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.max_len:
@@ -493,7 +678,9 @@ class PagedEngine(_Engine):
         ``slo`` attainment, ``latency`` percentiles (TTFT anchors at the
         wall time a request's arrival tick is first reached, so queue wait
         counts), ``decode_captures`` and ``paged_decode_launches``, the
-        kernel launches of this run."""
+        kernel launches of this run (the draft's, when speculating), and
+        ``spec``: rounds (one a decoding slot a speculative tick), tokens
+        proposed and accepted, and the acceptance rate."""
         if telemetry is not None:
             raise _unported("serving telemetry", "queue 1 item 14")
         sched = PagedScheduler(self.max_slots)
@@ -521,6 +708,7 @@ class PagedEngine(_Engine):
         e2e_s: dict[int, float] = {}
         shared_tokens = prompt_tokens = chunk_calls = 0
         decode_ticks = occupancy_sum = nonfinite = 0
+        spec_rounds = proposed_total = accepted_total = 0
         t_prefill = t_decode = 0.0
         launches0 = paged_flash_decode.launches
 
@@ -536,9 +724,11 @@ class PagedEngine(_Engine):
                 h_itl.observe((now - fw) / (n_tok - 1))
 
         def emit(idx, token, now):
+            """Record one token; True when the slot retired."""
             done = sched.record(idx, token, self.eos_id)
             if done is not None:
                 retire(done, idx, now)
+            return done is not None
 
         def run_chunk(idx):
             nonlocal chunk_calls, t_prefill
@@ -615,7 +805,42 @@ class PagedEngine(_Engine):
             # decode every tick: live streams advance regardless of how
             # much prefill work is queued — the stall bound
             dec = sched.decoding_slots()
-            if dec:
+            if dec and self.draft is not None:
+                k, T = self.spec_k, self.spec_k + 1
+                host = self._draft_tick.host
+                host[:, bps:] = 0               # free and prefilling slots:
+                host[:, bps + 2:bps + 2 + T] = paged.TRASH  # write to TRASH
+                for i in dec:
+                    c = committed[i]
+                    self._make_writable(i, c, c + k)
+                    pp = np.arange(c, c + T)
+                    host[i, bps:bps + 2] = (c, pendtok[i])
+                    host[i, bps + 2:bps + 2 + T] = mgr.tables[i][pp // bs]
+                    host[i, bps + 2 + T:] = pp % bs
+                host[:, :bps] = mgr.tables
+                t0 = time.perf_counter()
+                self._draft_tick(self)
+                res = self._verify_tick(self).cpu().numpy()  # = barrier
+                now = time.perf_counter()
+                t_decode += now - t0
+                decode_ticks += 1
+                spec_rounds += len(dec)
+                for i in dec:
+                    a, emitted = greedy_accept(res[i, :k], res[i, k:k + T])
+                    nonfinite += int(not res[i, -1])
+                    proposed_total += k
+                    accepted_total += a
+                    committed[i] += a + 1
+                    retired = False
+                    for tok in emitted:
+                        stream[i].append(tok)
+                        if emit(i, tok, now):
+                            retired = True
+                            break
+                    if not retired:
+                        pendtok[i] = emitted[-1]
+                        mgr.register_committed(i, stream[i], committed[i])
+            elif dec:
                 host = self._tick.host
                 host[:, bps:] = 0               # free and prefilling slots:
                 host[:, bps + 2] = paged.TRASH  # token 0 written to TRASH
@@ -643,6 +868,7 @@ class PagedEngine(_Engine):
         total = time.perf_counter() - t_start
         tokens = int(sum(len(v) for v in sched.finished.values()))
         hit = shared_tokens / prompt_tokens if prompt_tokens else 0.0
+        speculating = self.draft is not None
         stats = {
             "engine": "paged",
             "device": str(self.device),
@@ -659,9 +885,16 @@ class PagedEngine(_Engine):
                 occupancy_sum / decode_ticks if decode_ticks else 0.0,
             "max_slots": self.max_slots,
             "kv_cache_bytes": self.kv_cache_bytes,
+            "kv_dtype": self.kv_dtype,
+            "weight_dtype": self.weight_dtype,
+            "weight_bytes": self.weight_bytes,
             "kv_block_size": bs,
             "prefill_chunk": self.chunk,
             "decode_captures": self._tick.captures,
+            "draft_captures":
+                self._draft_tick.captures if speculating else 0,
+            "verify_captures":
+                self._verify_tick.captures if speculating else 0,
             "nonfinite_tokens": nonfinite,
             "paged_decode_launches": paged_flash_decode.launches - launches0,
             "paged": {
@@ -670,6 +903,16 @@ class PagedEngine(_Engine):
                 "shared_tokens": shared_tokens,
                 "prompt_tokens": prompt_tokens,
                 "prefill_tokens_computed": chunk_calls * self.chunk,
+            },
+            "spec": {
+                "enabled": speculating,
+                "k": self.spec_k if speculating else 0,
+                "draft_layers": self.draft_layers,
+                "rounds": spec_rounds,
+                "proposed": proposed_total,
+                "accepted": accepted_total,
+                "acceptance_rate": accepted_total / proposed_total
+                if proposed_total else None,
             },
             "slo": slo_report(accepted, ttft_s, e2e_s),
             "latency": _latency(h_ttft, h_itl, h_e2e),

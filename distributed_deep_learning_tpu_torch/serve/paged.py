@@ -11,7 +11,10 @@ The port of ``distributed_deep_learning_tpu/serve/paged.py``.
   path; the decode attends off the pools through the paged decode
   kernel), :func:`scatter_span` writes fresh positions into their blocks
   and :func:`copy_block` is the copy half of copy-on-write.  The pools
-  are updated in place.
+  are updated in place.  With ``kv_dtype`` the K/V pools hold their
+  at-rest form: a bf16 cast, or an int8 :class:`.quant.QuantTensor` with
+  ``(num_blocks, block_size, Hkv, 1)`` f32 scales, which the pool ops
+  index as they index a tensor.
 * **Host side** (numpy, copied as it is, less the methods that only
   prefix migration, hot weight swap and the tracer call; they come with
   those modules): :class:`BlockManager` owns the
@@ -35,6 +38,8 @@ import numpy as np
 import torch
 
 from distributed_deep_learning_tpu_torch import resolve_device
+from distributed_deep_learning_tpu_torch.serve.quant import (QuantTensor,
+                                                             check_dtype)
 
 #: physical id of the write-discard / read-garbage block (never allocated)
 TRASH = 0
@@ -59,52 +64,76 @@ def chain_hash(prev: bytes, tokens: Sequence[int]) -> bytes:
 
 def build_pools(num_layers: int, num_blocks: int, block_size: int,
                 kv_heads: int, head_dim: int, *, dtype=torch.float32,
-                device="cuda") -> list:
+                device="cuda", kv_dtype: Optional[str] = None) -> list:
     """Zeroed pools, one dict per layer: ``cached_key``/``cached_value``
-    ``(num_blocks, block_size, kv_heads, head_dim)`` in ``dtype`` and
-    ``cached_valid`` ``(num_blocks, block_size)`` bool, on ``device``
-    (``cuda`` unless the caller asks for the CPU; raises without a card)."""
+    ``(num_blocks, block_size, kv_heads, head_dim)`` in ``dtype`` (bf16
+    under ``kv_dtype="bf16"``, an int8 :class:`.quant.QuantTensor` with
+    ``(..., 1)`` f32 scales under ``"int8"``) and ``cached_valid``
+    ``(num_blocks, block_size)`` bool, on ``device`` (``cuda`` unless the
+    caller asks for the CPU; raises without a card)."""
+    check_dtype("kv_dtype", kv_dtype)
     device = resolve_device(device)
     shape = (num_blocks, block_size, kv_heads, head_dim)
-    return [{"cached_key": torch.zeros(shape, dtype=dtype, device=device),
-             "cached_value": torch.zeros(shape, dtype=dtype, device=device),
+
+    def kv():
+        if kv_dtype == "int8":
+            return QuantTensor(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                            device=device))
+        dt = torch.bfloat16 if kv_dtype == "bf16" else dtype
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return [{"cached_key": kv(), "cached_value": kv(),
              VALID_LEAF: torch.zeros(shape[:2], dtype=torch.bool,
                                      device=device)}
             for _ in range(num_layers)]
 
 
+def _nbytes(t) -> int:
+    return t.nbytes if isinstance(t, QuantTensor) else \
+        t.numel() * t.element_size()
+
+
 def pool_bytes(pools) -> int:
-    """Bytes held by every pool of every layer."""
-    return sum(t.numel() * t.element_size()
-               for layer in pools for t in layer.values())
+    """Bytes held by every pool of every layer (payloads and scales)."""
+    return sum(_nbytes(t) for layer in pools for t in layer.values())
 
 
 def gather_slot(layer: dict, table) -> dict:
     """One slot's logical cache from one layer's pools, in the dense
-    cache layout: ``(1, Bps * bs, ...)`` per pool (a copy).  Trash
-    entries of ``table`` gather garbage that the causal prefix mask
-    keeps unreachable."""
+    cache layout: ``(1, Bps * bs, ...)`` per pool (a copy); a ``(S, Bps)``
+    table gathers ``S`` slots, ``(S, Bps * bs, ...)``.  Trash entries of
+    ``table`` gather garbage that the causal prefix mask keeps
+    unreachable."""
+    lead = tuple(table.shape[:-1]) or (1,)
     out = {}
     for name, pool in layer.items():
-        got = pool[table]                                 # (Bps, bs, ...)
-        out[name] = got.reshape((1, got.shape[0] * got.shape[1])
-                                + tuple(got.shape[2:]))
+        got = pool[table]                          # (..., Bps, bs, ...)
+        rest = tuple(got.shape[table.dim() + 1:])
+        out[name] = got.reshape(lead + (table.shape[-1] * got.shape[
+            table.dim()],) + rest)
     return out
 
 
 def scatter_span(layer: dict, k, v, valid, blocks, offsets) -> None:
     """Write per-position ``k``/``v`` ``(n, Hkv, hd)`` and ``valid``
     ``(n,)`` into one layer's pools at ``(blocks[i], offsets[i])``, in
-    place.  The host guarantees that no two REAL targets collide in one
-    call; only :data:`TRASH` may be written more than once."""
-    layer["cached_key"][blocks, offsets] = k.to(layer["cached_key"].dtype)
-    layer["cached_value"][blocks, offsets] = v.to(
-        layer["cached_value"].dtype)
+    place.  Floating rows are cast to a floating pool's dtype; an int8
+    pool takes only :class:`.quant.QuantTensor` rows (a float write into
+    it raises).  The host guarantees that no two REAL targets collide in
+    one call; only :data:`TRASH` may be written more than once."""
+    for name, rows in (("cached_key", k), ("cached_value", v)):
+        pool = layer[name]
+        if not isinstance(pool, QuantTensor):
+            rows = rows.to(pool.dtype)
+        pool[blocks, offsets] = rows
     layer[VALID_LEAF][blocks, offsets] = valid
 
 
 def copy_block(pools, src: int, dst: int) -> None:
-    """Physical block copy ``dst <- src`` in every pool of every layer."""
+    """Physical block copy ``dst <- src`` in every pool of every layer
+    (payload and scales alike)."""
     for layer in pools:
         for pool in layer.values():
             pool[dst] = pool[src]

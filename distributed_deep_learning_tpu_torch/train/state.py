@@ -11,6 +11,14 @@ The parameters are f32 whatever the model computes in: a bf16 model
 (``CausalLM(dtype=torch.bfloat16)``) casts them on the way in, so its
 gradients arrive f32 on these master weights, and the clip's norm and the
 optimizer's moments stay f32, as under flax's ``param_dtype=f32``.
+
+SGD, momentum, Adam and AdamW are torch's, which compute what optax's do.
+LAMB and Adafactor have no torch counterpart with optax's semantics, so
+:class:`Lamb` and :class:`Adafactor` are written here from optax 0.2.6's
+``lamb`` and ``adafactor`` with their defaults.  Adafactor factors a
+parameter's second moment over the two largest axes of its FLAX shape
+(the model's ``flax_layout``), which is not the shape of the torch tensor
+for the attention projections.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,6 +34,13 @@ from distributed_deep_learning_tpu_torch import resolve_device
 
 #: optax's defaults for adam/adamw
 BETAS, EPS = (0.9, 0.999), 1e-8
+#: optax.lamb's eps (its betas are BETAS)
+LAMB_EPS = 1e-6
+#: optax.adafactor's defaults: factor when the second-largest axis has at
+#: least this many entries, the decay exponent, the epsilon added to g**2,
+#: the update's RMS clip and the least parameter scale
+ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY_RATE, ADAFACTOR_EPS = 128, 0.8, 1e-30
+ADAFACTOR_CLIP, ADAFACTOR_MIN_SCALE = 1.0, 1e-3
 
 
 def clip_by_global_norm(grads: list, max_norm: float) -> None:
@@ -41,13 +57,126 @@ def clip_by_global_norm(grads: list, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
+class Lamb(torch.optim.Optimizer):
+    """``optax.lamb``: Adam's bias-corrected direction ``m / (sqrt(v) +
+    eps)``, plus ``weight_decay * p`` on the decayed parameters, scaled by
+    each parameter's trust ratio ``|p| / |u|`` (1 where either norm is 0),
+    times the learning rate.  The decay is per parameter group."""
+
+    def __init__(self, params, lr, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        (b1, b2), eps = BETAS, LAMB_EPS
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                g = p.grad
+                st["count"] += 1
+                t = st["count"]
+                mu = st["mu"].copy_((1 - b1) * g + b1 * st["mu"])
+                nu = st["nu"].copy_((1 - b2) * g * g + b2 * st["nu"])
+                u = (mu / (1 - b1 ** t)) / (
+                    torch.sqrt(nu / (1 - b2 ** t)) + eps)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                pn, un = torch.linalg.vector_norm(p), \
+                    torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0),
+                                    torch.ones_like(pn), pn / un)
+                p.sub_(group["lr"] * (u * ratio))
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor`` at its defaults: a second moment factored into
+    row and column means when the flax shape's second-largest axis has at
+    least ``ADAFACTOR_MIN_DIM`` entries (elementwise otherwise), with the
+    decay ``1 - (t + 1) ** -0.8``; the update clipped to a block RMS of 1,
+    times the learning rate and the parameter's RMS (at least 1e-3).
+    ``layouts`` maps a parameter to its ``(to_flax, from_flax)`` pair."""
+
+    def __init__(self, params, lr, layouts=None):
+        super().__init__(params, dict(lr=lr))
+        self.layouts = layouts or {}
+
+    @staticmethod
+    def factored_dims(shape):
+        """``(d1, d0)``: the second-largest and largest axes of a flax
+        shape, or None when it is not factored (optax's rule)."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                to_flax, from_flax = self.layouts.get(p, (_same, _same))
+                g = to_flax(p.grad)
+                dims = self.factored_dims(tuple(g.shape))
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    if dims is None:
+                        st["v"] = torch.zeros_like(g)
+                    else:
+                        d1, d0 = dims
+                        st["v_row"] = g.new_zeros(
+                            [n for i, n in enumerate(g.shape) if i != d0])
+                        st["v_col"] = g.new_zeros(
+                            [n for i, n in enumerate(g.shape) if i != d1])
+                decay = 1.0 - float(np.float32(st["count"] + 1)
+                                    ** np.float32(-ADAFACTOR_DECAY_RATE))
+                st["count"] += 1
+                grad_sqr = g * g + ADAFACTOR_EPS
+                if dims is None:
+                    v = st["v"].copy_(decay * st["v"]
+                                      + (1.0 - decay) * grad_sqr)
+                    u = g * v ** -0.5
+                else:
+                    d1, d0 = dims
+                    row = st["v_row"].copy_(
+                        decay * st["v_row"]
+                        + (1.0 - decay) * grad_sqr.mean(d0))
+                    col = st["v_col"].copy_(
+                        decay * st["v_col"]
+                        + (1.0 - decay) * grad_sqr.mean(d1))
+                    rd1 = d1 - 1 if d1 > d0 else d1
+                    row_factor = (row / row.mean(rd1, keepdim=True)) ** -0.5
+                    u = g * row_factor.unsqueeze(d0) \
+                        * (col ** -0.5).unsqueeze(d1)
+                rms = torch.sqrt(torch.mean(u * u))
+                u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
+                p_rms = torch.sqrt(torch.mean(p * p))
+                u = u * group["lr"] * torch.where(
+                    p_rms <= ADAFACTOR_MIN_SCALE,
+                    torch.full_like(p_rms, ADAFACTOR_MIN_SCALE), p_rms)
+                p.sub_(from_flax(u))
+
+
+def _same(t):
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """An optax-style recipe: ``kind`` is sgd, momentum (0.9), adam or
-    adamw; ``learning_rate`` a float or a schedule of the update count;
-    ``weight_decay`` applies (decoupled, scaled by the learning rate) to
-    the parameters ``decay_mask(name, param)`` selects (all of them
-    without a mask, as in optax); ``clip_norm``
+    """An optax-style recipe: ``kind`` is sgd, momentum (0.9), adam,
+    adamw, lamb or adafactor; ``learning_rate`` a float or a schedule of
+    the update count; ``weight_decay`` applies (decoupled, scaled by the
+    learning rate) to the parameters ``decay_mask(name, param)`` selects
+    (all of them without a mask, as in optax); ``clip_norm``
     clips the gradients' global norm first."""
 
     kind: str
@@ -60,10 +189,19 @@ class Optimizer:
         lr = self.learning_rate
         return float(lr(count) if callable(lr) else lr)
 
-    def build(self, named_params: Iterable) -> torch.optim.Optimizer:
+    def build(self, named_params: Iterable,
+              layout: Callable | None = None) -> torch.optim.Optimizer:
+        """The torch optimizer over ``named_params``; ``layout(name)``
+        gives a parameter's ``(to_flax, from_flax)`` pair (Adafactor's
+        factoring reads the flax shape)."""
         named = [(n, p) for n, p in named_params if p.requires_grad]
         params = [p for _, p in named]
         lr = self.lr_at(0)
+        mask = self.decay_mask or (lambda n, p: True)
+        groups = [{"params": [p for n, p in named if mask(n, p)],
+                   "weight_decay": self.weight_decay},
+                  {"params": [p for n, p in named if not mask(n, p)],
+                   "weight_decay": 0.0}]
         if self.kind == "sgd":
             return torch.optim.SGD(params, lr=lr)
         if self.kind == "momentum":
@@ -77,13 +215,12 @@ class Optimizer:
             # sqrt of the bias-corrected second moment, and the decay is
             # decoupled and scaled by the (scheduled) learning rate:
             # p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)
-            mask = self.decay_mask or (lambda n, p: True)
-            decay = [p for n, p in named if mask(n, p)]
-            rest = [p for n, p in named if not mask(n, p)]
-            return torch.optim.AdamW(
-                [{"params": decay, "weight_decay": self.weight_decay},
-                 {"params": rest, "weight_decay": 0.0}],
-                lr=lr, betas=BETAS, eps=EPS)
+            return torch.optim.AdamW(groups, lr=lr, betas=BETAS, eps=EPS)
+        if self.kind == "lamb":
+            return Lamb(groups, lr=lr)
+        if self.kind == "adafactor":
+            layouts = {p: layout(n) for n, p in named} if layout else None
+            return Adafactor(params, lr=lr, layouts=layouts)
         raise ValueError(f"unknown optimizer kind {self.kind!r}")
 
 
@@ -129,5 +266,6 @@ def create_train_state(model: nn.Module, seed: int, tx: Optimizer,
     gen = None
     if dropout_seed is not None:
         gen = torch.Generator(device=device).manual_seed(dropout_seed)
-    return TrainState(model=model, optimizer=tx.build(model.named_parameters()),
-                      tx=tx, generator=gen)
+    optimizer = tx.build(model.named_parameters(),
+                         layout=getattr(model, "flax_layout", None))
+    return TrainState(model=model, optimizer=optimizer, tx=tx, generator=gen)

@@ -1,8 +1,9 @@
 """Run configuration and the workload CLI: the port of
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
-runs (``gpt -m sequential|data``, ``--dtype``, the step variants,
-checkpointing, and the post-train ``--generate`` and ``--serve
-[--paged]``).
+runs (``gpt -m sequential|data``, ``--dtype``, every ``--optimizer``, the
+step variants, checkpointing, and the post-train ``--generate`` and
+``--serve [--paged]`` with speculation (``--draft``, ``--spec-k``) and
+quantized serving (``--kv-dtype``, ``--weight-dtype``)).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
@@ -79,8 +80,15 @@ class Config:
     paged: bool = False                 # serving: the paged engine
     kv_block_size: int = 16             # paged serving: block tokens
     prefill_chunk: int = 32             # paged serving: chunk width
+    draft: int = 0                      # paged serving: truncated-draft
+                                        #   layers for speculation (0 = off)
+    spec_k: int = 4                     # paged serving: draft tokens a round
     slo_ttft_ms: float | None = None    # serving: per-request TTFT SLO
     slo_e2e_ms: float | None = None     # serving: per-request e2e SLO
+    kv_dtype: str | None = None         # serving: KV storage, bf16 or int8
+                                        #   (int8: the paged engine only)
+    weight_dtype: str | None = None     # serving: weight storage, bf16 or
+                                        #   int8 (per-channel scales)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -101,9 +109,6 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    3: "ROADMAP.md queue 1 item 3 (train core: LAMB and Adafactor)",
-    7: "ROADMAP.md queue 1 item 7 (serving options: speculation, "
-       "quantized KV and weights)",
     9: "ROADMAP.md queue 1 item 9 (the reference's workloads and the "
        "north-star zoo)",
     10: "ROADMAP.md queue 1 item 10 (model and pipeline modes)",
@@ -117,7 +122,6 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--draft=": 7, "--spec-k=": 7, "--kv-dtype=": 7, "--weight-dtype=": 7,
     "--packed-cache=": 9, "--image-size=": 9, "--stem-s2d": 9,
     "--double-softmax": 9,
     "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
@@ -137,7 +141,28 @@ UNPORTED_FLAGS = {
 }
 
 _UNPORTED_MODES = {"model": 10, "pipeline": 10}
-_UNPORTED_OPTIMIZERS = ("adafactor", "lamb")
+
+#: reduced-precision storage the serving options take (None: the compute
+#: dtype, which keeps every exact-parity guarantee)
+SERVE_DTYPES = ("bf16", "int8")
+
+
+def serve_dtype_error(kv_dtype, weight_dtype, paged: bool) -> str | None:
+    """Why ``--kv-dtype``/``--weight-dtype`` cannot be served (the engine
+    constructors' rules, at parse time with the flag's name), or None.
+    Both CLIs report it: the training CLI exits, the serving CLI errors."""
+    for flag, v in (("--kv-dtype", kv_dtype),
+                    ("--weight-dtype", weight_dtype)):
+        if v is not None and v not in SERVE_DTYPES:
+            return (f"unknown {flag} {v!r}; choose from "
+                    f"{'/'.join(SERVE_DTYPES)} (or leave unset for full "
+                    "precision)")
+    if kv_dtype == "int8" and not paged:
+        return ("--kv-dtype int8 requires --paged: int8 KV stores "
+                "per-position scales alongside the block pools; the v1 "
+                "slot table supports bf16 only (the spec-decode draft "
+                "pool inherits --kv-dtype automatically)")
+    return None
 
 
 def _dest(flag: str) -> str:
@@ -195,7 +220,7 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                         "its last W tokens")
     p.add_argument("--optimizer",
                    choices=["auto", "sgd", "momentum", "adam", "adamw",
-                            *_UNPORTED_OPTIMIZERS],
+                            "adafactor", "lamb"],
                    default="auto")
     p.add_argument("--label-smoothing", type=float, default=0.0,
                    metavar="EPS")
@@ -254,12 +279,31 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
     p.add_argument("--prefill-chunk", dest="prefill_chunk", type=int,
                    default=32, metavar="C",
                    help="paged serving: prefill slice width")
+    p.add_argument("--draft", type=int, default=0, metavar="N",
+                   help="paged serving: speculative decoding with a draft "
+                        "built from the target's first N layers (shared "
+                        "weights; greedy outputs unchanged); 0 disables")
+    p.add_argument("--spec-k", dest="spec_k", type=int, default=4,
+                   metavar="K",
+                   help="paged serving: draft tokens proposed a round "
+                        "(verified in one batched target forward)")
     p.add_argument("--slo-ttft-ms", dest="slo_ttft_ms", type=float,
                    default=None, metavar="MS",
                    help="serving: per-request time-to-first-token SLO")
     p.add_argument("--slo-e2e-ms", dest="slo_e2e_ms", type=float,
                    default=None, metavar="MS",
                    help="serving: per-request end-to-end latency SLO")
+    p.add_argument("--kv-dtype", dest="kv_dtype", type=str, default=None,
+                   metavar="DT",
+                   help="serving: KV-cache storage dtype, bf16 or int8 "
+                        "(int8 keeps per-position scales in the block "
+                        "pools: requires --paged; the draft's pools "
+                        "inherit it; unset = the compute dtype)")
+    p.add_argument("--weight-dtype", dest="weight_dtype", type=str,
+                   default=None, metavar="DT",
+                   help="serving: weight storage dtype, bf16 or int8 "
+                        "(per-output-channel scales, each weight "
+                        "dequantized at its use; unset = full precision)")
     for flag, item in UNPORTED_FLAGS.items():
         kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
               else {"action": "store_true", "default": None})
@@ -293,10 +337,21 @@ def parse_args(argv: Sequence[str] | None = None,
     if args.prefill_chunk < 1:
         raise SystemExit(f"--prefill-chunk {args.prefill_chunk}: must "
                          "be >= 1")
+    if args.draft < 0:
+        raise SystemExit(f"--draft {args.draft}: must be >= 0 (0 turns "
+                         "speculative decoding off)")
+    if args.draft and not args.paged:
+        raise SystemExit("--draft requires --paged (speculation runs "
+                         "inside the paged engine)")
+    if args.spec_k < 1:
+        raise SystemExit(f"--spec-k {args.spec_k}: must be >= 1")
     for flag, v in (("--slo-ttft-ms", args.slo_ttft_ms),
                     ("--slo-e2e-ms", args.slo_e2e_ms)):
         if v is not None and v <= 0:
             raise SystemExit(f"{flag} {v}: must be positive milliseconds")
+    err = serve_dtype_error(args.kv_dtype, args.weight_dtype, args.paged)
+    if err:
+        raise SystemExit(err)
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
@@ -305,10 +360,6 @@ def parse_args(argv: Sequence[str] | None = None,
         raise NotImplementedError(
             f"-m {args.mode} is not ported yet: "
             f"{ROADMAP_ITEMS[_UNPORTED_MODES[args.mode]]}")
-    if args.optimizer in _UNPORTED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} is not ported yet: "
-            f"{ROADMAP_ITEMS[3]}")
     return Config(
         num_layers=args.nlayers, size=args.size, epochs=args.epochs,
         batch_size=args.batch,
@@ -328,8 +379,10 @@ def parse_args(argv: Sequence[str] | None = None,
         max_slots=args.max_slots,
         prefill_buckets=parse_buckets_arg(args.prefill_buckets),
         paged=args.paged, kv_block_size=args.kv_block_size,
-        prefill_chunk=args.prefill_chunk, slo_ttft_ms=args.slo_ttft_ms,
-        slo_e2e_ms=args.slo_e2e_ms)
+        prefill_chunk=args.prefill_chunk, draft=args.draft,
+        spec_k=args.spec_k, slo_ttft_ms=args.slo_ttft_ms,
+        slo_e2e_ms=args.slo_e2e_ms, kv_dtype=args.kv_dtype,
+        weight_dtype=args.weight_dtype)
 
 
 def parse_buckets_arg(text: str | None) -> tuple[int, ...] | None:

@@ -62,8 +62,8 @@ _MATRIX_BIASES = ("self_attn.q.bias", "self_attn.k.bias", "self_attn.v.bias")
 
 
 def decay_mask(name: str, param) -> bool:
-    """The AdamW recipe's decay mask on the JAX parameter layout: matrices
-    decay, biases and LayerNorm scales (vectors there) do not."""
+    """The AdamW and LAMB recipes' decay mask on the JAX parameter layout:
+    matrices decay, biases and LayerNorm scales (vectors there) do not."""
     return param.ndim >= 2 or name.endswith(_MATRIX_BIASES)
 
 
@@ -81,10 +81,14 @@ def build_optimizer(spec: WorkloadSpec, config: Config,
     lr = resolve_lr(config, epoch_steps, config.learning_rate)
     if config.optimizer == "adamw":
         return adamw(lr)
-    if config.optimizer in ("sgd", "momentum", "adam"):
+    if config.optimizer == "lamb":
+        # optax.lamb's decay defaults to 0.0; the JAX recipe passes the
+        # canonical 1e-2 with the decay mask
+        return Optimizer("lamb", lr, weight_decay=1e-2,
+                         decay_mask=decay_mask)
+    if config.optimizer in ("sgd", "momentum", "adam", "adafactor"):
         return Optimizer(config.optimizer, lr)
-    raise NotImplementedError(f"--optimizer {config.optimizer} is not "
-                              f"ported yet: {ROADMAP_ITEMS[3]}")
+    raise ValueError(f"unknown --optimizer {config.optimizer!r}")
 
 
 def resolve_lr(config: Config, epoch_steps: int, base_lr: float):

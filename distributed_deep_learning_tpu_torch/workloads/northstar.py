@@ -11,7 +11,9 @@ Synthetic T=64, vocabulary-1024 data unless ``--data-dir`` holds a
 measured-speedup gate does not carry over to this card).  After training,
 ``--generate N`` logs greedy continuations of two dataset prompts and
 ``--serve`` serves a seeded trace through the slot engine (``--paged``:
-the paged engine), both on the trained weights at the run's ``--dtype``.
+the paged engine, ``--draft N`` speculating with its first N layers), both
+on the trained weights at the run's ``--dtype``, the KV cache and weights
+stored as ``--kv-dtype`` and ``--weight-dtype`` say.
 """
 
 from __future__ import annotations
@@ -142,7 +144,8 @@ def _gpt_serve(config: Config, state, logger, dataset) -> None:
                        vocab_size=_vocab(dataset), seed=config.seed,
                        prompt_lens=(2, p_hi), new_tokens=(1, new_hi))
     s = run_engine(model, trace, device=next(model.parameters()).device,
-                   max_slots=config.max_slots)["stats"]
+                   max_slots=config.max_slots, kv_dtype=config.kv_dtype,
+                   weight_dtype=config.weight_dtype)["stats"]
     logger.info(
         f"serve: {s['requests']} requests, {s['generated_tokens']} tokens "
         f"at {s['tokens_per_sec']:.1f} tok/s, occupancy "
@@ -153,13 +156,21 @@ def _gpt_serve(config: Config, state, logger, dataset) -> None:
 def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
                      new_hi: int) -> None:
     """``--serve --paged``: the same trace shape through the paged engine,
-    with the config's block, chunk and SLO settings."""
+    with the config's block, chunk, draft, quantization and SLO settings;
+    a ``--draft`` the model cannot take is logged and dropped."""
     from distributed_deep_learning_tpu_torch.serve.bench import (
         make_trace, paged_max_len, run_paged)
 
+    draft = config.draft or None
+    if draft is not None and not 1 <= draft < model.num_layers:
+        logger.info(f"serve: --draft {draft} needs 1 <= draft < "
+                    f"{model.num_layers} (the model's layer count); "
+                    "speculation disabled")
+        draft = None
     block = min(config.kv_block_size, model.max_len)
     try:
-        cap = paged_max_len(model.max_len, block)
+        cap = paged_max_len(model.max_len, block, draft is not None,
+                            config.spec_k)
     except ValueError as exc:
         logger.info(f"serve: paged engine skipped ({exc})")
         return
@@ -175,8 +186,11 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
     s = run_paged(model, trace, device=next(model.parameters()).device,
                   max_slots=config.max_slots, max_len=cap,
                   kv_block_size=block,
-                  prefill_chunk=min(config.prefill_chunk, cap))["stats"]
-    pg, slo = s["paged"], s["slo"]
+                  prefill_chunk=min(config.prefill_chunk, cap),
+                  draft_layers=draft, spec_k=config.spec_k,
+                  kv_dtype=config.kv_dtype,
+                  weight_dtype=config.weight_dtype)["stats"]
+    pg, sp, slo = s["paged"], s["spec"], s["slo"]
     line = (f"serve(paged): {s['requests']} requests, "
             f"{s['generated_tokens']} tokens at "
             f"{s['tokens_per_sec']:.1f} tok/s, prefix hit "
@@ -184,6 +198,11 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
             f"decode captures={s['decode_captures']} "
             f"ticks={s['decode_ticks']} "
             f"launches={s['paged_decode_launches']}")
+    if sp["enabled"]:
+        line += (f", draft captures={s['draft_captures']} verify "
+                 f"captures={s['verify_captures']}")
+        if sp["acceptance_rate"] is not None:
+            line += f", spec acceptance {sp['acceptance_rate']:.3f}"
     if slo["slo_attainment"] is not None:
         line += f", slo attainment {slo['slo_attainment']:.2f}"
     logger.info(line)

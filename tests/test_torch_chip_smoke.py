@@ -10,6 +10,7 @@ kernel and needs no card.
 """
 
 import ast
+import inspect
 import sys
 from pathlib import Path
 
@@ -176,3 +177,87 @@ def test_served_margins_pass_served_tokens_and_fail_shuffled_ones():
                 for u, v in zip(uids, uids[1:] + uids[:1])}
     gap, agree = chip_smoke.served_margins(model, reqs, shuffled)
     assert gap > chip_smoke.SERVE_GAP_TOL and agree < 0.5
+
+
+#: phase -> the chip_smoke function that runs it (phases 16-20 and the
+#: CLI's speculative int8 leg, which rides on phase 15)
+NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
+              18: "phase_quant_serving", 19: "phase_spec",
+              20: "phase_window", 15: "phase_cli_spec_quant"}
+
+
+@pytest.mark.parametrize("phase", sorted(NEW_PHASES))
+def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
+    """Each new phase is in the docstring's list and in the default run,
+    and ``--phases`` selects it (the card's work stubbed out here)."""
+    doc = chip_smoke.__doc__
+    assert f"\n{phase}. " in doc
+    called = []
+
+    def stub(name, value=None):
+        def fn(*args, **kw):
+            called.append(name)
+            return value
+        return fn
+
+    rec = {"results": {}}
+    for name, value in (
+            ("phase_device", None), ("start_builds", {}),
+            ("phase_kernel", {}), ("phase_serve", (rec, 0)),
+            ("phase_quant_serving", 0), ("phase_spec", 0),
+            ("phase_window", 0), ("_write_tokens", ROOT),
+            ("phase_train_bf16", (None, None, None)),
+            ("phase_post_train_serving", 0),
+            ("phase_cli_spec_quant", {"launches": 0}),
+            ("phase_fused_head", {}), ("phase_optimizers", {})):
+        monkeypatch.setattr(chip_smoke, name, stub(name, value))
+    assert chip_smoke.main(["--phases", str(phase)]) == 0
+    assert NEW_PHASES[phase] in called
+    assert "range(1, 21)" in inspect.getsource(chip_smoke.main)
+
+
+def test_served_margins_hold_a_speculative_int8_weight_engine():
+    """``_served_runs`` records an engine's serving copy (int8 weights),
+    and what the speculative engine served is that copy's plain argmax on
+    every prefix."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.serve import quant
+    from distributed_deep_learning_tpu_torch.serve.bench import (build_model,
+                                                                 make_trace)
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+
+    model = build_model(3, "cpu", vocab_size=61, num_layers=2, d_model=32,
+                        num_heads=4, mlp_dim=64, max_len=48)
+    reqs = make_trace(5, vocab_size=61, seed=4, prompt_lens=(2, 12),
+                      new_tokens=(3, 10))
+    with chip_smoke._served_runs() as runs:
+        PagedEngine(model, device="cpu", max_slots=3, kv_block_size=8,
+                    prefill_chunk=8, max_len=40, draft_layers=1, spec_k=3,
+                    weight_dtype="int8").run(reqs)
+    (run,) = runs
+    assert isinstance(run["model"].layers[0].mlp_in, quant.QuantDense)
+    assert run["geometry"]["kv_dtype"] == str(torch.float32)
+    gap, agree = chip_smoke.served_margins(run["model"], reqs,
+                                           run["out"]["results"])
+    assert gap == 0.0 and agree == 1.0
+
+
+@pytest.mark.parametrize("opt", ["lamb", "adafactor"])
+def test_optimizer_hold_tells_a_zero_learning_rate_from_the_recipe(
+        opt, monkeypatch):
+    """Phase 17's hold on the CPU at a small width (d 128, so Adafactor
+    factors the MLP): the recipe's steps repeat exactly, and the planted
+    control (learning rate 0) lies beyond the hold's limit."""
+    monkeypatch.setattr(chip_smoke, "FULL_MODEL", dict(
+        vocab_size=256, num_layers=2, d_model=128, num_heads=4, mlp_dim=256,
+        max_len=64))
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    want = chip_smoke._optimizer_params(opt, chip_smoke.OPT_LR, "cpu")
+    again = chip_smoke._optimizer_params(opt, chip_smoke.OPT_LR, "cpu")
+    zero = chip_smoke._optimizer_params(opt, "0", "cpu")
+    assert gap(again, want) == 0.0
+    assert gap(zero, want) > 100 * chip_smoke.OPT_HOLD_ATOL

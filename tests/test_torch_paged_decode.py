@@ -3,7 +3,9 @@
 Inputs are made with numpy from a seed and fed to both packages.  The
 port's ``paged_decode_reference`` is held at atol 1e-5 against the JAX
 ``paged_decode_reference`` and against the JAX Pallas kernel run in
-interpret mode on the CPU (f32 both sides; sums in different orders).
+interpret mode on the CPU (f32 both sides; sums in different orders), and
+with a sliding window against JAX's masked dense attention (the
+``qpos - kpos < window`` mask of the flax model's cache).
 On CPU tensors the wrapper takes the plain path and launches nothing;
 the CUDA kernel itself is checked against the plain version on the card
 by ``chip_smoke.py``.  Its split-K algebra (per-split partial softmax
@@ -11,6 +13,7 @@ states merged by a combine step) is emulated here in numpy and held
 against the plain version, as is the host's split rule.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,6 +72,39 @@ def test_int8_pools_match_jax_on_shared_quantized_input():
         v_scale=torch.from_numpy(vs)).numpy()
     np.testing.assert_allclose(got, want_ref, atol=ATOL)
     np.testing.assert_allclose(got, want_kern, atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [1, 5, 13, 64])
+def test_windowed_plain_decode_matches_jax_masked_attention(window):
+    """The query at ``seq_len - 1`` sees key ``kpos`` iff ``kpos <
+    seq_len`` and ``qpos - kpos < window``: JAX's dense attention over the
+    gathered logical cache with that mask (GQA, valid pool holes)."""
+    q, kp, vp, tables, lens = _inputs(13, G=2)
+    rng = np.random.default_rng(14)
+    valid = rng.random(kp.shape[:2]) > 0.3
+    valid[tables[np.arange(3), (lens - 1) // 8], (lens - 1) % 8] = True
+    got = tpd.paged_flash_decode(*_t(q, kp, vp, tables, lens),
+                                 valid_pool=torch.from_numpy(valid),
+                                 window=window).numpy()
+    B, Hkv, G, D = q.shape
+    L = tables.shape[1] * kp.shape[1]
+    k = jnp.asarray(kp)[tables].reshape(B, L, Hkv, D)
+    v = jnp.asarray(vp)[tables].reshape(B, L, Hkv, D)
+    kpos = jnp.arange(L)[None, :]
+    qpos = jnp.asarray(lens)[:, None] - 1
+    mask = (kpos <= qpos) & (qpos - kpos < window) & \
+        jnp.asarray(valid)[tables].reshape(B, L)
+    s = jnp.einsum("bhgd,bthd->bhgt", jnp.asarray(q), k) / np.sqrt(D)
+    s = jnp.where(mask[:, None, None, :], s, jpd.NEG_INF)
+    want = np.asarray(jnp.einsum("bhgt,bthd->bhgd",
+                                 jax.nn.softmax(s, axis=-1), v))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if window >= L:            # a window past every slot changes nothing
+        plain = tpd.paged_decode_reference(
+            *_t(q, kp, vp, tables, lens), valid_pool=torch.from_numpy(valid))
+        np.testing.assert_array_equal(got, plain.numpy())
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        tpd.paged_flash_decode(*_t(q, kp, vp, tables, lens), window=0)
 
 
 def test_zero_length_slot_is_finite_and_matches_jax():
@@ -174,14 +210,15 @@ def test_kernel_argument_checks_reject(case):
 # --- split-K: the kernel's algebra, emulated in numpy ------------------------
 
 def _split_k(q, kp, vp, tables, lens, splits, k_scale=None, v_scale=None,
-             valid=None):
+             valid=None, window=None):
     """What the CUDA kernel computes, step by step: each slot's ``Bps``
     logical blocks cut into runs of ``per = ceil(Bps / splits)``; a block
-    walks its run clipped to ``seq_len`` and keeps (m, l, acc) in f32,
-    masked positions skipped (a split with none live keeps m = -1e30,
-    l = 0); the combine merges the splits that cover ``[0, seq_len)`` with
-    ``c = exp(m_s - max m)``, ``out = sum(acc_s c) / max(sum(l_s c), 1e-30)``.
-    Returns ``(B, Hkv, G, D)`` f32."""
+    walks its run clipped to ``[lo, seq_len)`` (``lo = seq_len - window``
+    with a window, else 0) and keeps (m, l, acc) in f32, masked positions
+    skipped (a split with none live keeps m = -1e30, l = 0); the combine
+    merges the splits that cover ``[lo, seq_len)`` with ``c = exp(m_s -
+    max m)``, ``out = sum(acc_s c) / max(sum(l_s c), 1e-30)``.  Returns
+    ``(B, Hkv, G, D)`` f32."""
     B, Hkv, G, D = q.shape
     bs, Bps = kp.shape[1], tables.shape[1]
     per = -(-Bps // splits)
@@ -189,12 +226,13 @@ def _split_k(q, kp, vp, tables, lens, splits, k_scale=None, v_scale=None,
     out = np.zeros((B, Hkv, G, D), np.float32)
     for b in range(B):
         n = min(max(int(lens[b]), 0), Bps * bs)
+        lo = max(0, n - window) if window else 0
         parts = []
-        for sp in range(-(-n // run)):              # the live splits only
+        for sp in range(lo // run, -(-n // run)):   # the live splits only
             m = np.full((Hkv, G), -1e30, np.float32)
             l = np.zeros((Hkv, G), np.float32)
             acc = np.zeros((Hkv, G, D), np.float32)
-            for t in range(sp * run, min(n, (sp + 1) * run)):
+            for t in range(max(lo, sp * run), min(n, (sp + 1) * run)):
                 phys, off = tables[b, t // bs], t % bs
                 if valid is not None and not valid[phys, off]:
                     continue
@@ -229,7 +267,8 @@ def _quantize(x):
 #: whose end falls inside a split, and a full one
 SPLIT_LENS = (0, 2, 12, 27, 32)
 SPLIT_CASES = {"f32": {}, "valid_holes": {"holes": True},
-               "int8_scales": {"int8": True}}
+               "int8_scales": {"int8": True}, "window_5": {"window": 5},
+               "window_13_holes": {"window": 13, "holes": True}}
 
 
 @pytest.mark.parametrize("splits", [1, 3, 8])
@@ -250,6 +289,8 @@ def test_split_k_partials_merge_to_the_plain_version(case, splits):
                 valid[tables[b, (n - 1) // 4], (n - 1) % 4] = True
         kw["valid_pool"] = torch.from_numpy(valid)
         emu["valid"] = valid
+    if spec.get("window"):
+        kw["window"] = emu["window"] = spec["window"]
     got = _split_k(q, kp, vp, tables, lens, splits, **emu)
     want = tpd.paged_decode_reference(*_t(q, kp, vp, tables, lens),
                                       **kw).numpy()

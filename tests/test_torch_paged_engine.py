@@ -4,7 +4,8 @@ Both engines serve the same seeded ``make_load`` trace (a shared prefix
 that ends mid-block, so prefix hits AND copy-on-write happen) on the same
 weights, carried across with ``load_flax_params``; the port runs on the
 CPU, where its decode attention is the kernel's plain version.  Greedy
-tokens must be identical and the paging counters equal.  Also: the
+tokens must be identical and the paging counters equal, also on a
+sliding-window model whose window is shorter than the prompts.  Also: the
 unported options raise, and the port imports nothing of JAX.
 """
 
@@ -79,7 +80,10 @@ CASES = {"shared_prefix": {}, "pad_inside_prompt": {"pad_inside": True},
          "rope_gqa": {"pos_embedding": "rope", "num_kv_heads": 2},
          # a bf16-compute model: pools in bf16, as the JAX pools take the
          # decode model's cache dtype
-         "bf16": {"bf16": True}}
+         "bf16": {"bf16": True},
+         # prompts of up to 36 tokens against a 6-position window: the
+         # chunk prefill's mask and the decode attention's lower bound
+         "window": {"attention_window": 6}}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -152,9 +156,6 @@ def test_serve_cli_prints_one_record(capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"draft_layers": 1}, "speculative"),
-    ({"kv_dtype": "int8"}, "kv_dtype"),
-    ({"weight_dtype": "bf16"}, "weight_dtype"),
     ({"preempt": True}, "preemption"),
     ({"migrate": "device"}, "preemption"),
 ])
@@ -165,9 +166,10 @@ def test_unported_options_raise(kw, match):
 
 
 def test_window_and_telemetry_raise():
+    """A windowed model is served (its window on every path); telemetry
+    and an unknown decode attention are refused."""
     win = ttr.CausalLM(**MODEL, attention_window=8)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        teng.PagedEngine(win, device="cpu")
+    assert teng.PagedEngine(win, device="cpu").window == 8
     _, _, tm = _models()
     eng = teng.PagedEngine(tm, device="cpu", **ENGINE)
     with pytest.raises(NotImplementedError, match="telemetry"):
@@ -218,6 +220,10 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch.serve.bench\n"
             "import distributed_deep_learning_tpu_torch.serve.cache\n"
             "import distributed_deep_learning_tpu_torch.serve.graphs\n"
+            "import distributed_deep_learning_tpu_torch.serve.quant\n"
+            "import distributed_deep_learning_tpu_torch.serve.spec\n"
+            "import distributed_deep_learning_tpu_torch.ops.fused_ce\n"
+            "import distributed_deep_learning_tpu_torch.train.state\n"
             "import distributed_deep_learning_tpu_torch.serve.__main__\n"
             "import distributed_deep_learning_tpu_torch.__main__\n"
             "import distributed_deep_learning_tpu_torch.workloads.northstar\n"

@@ -8,7 +8,9 @@ on everything but speed and the compile counts, which the port logs as
 ``decode captures=N`` (0 on the CPU).  Also: the port's serve trace is
 JAX's for the same seed and config, an impossible ``--generate`` is
 refused before training, and the serving flags parse and are checked as
-the JAX CLI's are.
+the JAX CLI's are: among them the speculation and quantization flags
+(``--draft``, ``--spec-k``, ``--kv-dtype``, ``--weight-dtype``), on the
+training CLI and on the serving bench's.
 """
 
 import dataclasses
@@ -58,8 +60,15 @@ _SERVE = re.compile(r"(serve(?:\(paged\))?: \d+ requests, \d+ tokens) at "
                     r"captures=.*)$")
 
 
-@pytest.mark.parametrize("serve", [["--serve"], ["--serve", "--paged"]],
-                         ids=["slot", "paged"])
+SPEC_FLAGS = ["--draft", "1", "--spec-k", "3"]
+QUANT_FLAGS = ["--kv-dtype", "int8", "--weight-dtype", "int8"]
+
+
+@pytest.mark.parametrize("serve", [
+    ["--serve"], ["--serve", "--paged"], ["--serve", "--paged", *SPEC_FLAGS],
+    ["--serve", "--paged", *QUANT_FLAGS],
+    ["--serve", "--kv-dtype", "bf16", "--weight-dtype", "int8"]],
+    ids=["slot", "paged", "paged_spec", "paged_int8", "slot_quant"])
 def test_post_train_serving_matches_jax(serve, monkeypatch, capsys):
     monkeypatch.setenv("DDL_DATA_LIMIT", "35")
     argv = ARGV + ["--generate", "4", *serve]
@@ -78,7 +87,14 @@ def test_post_train_serving_matches_jax(serve, monkeypatch, capsys):
     assert _SERVE.match(line).groups() == _SERVE.match(ref).groups(), \
         (line, ref)
     assert "decode captures=0" in line
-    if "--paged" in serve:
+    if "--draft" in serve:
+        # the same proposals accepted: the acceptance rates are equal
+        assert re.search(r"spec acceptance [\d.]+", line).group() == \
+            re.search(r"spec acceptance [\d.]+", ref).group()
+        assert "draft captures=0 verify captures=0" in line    # CPU
+        parsed = chip_smoke._one(chip_smoke._SERVE_SPEC_LINE, mine, tag)
+        assert parsed[0] == chip_smoke.SERVE_REQUESTS
+    elif "--paged" in serve:
         assert line.endswith("launches=0")             # the plain decode
     # chip_smoke.py's phase 15 reads these lines on the card
     assert len(chip_smoke._GENERATE_LINE.findall(mine)) == 2
@@ -107,7 +123,11 @@ def _capture(pkg_bench, runner, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--serve"], ["--serve", "--generate", "5", "--max-slots", "3"],
     ["--serve", "--paged", "--kv-block-size", "8", "--slo-ttft-ms", "50"],
-], ids=["slot", "slot_generate", "paged_slo"])
+    ["--serve", "--paged", "--draft", "1", "--spec-k", "2", "--kv-dtype",
+     "int8", "--weight-dtype", "bf16"],
+    ["--serve", "--paged", "--draft", "9"],
+], ids=["slot", "slot_generate", "paged_slo", "paged_spec_quant",
+        "paged_draft_out_of_range"])
 def test_serve_trace_equals_jax(flags, monkeypatch):
     argv = ARGV + ["--seed", "7", *flags]
     runner = "run_paged" if "--paged" in flags else "run_engine"
@@ -124,13 +144,19 @@ def test_serve_trace_equals_jax(flags, monkeypatch):
                 jnp.zeros((1, dataset.features.shape[1]), jnp.int32))})()
         else:
             state = type("S", (), {"model": model})()
+        logged = []
+        logger = type("Log", (), {"info": lambda self, m: logged.append(m)})
         with pytest.raises(StopIteration):
-            ns._gpt_serve(cfg, state, None, dataset)
+            ns._gpt_serve(cfg, state, logger(), dataset)
         got[name] = seen[0]
+        got[f"{name}_log"] = logged
     assert got["port"][0] == got["jax"][0]
     assert len(got["port"][0]) == max(2 * cfg.max_slots, 8)
-    for key in ("max_slots", "max_len", "kv_block_size", "prefill_chunk"):
+    for key in ("max_slots", "max_len", "kv_block_size", "prefill_chunk",
+                "draft_layers", "spec_k", "kv_dtype", "weight_dtype"):
         assert got["port"][1].get(key) == got["jax"][1].get(key), key
+    # an out-of-range --draft is logged and dropped by both
+    assert got["port_log"] == got["jax_log"]
 
 
 def test_generate_too_long_raises_before_training(monkeypatch):
@@ -172,7 +198,8 @@ def test_serve_defaults_match_jax():
                                                                      "gpt")
     for field in ("generate_tokens", "serve", "max_slots", "prefill_buckets",
                   "paged", "kv_block_size", "prefill_chunk", "slo_ttft_ms",
-                  "slo_e2e_ms"):
+                  "slo_e2e_ms", "draft", "spec_k", "kv_dtype",
+                  "weight_dtype"):
         assert getattr(mine, field) == getattr(theirs, field), field
     cfg = tconfig.parse_args(["--paged", "--kv-block-size", "8",
                               "--prefill-chunk", "16", "--slo-ttft-ms", "5",
@@ -190,8 +217,69 @@ def test_serve_defaults_match_jax():
     (["--prefill-buckets", "8,8"], "duplicate"),
     (["--prefill-buckets", "16,8"], "ascending"),
     (["--prefill-buckets", "0,8"], ">= 1"),
+    (["--draft", "-1"], "--draft -1: must be >= 0"),
+    (["--draft", "1"], "--draft requires --paged"),
+    (["--paged", "--spec-k", "0"], "--spec-k 0: must be >= 1"),
+    (["--kv-dtype", "fp4"], "unknown --kv-dtype 'fp4'"),
+    (["--weight-dtype", "int4"], "unknown --weight-dtype 'int4'"),
+    (["--kv-dtype", "int8"], "--kv-dtype int8 requires --paged"),
 ])
 def test_serve_flag_checks_mirror_jax(argv, match):
     for config in (tconfig, jconfig):
         with pytest.raises(SystemExit, match=match):
             config.parse_args(argv, workload="gpt")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--paged", "--draft", "2", "--spec-k", "3"],
+    ["--paged", "--kv-dtype", "int8", "--weight-dtype", "bf16"],
+    ["--kv-dtype", "bf16", "--weight-dtype", "int8"]],
+    ids=["spec", "paged_quant", "slot_quant"])
+def test_serving_option_flags_parse_as_jax(argv):
+    mine, theirs = tconfig.parse_args(argv, "gpt"), \
+        jconfig.parse_args(argv, "gpt")
+    for field in ("paged", "draft", "spec_k", "kv_dtype", "weight_dtype"):
+        assert getattr(mine, field) == getattr(theirs, field), field
+
+
+def test_serving_options_are_no_longer_refused():
+    for flag in ("--draft", "--spec-k", "--kv-dtype", "--weight-dtype"):
+        assert not any(f.rstrip("=") == flag for f in tconfig.UNPORTED_FLAGS)
+    assert 3 not in tconfig.ROADMAP_ITEMS and 7 not in tconfig.ROADMAP_ITEMS
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--kv-dtype", "int8"], "--kv-dtype int8 requires --paged"),
+    (["--kv-dtype", "fp4"], "unknown --kv-dtype 'fp4'"),
+    (["--paged", "--weight-dtype", "int4"], "unknown --weight-dtype"),
+])
+def test_serve_bench_cli_rejects_as_jax(argv, match, capsys):
+    """``python -m distributed_deep_learning_tpu_torch.serve`` refuses
+    what ``scripts/serve_bench.py`` refuses, with its message."""
+    from distributed_deep_learning_tpu_torch.serve.__main__ import main
+
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", *argv])
+    assert re.search(match, capsys.readouterr().err)
+
+
+def test_serve_bench_cli_speculates_over_int8(capsys):
+    import json
+
+    from distributed_deep_learning_tpu_torch.serve.__main__ import main
+
+    rc = main(["--paged", "--device", "cpu", "--requests", "4",
+               "--max-slots", "2", "--draft", "1", "--spec-k", "2",
+               "--kv-dtype", "int8", "--weight-dtype", "int8",
+               "--layers", "2", "--d-model", "32", "--heads", "2",
+               "--mlp-dim", "64", "--vocab", "64", "--max-len", "64",
+               "--prompt-max", "12", "--new-max", "8",
+               "--shared-prefix-len", "4", "--skip-v1"])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["errors"] == 0
+    assert (rec["kv_dtype"], rec["weight_dtype"]) == ("int8", "int8")
+    pe = rec["paged_engine"]
+    assert pe["spec"]["enabled"] and pe["spec"]["k"] == 2
+    assert pe["spec"]["proposed"] == 2 * pe["spec"]["rounds"]
+    assert rec["weight_drift"]["declared_bound"] > 0

@@ -314,11 +314,14 @@ def test_naive_baseline_counts_and_results():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"kv_dtype": "bf16"}, "item 7"), ({"weight_dtype": "int8"}, "item 7"),
+    ({"kv_dtype": "int8"}, "requires the paged engine"),
+    ({"weight_dtype": "int4"}, "unknown weight_dtype"),
 ])
 def test_unported_options_raise(kw, match):
+    """What the slot engine refuses, with the JAX engine's messages: int8
+    KV (its scales live in the paged pools) and an unknown dtype."""
     _, _, tm = _models()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         teng.ServeEngine(tm, device="cpu", **kw)
 
 

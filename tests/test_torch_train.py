@@ -245,10 +245,10 @@ def test_cli_defaults_match_jax():
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
     (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
     (["--packed-cache", "f"], "item 9"), (["--obs"], "item 14"),
-    (["--optimizer", "lamb"], "item 3"), (["--optimizer", "adafactor"],
-                                          "item 3"),
-    (["--draft", "1"], "item 7"), (["--kv-dtype", "int8"], "item 7"),
-    (["--weight-dtype", "int8"], "item 7"), (["--replicas", "2"], "item 13"),
+    (["--virtual-stages", "2"], "item 10"), (["--obs-file", "f"], "item 14"),
+    (["--reload-watch", "d"], "item 13"), (["--sentinel-window", "5"],
+                                           "item 12"),
+    (["--disagg"], "item 13"), (["--replicas", "2"], "item 13"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):

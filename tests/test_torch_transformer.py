@@ -131,3 +131,53 @@ def test_reset_parameters_is_seeded():
                                  b.state_dict().items()):
         assert torch.equal(x, y), name
     assert float(a.tok.weight.detach().std()) == pytest.approx(0.02, rel=0.2)
+
+
+def _remat_grads(policy, backwards=1, attention="dense"):
+    """Gradients of the mean square hidden state after ``backwards``
+    backward passes through one (retained) graph, under ``policy`` (None:
+    no remat)."""
+    tm = ttr.CausalLM(**MODEL, attention=attention).reset_parameters(
+        torch.Generator().manual_seed(3)).train()
+    h = tm(torch.from_numpy(_tokens(2)).long(), remat=policy)
+    loss = (h * h).mean()
+    for i in range(backwards):
+        loss.backward(retain_graph=i + 1 < backwards)
+    return {n: p.grad.clone() for n, p in tm.named_parameters()}
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_dots_recomputes_each_dropped_output_once(attention, monkeypatch):
+    """Under ``dots`` each layer's LayerNorm, attention and GELU outputs
+    are dropped and computed again exactly once in the backward, and the
+    gradients equal the run that keeps them (exactly: the same ops)."""
+    recipes, calls = [], []
+    init = ttr._Recipe.__init__
+
+    def counting_init(self, fn, args):
+        def counted(*a):
+            calls.append(self)
+            return fn(*a)
+        init(self, counted, args)
+        recipes.append(self)
+
+    monkeypatch.setattr(ttr._Recipe, "__init__", counting_init)
+    got = _remat_grads("dots", attention=attention)
+    dropped = [r for r in recipes if r.views]
+    # ln_attn, the attention, ln_mlp and the GELU in each of the layers
+    assert len(dropped) == 4 * MODEL["num_layers"]
+    assert sorted(map(id, calls)) == sorted(map(id, dropped))
+    assert all(r.out is None for r in dropped)       # nothing kept after
+    want = _remat_grads(None, attention=attention)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_backward_twice_through_a_retained_graph(policy):
+    """``retain_graph=True`` then a second backward: each saved tensor is
+    unpacked twice, and the accumulated gradients equal the run without
+    remat."""
+    got, want = _remat_grads(policy, 2), _remat_grads(None, 2)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
