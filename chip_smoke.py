@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --phases 1,6,7  # a subset (no result lines)
-    python3 chip_smoke.py --phases 3,16,18,19,20  # this slice's options
+    python3 chip_smoke.py --phases 3,16,18,19,20  # the gpt options
+    python3 chip_smoke.py --phases 21,22,23  # the reference's workloads
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -136,9 +137,31 @@ Phases, in order; any failure raises and exits non-zero:
     phase 4's;
 20. phase 4's trace on the model with a 256-position sliding window: the
     kernel against the plain decode (first tokens identical, agreement
-    printed), one launch a layer a tick.
+    printed), one launch a layer a tick;
+21. the reference's workloads through the CLI on the card: ``mlp``,
+    ``lstm``, ``mnist`` and ``cnn`` at their CLI default ``-l/-s``
+    (DenseNet-BC 2 blocks x 6 layers, growth 32, bn_size 4, on 64x64
+    crops; the CNN-LSTM at hidden 128), f32, ``-b 32``, 2 epochs of the
+    synthetic twins, with cuDNN's TF32 switched on before each run (torch's
+    default), which the f32 run must switch off itself: each epoch's train
+    loss below the last, the classifiers' train accuracy rising, and the
+    first train step's loss within 1e-4 (relative) of the same step on the
+    CPU from the same seed; step time, examples/s and peak memory of each,
+    8 more steps under ``torch.profiler`` (the card's kernel time a step
+    against the synchronised host clock: its idle share), whether the
+    host-data library loaded, and the four kernels' launches (none: no
+    attention on this path);
+22. ``cnn --dtype bfloat16`` (first loss within 2e-2 of phase 21's),
+    ``cnn -m data`` at world 1 on NCCL (within 1e-6), ``mlp
+    --double-softmax`` (losses finite and falling) and ``cnn --remat``
+    (within 1e-6, peak memory beside phase 21's);
+23. ``cnn`` with a ``--checkpoint-dir`` under ``build/``, then ``--resume``
+    past its last epoch (the final test only): the restored model's test
+    loss and accuracy equal the saved model's (1e-6) and its BatchNorm
+    running statistics the saved ones.
 
-Phases 8-12, 16 and 17 print step time, tokens/s and peak memory.  The line before
+Phases 8-12, 16, 17, 21 and 22 print step time, throughput and peak
+memory.  The line before
 the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.  Nothing here imports JAX.
 """
@@ -151,6 +174,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -2157,12 +2181,279 @@ def phase_cli_spec_quant(data_dir: Path):
                 acceptance=acc)
 
 
+# --- phases 21-23: the reference's workloads through the CLI ---------------
+
+#: each workload at its CLI default -l/-s: f32, batch 32, 2 epochs of its
+#: synthetic twin
+WORKLOADS = ("mlp", "lstm", "mnist", "cnn")
+WORKLOAD_FLAGS = ("-e", "2", "-b", "32")
+WORKLOAD_BATCH = 32
+#: lstm's "accuracy" is argmax over regression targets (quirk Q5)
+CLASSIFIERS = ("mlp", "mnist", "cnn")
+#: the card's first train-step loss against the CPU's, bf16's and -m
+#: data's against phase 21's, and the restored test metrics (relative)
+FIRST_LOSS_TOL, BF16_FIRST_LOSS_TOL, DATA_FIRST_LOSS_TOL = 1e-4, 2e-2, 1e-6
+RESTORE_TOL = 1e-6
+
+
+def _step_setup(workload: str, argv, device: str):
+    """``(state, train_step, train_loader)`` of ``workload`` under ``argv``
+    on ``device``, built as the CLI builds its run: the same dataset,
+    split (``DDL_DATA_LIMIT`` honoured as the runner honours it), seeded
+    initialisation and recipe; the loader set to epoch 1."""
+    import os
+
+    from distributed_deep_learning_tpu_torch.data.loader import make_loaders
+    from distributed_deep_learning_tpu_torch.data.splits import \
+        train_val_test_split
+    from distributed_deep_learning_tpu_torch.train.state import \
+        create_train_state
+    from distributed_deep_learning_tpu_torch.train.step import make_step_fns
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        build_optimizer
+
+    spec = get_spec(workload)
+    cfg = parse_args([*argv, "-d", device], workload=workload)
+    dataset = spec.build_dataset(cfg)
+    limit = int(os.environ.get("DDL_DATA_LIMIT", "0"))
+    splits = train_val_test_split(
+        min(len(dataset), limit) if limit else len(dataset), seed=cfg.seed)
+    train, _, _ = make_loaders(dataset, splits, cfg.batch_size, device,
+                               seed=cfg.seed)
+    epoch_steps = max(1, len(splits.train) // cfg.batch_size)
+    state = create_train_state(spec.build_model(cfg, dataset), cfg.seed,
+                               build_optimizer(spec, cfg, epoch_steps),
+                               device=device)
+    step, _ = make_step_fns(spec.build_loss(cfg))
+    train.set_epoch(1)
+    return state, step, train
+
+
+def first_step_loss(workload: str, argv, device: str) -> float:
+    """The loss of ``workload``'s first train step under ``argv`` on
+    ``device`` (the CLI's first batch and initialisation)."""
+    state, step, train = _step_setup(workload, argv, device)
+    x, y = next(train.iter_batches())
+    return step(state, x, y)[1]["loss"].item()
+
+
+def device_busy_share(workload: str, steps: int = 8):
+    """``(busy ms, wall ms, top)`` a train step of ``workload`` at its
+    phase-21 settings: ``steps`` steps after 3 warm-up steps under
+    ``torch.profiler``, the wall clock synchronised around them, busy the
+    sum of the card's kernel times (None when the profiler sees no device
+    time) and ``top`` the 4 largest ``(kernel, ms a step, calls a
+    step)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, train = _step_setup(workload, WORKLOAD_FLAGS, "cuda")
+    batches = iter(train.iter_batches())
+    for _ in range(3):
+        step(state, *next(batches))
+    window = [next(batches) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in window:
+            step(state, x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device events but the spans of annotated ranges (such as
+    # ``Optimizer.step``), which cover kernels counted on their own
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = [(e.key[:60], e.self_device_time_total / 1e3 / steps,
+            e.count / steps) for e in kernels[:4]]
+    return (busy_us / 1e3 / steps if busy_us else None), \
+        wall * 1e3 / steps, top
+
+
+def check_first_loss(label: str, got: float, want: float,
+                     tol: float) -> float:
+    """Raise unless ``got`` lies within ``tol`` (relative) of ``want``."""
+    rel = _rel(got, want)
+    print(f"{label}: first train-step loss {got:.9f} against {want:.9f}: "
+          f"rel diff {rel:.2e} (tol {tol:g})")
+    if not rel <= tol:
+        raise RuntimeError(f"{label}: first loss {got!r} is {rel:.2e} from "
+                           f"{want!r}, beyond {tol:g}")
+    return rel
+
+
+def _workload_run(workload: str, *flags, label=None):
+    """One CLI run on the card (``WORKLOAD_FLAGS`` then ``flags``); returns
+    the final state, the history and step time (median of every train
+    step but the run's first), examples/s, peak memory and the first
+    step's loss."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.__main__ import main as cli
+
+    label = label or workload
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = cli([workload, *WORKLOAD_FLAGS, *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trains = [h for h in hist if h.phase == "train"]
+    losses = [x for h in trains for x in h.step_losses]
+    step_s = statistics.median([s for h in trains
+                                for s in h.step_seconds][1:])
+    perf = dict(step_s=step_s, examples_per_s=WORKLOAD_BATCH / step_s,
+                peak=peak, first_loss=losses[0],
+                epoch_losses=[h.loss for h in trains],
+                train_accuracy=[h.accuracy for h in trains])
+    print(f"workload[{label}]: {len(losses)} train steps, {step_s:.5f} "
+          f"s/step (median of steps 2-{len(losses)}), "
+          f"{perf['examples_per_s']:.1f} examples/s, peak memory "
+          f"{peak / 2**20:.1f} MiB; epoch train losses "
+          + " ".join(f"{h.loss:.9f}" for h in trains) + ", train accuracy "
+          + " -> ".join(f"{h.accuracy:.3f}" for h in trains)
+          + f", test loss {hist[-1].loss:.9f} accuracy "
+          f"{hist[-1].accuracy:.3f}; {wall:.1f} s with data and model build")
+    if not all(math.isfinite(x) for x in losses + [h.loss for h in hist]):
+        raise RuntimeError(f"workload[{label}]: a non-finite loss")
+    return state, hist, perf
+
+
+def _falls(label, perf, classifier):
+    loss, acc = perf["epoch_losses"], perf["train_accuracy"]
+    if not loss[-1] < loss[0]:
+        raise RuntimeError(f"workload[{label}]: train loss did not fall "
+                           f"({loss})")
+    if classifier and not acc[-1] > acc[0]:
+        raise RuntimeError(f"workload[{label}]: train accuracy did not "
+                           f"rise ({acc})")
+
+
+def phase_workloads():
+    """Phase 21; returns each workload's figures."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch import native
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+
+    where = (f"loaded from {native.library_path().relative_to(ROOT)}"
+             if native.get_lib() is not None
+             else "not loaded (the NumPy fallbacks run)")
+    print(f"workloads: host-data library {where}")
+    counters = (fa.flash_forward, fa.flash_backward_dq,
+                fa.flash_backward_dkv, paged_flash_decode)
+    for c in counters:
+        c.launches = 0
+    perf = {}
+    for w in WORKLOADS:
+        # torch's default; the CLI's f32 run must switch it off itself
+        torch.backends.cudnn.allow_tf32 = True
+        _, _, perf[w] = _workload_run(w)
+        if torch.backends.cudnn.allow_tf32:
+            raise RuntimeError(f"workload[{w}]: the f32 run left cuDNN's "
+                               "TF32 on")
+        _falls(w, perf[w], w in CLASSIFIERS)
+        cpu = first_step_loss(w, WORKLOAD_FLAGS, "cpu")
+        perf[w]["first_loss_rel"] = check_first_loss(
+            f"workload[{w}] card vs cpu", perf[w]["first_loss"], cpu,
+            FIRST_LOSS_TOL)
+        busy, wall, top = device_busy_share(w)
+        step_ms = perf[w]["step_s"] * 1e3
+        share = ("not measured (the profiler saw no device time)"
+                 if busy is None else
+                 f"{busy:.3f} ms of kernels a step: idle share "
+                 f"{1 - busy / step_ms:.3f} of the unprofiled "
+                 f"{step_ms:.3f} ms step")
+        print(f"workload[{w}]: profiled 8 steps: {wall:.3f} ms a step on "
+              f"the synchronised host clock, {share}; largest: "
+              + "; ".join(f"{name} {ms:.3f} ms x{n:g}"
+                          for name, ms, n in top))
+    print("workloads: kernel launches " + ", ".join(
+        f"{c.__name__} {c.launches}" for c in counters)
+        + " (this path has no attention)")
+    return perf
+
+
+def phase_workload_variants(perf21):
+    """Phase 22: bf16, ``-m data`` at world 1, ``--double-softmax`` and
+    ``--remat`` beside phase 21's runs; returns their figures."""
+    cnn = perf21["cnn"]
+    out = {}
+    _, _, out["cnn bf16"] = _workload_run(
+        "cnn", "-e", "1", "--dtype", "bfloat16", label="cnn bf16")
+    check_first_loss("workload[cnn bf16] vs phase 21",
+                     out["cnn bf16"]["first_loss"], cnn["first_loss"],
+                     BF16_FIRST_LOSS_TOL)
+    _, _, out["cnn data"] = _workload_run("cnn", "-e", "1", "-m", "data",
+                                          label="cnn data")
+    check_first_loss("workload[cnn data] vs phase 21",
+                     out["cnn data"]["first_loss"], cnn["first_loss"],
+                     DATA_FIRST_LOSS_TOL)
+    _, _, out["mlp double-softmax"] = _workload_run(
+        "mlp", "--double-softmax", label="mlp double-softmax")
+    _falls("mlp double-softmax", out["mlp double-softmax"], False)
+    _, _, out["cnn remat"] = _workload_run("cnn", "-e", "1", "--remat",
+                                           label="cnn remat")
+    check_first_loss("workload[cnn remat] vs phase 21",
+                     out["cnn remat"]["first_loss"], cnn["first_loss"],
+                     DATA_FIRST_LOSS_TOL)
+    print(f"workload[cnn remat]: peak memory "
+          f"{out['cnn remat']['peak'] / 2**20:.1f} MiB against "
+          f"{cnn['peak'] / 2**20:.1f} MiB without --remat")
+    return out
+
+
+def phase_workload_checkpoint():
+    """Phase 23: the saved ``cnn`` model restored by ``--resume``."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.__main__ import main as cli
+
+    ckdir = ROOT / "build" / "chip_smoke_cnn_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    flags = ("-e", "1", "--checkpoint-dir", str(ckdir))
+    state, hist, _ = _workload_run("cnn", *flags, label="cnn checkpoint")
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    del state
+    restored, rhist = cli(["cnn", *WORKLOAD_FLAGS, *flags, "--resume"])
+    if [h.phase for h in rhist] != ["test"]:
+        raise RuntimeError(f"checkpoint[cnn]: the resumed run ran "
+                           f"{[h.phase for h in rhist]}, not the test only")
+    got, want = rhist[0], hist[-1]
+    rel = max(_rel(got.loss, want.loss),
+              _rel(got.accuracy, want.accuracy) if want.accuracy else 0.0)
+    buffers = {k: v for k, v in restored.model.state_dict().items()
+               if k in saved}
+    same = sum(bool(torch.equal(buffers[k], v)) for k, v in saved.items())
+    moved = sum(bool((v - 1).abs().max() > 1e-3) for k, v in saved.items()
+                if k.endswith("running_var"))
+    print(f"checkpoint[cnn]: restored test loss {got.loss:.9f} accuracy "
+          f"{got.accuracy:.3f} against the saved model's {want.loss:.9f} "
+          f"{want.accuracy:.3f} (rel diff {rel:.2e}, tol {RESTORE_TOL:g}); "
+          f"{same} of {len(saved)} BatchNorm running buffers equal to the "
+          f"saved ones, {moved} running variances moved off 1")
+    shutil.rmtree(ckdir)
+    if not rel <= RESTORE_TOL or same != len(saved) or not moved:
+        raise RuntimeError("checkpoint[cnn]: the restored model is not the "
+                           "saved one")
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 21)),
+                    default=",".join(str(i) for i in range(1, 24)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -2171,7 +2462,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 21)) and opts.waves is None
+    complete = phases == set(range(1, 24)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -2248,6 +2539,12 @@ def main(argv=None) -> int:
                             "bf16": records.get("bf16", {}).get(name),
                             "bf16_train_launches":
                                 (bf16_launches or {}).get(name)})
+    if phases & {21, 22}:
+        workloads = phase_workloads()
+        if 22 in phases:
+            phase_workload_variants(workloads)
+    if 23 in phases:
+        phase_workload_checkpoint()
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

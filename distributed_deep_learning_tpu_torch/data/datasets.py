@@ -1,7 +1,9 @@
-"""In-memory array datasets: the port of the parts of
-``distributed_deep_learning_tpu/data/datasets.py`` the ``gpt`` workload
-uses.  Datasets are NumPy on the host; :mod:`.loader` batches them and
-copies each batch to the device once.
+"""In-memory array datasets and the synthetic twins of the workloads'
+datasets: the port of the parts of
+``distributed_deep_learning_tpu/data/datasets.py`` the ported workloads
+use.  Datasets are NumPy on the host; :mod:`.loader` batches them and
+copies each batch to the device once.  Each twin draws the same arrays
+as the JAX package's from the same seed, images NHWC as there.
 """
 
 from __future__ import annotations
@@ -22,9 +24,58 @@ class ArrayDataset:
         return len(self.features)
 
     def batch(self, indices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Gather one batched (x, y) pair — the only hot-path data op."""
+        """Gather one batched (x, y) pair — the only hot-path data op —
+        through the native row gather (:mod:`..native`), NumPy fancy
+        indexing without it."""
+        from distributed_deep_learning_tpu_torch import native
+
         indices = np.asarray(indices)
-        return self.features[indices], self.targets[indices]
+        return native.take(self.features, indices), \
+            native.take(self.targets, indices)
+
+
+def synthetic_mqtt(n: int = 4096, num_features: int = 48, num_classes: int = 5,
+                   seed: int = 0) -> ArrayDataset:
+    """MQTT-IDS shape twin: float feature rows + one-hot 5-class targets,
+    with a planted linear signal so training visibly learns."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, num_features)).astype(np.float32)
+    w = rng.normal(size=(num_features, num_classes))
+    labels = np.argmax(x @ w + 0.1 * rng.normal(size=(n, num_classes)), axis=-1)
+    y = np.eye(num_classes, dtype=np.float32)[labels]
+    return ArrayDataset(x, y)
+
+
+def synthetic_pcb(n: int = 512, image_size: int = 64, num_classes: int = 6,
+                  seed: int = 0) -> ArrayDataset:
+    """PCB-defect shape twin: 64×64 RGB crops (NHWC) + one-hot targets,
+    with a class-dependent mean so accuracy can rise."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size=n)
+    x = rng.normal(size=(n, image_size, image_size, 3)).astype(np.float32)
+    x += labels[:, None, None, None].astype(np.float32) * 0.1
+    y = np.eye(num_classes, dtype=np.float32)[labels]
+    return ArrayDataset(x, y)
+
+
+def synthetic_pdm(n: int = 4096, history: int = 10, num_features: int = 32,
+                  num_targets: int = 5, seed: int = 0) -> ArrayDataset:
+    """Predictive-maintenance shape twin: windows of ``history`` timesteps
+    × 32 features and a 5-wide regression target (L1-trained, quirk Q5)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, history, num_features)).astype(np.float32)
+    w = rng.normal(size=(num_features, num_targets)) / np.sqrt(num_features)
+    y = (x.mean(axis=1) @ w).astype(np.float32)
+    return ArrayDataset(x, y)
+
+
+def synthetic_mnist(n: int = 2048, seed: int = 0) -> ArrayDataset:
+    """28×28×1 digits (NHWC), one-hot 10-class targets."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n)
+    x = rng.normal(size=(n, 28, 28, 1)).astype(np.float32)
+    x += labels[:, None, None, None].astype(np.float32) * 0.1
+    return ArrayDataset(x, np.eye(10, dtype=np.float32)[labels])
 
 
 def synthetic_lm(n: int = 1024, seq_len: int = 64, vocab_size: int = 1024,

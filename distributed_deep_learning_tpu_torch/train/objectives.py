@@ -1,6 +1,12 @@
 """Losses and metrics: the port of
-``distributed_deep_learning_tpu/train/objectives.py`` (the parts the
-``gpt`` workload uses).
+``distributed_deep_learning_tpu/train/objectives.py``.
+
+* ``cross_entropy_loss``: mean softmax CE against one-hot(ish) targets;
+  ``from_probabilities`` (quirk Q4, the reference's Softmax fed into
+  ``CrossEntropyLoss``) is the same math, as in the JAX package;
+* ``l1_loss``: the ``lstm`` workload's mean absolute error (quirk Q5);
+* ``RowMean``: such a per-row loss as an object whose ``sites`` are the
+  batch's rows, the count ``-m data``'s global mean weights it by.
 
 * ``token_cross_entropy``: mean CE over non-pad token positions, with
   optional label smoothing (ε on the target, ε/V spread over the rest),
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -39,6 +46,34 @@ def token_cross_entropy(logits, targets, label_smoothing: float = 0.0,
     else:
         per_tok = -picked
     return (per_tok * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def cross_entropy_loss(logits, targets, from_probabilities: bool = False):
+    """Mean over rows of ``-sum(targets * log_softmax(logits))`` (optax's
+    ``softmax_cross_entropy``), in f32.  ``from_probabilities`` changes
+    nothing: softmax CE applied to probabilities is quirk Q4 itself."""
+    del from_probabilities
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(targets.float() * logp).sum(-1).mean()
+
+
+def l1_loss(pred, targets):
+    return (pred.float() - targets.float()).abs().mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class RowMean:
+    """A loss that is a mean over the rows of a batch, every row of equal
+    weight (``cross_entropy_loss``, ``l1_loss``); ``sites(targets)`` is
+    the number of rows."""
+
+    fn: Callable = cross_entropy_loss
+
+    def __call__(self, pred, targets):
+        return self.fn(pred, targets)
+
+    def sites(self, targets):
+        return torch.tensor(targets.shape[0], device=targets.device)
 
 
 @dataclasses.dataclass(frozen=True)

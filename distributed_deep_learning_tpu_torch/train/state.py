@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from distributed_deep_learning_tpu_torch import resolve_device
+from distributed_deep_learning_tpu_torch.train.schedules import step_decay
 
 #: optax's defaults for adam/adamw
 BETAS, EPS = (0.9, 0.999), 1e-8
@@ -222,6 +223,22 @@ class Optimizer:
             layouts = {p: layout(n) for n, p in named} if layout else None
             return Adafactor(params, lr=lr, layouts=layouts)
         raise ValueError(f"unknown optimizer kind {self.kind!r}")
+
+
+def reference_optimizer(workload: str, learning_rate: float | None = None,
+                        epoch_steps: int | None = None) -> Optimizer:
+    """The reference's optimizer per workload, as the JAX package builds it:
+
+    * ``cnn``: SGD with momentum 0.9 at 0.01, ×0.1 every 7 epochs
+      (``optax.exponential_decay(staircase=True)`` over ``epoch_steps``);
+    * ``mlp``, ``lstm``: Adam at 1e-3 (optax's defaults)."""
+    if workload.lower() == "cnn":
+        lr = 0.01 if learning_rate is None else learning_rate
+        sched = step_decay(lr, steps_per_drop=7 * epoch_steps) \
+            if epoch_steps else lr
+        return Optimizer("momentum", sched)
+    return Optimizer("adam", 1e-3 if learning_rate is None
+                     else learning_rate)
 
 
 @dataclasses.dataclass

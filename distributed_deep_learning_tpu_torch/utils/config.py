@@ -1,9 +1,10 @@
 """Run configuration and the workload CLI: the port of
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
-runs (``gpt -m sequential|data``, ``--dtype``, every ``--optimizer``, the
-step variants, checkpointing, and the post-train ``--generate`` and
-``--serve [--paged]`` with speculation (``--draft``, ``--spec-k``) and
-quantized serving (``--kv-dtype``, ``--weight-dtype``)).
+runs (``mlp``, ``cnn``, ``lstm``, ``mnist`` and ``gpt`` under ``-m
+sequential|data``, ``--dtype``, ``--double-softmax``, every
+``--optimizer``, the step variants, checkpointing, and the post-train
+``--generate`` and ``--serve [--paged]`` with speculation (``--draft``,
+``--spec-k``) and quantized serving (``--kv-dtype``, ``--weight-dtype``)).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
@@ -52,6 +53,8 @@ class Config:
     seed: int = 42
     learning_rate: float = 1e-3
     dtype: str = "float32"
+    double_softmax: bool = False        # mlp, cnn: quirk Q4's head softmax
+    num_workers: int = 0                # -w: cnn's image-decode threads
     dropout: float = 0.0
     data_dir: str | None = None
     attention: str = "auto"
@@ -123,7 +126,6 @@ ROADMAP_ITEMS = {
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
     "--packed-cache=": 9, "--image-size=": 9, "--stem-s2d": 9,
-    "--double-softmax": 9,
     "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
     "--mesh=": 11, "--zero=": 11, "--grad-compress=": 11, "--comm=": 11,
     "--comm-overlap": 11,
@@ -188,8 +190,8 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    default="cuda",
                    help="cuda (gpu is an alias) or cpu; cuda without a "
                         "card raises")
-    # -w and -p are accepted as the JAX CLI accepts them; a run on token
-    # data reads neither
+    # -w: cnn's image-decode threads; -p is accepted as the JAX CLI
+    # accepts it (it only matters under -m pipeline)
     p.add_argument("-w", "--nworkers", type=int, default=0)
     p.add_argument("-m", "--mode", choices=[m.value for m in Mode],
                    default="sequential")
@@ -204,12 +206,16 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32")
+    p.add_argument("--double-softmax", action="store_true",
+                   help="mlp/cnn: replicate reference quirk Q4 (a softmax "
+                        "head feeding the cross-entropy)")
     p.add_argument("--dropout", type=float, default=0.0,
                    help="dropout rate (masks from a generator seeded with "
                         "seed + 1; 0 = deterministic)")
     p.add_argument("--data-dir", type=str, default=None,
-                   help="directory holding tokens.npy (gpt); synthetic "
-                        "data without it")
+                   help="the workload's real data (gpt: tokens.npy; mlp, "
+                        "lstm: dataset.csv; cnn: the PCB tree; mnist: "
+                        "idx or .npy files); synthetic data without it")
     p.add_argument("--attention", choices=["auto", "dense", "flash"],
                    default="auto",
                    help="auto = the flash kernels on cuda, dense on cpu; "
@@ -365,7 +371,9 @@ def parse_args(argv: Sequence[str] | None = None,
         batch_size=args.batch,
         device="cuda" if args.device == "gpu" else args.device,
         mode=Mode(args.mode), seed=args.seed,
-        learning_rate=args.lr, dtype=args.dtype, dropout=args.dropout,
+        learning_rate=args.lr, dtype=args.dtype,
+        double_softmax=args.double_softmax, num_workers=args.nworkers,
+        dropout=args.dropout,
         data_dir=args.data_dir, attention=args.attention,
         attention_window=args.attention_window, optimizer=args.optimizer,
         pos_embedding=args.pos_embedding, num_kv_heads=args.num_kv_heads,

@@ -1,5 +1,6 @@
-"""Workload registry: the JAX package's workload names; this slice runs
-``gpt``, and the others raise naming the ROADMAP item that ports them."""
+"""Workload registry: the JAX package's workload names.  The port runs
+``mlp``, ``cnn``, ``lstm``, ``mnist`` and ``gpt``; the others raise
+naming the ROADMAP item that ports them."""
 
 from distributed_deep_learning_tpu_torch.utils.config import ROADMAP_ITEMS
 from distributed_deep_learning_tpu_torch.workloads.base import (  # noqa: F401
@@ -10,13 +11,23 @@ WORKLOADS = ("mlp", "cnn", "lstm", "mnist", "resnet", "transformer",
 
 
 def get_spec(name: str) -> WorkloadSpec:
+    """Late-import specs so `import workloads` stays cheap."""
     name = name.lower()
-    if name == "gpt":
+    if name == "mlp":
+        from distributed_deep_learning_tpu_torch.workloads.mlp import SPEC
+    elif name == "cnn":
+        from distributed_deep_learning_tpu_torch.workloads.cnn import SPEC
+    elif name == "lstm":
+        from distributed_deep_learning_tpu_torch.workloads.lstm import SPEC
+    elif name == "mnist":
+        from distributed_deep_learning_tpu_torch.workloads.mnist import SPEC
+    elif name == "gpt":
         from distributed_deep_learning_tpu_torch.workloads.northstar import \
-            GPT_SPEC
-        return GPT_SPEC
-    if name in WORKLOADS:
+            GPT_SPEC as SPEC
+    elif name in WORKLOADS:
         raise NotImplementedError(f"workload {name!r} is not ported yet: "
                                   f"{ROADMAP_ITEMS[9]}")
-    raise ValueError(f"unknown workload {name!r}; choose one of "
-                     f"{'|'.join(WORKLOADS)}")
+    else:
+        raise ValueError(f"unknown workload {name!r}; choose one of "
+                         f"{'|'.join(WORKLOADS)}")
+    return SPEC

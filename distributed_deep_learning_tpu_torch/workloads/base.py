@@ -19,6 +19,8 @@ import dataclasses
 import os
 from typing import Any, Callable, Optional
 
+import numpy as np
+import torch
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
@@ -26,6 +28,8 @@ from distributed_deep_learning_tpu_torch import resolve_device
 from distributed_deep_learning_tpu_torch.data.loader import make_loaders
 from distributed_deep_learning_tpu_torch.data.splits import (
     shard_indices, train_val_test_split)
+from distributed_deep_learning_tpu_torch.models.densenet import \
+    global_batch_statistics
 from distributed_deep_learning_tpu_torch.runtime import bootstrap
 from distributed_deep_learning_tpu_torch.train import schedules
 from distributed_deep_learning_tpu_torch.train.elastic import resume_point
@@ -36,7 +40,7 @@ from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils.checkpoint import \
     Checkpointer
 from distributed_deep_learning_tpu_torch.utils.config import (
-    ROADMAP_ITEMS, Config, Mode)
+    REMAT_POLICIES, ROADMAP_ITEMS, Config, Mode)
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 
 
@@ -45,7 +49,9 @@ class WorkloadSpec:
     """What differs between workloads (the JAX spec's fields that the
     ported paths read).  ``pre_train_check(config, dataset)`` rejects a
     run before training; ``post_train(config, state, logger, dataset)``
-    runs ``--generate``/``--serve`` after it."""
+    runs ``--generate``/``--serve`` after it.  ``remat_policies``: the
+    ``--remat-policy`` values the model takes; ``double_softmax``: whether
+    its head takes ``--double-softmax``."""
 
     name: str
     build_dataset: Callable[[Config], Any]
@@ -54,6 +60,20 @@ class WorkloadSpec:
     build_optimizer: Callable[[Config, int], Optimizer]
     pre_train_check: Optional[Callable[[Config, Any], None]] = None
     post_train: Optional[Callable[..., None]] = None
+    remat_policies: tuple[str, ...] = REMAT_POLICIES
+    double_softmax: bool = False
+
+
+def config_dtype(config: Config) -> torch.dtype:
+    """The compute dtype ``--dtype`` selects."""
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def example_shape(dataset) -> tuple[int, ...]:
+    """One example's feature shape (the input widths are data-driven,
+    quirk Q6)."""
+    x, _ = dataset.batch(np.arange(1))
+    return tuple(x.shape[1:])
 
 
 #: flax's DenseGeneral keeps the q/k/v biases as (heads, head_dim), so
@@ -200,6 +220,18 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
     if config.grad_accum > 1 and config.remat:
         raise ValueError("--remat with --grad-accum is not implemented; "
                          "drop one of the two")
+    if config.remat and config.remat_policy not in spec.remat_policies:
+        raise NotImplementedError(
+            f"--remat-policy {config.remat_policy} is not ported for "
+            f"{spec.name!r} (it takes {'/'.join(spec.remat_policies)}): "
+            f"{ROADMAP_ITEMS[9]}")
+    if config.double_softmax and not spec.double_softmax:
+        raise ValueError(f"--double-softmax is not supported by workload "
+                         f"{spec.name!r} (mlp and cnn only)")
+    if config.dtype == "float32":
+        # f32 means f32: cuDNN's convolutions and LSTM take TF32 unless told
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     if config.mode is Mode.SEQUENTIAL:
         return _train(spec, config, bootstrap.DistEnv(
             device=resolve_device(config.device)), init_state_dict)
@@ -255,6 +287,9 @@ def _train(spec, config, env, init_state_dict):
             logger)
     ddp = None
     if data_parallel:
+        # BatchNorm statistics over the global batch, as JAX's jit takes
+        # them over the sharded batch
+        global_batch_statistics(state.model)
         ddp = DistributedDataParallel(
             state.model,
             device_ids=[device.index] if device.type == "cuda" else None)

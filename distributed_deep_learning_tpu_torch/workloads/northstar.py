@@ -33,17 +33,12 @@ from distributed_deep_learning_tpu_torch.train.objectives import \
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
-    WorkloadSpec, adamw, resolve_lr, run_workload)
+    WorkloadSpec, adamw, config_dtype, resolve_lr, run_workload)
 
 
 def _token_ce_loss(c: Config):
     """Token cross-entropy with ``--label-smoothing`` (pad id 0 excluded)."""
     return TokenCrossEntropy(label_smoothing=c.label_smoothing)
-
-
-def config_dtype(config: Config) -> torch.dtype:
-    """The compute dtype ``--dtype`` selects."""
-    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
 def _attention_fn(config: Config) -> str:

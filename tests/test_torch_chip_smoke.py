@@ -183,7 +183,9 @@ def test_served_margins_pass_served_tokens_and_fail_shuffled_ones():
 #: CLI's speculative int8 leg, which rides on phase 15)
 NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               18: "phase_quant_serving", 19: "phase_spec",
-              20: "phase_window", 15: "phase_cli_spec_quant"}
+              20: "phase_window", 15: "phase_cli_spec_quant",
+              21: "phase_workloads", 22: "phase_workload_variants",
+              23: "phase_workload_checkpoint"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -209,11 +211,13 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_train_bf16", (None, None, None)),
             ("phase_post_train_serving", 0),
             ("phase_cli_spec_quant", {"launches": 0}),
-            ("phase_fused_head", {}), ("phase_optimizers", {})):
+            ("phase_fused_head", {}), ("phase_optimizers", {}),
+            ("phase_workloads", {}), ("phase_workload_variants", {}),
+            ("phase_workload_checkpoint", None)):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 21)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 24)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -261,3 +265,22 @@ def test_optimizer_hold_tells_a_zero_learning_rate_from_the_recipe(
     zero = chip_smoke._optimizer_params(opt, "0", "cpu")
     assert gap(again, want) == 0.0
     assert gap(zero, want) > 100 * chip_smoke.OPT_HOLD_ATOL
+
+
+def test_first_loss_check_with_a_cpu_stand_in(monkeypatch):
+    """Phase 21's card-vs-CPU check on the CPU: a CLI run stands in for
+    the card's, and its first train-step loss meets the CPU rebuild of
+    that step within ``FIRST_LOSS_TOL``; a planted wrong loss (10 times
+    the tolerance off) fails the check."""
+    from distributed_deep_learning_tpu_torch.__main__ import main
+
+    monkeypatch.setenv("DDL_DATA_LIMIT", "128")
+    argv = ["-l", "1", "-s", "8", "-b", "16"]
+    want = chip_smoke.first_step_loss("mlp", argv, "cpu")
+    _, hist = main(["mlp", *argv, "-e", "1", "-d", "cpu"])
+    tol = chip_smoke.FIRST_LOSS_TOL
+    assert chip_smoke.check_first_loss(
+        "stand-in", hist[0].step_losses[0], want, tol) <= tol
+    with pytest.raises(RuntimeError, match="first loss"):
+        chip_smoke.check_first_loss("planted", want * (1 + 10 * tol), want,
+                                    tol)

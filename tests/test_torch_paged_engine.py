@@ -230,6 +230,14 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch.ops.attention\n"
             "import distributed_deep_learning_tpu_torch.data.loader\n"
             "import distributed_deep_learning_tpu_torch.train.loop\n"
+            "import distributed_deep_learning_tpu_torch.native\n"
+            "import distributed_deep_learning_tpu_torch.workloads.mlp\n"
+            "import distributed_deep_learning_tpu_torch.workloads.cnn\n"
+            "import distributed_deep_learning_tpu_torch.workloads.lstm\n"
+            "import distributed_deep_learning_tpu_torch.workloads.mnist\n"
+            "import distributed_deep_learning_tpu_torch.data.mnist\n"
+            "import distributed_deep_learning_tpu_torch.utils.torch_migrate\n"
+            "distributed_deep_learning_tpu_torch.native.get_lib()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
