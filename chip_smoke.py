@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,6,7  # a subset (no result lines)
     python3 chip_smoke.py --phases 3,16,18,19,20  # the gpt options
     python3 chip_smoke.py --phases 21,22,23  # the reference's workloads
+    python3 chip_smoke.py --phases 1,7,24,25,26  # the north-star zoo
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -47,7 +48,13 @@ Phases, in order; any failure raises and exits non-zero:
    the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
    f32 and bf16, plus padding with a fully padded row, GQA, a sliding
    window, a ragged T, a non-causal cross shape and head dims 16, 32 and
-   128 in both dtypes (B 1, H 2, T 512); median times of each kernel, its
+   128 in both dtypes (B 1, H 2, T 512), and the shapes phases 25-26 drive,
+   each timed against SDPA: the training shape non-causal in bf16,
+   BERT-base's (B 8, H 12, T 512, non-causal, padded keys with a fully
+   padded row), the seq2seq cross-attention's (B 8, H 8, Tq 256, Tk 255,
+   non-causal, padded source) and the synthetic twins' T 32 (B 4, H 8,
+   causal and non-causal, padded), each in f32 and bf16; median times of
+   each kernel, its
    plain version and ``scaled_dot_product_attention`` (forward, and
    forward plus backward: a yardstick the port never calls) beside the
    operations bound (f32: three TF32 products at the TF32 rate, with the
@@ -158,10 +165,32 @@ Phases, in order; any failure raises and exits non-zero:
 23. ``cnn`` with a ``--checkpoint-dir`` under ``build/``, then ``--resume``
     past its last epoch (the final test only): the restored model's test
     loss and accuracy equal the saved model's (1e-6) and its BatchNorm
-    running statistics the saved ones.
+    running statistics the saved ones;
+24. ``resnet`` through the CLI: (a) its default ResNet-18 on the CIFAR-10
+    twin, f32 (the run must switch cuDNN's TF32 off itself), ``-b 128``, 1
+    epoch: the train loss falls and the first step's loss lies within
+    1e-4 of the CPU's; (b) ResNet-50 at 224 px (stages 3-4-6-3, width 64)
+    from a ``--packed-cache`` of 512 seeded ImageNet-twin images packed
+    under ``build/`` by the port's ``pack_dataset``, ``--dtype bfloat16
+    -b 32``, 1 epoch, with ``--stem-s2d`` and with the 7×7 stem; in f32 the
+    first step's forward of the two at mapped stem weights agrees within
+    1e-4 of max|logit|; no run launches a flash kernel;
+25. ``transformer`` (transformer-base: 6 + 6 layers, d 512, 8 heads, MLP
+    2048) through the CLI on a seeded ``tokens.npy`` of 96 rows of 512 ids
+    (vocabulary 32000, a ragged pad tail in each half), ``-b 8``, 1 epoch:
+    ``--attention flash`` in f32, ``dense`` in f32 (first loss within 1e-4
+    of flash's) and flash in bf16 (within 2e-2); the flash runs launch
+    exactly 18 forwards a step (6 encoder, 6 decoder self- and 6
+    cross-attentions) and 18 dQ and 18 dK/dV a train step, the dense run
+    none;
+26. ``bert`` (BERT-base: 12 layers, d 768, 12 heads, MLP 3072) the same
+    way on 96 rows of 512 ids (vocabulary 30522, ragged pad tails): 12
+    forwards a step and 12 dQ and 12 dK/dV a train step.
 
-Phases 8-12, 16, 17, 21 and 22 print step time, throughput and peak
-memory.  The line before
+Phases 8-12, 16, 17, 21, 22 and 24-26 print step time, throughput and
+peak memory; phases 21 and 24-26 a profiler window's kernel time and idle
+share, 24-26 also the flash kernels' time and the step's operations
+against the bf16 tensor-core rate (``step_operations``).  The line before
 the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.  Nothing here imports JAX.
 """
@@ -916,6 +945,24 @@ def phase_slot_engine(rec):
 
 #: the training path's attention shape: 4 rows of 2048 tokens, 12 heads of 64
 TRAIN_SHAPE = dict(B=4, H=12, Hkv=12, Tq=2048, Tk=2048, D=64)
+#: the shapes phases 25-26 drive, each timed against SDPA: BERT-base's
+#: (padded keys, a fully padded row), the seq2seq cross-attention's (Tk =
+#: Tq - 1, as an odd tokens.npy row gives it) and the synthetic twins'
+#: T 32, each in f32 and bf16
+ZOO_FLASH_CASES = [
+    ("noncausal_bf16", {"causal": False, "dtype": "bf16"}),
+    *((f"bert_shape_{dt}", {"B": 8, "H": 12, "Hkv": 12, "Tq": 512,
+                            "Tk": 512, "causal": False, "pad": 300,
+                            "dtype": dt}) for dt in ("f32", "bf16")),
+    *((f"seq2seq_cross_{dt}", {"B": 8, "H": 8, "Hkv": 8, "Tq": 256,
+                               "Tk": 255, "causal": False, "pad": 100,
+                               "dtype": dt}) for dt in ("f32", "bf16")),
+    *((f"short_t32_{kind}_{dt}", {"B": 4, "H": 8, "Hkv": 8, "Tq": 32,
+                                  "Tk": 32, "causal": kind == "causal",
+                                  "pad": 10, "dtype": dt})
+      for kind in ("causal", "noncausal") for dt in ("f32", "bf16")),
+]
+ZOO_NAMES = {name for name, _ in ZOO_FLASH_CASES}
 FLASH_CASES = [
     ("f32", {}),
     ("bf16", {"dtype": "bf16"}),
@@ -928,6 +975,7 @@ FLASH_CASES = [
     *((f"d{d}_{dt}", {"B": 1, "H": 2, "Hkv": 2, "Tq": 512, "Tk": 512,
                       "D": d, "dtype": dt})
       for d in (16, 32, 128) for dt in ("f32", "bf16")),
+    *ZOO_FLASH_CASES,
 ]
 #: (O and LSE max abs error, gradients' max abs error / max |reference|)
 FLASH_TOL = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 2e-2)}
@@ -936,7 +984,7 @@ FLASH_TOL = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 2e-2)}
 def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
                 dtype="f32", pad=False, seed=0):
     """Seeded q, k, v, key_valid and dO on the card.  ``pad``: rows 1 and
-    2 lose their last 300 keys, row 3 all of them."""
+    2 lose their last ``pad`` keys (300 for True), row 3 all of them."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -947,12 +995,36 @@ def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
     do = torch.randn(B, Tq, H, D, generator=gen)
     valid = torch.ones(B, Tk, dtype=torch.bool)
     if pad:
-        valid[1:3, Tk - 300:] = False
+        valid[1:3, Tk - (300 if pad is True else pad):] = False
         valid[3] = False
     q, k, v, do = (x.to(dt).cuda() for x in (q, k, v, do))
     return q, k, v, valid.cuda(), do, dict(causal=causal,
                                             sm_scale=D ** -0.5,
                                             window=window)
+
+
+def _visible_pairs(q, k, valid, causal, window):
+    """(query, key) pairs the mask leaves visible, over every head."""
+    import torch
+
+    Tq, H, Tk = q.shape[1], q.shape[2], k.shape[1]
+    qp = torch.arange(Tq, device=q.device)[:, None]
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    band = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        band = qp >= kp
+        if window is not None:
+            band = band & (qp - kp < window)
+    if valid is None:
+        return int(band.sum()) * q.shape[0] * H
+    return int((band[None] & valid[:, None, :]).sum()) * H
+
+
+#: each kernel's operations per visible pair per head dim: the forward's
+#: two products, dQ's three (its recomputed QK^T, dO.V^T and dS.K), dK/dV's
+#: four
+FLASH_PAIR_OPS = {"flash_forward": 4, "flash_backward_dq": 6,
+                  "flash_backward_dkv": 8}
 
 
 def _flash_bounds(q, k, valid, kw):
@@ -965,25 +1037,21 @@ def _flash_bounds(q, k, valid, kw):
     import torch
 
     B, Tq, H, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
-    qp = torch.arange(Tq, device=q.device)[:, None]
-    kp = torch.arange(Tk, device=q.device)[None, :]
-    band = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
-    if kw["causal"]:
-        band = qp >= kp
-        if kw["window"] is not None:
-            band = band & (qp - kp < kw["window"])
-    pairs = int((band[None] & valid[:, None, :]).sum()) * H
+    pairs = _visible_pairs(q, k, valid, kw["causal"], kw["window"])
     item = q.element_size()
     q_el, kv_el, rows = q.numel(), k.numel(), B * H * Tq
     extra = valid.numel()                                # key_valid bytes
     work = {   # kernel: (bytes, flops)
         "flash_forward": ((2 * q_el + 2 * kv_el) * item + 4 * rows + extra,
-                          4 * D * pairs),
+                          FLASH_PAIR_OPS["flash_forward"] * D * pairs),
         "flash_backward_dq": ((3 * q_el + 2 * kv_el) * item + 8 * rows
-                              + extra, 6 * D * pairs),
+                              + extra,
+                              FLASH_PAIR_OPS["flash_backward_dq"] * D
+                              * pairs),
         "flash_backward_dkv": ((2 * q_el + 4 * kv_el) * item + 8 * rows
-                               + extra, 8 * D * pairs),
+                               + extra,
+                               FLASH_PAIR_OPS["flash_backward_dkv"] * D
+                               * pairs),
     }
     rate = BF16_FLOPS_PER_S if item == 2 else TF32_FLOPS_PER_S / 3
     out = {}
@@ -1025,13 +1093,22 @@ def _flash_timings(q, k, v, valid, do, kw):
     qs.requires_grad_(True)
     ks.requires_grad_(True)
     vs.requires_grad_(True)
+    # the case's masking: causal, and padded keys as a boolean mask (which
+    # takes SDPA off its flash backend; a fully padded row gives NaN there,
+    # which only the timing sees)
+    sdpa_kw = dict(is_causal=kw["causal"])
+    if not bool(valid.all()):
+        sdpa_kw = dict(attn_mask=valid[:, None, None, :] if not kw["causal"]
+                       else valid[:, None, None, :] & torch.ones(
+                           q.shape[1], k.shape[1], dtype=torch.bool,
+                           device=q.device).tril())
 
     def sdpa_fwd():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            return F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
 
     def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        o = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
         return torch.autograd.grad(o, (qs, ks, vs), dos)
 
     lib_fwd = _time_ms(sdpa_fwd)
@@ -1050,7 +1127,7 @@ def phase_flash_kernels():
 
     from distributed_deep_learning_tpu_torch.ops import attention as fa
 
-    records = {}
+    records, zoo = {}, {}
     for name, spec in FLASH_CASES:
         q, k, v, valid, do, kw = _flash_case(seed=len(name),
                                              **{**TRAIN_SHAPE, **spec})
@@ -1085,6 +1162,25 @@ def phase_flash_kernels():
                   f"exactly zero: {zero}")
             if not zero:
                 raise RuntimeError("fully padded row: non-zero gradients")
+        if name in ZOO_NAMES:
+            ms, plain, lib = _flash_timings(q, k, v, valid, do, kw)
+            bounds = _flash_bounds(q, k, valid, kw)
+            zoo[name] = {kn: ms[kn] for kn in FLASH_PAIR_OPS}
+            zoo[name]["sdpa_fwd"] = lib["flash_forward"]
+            zoo[name]["sdpa_bwd"] = lib["backward"]
+            total = (ms["delta"] + ms["flash_backward_dq"]
+                     + ms["flash_backward_dkv"])
+            bwd_bound = (bounds["flash_backward_dq"][0]
+                         + bounds["flash_backward_dkv"][0])
+            print(f"flash {name} timing: forward {ms['flash_forward']:.4f} "
+                  f"ms (sdpa {lib['flash_forward']:.4f}, plain "
+                  f"{plain['flash_forward']:.4f}, bound "
+                  f"{bounds['flash_forward'][0]:.4f} "
+                  f"{bounds['flash_forward'][1]}); backward delta + dq + dkv "
+                  f"{ms['delta']:.4f} + {ms['flash_backward_dq']:.4f} + "
+                  f"{ms['flash_backward_dkv']:.4f} = {total:.4f} ms (sdpa "
+                  f"{lib['backward']:.4f}, plain {plain['backward']:.4f}, "
+                  f"bound {bwd_bound:.4f})")
         if name in ("f32", "bf16"):
             ms, plain, lib = _flash_timings(q, k, v, valid, do, kw)
             bounds = _flash_bounds(q, k, valid, kw)
@@ -1119,6 +1215,7 @@ def phase_flash_kernels():
                   f"({total / lib['backward']:.2f}x), plain "
                   f"{plain['backward']:.4f} ms, kernels' bound "
                   f"{bound:.4f} ms")
+    records["zoo"] = zoo
     return records
 
 
@@ -1243,22 +1340,34 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
                                 opt_state_bytes=opt_state_bytes)
 
 
-def _phase_steps():
-    """Train, validation and test steps of the smoke epoch."""
+def split_steps(rows: int, batch: int) -> list[int]:
+    """Train, validation and test steps of one epoch over ``rows``."""
     from distributed_deep_learning_tpu_torch.data.splits import \
         train_val_test_split
 
-    return [len(s) // TRAIN_BATCH
-            for s in train_val_test_split(TRAIN_ROWS, seed=42)]
+    return [len(s) // batch for s in train_val_test_split(rows, seed=42)]
+
+
+def _phase_steps():
+    """Train, validation and test steps of the smoke epoch."""
+    return split_steps(TRAIN_ROWS, TRAIN_BATCH)
+
+
+def expected_launches(attentions: int, steps, forward_per_train_step=1,
+                      backward_per_step=1) -> dict:
+    """Each flash kernel's launches in one epoch of ``steps`` (train, val,
+    test) of a model with ``attentions`` flash attentions a step: a
+    forward each (``forward_per_train_step`` each a train step), dQ and
+    dK/dV each ``backward_per_step`` times a train step."""
+    return {"flash_forward": (forward_per_train_step * steps[0]
+                              + sum(steps[1:])) * attentions,
+            "flash_backward_dq": backward_per_step * steps[0] * attentions,
+            "flash_backward_dkv": backward_per_step * steps[0] * attentions}
 
 
 def _expected_launches(forward_per_train_step=1, backward_per_step=1):
-    steps = _phase_steps()
-    return {"flash_forward": (forward_per_train_step * steps[0]
-                              + sum(steps[1:])) * TRAIN_LAYERS,
-            "flash_backward_dq": backward_per_step * steps[0] * TRAIN_LAYERS,
-            "flash_backward_dkv": backward_per_step * steps[0]
-            * TRAIN_LAYERS}
+    return expected_launches(TRAIN_LAYERS, _phase_steps(),
+                             forward_per_train_step, backward_per_step)
 
 
 def _rel(a, b):
@@ -2211,12 +2320,12 @@ def _step_setup(workload: str, argv, device: str):
     from distributed_deep_learning_tpu_torch.train.step import make_step_fns
     from distributed_deep_learning_tpu_torch.utils.config import parse_args
     from distributed_deep_learning_tpu_torch.workloads import get_spec
-    from distributed_deep_learning_tpu_torch.workloads.base import \
-        build_optimizer
+    from distributed_deep_learning_tpu_torch.workloads.base import (
+        build_dataset, build_optimizer)
 
     spec = get_spec(workload)
     cfg = parse_args([*argv, "-d", device], workload=workload)
-    dataset = spec.build_dataset(cfg)
+    dataset = build_dataset(spec, cfg)
     limit = int(os.environ.get("DDL_DATA_LIMIT", "0"))
     splits = train_val_test_split(
         min(len(dataset), limit) if limit else len(dataset), seed=cfg.seed)
@@ -2239,19 +2348,21 @@ def first_step_loss(workload: str, argv, device: str) -> float:
     return step(state, x, y)[1]["loss"].item()
 
 
-def device_busy_share(workload: str, steps: int = 8):
-    """``(busy ms, wall ms, top)`` a train step of ``workload`` at its
-    phase-21 settings: ``steps`` steps after 3 warm-up steps under
-    ``torch.profiler``, the wall clock synchronised around them, busy the
-    sum of the card's kernel times (None when the profiler sees no device
-    time) and ``top`` the 4 largest ``(kernel, ms a step, calls a
-    step)``."""
+def device_busy_share(workload: str, steps: int = 8, argv=WORKLOAD_FLAGS,
+                      warmup: int = 3):
+    """``(busy ms, wall ms, top, flash ms)`` a train step of ``workload``
+    under ``argv`` (phase 21's settings by default): ``steps`` steps after
+    ``warmup`` warm-up steps under ``torch.profiler``, the wall clock
+    synchronised around them, busy the sum of the card's kernel times
+    (None when the profiler sees no device time), ``top`` the 4 largest
+    ``(kernel, ms a step, calls a step)`` and ``flash ms`` the flash
+    kernels' time a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state, step, train = _step_setup(workload, WORKLOAD_FLAGS, "cuda")
+    state, step, train = _step_setup(workload, argv, "cuda")
     batches = iter(train.iter_batches())
-    for _ in range(3):
+    for _ in range(warmup):
         step(state, *next(batches))
     window = [next(batches) for _ in range(steps)]
     torch.cuda.synchronize()
@@ -2269,10 +2380,12 @@ def device_busy_share(workload: str, steps: int = 8):
                       and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key)
     top = [(e.key[:60], e.self_device_time_total / 1e3 / steps,
             e.count / steps) for e in kernels[:4]]
     return (busy_us / 1e3 / steps if busy_us else None), \
-        wall * 1e3 / steps, top
+        wall * 1e3 / steps, top, flash_us / 1e3 / steps
 
 
 def check_first_loss(label: str, got: float, want: float,
@@ -2287,11 +2400,22 @@ def check_first_loss(label: str, got: float, want: float,
     return rel
 
 
-def _workload_run(workload: str, *flags, label=None):
-    """One CLI run on the card (``WORKLOAD_FLAGS`` then ``flags``); returns
+def _kernel_counters():
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+
+    return (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+            paged_flash_decode)
+
+
+def _workload_run(workload: str, *flags, label=None, base=WORKLOAD_FLAGS,
+                  per_step=WORKLOAD_BATCH, unit="examples"):
+    """One CLI run on the card (``base`` then ``flags``), the kernels'
+    launch counters set to 0 just before it and read just after; returns
     the final state, the history and step time (median of every train
-    step but the run's first), examples/s, peak memory and the first
-    step's loss."""
+    step but the run's first), ``unit``/s (``per_step`` a step), peak
+    memory, the first step's loss and the launches."""
     import torch
 
     from distributed_deep_learning_tpu_torch.__main__ import main as cli
@@ -2300,22 +2424,26 @@ def _workload_run(workload: str, *flags, label=None):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    for c in _kernel_counters():
+        c.launches = 0
     t0 = time.perf_counter()
-    state, hist = cli([workload, *WORKLOAD_FLAGS, *flags])
+    state, hist = cli([workload, *base, *flags])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in _kernel_counters()}
     peak = torch.cuda.max_memory_allocated()
     trains = [h for h in hist if h.phase == "train"]
     losses = [x for h in trains for x in h.step_losses]
     step_s = statistics.median([s for h in trains
                                 for s in h.step_seconds][1:])
-    perf = dict(step_s=step_s, examples_per_s=WORKLOAD_BATCH / step_s,
-                peak=peak, first_loss=losses[0],
+    perf = dict(step_s=step_s, rate=per_step / step_s,
+                peak=peak, first_loss=losses[0], step_losses=losses,
                 epoch_losses=[h.loss for h in trains],
-                train_accuracy=[h.accuracy for h in trains])
+                train_accuracy=[h.accuracy for h in trains],
+                launches=launches)
     print(f"workload[{label}]: {len(losses)} train steps, {step_s:.5f} "
           f"s/step (median of steps 2-{len(losses)}), "
-          f"{perf['examples_per_s']:.1f} examples/s, peak memory "
+          f"{perf['rate']:.1f} {unit}/s, peak memory "
           f"{peak / 2**20:.1f} MiB; epoch train losses "
           + " ".join(f"{h.loss:.9f}" for h in trains) + ", train accuracy "
           + " -> ".join(f"{h.accuracy:.3f}" for h in trains)
@@ -2341,18 +2469,11 @@ def phase_workloads():
     import torch
 
     from distributed_deep_learning_tpu_torch import native
-    from distributed_deep_learning_tpu_torch.ops import attention as fa
-    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
-        paged_flash_decode
 
     where = (f"loaded from {native.library_path().relative_to(ROOT)}"
              if native.get_lib() is not None
              else "not loaded (the NumPy fallbacks run)")
     print(f"workloads: host-data library {where}")
-    counters = (fa.flash_forward, fa.flash_backward_dq,
-                fa.flash_backward_dkv, paged_flash_decode)
-    for c in counters:
-        c.launches = 0
     perf = {}
     for w in WORKLOADS:
         # torch's default; the CLI's f32 run must switch it off itself
@@ -2366,7 +2487,7 @@ def phase_workloads():
         perf[w]["first_loss_rel"] = check_first_loss(
             f"workload[{w}] card vs cpu", perf[w]["first_loss"], cpu,
             FIRST_LOSS_TOL)
-        busy, wall, top = device_busy_share(w)
+        busy, wall, top, _ = device_busy_share(w)
         step_ms = perf[w]["step_s"] * 1e3
         share = ("not measured (the profiler saw no device time)"
                  if busy is None else
@@ -2378,7 +2499,8 @@ def phase_workloads():
               + "; ".join(f"{name} {ms:.3f} ms x{n:g}"
                           for name, ms, n in top))
     print("workloads: kernel launches " + ", ".join(
-        f"{c.__name__} {c.launches}" for c in counters)
+        f"{name} {sum(p['launches'][name] for p in perf.values())}"
+        for name in perf[WORKLOADS[0]]["launches"])
         + " (this path has no attention)")
     return perf
 
@@ -2448,12 +2570,264 @@ def phase_workload_checkpoint():
                            "saved one")
 
 
+# --- phases 24-26: the north-star zoo ----------------------------------------
+
+#: flash attentions a layer drives: the encoder's and the decoder's
+#: self-attention and the cross-attention (seq2seq), BERT's one
+ZOO_ATTENTIONS = {"transformer": 3, "bert": 1}
+ZOO_ROWS, ZOO_T, ZOO_BATCH = 96, 512, 8
+ZOO_VOCAB = {"transformer": 32000, "bert": 30522}
+ZOO_LAYERS = {"transformer": 6, "bert": 12}
+ZOO_WIDTH = {"transformer": 512, "bert": 768}
+#: phase 24: ResNet-18 on the CIFAR twin, ResNet-50 on a packed 224 px
+#: ImageNet twin of 512 images, 10 classes
+RESNET18_FLAGS = ("-s", "18", "-e", "1", "-b", "128")
+IMAGENET_ROWS, IMAGENET_SIZE, IMAGENET_BATCH = 512, 224, 32
+S2D_TOL = 1e-4
+#: the zoo's profiler window: train steps after warm-up steps (the
+#: 96-row token runs have 8 train steps)
+ZOO_PROFILE = dict(steps=5, warmup=2)
+
+
+def check_launches(label: str, launches: dict, want: dict) -> None:
+    print(f"{label}: launches {launches}, expected {want}")
+    if launches != want:
+        raise RuntimeError(f"{label}: an attention of a step did not go "
+                           "through the flash kernels")
+
+
+def _write_zoo_tokens(workload: str) -> Path:
+    """A seeded ``tokens.npy`` of 96 rows of 512 ids under ``build/``.
+    ``transformer``: source ids in each row's first half with a ragged pad
+    tail (128-256 ids kept), the target half a copy of the source's first
+    128-L ids (a task the model can learn), padded after them.  ``bert``:
+    ids with a ragged pad tail (256-512 kept).  Row 0 holds the largest
+    id, so the vocabulary read from the file is the base model's."""
+    import numpy as np
+
+    rng = np.random.default_rng(24 + len(workload))
+    vocab = ZOO_VOCAB[workload]
+    rows = np.zeros((ZOO_ROWS, ZOO_T), np.int32)
+    half = ZOO_T // 2
+    for r in range(ZOO_ROWS):
+        ids = rng.integers(1, vocab, size=ZOO_T)
+        if workload == "transformer":
+            ls = int(rng.integers(half // 2, half + 1))
+            lt = int(rng.integers(half // 2, ls + 1))
+            rows[r, :ls] = ids[:ls]
+            rows[r, half:half + lt] = ids[:lt]
+        else:
+            n = int(rng.integers(half, ZOO_T + 1))
+            rows[r, :n] = ids[:n]
+    rows[0, 0] = vocab - 1
+    if workload == "transformer":
+        rows[0, half] = vocab - 1
+    out = ROOT / "build" / f"chip_smoke_{workload}_tokens"
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "tokens.npy", rows)
+    return out
+
+
+def step_operations(workload: str, argv) -> float:
+    """Operations of one train step of ``workload`` under ``argv`` on the
+    card, its first batch: torch's ``FlopCounterMode`` over the step
+    (products and convolutions, forward and backward) plus the flash
+    kernels' products on the pairs each launch's mask leaves visible
+    (``FLASH_PAIR_OPS``)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    state, step, train = _step_setup(workload, argv, "cuda")
+    x, y = next(iter(train.iter_batches()))
+    flash, real = [0], fa._launch
+    names = {"flash_fwd_launch": "flash_forward",
+             "flash_dq_launch": "flash_backward_dq",
+             "flash_dkv_launch": "flash_backward_dkv"}
+
+    def counting(name, q, k, v, key_valid, tensors, **kw):
+        flash[0] += FLASH_PAIR_OPS[names[name]] * q.shape[-1] * \
+            _visible_pairs(q, k, key_valid, kw["causal"], kw["window"])
+        return real(name, q, k, v, key_valid, tensors, **kw)
+
+    fa._launch = counting
+    try:
+        with FlopCounterMode(display=False) as counter:
+            step(state, x, y)
+        torch.cuda.synchronize()
+    finally:
+        fa._launch = real
+    return counter.get_total_flops() + flash[0]
+
+
+def _zoo_run(workload: str, argv, label: str, unit: str, per_step: int):
+    """One CLI run of phases 24-26 (``argv`` only) through
+    :func:`_workload_run`, its train steps' losses printed."""
+    _, _, perf = _workload_run(workload, *argv, label=label, base=(),
+                               per_step=per_step, unit=unit)
+    print(f"workload[{label}]: train step losses "
+          + " ".join(f"{x:.5f}" for x in perf["step_losses"]))
+    return perf
+
+
+def _zoo_profile(workload: str, argv, label: str, perf) -> None:
+    """Phase 21's profiler window on ``argv`` and the step's operations
+    bound at the bf16 tensor-core rate, beside the run's step time."""
+    busy, wall, top, flash = device_busy_share(workload, argv=argv,
+                                               **ZOO_PROFILE)
+    step_ms = perf["step_s"] * 1e3
+    ops = step_operations(workload, argv)
+    bound = ops / BF16_FLOPS_PER_S * 1e3
+    perf.update(busy_ms=busy, flash_ms=flash, ops=ops, bound_ms=bound)
+    share = ("not measured (the profiler saw no device time)"
+             if busy is None else
+             f"{busy:.3f} ms of kernels a step ({flash:.3f} ms in the flash "
+             f"kernels): idle share {1 - busy / step_ms:.3f} of the "
+             f"unprofiled {step_ms:.3f} ms step")
+    print(f"workload[{label}]: profiled {ZOO_PROFILE['steps']} steps: "
+          f"{wall:.3f} ms a step on the synchronised host clock, {share}; "
+          "largest: " + "; ".join(f"{name} {ms:.3f} ms x{n:g}"
+                                  for name, ms, n in top))
+    print(f"workload[{label}]: {ops / 1e12:.4f} TFLOP a train step: bound "
+          f"{bound:.4f} ms at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s against "
+          f"{step_ms:.4f} ms measured ({bound / step_ms:.1%} of bound)")
+
+
+def _no_flash(label, perf):
+    if any(perf["launches"].values()):
+        raise RuntimeError(f"workload[{label}]: the flash kernels ran "
+                           f"{perf['launches']} on a ResNet")
+
+
+def _write_imagenet_cache() -> Path:
+    """The seeded ImageNet twin (512 images of 224 px, 10 classes) packed
+    under ``build/`` with the port's ``pack_dataset``."""
+    from distributed_deep_learning_tpu_torch.data.datasets import \
+        synthetic_imagenet
+    from distributed_deep_learning_tpu_torch.data.packed import pack_dataset
+
+    path = ROOT / "build" / "chip_smoke_imagenet.ddlpack"
+    t0 = time.perf_counter()
+    header = pack_dataset(synthetic_imagenet(
+        n=IMAGENET_ROWS, image_size=IMAGENET_SIZE, num_classes=10, seed=0),
+        path)
+    print(f"resnet: packed {header['num_samples']} images "
+          f"{header['feature_shape']} {header['feature_dtype']} into "
+          f"{path.relative_to(ROOT)} ({header['total_bytes'] / 2**20:.1f} "
+          f"MiB) in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def s2d_forward_gap(cache: Path) -> float:
+    """The first train step's forward of ResNet-50 in f32 with the 7×7
+    stem and with the space-to-depth stem holding the mapped 7×7 weights,
+    on the run's first batch: the largest gap over max|logit|."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.resnet import \
+        space_to_depth_stem_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ["-s", "50", "-b", str(IMAGENET_BATCH), "--packed-cache",
+            str(cache)]
+    plain, _, train = _step_setup("resnet", argv, "cuda")
+    s2d, _, _ = _step_setup("resnet", [*argv, "--stem-s2d"], "cuda")
+    sd = plain.model.state_dict()
+    sd["stem.conv.weight"] = space_to_depth_stem_kernel(
+        sd["stem.conv.weight"])
+    s2d.model.load_state_dict(sd)
+    x, _ = next(iter(train.iter_batches()))
+    with torch.no_grad():
+        a = plain.model.train()(x)
+        b = s2d.model.train()(x)
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def phase_resnet():
+    """Phase 24; returns each run's figures."""
+    import torch
+
+    out = {}
+    # (a) the CLI default, f32 with cuDNN's TF32 on before the run
+    torch.backends.cudnn.allow_tf32 = True
+    steps = split_steps(2048, 128)
+    out["resnet18"] = perf = _zoo_run("resnet", RESNET18_FLAGS, "resnet18",
+                                      "images", 128)
+    if torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("workload[resnet18]: the f32 run left cuDNN's "
+                           "TF32 on")
+    losses = perf["step_losses"]
+    if len(losses) != steps[0] or not losses[-1] < losses[0]:
+        raise RuntimeError(f"workload[resnet18]: {len(losses)} steps "
+                           f"(expected {steps[0]}), losses {losses[0]} -> "
+                           f"{losses[-1]} did not fall")
+    cpu = first_step_loss("resnet", RESNET18_FLAGS, "cpu")
+    check_first_loss("workload[resnet18] card vs cpu", perf["first_loss"],
+                     cpu, FIRST_LOSS_TOL)
+    _no_flash("resnet18", perf)
+    _zoo_profile("resnet", RESNET18_FLAGS, "resnet18", perf)
+    # (b) ResNet-50 at 224 px from a packed cache, s2d and 7x7 stems
+    cache = _write_imagenet_cache()
+    flags = ("-s", "50", "-e", "1", "-b", str(IMAGENET_BATCH), "--dtype",
+             "bfloat16", "--packed-cache", str(cache))
+    for stem, extra in (("s2d", ("--stem-s2d",)), ("7x7", ())):
+        label = f"resnet50 bf16 {stem}"
+        out[label] = perf = _zoo_run("resnet", (*flags, *extra), label,
+                                     "images", IMAGENET_BATCH)
+        _no_flash(label, perf)
+        _zoo_profile("resnet", (*flags, *extra), label, perf)
+    gap = s2d_forward_gap(cache)
+    print(f"workload[resnet50]: f32 first-step forward, s2d stem at the "
+          f"7x7 stem's mapped weights: largest gap {gap:.2e} of max|logit| "
+          f"(tol {S2D_TOL:g})")
+    cache.unlink()
+    if not gap <= S2D_TOL:
+        raise RuntimeError("workload[resnet50]: the s2d stem is not the 7x7 "
+                           "stem")
+    return out
+
+
+def phase_zoo_lm(workload: str):
+    """Phase 25 (``transformer``) or 26 (``bert``): flash f32, dense f32
+    and flash bf16 at full width on a seeded tokens.npy; returns each
+    run's figures."""
+    data = _write_zoo_tokens(workload)
+    layers = ZOO_LAYERS[workload]
+    base = ("-l", str(layers), "-s", str(ZOO_WIDTH[workload]), "-e", "1",
+            "-b", str(ZOO_BATCH), "--data-dir", str(data))
+    want = expected_launches(ZOO_ATTENTIONS[workload] * layers,
+                             split_steps(ZOO_ROWS, ZOO_BATCH))
+    runs, out = (("flash", ()), ("dense", ()), ("flash bf16",
+                                                ("--dtype", "bfloat16"))), {}
+    for label, extra in runs:
+        attention = label.split()[0]
+        argv = (*base, "--attention", attention, *extra)
+        name = f"{workload} {label}"
+        out[label] = perf = _zoo_run(workload, argv, name, "tokens",
+                                     ZOO_BATCH * ZOO_T)
+        check_launches(f"workload[{name}]",
+                       {k: perf["launches"][k] for k in want},
+                       want if attention == "flash"
+                       else dict.fromkeys(want, 0))
+        _zoo_profile(workload, argv, name, perf)
+    check_first_loss(f"workload[{workload}] dense vs flash",
+                     out["dense"]["first_loss"], out["flash"]["first_loss"],
+                     FIRST_LOSS_TOL)
+    check_first_loss(f"workload[{workload}] bf16 vs f32",
+                     out["flash bf16"]["first_loss"],
+                     out["flash"]["first_loss"], BF16_FIRST_LOSS_TOL)
+    shutil.rmtree(data)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 24)),
+                    default=",".join(str(i) for i in range(1, 27)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -2462,7 +2836,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 24)) and opts.waves is None
+    complete = phases == set(range(1, 27)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -2477,6 +2851,7 @@ def main(argv=None) -> int:
         phase_build(builds["paged_decode"])
     decode = rec = None
     if phases & {3, 4, 5, 13, 14, 18, 19, 20}:
+        builds["paged_decode"].result()        # not built again at use
         timing = phase_kernel() if 3 in phases else {}
         if phases & {4, 5, 13, 14, 18, 19, 20}:
             rec, launches = phase_serve(compare_engine=14 in phases)
@@ -2503,6 +2878,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 6 in phases:
         phase_ptxas(builds)
+    if phases & ({7, 25, 26} | set(range(8, 18))):
+        builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
     if phases & {8, 9, 10, 11, 12, 15, 16, 17}:
         data_dir = _write_tokens()
@@ -2545,6 +2922,21 @@ def main(argv=None) -> int:
             phase_workload_variants(workloads)
     if 23 in phases:
         phase_workload_checkpoint()
+    if 24 in phases:
+        phase_resnet()
+    zoo = {}
+    for phase, workload in ((25, "transformer"), (26, "bert")):
+        if phase in phases:
+            zoo[workload] = phase_zoo_lm(workload)
+    for entry in kernels:
+        if entry["name"] not in FLASH_REPLACES:
+            continue
+        for workload, runs in zoo.items():
+            entry[f"{workload}_launches"] = {
+                label: run["launches"][entry["name"]]
+                for label, run in runs.items()}
+        entry["zoo_ms"] = {case: rec[entry["name"]] for case, rec in
+                           records.get("zoo", {}).items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

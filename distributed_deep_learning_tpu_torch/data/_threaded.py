@@ -1,5 +1,5 @@
-"""Shared threaded-decode machinery for image datasets (PCB; ImageFolder
-comes with ``resnet``): the port of
+"""Shared threaded-decode machinery for image datasets (PCB and
+ImageFolder): the port of
 ``distributed_deep_learning_tpu/data/_threaded.py``.
 
 One implementation of the two concurrency-sensitive pieces both loaders

@@ -3,7 +3,9 @@ datasets: the port of the parts of
 ``distributed_deep_learning_tpu/data/datasets.py`` the ported workloads
 use.  Datasets are NumPy on the host; :mod:`.loader` batches them and
 copies each batch to the device once.  Each twin draws the same arrays
-as the JAX package's from the same seed, images NHWC as there.
+as the JAX package's from the same seed, images NHWC as there: those of
+the reference's workloads and of the north-star zoo (CIFAR-10 and
+ImageNet images, WMT pairs, C4 MLM rows).
 """
 
 from __future__ import annotations
@@ -76,6 +78,57 @@ def synthetic_mnist(n: int = 2048, seed: int = 0) -> ArrayDataset:
     x = rng.normal(size=(n, 28, 28, 1)).astype(np.float32)
     x += labels[:, None, None, None].astype(np.float32) * 0.1
     return ArrayDataset(x, np.eye(10, dtype=np.float32)[labels])
+
+
+def synthetic_cifar10(n: int = 2048, seed: int = 0) -> ArrayDataset:
+    """32×32×3 images (NHWC), one-hot 10-class targets (the ``resnet``
+    workload's default data)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n)
+    x = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+    x += labels[:, None, None, None].astype(np.float32) * 0.1
+    return ArrayDataset(x, np.eye(10, dtype=np.float32)[labels])
+
+
+def synthetic_imagenet(n: int = 64, image_size: int = 224,
+                       num_classes: int = 1000, seed: int = 0) -> ArrayDataset:
+    """224×224×3 images (NHWC), one-hot 1000-class targets, with a
+    class-dependent mean shift.  Default ``n`` is small: one sample is
+    600 KB."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size=n)
+    x = rng.normal(size=(n, image_size, image_size, 3)).astype(np.float32)
+    x += (labels[:, None, None, None].astype(np.float32) / num_classes) * 2.0
+    return ArrayDataset(x, np.eye(num_classes, dtype=np.float32)[labels])
+
+
+def synthetic_wmt(n: int = 1024, src_len: int = 32, tgt_len: int = 32,
+                  vocab_size: int = 32000, seed: int = 0) -> ArrayDataset:
+    """Token-id pairs shaped like a bucketed WMT batch: ``features`` are
+    source ids, ``targets`` target ids, drawn from [1, vocab) with a
+    ragged tail of pad id 0 in each row."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, vocab_size, size=(n, src_len))
+    tgt = rng.integers(1, vocab_size, size=(n, tgt_len))
+    for row, (ls, lt) in enumerate(zip(
+            rng.integers(src_len // 2, src_len + 1, size=n),
+            rng.integers(tgt_len // 2, tgt_len + 1, size=n))):
+        src[row, ls:] = 0
+        tgt[row, lt:] = 0
+    return ArrayDataset(src.astype(np.int32), tgt.astype(np.int32))
+
+
+def synthetic_c4_mlm(n: int = 1024, seq_len: int = 64,
+                     vocab_size: int = 30522, mask_id: int = 103,
+                     mask_rate: float = 0.15, seed: int = 0) -> ArrayDataset:
+    """BERT MLM twin: ``features`` are token ids with ``mask_rate`` of the
+    positions replaced by ``mask_id``, ``targets`` the original ids (the
+    loss sites are wherever features == mask_id)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, vocab_size, size=(n, seq_len)).astype(np.int32)
+    masked = tokens.copy()
+    masked[rng.random(size=tokens.shape) < mask_rate] = mask_id
+    return ArrayDataset(masked, tokens)
 
 
 def synthetic_lm(n: int = 1024, seq_len: int = 64, vocab_size: int = 1024,

@@ -1,8 +1,8 @@
-"""Building blocks of the reference workloads' models (``mlp``, ``cnn``,
-``lstm``, ``mnist``): flax's initialisers, ``Dense`` and ``Conv`` layers
-that compute in their input's dtype over f32 parameters (flax's
-``dtype=...`` with ``param_dtype=f32``), and the ``--remat`` driver of a
-layer sequence.
+"""Building blocks of the conv and BatchNorm models (``mlp``, ``cnn``,
+``lstm``, ``mnist``, ``resnet``): flax's initialisers, ``Dense`` and
+``Conv`` layers that compute in their input's dtype over f32 parameters
+(flax's ``dtype=...`` with ``param_dtype=f32``), and the ``--remat``
+driver of a layer sequence.
 
 Initialisers draw from a ``torch.Generator`` (the port cannot reproduce
 JAX's random streams, only their distributions): flax's
@@ -142,7 +142,7 @@ def run_layers(layers: Sequence[Callable], x, remat: Optional[str] = None):
     if remat is not None and remat != "nothing":
         raise NotImplementedError(
             f"--remat-policy {remat} is not ported for this workload (only "
-            f"'nothing'): {ROADMAP_ITEMS[9]}")
+            f"'nothing'): {ROADMAP_ITEMS[16]}")
     for layer in layers:
         if remat is None or not torch.is_grad_enabled():
             x = layer(x)

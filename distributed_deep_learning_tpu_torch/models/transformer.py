@@ -1,5 +1,8 @@
-"""GPT-style CausalLM, for training and inference: the port of
-``distributed_deep_learning_tpu/models/transformer.py``.
+"""The transformer family: the port of
+``distributed_deep_learning_tpu/models/transformer.py`` — the GPT-style
+``CausalLM``, for training and inference, and the north-star
+``TransformerSeq2Seq`` (with the ``transformer`` workload's
+``Seq2SeqAdapter``) and ``BertEncoder``.
 
 Same function as the flax model: pre-LN layers (``ln_eps`` 1e-6), q/k/v/out
 projections with biases, tanh-approximated GELU (flax's ``nn.gelu``
@@ -31,6 +34,13 @@ attends over a dense KV cache (:func:`generate`'s); the serving engines
 (``serve/engine.py``) attend over their slot table or block pools.  The
 model itself holds no cache.
 
+``TransformerSeq2Seq`` and ``BertEncoder`` share the layer: pre-LN
+:class:`TransformerLayer` with ``causal`` self-attention and, in the
+decoder, cross-attention over the encoder's output (q from the decoder,
+k/v from ``encoded``, keys masked where the source is pad).  Their
+attention is dense or the flash kernels, causal or not, with padded keys
+(:func:`attend_qkv`); their head is the tied embedding in f32.
+
 :func:`load_flax_params` carries weights over from a flax ``params`` tree
 (nested dicts of numpy arrays) without importing flax.
 """
@@ -45,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributed_deep_learning_tpu_torch.models.layers import lecun_normal_
 from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
 from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy
@@ -329,13 +340,17 @@ class MultiHeadAttention(nn.Module):
     def group(self) -> int:
         return self.num_heads // self.kv_heads
 
-    def project(self, x, positions):
-        """``x`` ``(B, T, d)`` -> q ``(B, T, H, hd)``, k/v ``(B, T, Hkv,
-        hd)``, rotated at ``positions`` under RoPE."""
+    def project(self, x, positions, x_kv=None):
+        """``x`` ``(B, T, d)`` -> q ``(B, T, H, hd)``, and k/v ``(B, S,
+        Hkv, hd)`` from ``x_kv`` ``(B, S, d)`` (``x`` itself unless given:
+        cross-attention reads the encoder's output), rotated at
+        ``positions`` under RoPE."""
         B, T, _ = x.shape
+        kv = x if x_kv is None else x_kv
+        S = kv.shape[1]
         q = self.q(x).view(B, T, self.num_heads, self.head_dim)
-        k = self.k(x).view(B, T, self.kv_heads, self.head_dim)
-        v = self.v(x).view(B, T, self.kv_heads, self.head_dim)
+        k = self.k(kv).view(B, S, self.kv_heads, self.head_dim)
+        v = self.v(kv).view(B, S, self.kv_heads, self.head_dim)
         if self.rope:
             q, k = apply_rope(q, positions), apply_rope(k, positions)
         return q, k, v
@@ -346,28 +361,91 @@ class MultiHeadAttention(nn.Module):
         return kv if g == 1 else kv.repeat_interleave(g, dim=2)
 
 
+def reset_transformer_(model: nn.Module,
+                       generator: Optional[torch.Generator] = None):
+    """The flax initialisers of this module's models: N(0, 0.02)
+    embeddings (``tok`` and a learned ``pos``), Xavier-uniform
+    projections, zero biases, unit LayerNorm scales."""
+    with torch.no_grad():
+        model.tok.weight.normal_(0.0, 0.02, generator=generator)
+        if model.pos is not None:
+            model.pos.normal_(0.0, 0.02, generator=generator)
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                fan_in, fan_out = mod.in_features, mod.out_features
+                a = float(np.sqrt(6.0 / (fan_in + fan_out)))
+                mod.weight.uniform_(-a, a, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+    return model
+
+
+def attend_qkv(attention: str, attn: MultiHeadAttention, q, k, v, *,
+               causal: bool, key_valid=None, window: Optional[int] = None):
+    """The full forward's attention of one ``MultiHeadAttention``: the
+    flash kernels (``attention="flash"``; GQA K/V unexpanded) or dense
+    attention, causal or not, with ``key_valid`` ``(B, Tk)`` masking keys
+    and an optional causal ``window``."""
+    if attention == "flash":
+        return flash_attention(q, k, v, causal=causal, key_valid=key_valid,
+                               window=window)
+    return dot_product_attention(q, attn.expand(k), attn.expand(v),
+                                 key_valid=key_valid, causal=causal,
+                                 window=window, dtype=q.dtype)
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN block: self-attention then MLP, each with a residual."""
+    """Pre-LN block: self-attention, then (``cross_attention``) attention
+    over an encoder's output, then the MLP, each with a residual.
+    ``causal`` is the self-attention's masking, read by the model that
+    builds the layer's attention (:meth:`attends`)."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_dim: int, *,
                  num_kv_heads: Optional[int] = None, rope: bool = False,
-                 ln_eps: float = 1e-6):
+                 ln_eps: float = 1e-6, causal: bool = False,
+                 cross_attention: bool = False):
         super().__init__()
+        self.causal, self.cross_attention = causal, cross_attention
         self.ln_attn = LayerNorm(d_model, eps=ln_eps)
         self.self_attn = MultiHeadAttention(d_model, num_heads,
                                             num_kv_heads, rope)
+        if cross_attention:
+            self.ln_cross = LayerNorm(d_model, eps=ln_eps)
+            self.cross_attn = MultiHeadAttention(d_model, num_heads)
         self.ln_mlp = LayerNorm(d_model, eps=ln_eps)
         self.mlp_in = Dense(d_model, mlp_dim)
         self.mlp_out = Dense(mlp_dim, d_model)
 
-    def forward(self, x, positions, attend, drop=None):
-        """``attend(q, k, v) -> y`` is the layer's attention; ``drop(h)``,
-        when given, is the dropout applied to the attention and MLP
-        outputs before their residual adds."""
+    def attends(self, attention: str, self_valid=None, cross_valid=None):
+        """``(attend, cross_attend)`` for :meth:`forward`: the
+        self-attention (causal when the layer is) over ``self_valid``
+        keys, and the non-causal cross-attention over ``cross_valid``
+        keys (None without cross-attention)."""
+        def attend(q, k, v):
+            return attend_qkv(attention, self.self_attn, q, k, v,
+                              causal=self.causal, key_valid=self_valid)
+
+        if not self.cross_attention:
+            return attend, None
+
+        def cross(q, k, v):
+            return attend_qkv(attention, self.cross_attn, q, k, v,
+                              causal=False, key_valid=cross_valid)
+
+        return attend, cross
+
+    def forward(self, x, positions, attend, drop=None, encoded=None,
+                cross_attend=None):
+        """``attend(q, k, v) -> y`` is the layer's self-attention;
+        ``drop(h)``, when given, is the dropout applied to each
+        sub-block's output before its residual add; ``encoded`` ``(B, S,
+        d)`` and ``cross_attend`` drive the cross-attention."""
         B, T, _ = x.shape
         q, k, v = self.self_attn.project(recomputable(self.ln_attn, x),
                                          positions)
@@ -377,6 +455,14 @@ class TransformerLayer(nn.Module):
                          q, k, v)
         h = self.self_attn.out(o)
         x = x + (h if drop is None else drop(h))
+        if self.cross_attention:
+            q, k, v = self.cross_attn.project(
+                recomputable(self.ln_cross, x), None, x_kv=encoded)
+            o = recomputable(
+                lambda q, k, v: cross_attend(q, k, v).reshape(B, T, -1),
+                q, k, v)
+            h = self.cross_attn.out(o)
+            x = x + (h if drop is None else drop(h))
         h = recomputable(_gelu, self.mlp_in(recomputable(self.ln_mlp, x)))
         h = self.mlp_out(h)
         return x + (h if drop is None else drop(h))
@@ -426,54 +512,18 @@ class CausalLM(nn.Module):
         self.layers = nn.ModuleList(
             TransformerLayer(d_model, num_heads, mlp_dim,
                              num_kv_heads=num_kv_heads, rope=rope,
-                             ln_eps=ln_eps)
+                             ln_eps=ln_eps, causal=True)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model, eps=ln_eps)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The flax initialisers: N(0, 0.02) embeddings, Xavier-uniform
-        projections, zero biases, unit LayerNorm scales."""
-        with torch.no_grad():
-            self.tok.weight.normal_(0.0, 0.02, generator=generator)
-            if self.pos is not None:
-                self.pos.normal_(0.0, 0.02, generator=generator)
-            for mod in self.modules():
-                if isinstance(mod, nn.Linear):
-                    fan_in, fan_out = mod.in_features, mod.out_features
-                    a = float(np.sqrt(6.0 / (fan_in + fan_out)))
-                    mod.weight.uniform_(-a, a, generator=generator)
-                    mod.bias.zero_()
-                elif isinstance(mod, nn.LayerNorm):
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
-        return self
+        """The flax initialisers (:func:`reset_transformer_`)."""
+        return reset_transformer_(self, generator)
 
     def flax_layout(self, name: str):
-        """``(to_flax, from_flax)`` for the parameter ``name``: maps
-        between its tensor and the flax parameter's layout, the inverse of
-        :func:`load_flax_params` (``Dense`` kernels ``(in, out)``, the q/k/v
-        ``DenseGeneral`` kernels ``(d, H, hd)`` with biases ``(H, hd)``,
-        ``out``'s kernel ``(H, hd, d)``; every other parameter as it is).
-        Per-axis rules of the flax package that take a parameter's shape
-        (Adafactor's factoring, per-channel int8 scales) go through it."""
-        parts = name.split(".")
-        if len(parts) < 2 or parts[0] != "layers":
-            return _same, _same
-        layer = self.layers[int(parts[1])]
-        hd = layer.self_attn.head_dim
-        kind, leaf = parts[-2], parts[-1]
-        if kind in ("q", "k", "v"):
-            if leaf == "bias":
-                return (lambda t: t.reshape(-1, hd),
-                        lambda t: t.reshape(-1))
-            return (lambda t: t.T.reshape(t.shape[1], -1, hd),
-                    lambda t: t.reshape(t.shape[0], -1).T)
-        if kind == "out" and leaf == "weight":
-            return (lambda t: t.T.reshape(-1, hd, t.shape[0]),
-                    lambda t: t.reshape(-1, t.shape[-1]).T)
-        if leaf == "weight" and kind in ("mlp_in", "mlp_out"):
-            return (lambda t: t.T, lambda t: t.T)
-        return _same, _same
+        """``(to_flax, from_flax)`` for the parameter ``name`` (see
+        :func:`flax_layout`)."""
+        return flax_layout(name, self.layers[0].self_attn.head_dim)
 
     def token_valid(self, tokens):
         """Attendable positions: ``tokens != pad_id`` (all with no pad)."""
@@ -512,13 +562,9 @@ class CausalLM(nn.Module):
             else None
 
         def attend(i, q, k, v):
-            if self.attention == "flash":
-                return flash_attention(q, k, v, causal=True, key_valid=valid,
-                                       window=self.attention_window)
-            attn = self.layers[i].self_attn
-            return dot_product_attention(
-                q, attn.expand(k), attn.expand(v), key_valid=valid,
-                causal=True, window=self.attention_window, dtype=q.dtype)
+            return attend_qkv(self.attention, self.layers[i].self_attn, q,
+                              k, v, causal=True, key_valid=valid,
+                              window=self.attention_window)
 
         drop = None
         if self.training and self.dropout_rate > 0:
@@ -592,6 +638,34 @@ class CausalLM(nn.Module):
 
 def _same(t):
     return t
+
+
+def flax_layout(name: str, head_dim: int):
+    """``(to_flax, from_flax)`` for the parameter ``name`` of a model of
+    this module: maps between its tensor and the flax parameter's layout,
+    the inverse of :func:`load_flax_params` (``Dense`` kernels ``(in,
+    out)``, the q/k/v ``DenseGeneral`` kernels ``(d, H, hd)`` with biases
+    ``(H, hd)``, ``out``'s kernel ``(H, hd, d)``; every other parameter
+    as it is).  Per-axis rules of the flax package that take a parameter's
+    shape (Adafactor's factoring, per-channel int8 scales) go through
+    it."""
+    parts = name.split(".")
+    if len(parts) < 2:
+        return _same, _same
+    hd = head_dim
+    kind, leaf = parts[-2], parts[-1]
+    if kind in ("q", "k", "v"):
+        if leaf == "bias":
+            return (lambda t: t.reshape(-1, hd),
+                    lambda t: t.reshape(-1))
+        return (lambda t: t.T.reshape(t.shape[1], -1, hd),
+                lambda t: t.reshape(t.shape[0], -1).T)
+    if kind == "out" and leaf == "weight":
+        return (lambda t: t.T.reshape(-1, hd, t.shape[0]),
+                lambda t: t.reshape(-1, t.shape[-1]).T)
+    if leaf == "weight" and kind in ("mlp_in", "mlp_out", "mlm_dense"):
+        return (lambda t: t.T, lambda t: t.T)
+    return _same, _same
 
 
 def validate_sampling(top_k: int | None, top_p: float | None) -> None:
@@ -674,15 +748,192 @@ def generate(model: CausalLM, prompt, *, max_new_tokens: int,
     return torch.stack(out, 1).to(prompt.dtype)
 
 
+class _EncoderModel(nn.Module):
+    """What :class:`TransformerSeq2Seq` and :class:`BertEncoder` share with
+    the flax models: one ``Embed`` (``tok`` N(0, 0.02) and learned
+    ``pos`` of ``max_len`` rows, positions from 0) whose table is also the
+    f32 tied head, pre-LN :class:`TransformerLayer` stacks, the compute
+    ``dtype``, ``attention`` (``dense`` or ``flash``), dropout in
+    training mode, and ``remat`` per layer (:func:`remat_call`)."""
+
+    def __init__(self, vocab_size: int, d_model: int, num_heads: int,
+                 max_len: int, attention: str, dropout_rate: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown compute dtype {dtype}; choose from "
+                             f"{DTYPES}")
+        if attention not in ATTENTIONS:
+            raise ValueError(f"unknown attention {attention!r}; choose from "
+                             f"{ATTENTIONS}")
+        self.vocab_size, self.d_model, self.num_heads = vocab_size, \
+            d_model, num_heads
+        self.max_len = max_len
+        self.attention, self.dropout_rate, self.dtype = attention, \
+            dropout_rate, dtype
+        self.tok = nn.Embedding(vocab_size, d_model)
+        self.pos = nn.Parameter(torch.empty(max_len, d_model))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The flax initialisers (:func:`reset_transformer_`)."""
+        return reset_transformer_(self, generator)
+
+    def flax_layout(self, name: str):
+        return flax_layout(name, self.d_model // self.num_heads)
+
+    def embed(self, tokens):
+        """Token rows plus positions ``0..T-1``, in the compute dtype."""
+        T = tokens.shape[1]
+        return self.tok(tokens).to(self.dtype) + self.pos[:T].to(self.dtype)
+
+    def logits_from(self, hidden):
+        """Weight-tied output projection, f32 on both operands."""
+        return torch.einsum("...d,vd->...v", hidden.float(),
+                            self.tok.weight.float())
+
+    def _drop(self, generator):
+        if not (self.training and self.dropout_rate > 0):
+            return None
+        return lambda h: dropout(h, self.dropout_rate, generator)
+
+    def stack(self, layers, x, drop, remat, generator, *, self_valid,
+              encoded=None, cross_valid=None):
+        """``x`` through ``layers``, each with its attention built over
+        ``self_valid`` (and ``cross_valid`` keys of ``encoded``)."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        for layer in layers:
+            attend, cross = layer.attends(self.attention, self_valid,
+                                          cross_valid)
+
+            def block(x, layer=layer, attend=attend, cross=cross):
+                return layer(x, positions, attend, drop, encoded=encoded,
+                             cross_attend=cross)
+            x = block(x) if remat is None else \
+                remat_call(block, x, remat, generator)
+        return x
+
+
+class TransformerSeq2Seq(_EncoderModel):
+    """Transformer-base encoder-decoder (WMT14 en-de shape) with the flax
+    ``TransformerSeq2Seq``'s fields: ``forward({"inputs": (B, S),
+    "targets": (B, T)})`` (token ids, 0 = pad) is teacher-forced training
+    and returns f32 logits ``(B, T, V)`` at every target position.
+
+    One shared embedding serves source, target and the tied head.  The
+    encoder's self-attention and the cross-attention mask pad sources
+    (``inputs != 0``); the decoder's self-attention is causal over the
+    right-shifted targets (BOS 0) and masks keys where ``targets == 0``,
+    as the flax model does."""
+
+    def __init__(self, vocab_size: int = 32000, num_layers: int = 6,
+                 d_model: int = 512, num_heads: int = 8, mlp_dim: int = 2048,
+                 *, max_len: int = 4096, attention: str = "dense",
+                 dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(vocab_size, d_model, num_heads, max_len, attention,
+                         dropout_rate, dtype)
+        self.num_layers = num_layers
+        self.enc = nn.ModuleList(
+            TransformerLayer(d_model, num_heads, mlp_dim)
+            for _ in range(num_layers))
+        self.enc_norm = LayerNorm(d_model, eps=1e-6)
+        self.dec = nn.ModuleList(
+            TransformerLayer(d_model, num_heads, mlp_dim, causal=True,
+                             cross_attention=True)
+            for _ in range(num_layers))
+        self.dec_norm = LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, batch, generator: Optional[torch.Generator] = None,
+                remat: Optional[str] = None):
+        inputs, targets = batch["inputs"], batch["targets"]
+        src_valid, tgt_valid = inputs != 0, targets != 0
+        drop = self._drop(generator)
+        x = self.stack(self.enc, self.embed(inputs), drop, remat, generator,
+                       self_valid=src_valid)
+        encoded = self.enc_norm(x)
+        y_in = F.pad(targets, (1, 0))[:, :-1]       # shift right, BOS 0
+        y = self.stack(self.dec, self.embed(y_in), drop, remat, generator,
+                       self_valid=tgt_valid, encoded=encoded,
+                       cross_valid=src_valid)
+        return self.logits_from(self.dec_norm(y))
+
+
+class Seq2SeqAdapter(nn.Module):
+    """The ``transformer`` workload's model: ``x`` is source and target
+    ids concatenated along the sequence (``src_len`` source positions),
+    as the flax ``Seq2SeqAdapter`` takes them."""
+
+    def __init__(self, model: TransformerSeq2Seq, src_len: int):
+        super().__init__()
+        self.model, self.src_len = model, src_len
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.model.reset_parameters(generator)
+        return self
+
+    def flax_layout(self, name: str):
+        return self.model.flax_layout(name)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                remat: Optional[str] = None):
+        return self.model({"inputs": x[:, :self.src_len],
+                           "targets": x[:, self.src_len:]},
+                          generator=generator, remat=remat)
+
+
+class BertEncoder(_EncoderModel):
+    """BERT-base-shaped bidirectional encoder with the MLM head (the flax
+    ``BertEncoder``): non-causal layers over ``tokens != 0`` keys, a final
+    LayerNorm, then ``mlm_dense`` (``lecun_normal``, as flax's default
+    ``Dense``) → GELU → ``mlm_norm`` → the tied f32 head."""
+
+    def __init__(self, vocab_size: int = 30522, num_layers: int = 12,
+                 d_model: int = 768, num_heads: int = 12, mlp_dim: int = 3072,
+                 *, max_len: int = 4096, attention: str = "dense",
+                 dropout_rate: float = 0.0, ln_eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(vocab_size, d_model, num_heads, max_len, attention,
+                         dropout_rate, dtype)
+        self.num_layers = num_layers
+        self.layers = nn.ModuleList(
+            TransformerLayer(d_model, num_heads, mlp_dim, ln_eps=ln_eps)
+            for _ in range(num_layers))
+        self.final_norm = LayerNorm(d_model, eps=ln_eps)
+        self.mlm_dense = Dense(d_model, d_model)
+        self.mlm_norm = LayerNorm(d_model, eps=ln_eps)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        super().reset_parameters(generator)
+        lecun_normal_(self.mlm_dense.weight, self.d_model, generator)
+        return self
+
+    def forward(self, tokens, generator: Optional[torch.Generator] = None,
+                remat: Optional[str] = None):
+        x = self.stack(self.layers, self.embed(tokens),
+                       self._drop(generator), remat, generator,
+                       self_valid=tokens != 0)
+        x = self.final_norm(x)
+        h = self.mlm_norm(_gelu(self.mlm_dense(x)))
+        return self.logits_from(h)
+
+
 def load_flax_params(params) -> dict:
-    """``state_dict`` for :class:`CausalLM` from the flax model's
-    ``params`` tree (nested dicts of numpy arrays, as
-    ``jax.tree.map(np.asarray, params)`` gives them; a ``{"params": ...}``
-    wrapper is accepted).  Dense kernels ``(in, out)`` and the
-    ``DenseGeneral`` head kernels ``(d, H, hd)`` / ``(H, hd, d)`` become
-    ``nn.Linear`` weights ``(out, in)``."""
-    if "params" in params and "embed" not in params:
+    """``state_dict`` from a flax ``params`` tree (nested dicts of numpy
+    arrays, as ``jax.tree.map(np.asarray, params)`` gives them; a
+    ``{"params": ...}`` wrapper is accepted) for the model it comes from:
+    :class:`CausalLM` (``layer_i`` and ``final_norm``),
+    :class:`BertEncoder` (the same plus ``mlm_dense`` and ``mlm_norm``),
+    :class:`TransformerSeq2Seq` (``enc_i``, ``enc_norm``, ``dec_i`` with
+    ``cross_attn``, ``dec_norm``) or the workload's
+    :class:`Seq2SeqAdapter` (the seq2seq tree under ``model``).  Dense
+    kernels ``(in, out)`` and the ``DenseGeneral`` head kernels ``(d, H,
+    hd)`` / ``(H, hd, d)`` become ``nn.Linear`` weights ``(out, in)``."""
+    if "params" in params and "embed" not in params \
+            and "model" not in params:
         params = params["params"]
+    if "model" in params and "embed" not in params:
+        return {f"model.{k}": v
+                for k, v in load_flax_params(params["model"]).items()}
 
     def t(x):
         return torch.from_numpy(np.array(x, copy=True))
@@ -697,21 +948,46 @@ def load_flax_params(params) -> dict:
         return {f"{prefix}.weight": t(node["scale"]),
                 f"{prefix}.bias": t(node["bias"])}
 
+    def attention(node, prefix):
+        sd = {}
+        for name in ("q", "k", "v"):
+            sd.update(linear(node[name], f"{prefix}.{name}"))
+        sd.update(linear(node["out"], f"{prefix}.out", n_in_axes=2))
+        return sd
+
+    def layer(lp, pre):
+        # flax numbers a layer's LayerNorms in call order: self-attention,
+        # cross-attention (decoder layers only), MLP
+        cross = "cross_attn" in lp
+        sd = norm(lp["LayerNorm_0"], f"{pre}.ln_attn")
+        sd.update(attention(lp["self_attn"], f"{pre}.self_attn"))
+        if cross:
+            sd.update(norm(lp["LayerNorm_1"], f"{pre}.ln_cross"))
+            sd.update(attention(lp["cross_attn"], f"{pre}.cross_attn"))
+        sd.update(norm(lp[f"LayerNorm_{2 if cross else 1}"],
+                       f"{pre}.ln_mlp"))
+        sd.update(linear(lp["Dense_0"], f"{pre}.mlp_in"))
+        sd.update(linear(lp["Dense_1"], f"{pre}.mlp_out"))
+        return sd
+
+    def stack(prefix, into):
+        i = 0
+        while f"{prefix}_{i}" in params:
+            sd.update(layer(params[f"{prefix}_{i}"], f"{into}.{i}"))
+            i += 1
+
     sd = {"tok.weight": t(params["embed"]["tok"]["embedding"])}
     if "pos" in params["embed"]:
         sd["pos"] = t(params["embed"]["pos"])
-    i = 0
-    while f"layer_{i}" in params:
-        lp, pre = params[f"layer_{i}"], f"layers.{i}"
-        sd.update(norm(lp["LayerNorm_0"], f"{pre}.ln_attn"))
-        sd.update(norm(lp["LayerNorm_1"], f"{pre}.ln_mlp"))
-        for name in ("q", "k", "v"):
-            sd.update(linear(lp["self_attn"][name],
-                             f"{pre}.self_attn.{name}"))
-        sd.update(linear(lp["self_attn"]["out"], f"{pre}.self_attn.out",
-                         n_in_axes=2))
-        sd.update(linear(lp["Dense_0"], f"{pre}.mlp_in"))
-        sd.update(linear(lp["Dense_1"], f"{pre}.mlp_out"))
-        i += 1
+    if "enc_0" in params:
+        stack("enc", "enc")
+        stack("dec", "dec")
+        sd.update(norm(params["enc_norm"], "enc_norm"))
+        sd.update(norm(params["dec_norm"], "dec_norm"))
+        return sd
+    stack("layer", "layers")
     sd.update(norm(params["final_norm"], "final_norm"))
+    if "mlm_dense" in params:
+        sd.update(linear(params["mlm_dense"], "mlm_dense"))
+        sd.update(norm(params["mlm_norm"], "mlm_norm"))
     return sd

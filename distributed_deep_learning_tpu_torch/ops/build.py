@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -33,7 +34,11 @@ def build_library(source: Path) -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, (log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    # one temporary file a builder: two threads of one process may build
+    # the same source at once, and the second rename must not find the
+    # first's file gone
+    tmp = lib_path.with_name(
+        f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -1,10 +1,12 @@
 """Run configuration and the workload CLI: the port of
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
-runs (``mlp``, ``cnn``, ``lstm``, ``mnist`` and ``gpt`` under ``-m
-sequential|data``, ``--dtype``, ``--double-softmax``, every
-``--optimizer``, the step variants, checkpointing, and the post-train
-``--generate`` and ``--serve [--paged]`` with speculation (``--draft``,
-``--spec-k``) and quantized serving (``--kv-dtype``, ``--weight-dtype``)).
+runs (``mlp``, ``cnn``, ``lstm``, ``mnist``, ``resnet``, ``transformer``,
+``bert`` and ``gpt`` under ``-m sequential|data``, ``--dtype``,
+``--double-softmax``, ``--packed-cache``, ``--image-size``,
+``--stem-s2d``, every ``--optimizer``, the step variants, checkpointing,
+and the post-train ``--generate`` and ``--serve [--paged]`` with
+speculation (``--draft``, ``--spec-k``) and quantized serving
+(``--kv-dtype``, ``--weight-dtype``)).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
@@ -54,7 +56,11 @@ class Config:
     learning_rate: float = 1e-3
     dtype: str = "float32"
     double_softmax: bool = False        # mlp, cnn: quirk Q4's head softmax
-    num_workers: int = 0                # -w: cnn's image-decode threads
+    num_workers: int = 0                # -w: image-decode threads (cnn,
+                                        #   resnet's ImageFolder)
+    packed_cache: str | None = None     # a packed sample cache to train on
+    image_size: int = 224               # resnet: --data-dir decode size
+    stem_s2d: bool = False              # resnet: space-to-depth stem
     dropout: float = 0.0
     data_dir: str | None = None
     attention: str = "auto"
@@ -112,20 +118,19 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    9: "ROADMAP.md queue 1 item 9 (the reference's workloads and the "
-       "north-star zoo)",
     10: "ROADMAP.md queue 1 item 10 (model and pipeline modes)",
     11: "ROADMAP.md queue 1 item 11 (sharded parallelism)",
     12: "ROADMAP.md queue 1 item 12 (training resilience)",
     13: "ROADMAP.md queue 1 item 13 (serving resilience and fleet)",
     14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
+    16: "ROADMAP.md queue 1 item 16 (--remat-policy dots on the conv and "
+        "BatchNorm models)",
 }
 
 #: JAX CLI flags the port refuses -> the item that ports them; a
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--packed-cache=": 9, "--image-size=": 9, "--stem-s2d": 9,
     "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
     "--mesh=": 11, "--zero=": 11, "--grad-compress=": 11, "--comm=": 11,
     "--comm-overlap": 11,
@@ -190,8 +195,9 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    default="cuda",
                    help="cuda (gpu is an alias) or cpu; cuda without a "
                         "card raises")
-    # -w: cnn's image-decode threads; -p is accepted as the JAX CLI
-    # accepts it (it only matters under -m pipeline)
+    # -w: the image-decode threads of cnn and of resnet's ImageFolder; -p
+    # is accepted as the JAX CLI accepts it (it only matters under -m
+    # pipeline)
     p.add_argument("-w", "--nworkers", type=int, default=0)
     p.add_argument("-m", "--mode", choices=[m.value for m in Mode],
                    default="sequential")
@@ -216,6 +222,17 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    help="the workload's real data (gpt: tokens.npy; mlp, "
                         "lstm: dataset.csv; cnn: the PCB tree; mnist: "
                         "idx or .npy files); synthetic data without it")
+    p.add_argument("--packed-cache", type=str, default=None, metavar="FILE",
+                   help="train from a packed pre-decoded sample cache "
+                        "(data.packed.pack_dataset's artifact, byte-"
+                        "compatible with the JAX package's): memory-mapped, "
+                        "one slab gather a batch")
+    p.add_argument("--image-size", type=int, default=224,
+                   help="resnet: square decode size for --data-dir images")
+    p.add_argument("--stem-s2d", action="store_true",
+                   help="resnet: space-to-depth stem (2x2 input patches "
+                        "packed into channels, the equivalent masked 4x4 "
+                        "stride-1 stem conv; ImageNet-size stems only)")
     p.add_argument("--attention", choices=["auto", "dense", "flash"],
                    default="auto",
                    help="auto = the flash kernels on cuda, dense on cpu; "
@@ -373,6 +390,8 @@ def parse_args(argv: Sequence[str] | None = None,
         mode=Mode(args.mode), seed=args.seed,
         learning_rate=args.lr, dtype=args.dtype,
         double_softmax=args.double_softmax, num_workers=args.nworkers,
+        packed_cache=args.packed_cache, image_size=args.image_size,
+        stem_s2d=args.stem_s2d,
         dropout=args.dropout,
         data_dir=args.data_dir, attention=args.attention,
         attention_window=args.attention_window, optimizer=args.optimizer,

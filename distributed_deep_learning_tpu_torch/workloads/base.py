@@ -78,7 +78,8 @@ def example_shape(dataset) -> tuple[int, ...]:
 
 #: flax's DenseGeneral keeps the q/k/v biases as (heads, head_dim), so
 #: optax's ``ndim >= 2`` mask decays them; torch's Linear biases are 1-D
-_MATRIX_BIASES = ("self_attn.q.bias", "self_attn.k.bias", "self_attn.v.bias")
+#: (``self_attn`` and a decoder's ``cross_attn``)
+_MATRIX_BIASES = ("_attn.q.bias", "_attn.k.bias", "_attn.v.bias")
 
 
 def decay_mask(name: str, param) -> bool:
@@ -224,7 +225,7 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         raise NotImplementedError(
             f"--remat-policy {config.remat_policy} is not ported for "
             f"{spec.name!r} (it takes {'/'.join(spec.remat_policies)}): "
-            f"{ROADMAP_ITEMS[9]}")
+            f"{ROADMAP_ITEMS[16]}")
     if config.double_softmax and not spec.double_softmax:
         raise ValueError(f"--double-softmax is not supported by workload "
                          f"{spec.name!r} (mlp and cnn only)")
@@ -243,10 +244,24 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
             bootstrap.shutdown()
 
 
+def build_dataset(spec: WorkloadSpec, config: Config):
+    """The workload's dataset; ``--packed-cache`` replaces it with the
+    memory-mapped :class:`..data.packed.PackedDataset`, whose header
+    carries the geometry the model is sized from (classes, vocabulary,
+    shapes).  The cache must have been packed from the same workload's
+    dataset."""
+    if config.packed_cache:
+        from distributed_deep_learning_tpu_torch.data.packed import \
+            PackedDataset
+
+        return PackedDataset(config.packed_cache)
+    return spec.build_dataset(config)
+
+
 def _train(spec, config, env, init_state_dict):
     device = env.device
     logger = PhaseLogger(verbose=bootstrap.is_coordinator())
-    dataset = spec.build_dataset(config)
+    dataset = build_dataset(spec, config)
     if spec.pre_train_check is not None:
         spec.pre_train_check(config, dataset)
     # DDL_DATA_LIMIT caps the examples considered (CI / smoke runs)

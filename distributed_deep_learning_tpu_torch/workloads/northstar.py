@@ -1,39 +1,118 @@
-"""The ``gpt`` workload (decoder-only causal LM): the port of the ``gpt``
-part of ``distributed_deep_learning_tpu/workloads/northstar.py``::
+"""The north-star workloads: the port of
+``distributed_deep_learning_tpu/workloads/northstar.py`` for ``resnet``,
+``transformer`` (WMT seq2seq), ``bert`` (C4 MLM) and ``gpt`` (decoder-only
+causal LM)::
 
+    python -m distributed_deep_learning_tpu_torch resnet -s 50 -e 1 -b 32
+    python -m distributed_deep_learning_tpu_torch transformer -l 6 -s 512
+    python -m distributed_deep_learning_tpu_torch bert -l 12 -s 768
     python -m distributed_deep_learning_tpu_torch gpt -m sequential -e 1
     python -m distributed_deep_learning_tpu_torch gpt -e 1 --generate 16 \\
         --serve [--paged]
 
-Synthetic T=64, vocabulary-1024 data unless ``--data-dir`` holds a
-``tokens.npy``.  ``--attention auto`` resolves to the flash kernels on
+``-l`` is the layer count, ``-s`` the ResNet depth (18/34/50) or the model
+width.  ``resnet`` trains on the synthetic CIFAR-10 twin, or on an
+ImageFolder tree under ``--data-dir`` decoded at ``--image-size`` in
+``-w`` threads (8 by default), with SGD momentum 0.9 at lr 0.1 unless
+``--lr`` is given; the stem is the 3×3 CIFAR stem for images of at most
+64 px, else the 7×7 one or, under ``--stem-s2d``, its space-to-depth
+form.  ``transformer`` (source and target 32 ids) and ``bert`` (T 64,
+masked sites only) train on their synthetic twins over a 1024-id
+vocabulary unless ``--data-dir`` holds a ``tokens.npy``; both take AdamW.
+``gpt``: synthetic T=64, vocabulary-1024 data unless ``--data-dir`` holds
+a ``tokens.npy``.  ``--attention auto`` resolves to the flash kernels on
 ``cuda`` and to dense attention on the CPU (the TPU package's
-measured-speedup gate does not carry over to this card).  After training,
-``--generate N`` logs greedy continuations of two dataset prompts and
-``--serve`` serves a seeded trace through the slot engine (``--paged``:
-the paged engine, ``--draft N`` speculating with its first N layers), both
-on the trained weights at the run's ``--dtype``, the KV cache and weights
-stored as ``--kv-dtype`` and ``--weight-dtype`` say.
+measured-speedup gate does not carry over to this card), for the
+encoder's, decoder's and cross-attention alike.  ``--packed-cache``
+replaces any of these datasets (:func:`..base.build_dataset`).  After
+``gpt`` trains, ``--generate N`` logs greedy continuations of two dataset
+prompts and ``--serve`` serves a seeded trace through the slot engine
+(``--paged``: the paged engine, ``--draft N`` speculating with its first N
+layers), both on the trained weights at the run's ``--dtype``, the KV
+cache and weights stored as ``--kv-dtype`` and ``--weight-dtype`` say.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from distributed_deep_learning_tpu_torch import resolve_device
-from distributed_deep_learning_tpu_torch.data.datasets import synthetic_lm
+from distributed_deep_learning_tpu_torch.data.datasets import (
+    ArrayDataset, synthetic_c4_mlm, synthetic_cifar10, synthetic_lm,
+    synthetic_wmt)
 from distributed_deep_learning_tpu_torch.data.tokens import (lm_dataset,
-                                                             load_tokens)
-from distributed_deep_learning_tpu_torch.models.transformer import (CausalLM,
-                                                                     generate)
-from distributed_deep_learning_tpu_torch.train.objectives import \
-    TokenCrossEntropy
+                                                             load_tokens,
+                                                             mlm_dataset,
+                                                             seq2seq_dataset)
+from distributed_deep_learning_tpu_torch.models.resnet import (
+    BasicBlock, BottleneckBlock, ResNet)
+from distributed_deep_learning_tpu_torch.models.transformer import (
+    BertEncoder, CausalLM, Seq2SeqAdapter, TransformerSeq2Seq, generate)
+from distributed_deep_learning_tpu_torch.train.objectives import (
+    RowMean, TokenCrossEntropy, cross_entropy_loss)
+from distributed_deep_learning_tpu_torch.train.state import Optimizer
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
     WorkloadSpec, adamw, config_dtype, resolve_lr, run_workload)
+
+_RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
+
+
+# --- resnet ----------------------------------------------------------------
+
+def _resnet_dataset(config: Config):
+    """An ImageFolder tree under ``--data-dir`` (decoded at
+    ``--image-size`` in ``-w`` threads, 8 by default), the synthetic
+    CIFAR-10 twin otherwise."""
+    if config.data_dir:
+        from distributed_deep_learning_tpu_torch.data.imagefolder import \
+            ImageFolderDataset
+
+        return ImageFolderDataset(config.data_dir,
+                                  image_size=config.image_size,
+                                  num_workers=config.num_workers or 8)
+    return synthetic_cifar10(seed=config.seed)
+
+
+def _resnet_geometry(config: Config, dataset):
+    """``(depth, classes, small)``: ``-s`` when it names a depth (else 18),
+    the dataset's class count (10 when it carries none, as a packed twin
+    does), and the small stem for images of at most 64 px, read from the
+    feature array where there is one (twins, ``--packed-cache``) and from
+    ``--image-size`` for the ImageFolder's lazy decode."""
+    depth = config.size if config.size in _RESNET_LAYERS else 18
+    num_classes = len(getattr(dataset, "classes", ())) or 10
+    feats = getattr(dataset, "features", None)
+    if feats is not None and feats.ndim == 4:
+        small = feats.shape[1] <= 64
+    else:
+        small = config.image_size <= 64 if config.data_dir else True
+    return depth, num_classes, small
+
+
+def _resnet_model(config: Config, dataset) -> ResNet:
+    depth, num_classes, small = _resnet_geometry(config, dataset)
+    return ResNet(stage_sizes=_RESNET_LAYERS[depth],
+                  block_cls=BottleneckBlock if depth >= 50 else BasicBlock,
+                  num_classes=num_classes, small_inputs=small,
+                  stem_s2d=config.stem_s2d and not small,
+                  dtype=config_dtype(config))
+
+
+RESNET_SPEC = WorkloadSpec(
+    name="resnet",
+    build_dataset=_resnet_dataset,
+    build_model=_resnet_model,
+    build_loss=lambda c: RowMean(cross_entropy_loss),
+    remat_policies=("nothing",),
+    # optax.sgd(lr, momentum=0.9), lr 0.1 unless --lr moves it off 1e-3
+    build_optimizer=lambda c, steps: Optimizer("momentum", resolve_lr(
+        c, steps, c.learning_rate if c.learning_rate != 1e-3 else 0.1)),
+)
 
 
 def _token_ce_loss(c: Config):
@@ -54,6 +133,78 @@ def _attention_fn(config: Config) -> str:
 def _vocab(dataset) -> int:
     """Carried by file-based token datasets, 1024 for the synthetic twin."""
     return int(getattr(dataset, "vocab_size", 1024))
+
+
+# --- transformer (WMT seq2seq) --------------------------------------------
+
+def _wmt_dataset(config: Config, src_len: int = 32, tgt_len: int = 32,
+                 vocab: int = 1024):
+    """``tokens.npy`` rows split at ``T // 2`` under ``--data-dir``, the
+    synthetic WMT twin otherwise; features are source ⊕ target ids."""
+    if config.data_dir:
+        tokens = load_tokens(config.data_dir)
+        if tokens is not None:
+            return seq2seq_dataset(tokens)
+    ds = synthetic_wmt(src_len=src_len, tgt_len=tgt_len, vocab_size=vocab,
+                       seed=config.seed)
+    feats = np.concatenate([ds.features, ds.targets], axis=1)
+    return ArrayDataset(feats, ds.targets)
+
+
+def _transformer_model(config: Config, dataset) -> Seq2SeqAdapter:
+    d = config.size
+    inner = TransformerSeq2Seq(
+        vocab_size=_vocab(dataset), num_layers=config.num_layers,
+        d_model=d, num_heads=max(2, d // 64), mlp_dim=4 * d,
+        attention=_attention_fn(config), dropout_rate=config.dropout,
+        dtype=config_dtype(config))
+    src_len = dataset.features.shape[1] - dataset.targets.shape[1]
+    return Seq2SeqAdapter(inner, src_len)
+
+
+TRANSFORMER_SPEC = WorkloadSpec(
+    name="transformer",
+    build_dataset=_wmt_dataset,
+    build_model=_transformer_model,
+    build_loss=_token_ce_loss,
+    build_optimizer=lambda c, steps: adamw(
+        resolve_lr(c, steps, c.learning_rate)),
+)
+
+
+# --- bert (C4 MLM) ---------------------------------------------------------
+
+def _mlm_dataset(config: Config, vocab: int = 1024, mask_id: int = 103):
+    """``mlm_dataset`` over ``tokens.npy`` under ``--data-dir``, the
+    synthetic C4 twin otherwise, its targets kept only at the masked
+    sites (0, ignored, elsewhere)."""
+    if config.data_dir:
+        tokens = load_tokens(config.data_dir)
+        if tokens is not None:
+            return mlm_dataset(tokens, mask_id=mask_id, seed=config.seed)
+    ds = synthetic_c4_mlm(vocab_size=vocab, mask_id=mask_id, seed=config.seed)
+    targets = np.where(ds.features == mask_id, ds.targets, 0)
+    return ArrayDataset(ds.features, targets.astype(np.int32))
+
+
+def _bert_model(config: Config, dataset) -> BertEncoder:
+    d = config.size
+    return BertEncoder(vocab_size=_vocab(dataset),
+                       num_layers=config.num_layers, d_model=d,
+                       num_heads=max(2, d // 64), mlp_dim=4 * d,
+                       attention=_attention_fn(config),
+                       dropout_rate=config.dropout,
+                       dtype=config_dtype(config))
+
+
+BERT_SPEC = WorkloadSpec(
+    name="bert",
+    build_dataset=_mlm_dataset,
+    build_model=_bert_model,
+    build_loss=_token_ce_loss,
+    build_optimizer=lambda c, steps: adamw(
+        resolve_lr(c, steps, c.learning_rate)),
+)
 
 
 def _gpt_dataset(config: Config, seq_len: int = 64, vocab: int = 1024):
@@ -221,7 +372,8 @@ GPT_SPEC = WorkloadSpec(
     post_train=_gpt_post,
 )
 
-SPECS = {"gpt": GPT_SPEC}
+SPECS = {"resnet": RESNET_SPEC, "transformer": TRANSFORMER_SPEC,
+         "bert": BERT_SPEC, "gpt": GPT_SPEC}
 
 
 def main(argv=None, workload: str = "gpt"):

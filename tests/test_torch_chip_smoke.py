@@ -12,6 +12,7 @@ kernel and needs no card.
 import ast
 import inspect
 import sys
+from concurrent.futures import Future
 from pathlib import Path
 
 import pytest
@@ -185,7 +186,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               18: "phase_quant_serving", 19: "phase_spec",
               20: "phase_window", 15: "phase_cli_spec_quant",
               21: "phase_workloads", 22: "phase_workload_variants",
-              23: "phase_workload_checkpoint"}
+              23: "phase_workload_checkpoint", 24: "phase_resnet",
+              25: "phase_zoo_lm", 26: "phase_zoo_lm"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -203,8 +205,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
         return fn
 
     rec = {"results": {}}
+    built = Future()
+    built.set_result(None)
     for name, value in (
-            ("phase_device", None), ("start_builds", {}),
+            ("phase_device", None),
+            ("start_builds", {"flash_attention": built,
+                              "paged_decode": built}),
             ("phase_kernel", {}), ("phase_serve", (rec, 0)),
             ("phase_quant_serving", 0), ("phase_spec", 0),
             ("phase_window", 0), ("_write_tokens", ROOT),
@@ -213,11 +219,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_cli_spec_quant", {"launches": 0}),
             ("phase_fused_head", {}), ("phase_optimizers", {}),
             ("phase_workloads", {}), ("phase_workload_variants", {}),
-            ("phase_workload_checkpoint", None)):
+            ("phase_workload_checkpoint", None), ("phase_resnet", {}),
+            ("phase_zoo_lm", {"flash": {"launches": {}}})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 24)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 27)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -284,3 +291,71 @@ def test_first_loss_check_with_a_cpu_stand_in(monkeypatch):
     with pytest.raises(RuntimeError, match="first loss"):
         chip_smoke.check_first_loss("planted", want * (1 + 10 * tol), want,
                                     tol)
+
+
+def _zoo_launches(monkeypatch, tmp_path, planted):
+    """A small ``transformer`` epoch on the CPU through the CLI with
+    phase 25's tokens.npy, the flash wrappers replaced by stand-ins that
+    count as the kernels' wrappers do (on the CPU the wrappers run the
+    plain versions uncounted); ``planted`` routes every cross-attention
+    through dense attention.  Returns (launches, expected launches)."""
+    from distributed_deep_learning_tpu_torch.__main__ import main
+    from distributed_deep_learning_tpu_torch.models import transformer as ttf
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    def forward(q, k, v, key_valid, **kw):
+        forward.launches += 1
+        return fa.flash_attention_reference(q, k, v, key_valid=key_valid,
+                                            **kw)
+
+    def backward(*args, **kw):
+        dq.launches += 1
+        dkv.launches += 1
+        return fa.flash_backward_reference(*args, **kw)
+
+    def dq():
+        pass
+
+    def dkv():
+        pass
+
+    forward.launches = dq.launches = dkv.launches = 0
+    monkeypatch.setattr(fa, "flash_forward", forward)
+    monkeypatch.setattr(fa, "flash_backward", backward)
+    if planted:
+        real = ttf.TransformerLayer.attends
+
+        def attends(layer, attention, self_valid=None, cross_valid=None):
+            attend, cross = real(layer, attention, self_valid, cross_valid)
+            if cross is None:
+                return attend, None
+            return attend, lambda q, k, v: ttf.attend_qkv(
+                "dense", layer.cross_attn, q, k, v, causal=False,
+                key_valid=cross_valid)
+
+        monkeypatch.setattr(ttf.TransformerLayer, "attends", attends)
+    monkeypatch.setattr(chip_smoke, "ROOT", tmp_path)
+    data = chip_smoke._write_zoo_tokens("transformer")
+    monkeypatch.setenv("DDL_DATA_LIMIT", "32")
+    main(["transformer", "-l", "2", "-s", "32", "-e", "1", "-b", "4",
+          "--attention", "flash", "-d", "cpu", "--data-dir", str(data)])
+    got = {"flash_forward": forward.launches,
+           "flash_backward_dq": dq.launches,
+           "flash_backward_dkv": dkv.launches}
+    return got, chip_smoke.expected_launches(
+        chip_smoke.ZOO_ATTENTIONS["transformer"] * 2,
+        chip_smoke.split_steps(32, 4))
+
+
+def test_zoo_launch_check_holds_and_fails_a_dense_cross_attention(
+        monkeypatch, tmp_path):
+    """Phase 25's launch-count check on a CPU stand-in: three flash
+    attentions a layer a step pass it; the planted fault (cross-attention
+    through dense attention) leaves a third of them out and fails it."""
+    got, want = _zoo_launches(monkeypatch, tmp_path, planted=False)
+    assert want["flash_forward"] == 3 * 2 * sum(chip_smoke.split_steps(32,
+                                                                       4))
+    chip_smoke.check_launches("stand-in", got, want)
+    got, want = _zoo_launches(monkeypatch, tmp_path, planted=True)
+    with pytest.raises(RuntimeError, match="flash kernels"):
+        chip_smoke.check_launches("planted", got, want)

@@ -237,9 +237,19 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch.workloads.mnist\n"
             "import distributed_deep_learning_tpu_torch.data.mnist\n"
             "import distributed_deep_learning_tpu_torch.utils.torch_migrate\n"
+            "import distributed_deep_learning_tpu_torch.models.resnet\n"
+            "import distributed_deep_learning_tpu_torch.data.packed\n"
+            "import distributed_deep_learning_tpu_torch.data.imagefolder\n"
+            "from distributed_deep_learning_tpu_torch.workloads import "
+            "get_spec\n"
+            "for w in ('resnet', 'transformer', 'bert'):\n"
+            "    get_spec(w)\n"
             "distributed_deep_learning_tpu_torch.native.get_lib()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "# the card's installation has no Pillow: only an ImageFolder\n"
+            "# decode may import it\n"
+            "assert 'PIL' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -244,7 +244,7 @@ def test_cli_defaults_match_jax():
     (["--mesh", "data=2"], "item 11"), (["--comm", "int8"], "item 11"),
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
     (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
-    (["--packed-cache", "f"], "item 9"), (["--obs"], "item 14"),
+    (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
     (["--virtual-stages", "2"], "item 10"), (["--obs-file", "f"], "item 14"),
     (["--reload-watch", "d"], "item 13"), (["--sentinel-window", "5"],
                                            "item 12"),

@@ -277,7 +277,7 @@ def test_remat_leaves_gradients_and_running_stats_unchanged(name):
 def test_remat_policies_other_than_nothing_are_refused():
     tm = _port("densenet_small").train()
     x, _ = _inputs(CASES["densenet_small"][3])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         tm(torch.from_numpy(x), remat="dots")
 
 
