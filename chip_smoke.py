@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 3,16,18,19,20  # the gpt options
     python3 chip_smoke.py --phases 21,22,23  # the reference's workloads
     python3 chip_smoke.py --phases 1,7,24,25,26  # the north-star zoo
+    python3 chip_smoke.py --phases 1,7,27,28,29  # model and pipeline modes
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -185,11 +186,45 @@ Phases, in order; any failure raises and exits non-zero:
     none;
 26. ``bert`` (BERT-base: 12 layers, d 768, 12 heads, MLP 3072) the same
     way on 96 rows of 512 ids (vocabulary 30522, ragged pad tails): 12
-    forwards a step and 12 dQ and 12 dK/dV a train step.
+    forwards a step and 12 dQ and 12 dK/dV a train step;
+27. the staged modes of the reference's workloads (``mlp``, ``cnn``,
+    ``lstm``, ``mnist`` at their CLI defaults) and ``resnet -s 18`` on
+    the CIFAR twin, f32, ``-b 32``: ``-m model --nstages 2``'s first
+    train step from the sequential model's weights mapped through
+    ``split_state_dict`` within 1e-5 of ``-m sequential``'s (and how far
+    the seeded staged init lies from those weights), ``-m pipeline
+    --nstages 2 -p 8``'s first step within 1e-4 of the same step on the
+    CPU; one CLI epoch of each mode with its step time, examples/s and
+    peak memory, no kernel launched;
+28. the pipelined trunk at full width: ``gpt -l 12 -s 768`` on phase 8's
+    rows (T 2048), ``-m pipeline --nstages 4 -b 8 -p 1`` (8 microbatches,
+    every stage on the card) under ``gpipe``, ``1f1b`` and ``interleaved
+    --virtual-stages 3`` in f32 and ``1f1b`` in bf16: one train step of
+    each from the same seeded weights (checked equal layer by layer):
+    the f32 losses within 1e-5 of each other and of the unpipelined
+    ``apply_sequential`` walk, within 1e-4 of that walk with dense
+    attention (no flash kernel), the trunk gradients within 1e-3 of
+    max|g| of gpipe's, bf16's loss within 2e-2 of f32's and its trunk
+    gradients within ``PIPE_BF16_GRAD_TOL`` of 1F1B f32's (a planted
+    bf16 step that drops the last microbatch's gradient must lie beyond
+    it), the flash kernels' launches exact (forward L·M under gpipe,
+    (2 − 1/(S·V))·L·M under 1F1B and interleaved, which compute each
+    block again in the backward but for the last virtual stage's; dQ
+    and dK/dV L·M), 1F1B's and interleaved's peak memory below gpipe's;
+    then a CLI epoch
+    of each with its launches, step time, tokens/s and peak, and a
+    profiler window's kernel time and idle share;
+29. ``bert`` (BERT-base, ``--nstages 4``) and ``transformer``
+    (transformer-base's 6 layers as the decoder-only pipelined LM over
+    source⊕target, ``--nstages 2``) under ``-m pipeline`` (gpipe, ``-p
+    2``) on phases 25-26's rows: finite losses, the flash kernels'
+    launches exact (L·M forwards a step; non-causal for BERT, no key
+    mask: the trunk attends pads, as JAX's); ``gpt -m model --nstages 2``
+    on phase 8's rows: dense attention, as in JAX, no launch.
 
-Phases 8-12, 16, 17, 21, 22 and 24-26 print step time, throughput and
-peak memory; phases 21 and 24-26 a profiler window's kernel time and idle
-share, 24-26 also the flash kernels' time and the step's operations
+Phases 8-12, 16, 17, 21, 22 and 24-29 print step time, throughput and
+peak memory; phases 21, 24-26 and 28 a profiler window's kernel time and
+idle share, 24-26 also the flash kernels' time and the step's operations
 against the bf16 tensor-core rate (``step_operations``).  The line before
 the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.  Nothing here imports JAX.
@@ -211,6 +246,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from fractions import Fraction
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1359,8 +1395,8 @@ def expected_launches(attentions: int, steps, forward_per_train_step=1,
     test) of a model with ``attentions`` flash attentions a step: a
     forward each (``forward_per_train_step`` each a train step), dQ and
     dK/dV each ``backward_per_step`` times a train step."""
-    return {"flash_forward": (forward_per_train_step * steps[0]
-                              + sum(steps[1:])) * attentions,
+    return {"flash_forward": int((forward_per_train_step * steps[0]
+                                  + sum(steps[1:])) * attentions),
             "flash_backward_dq": backward_per_step * steps[0] * attentions,
             "flash_backward_dkv": backward_per_step * steps[0] * attentions}
 
@@ -2357,11 +2393,22 @@ def device_busy_share(workload: str, steps: int = 8, argv=WORKLOAD_FLAGS,
     (None when the profiler sees no device time), ``top`` the 4 largest
     ``(kernel, ms a step, calls a step)`` and ``flash ms`` the flash
     kernels' time a step."""
+    state, step, train = _step_setup(workload, argv, "cuda")
+    return profile_window(step, state, train, steps, warmup)
+
+
+def profile_window(step, state, train, steps: int, warmup: int):
+    """:func:`device_busy_share`'s window over ``step`` and ``state``:
+    ``warmup`` steps, then ``steps`` under ``torch.profiler`` (the
+    loader's batches in turn, from its start again when they run out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state, step, train = _step_setup(workload, argv, "cuda")
-    batches = iter(train.iter_batches())
+    def cycle():
+        while True:
+            yield from train.iter_batches()
+
+    batches = cycle()
     for _ in range(warmup):
         step(state, *next(batches))
     window = [next(batches) for _ in range(steps)]
@@ -2822,12 +2869,404 @@ def phase_zoo_lm(workload: str):
     return out
 
 
+# --- phases 27-29: the staged modes and the pipelined trunk -----------------
+
+#: phase 27: the reference's workloads (CLI defaults) and ResNet-18 on the
+#: CIFAR twin, each staged in two
+STAGED_WORKLOADS = {"mlp": (), "cnn": (), "lstm": (), "mnist": (),
+                    "resnet": ("-s", "18")}
+STAGED_BASE = ("-e", "1", "-b", "32")
+STAGED_MODES = {"model": ("-m", "model", "--nstages", "2"),
+                "pipeline": ("-m", "pipeline", "--nstages", "2", "-p", "8")}
+#: -m model's first loss against -m sequential's at the same weights, and
+#: -m pipeline's on the card against the CPU's (relative)
+STAGED_MODEL_TOL, STAGED_PIPE_TOL = 1e-5, 1e-4
+#: phase 28: GPT-2-small (12 layers, d 768) on phase 8's T 2048 rows, 4
+#: stages of 1-row microbatches (M 8), each schedule
+PIPE_FLAGS = ("-l", "12", "-s", "768", "-e", "1", "-b", "8", "-p", "1",
+              "--nstages", "4", "--attention", "flash")
+PIPE_BATCH, PIPE_M, PIPE_LAYERS = 8, 8, 12
+SCHEDULES = {"gpipe": (),
+             "1f1b": ("--pipeline-schedule", "1f1b"),
+             "interleaved": ("--pipeline-schedule", "interleaved",
+                             "--virtual-stages", "3")}
+#: flash forwards a layer a microbatch a train step: GPipe's backward
+#: keeps the forward's; 1F1B and interleaved compute each block again in
+#: the backward, but for the last virtual stage's (1/(S·V) of the
+#: blocks), whose forward only keeps its input
+PIPE_FORWARDS = {"gpipe": 1, "1f1b": 2 - Fraction(1, 4),
+                 "interleaved": 2 - Fraction(1, 4 * 3)}
+#: the schedules' first f32 losses against each other and the
+#: unpipelined walk (relative), their trunk gradients (of max|g|), bf16's
+#: first loss against f32's; the walk with dense attention is held to
+#: phases 25-26's dense-vs-flash ``FIRST_LOSS_TOL``
+PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_BF16_TOL = 1e-5, 1e-3, 2e-2
+#: 1F1B bf16's trunk gradients against f32's (of max|g|): read 7.87e-3 on
+#: an H100, and 0.210 with the last microbatch's gradient dropped
+PIPE_BF16_GRAD_TOL = 5e-2
+PIPE_PROFILE = dict(steps=3, warmup=1)
+
+
+def _staged_setup(workload: str, argv, device: str):
+    """``(trainer, state, train loader)`` of a staged CLI run built as
+    ``run_workload`` builds it, the loader set to epoch 1."""
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.utils.logging import \
+        PhaseLogger
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        staged_setup
+
+    cfg = parse_args([*argv, "-d", device], workload=workload)
+    trainer, state, _, (train, _, _) = staged_setup(
+        get_spec(workload), cfg, PhaseLogger(verbose=False))
+    train.set_epoch(1)
+    return trainer, state, train
+
+
+def staged_first_losses(workload: str) -> dict:
+    """Phase 27's first-step checks of ``workload``: ``-m model`` against
+    ``-m sequential`` from the sequential model's weights mapped through
+    ``split_state_dict`` (and how far the seeded staged init lies from
+    them), ``-m pipeline`` on the card against the CPU."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.parallel.staging import \
+        layer_state_dict
+
+    base = (*STAGED_WORKLOADS[workload], *STAGED_BASE)
+    state, step, train = _step_setup(workload, base, "cuda")
+    seq_sd = {k: v.detach().clone()
+              for k, v in layer_state_dict(state.model).items()}
+    x, y = next(train.iter_batches())
+    seq = step(state, x, y)[1]["loss"].item()
+    del state
+    trainer, st, train = _staged_setup(
+        workload, (*base, *STAGED_MODES["model"]), "cuda")
+    mapped = trainer.staged.from_sequential(seq_sd)
+    seeded = trainer.staged.state_dict()
+    if set(mapped) != set(seeded):
+        raise RuntimeError(f"staged[{workload}]: split_state_dict keys "
+                           f"{sorted(set(mapped) ^ set(seeded))[:4]} differ")
+    init_gap = max(float((seeded[k].float() - v.to(seeded[k].device)
+                          .float()).abs().max()) for k, v in mapped.items())
+    trainer.staged.load_state_dict(mapped)
+    x2, y2 = next(train.iter_batches())
+    if not torch.equal(x2.cpu(), x.cpu()):
+        raise RuntimeError(f"staged[{workload}]: another first batch")
+    model = trainer.train_step(st, x2, y2)[1]["loss"].item()
+    del trainer, st
+    out = {"sequential": seq, "model": model, "init_gap": init_gap}
+    for device in ("cuda", "cpu"):
+        trainer, st, train = _staged_setup(
+            workload, (*base, *STAGED_MODES["pipeline"]), device)
+        out[f"pipeline {device}"] = trainer.train_step(
+            st, *next(train.iter_batches()))[1]["loss"].item()
+    print(f"staged[{workload}]: the seeded staged init lies "
+          f"{init_gap:.1e} from the sequential weights (layer order)")
+    out["model_rel"] = check_first_loss(
+        f"staged[{workload} model] vs sequential", model, seq,
+        STAGED_MODEL_TOL)
+    out["pipeline_rel"] = check_first_loss(
+        f"staged[{workload} pipeline] card vs cpu", out["pipeline cuda"],
+        out["pipeline cpu"], STAGED_PIPE_TOL)
+    return out
+
+
+def phase_staged():
+    """Phase 27; returns each run's figures."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for w, flags in STAGED_WORKLOADS.items():
+        out[w] = staged_first_losses(w)
+        for mode, mflags in STAGED_MODES.items():
+            label = f"{w} {mode}"
+            _, _, perf = _workload_run(w, *flags, *STAGED_BASE, *mflags,
+                                       base=(), label=label)
+            if any(perf["launches"].values()):
+                raise RuntimeError(f"workload[{label}]: kernels launched "
+                                   f"{perf['launches']} on a path without "
+                                   "attention")
+            out[w][mode] = perf
+    return out
+
+
+def _global_layers(trunk, tensors: dict) -> list[dict]:
+    """``tensors`` (the trunk's stacked names → stacked tensors: its
+    parameters or their gradients) as one dict a layer in the model's
+    layer order (virtual stage ``v`` holds layers ``v·k .. v·k + k-1``)."""
+    n_blocks = len(trunk.stage.blocks)
+    layers = []
+    for v in range(trunk.n_stages * trunk.n_chunks):
+        for i in range(n_blocks):
+            pre = f"blocks.{i}."
+            layers.append({k[len(pre):]: t[trunk._index(v)]
+                           for k, t in tensors.items() if k.startswith(pre)})
+    return layers
+
+
+def _pipeline_setup(argv, device="cuda"):
+    """``(config, state, train_step, train loader)`` of a ``gpt -m
+    pipeline`` run built as the CLI builds it, the loader at epoch 1."""
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.utils.logging import \
+        PhaseLogger
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        pipelined_setup
+
+    cfg = parse_args(["-m", "pipeline", *argv, "-d", device], workload="gpt")
+    cfg, state, step, _, _, (train, _, _) = pipelined_setup(
+        get_spec("gpt"), cfg, PhaseLogger(verbose=False))
+    train.set_epoch(1)
+    return cfg, state, step, train
+
+
+def dense_walk(model, x, y) -> float:
+    """The unpipelined walk's loss with the trunk's attention dense: a
+    reference that runs no flash kernel."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    blocks = model.trunk.stage.blocks
+    kinds = [b.attention for b in blocks]
+    for b in blocks:
+        b.attention = "dense"
+    try:
+        with torch.no_grad():
+            return TokenCrossEntropy()(model.eval().apply_sequential(x),
+                                       y).item()
+    finally:
+        for b, kind in zip(blocks, kinds):
+            b.attention = kind
+
+
+def drop_last_microbatch(model, n_microbatches: int) -> None:
+    """A planted fault: the head passes the last of a step's
+    ``n_microbatches`` outputs on without a gradient, so that microbatch
+    adds nothing to the trunk's gradients."""
+    head, calls = model.head.forward, []
+
+    def dropped(x):
+        calls.append(1)
+        out = head(x)
+        return out if len(calls) < n_microbatches else \
+            out.detach() + 0 * out
+    model.head.forward = dropped
+
+
+def pipeline_step(data_dir: Path, schedule: str, *extra,
+                  dense: bool = False, planted: bool = False) -> dict:
+    """One train step of phase 28's model under ``schedule`` on the first
+    batch: its loss, the unpipelined walk's loss at the same weights
+    before it (and with ``dense`` the dense walk's), each layer's weights
+    and trunk gradients, the flash kernels' launches (zeroed just before)
+    and the step's peak memory; ``planted`` drops the last microbatch's
+    gradient (:func:`drop_last_microbatch`)."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, state, step, train = _pipeline_setup(
+        (*PIPE_FLAGS, *SCHEDULES[schedule], "--data-dir", str(data_dir),
+         *extra))
+    model = state.model
+    x, y = next(train.iter_batches())
+    with torch.no_grad():
+        walk = TokenCrossEntropy()(model.eval().apply_sequential(x),
+                                   y).item()
+    dense_loss = dense_walk(model, x, y) if dense else None
+    weights = [{k: v.detach().float().cpu().clone() for k, v in layer.items()}
+               for layer in _global_layers(model.trunk,
+                                           model.trunk.stacked())]
+    if planted:
+        drop_last_microbatch(model, PIPE_M)
+    for c in _kernel_counters():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    loss = step(state, x, y)[1]["loss"].item()
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in _kernel_counters()}
+    grads = [{k: g.detach().float().cpu().clone() for k, g in layer.items()}
+             for layer in _global_layers(
+                 model.trunk, {k: p.grad for k, p in
+                               model.trunk.stacked().items()})]
+    out = dict(loss=loss, walk=walk, dense_walk=dense_loss, weights=weights,
+               grads=grads, launches=launches, peak=torch.cuda.max_memory_allocated(),
+               resident=before)
+    del state, model
+    return out
+
+
+def _max_gap(a: list[dict], b: list[dict]) -> float:
+    """The largest gap between two per-layer tensor lists over the
+    largest magnitude of the second."""
+    top = max(float(t.abs().max()) for layer in b for t in layer.values())
+    gap = max(float((layer_a[k] - t).abs().max())
+              for layer_a, layer_b in zip(a, b)
+              for k, t in layer_b.items())
+    return gap / top
+
+
+def _pipeline_run(data_dir: Path, label: str, *flags, per_step: int,
+                  argv=PIPE_FLAGS, workload="gpt", unit="tokens"):
+    """One ``-m pipeline`` CLI epoch (``argv``, ``flags``) through
+    :func:`_workload_run`, its train steps' losses printed."""
+    _, hist, perf = _workload_run(
+        workload, "-m", "pipeline", *argv, "--data-dir", str(data_dir),
+        *flags, base=(), label=label, per_step=per_step, unit=unit)
+    print(f"workload[{label}]: train step losses "
+          + " ".join(f"{x:.5f}" for x in perf["step_losses"]))
+    return hist, perf
+
+
+def _pipeline_profile(data_dir: Path, flags, label: str, perf):
+    """Phase 28's profiler window over a run's steps (``flags`` after
+    ``PIPE_FLAGS``), its kernel time and idle share beside the CLI run's
+    step time."""
+    _, state, step, train = _pipeline_setup(
+        (*PIPE_FLAGS, *flags, "--data-dir", str(data_dir)))
+    busy, wall, top, flash = profile_window(step, state, train,
+                                            **PIPE_PROFILE)
+    del state
+    step_ms = perf["step_s"] * 1e3
+    perf.update(busy_ms=busy, flash_ms=flash)
+    share = ("not measured (the profiler saw no device time)"
+             if busy is None else
+             f"{busy:.3f} ms of kernels a step ({flash:.3f} ms in the flash "
+             f"kernels): idle share {1 - busy / step_ms:.3f} of the "
+             f"unprofiled {step_ms:.3f} ms step")
+    print(f"workload[{label}]: profiled {PIPE_PROFILE['steps']} steps: "
+          f"{wall:.3f} ms a step on the synchronised host clock, {share}; "
+          "largest: " + "; ".join(f"{name} {ms:.3f} ms x{n:g}"
+                                  for name, ms, n in top))
+
+
+def phase_pipeline(data_dir: Path):
+    """Phase 28; returns each schedule's figures."""
+    steps = {}
+    for schedule in SCHEDULES:
+        steps[schedule] = pipeline_step(data_dir, schedule,
+                                        dense=schedule == "gpipe")
+    bf16 = ("--dtype", "bfloat16")
+    steps["1f1b bf16"] = pipeline_step(data_dir, "1f1b", *bf16)
+    steps["1f1b bf16 planted"] = pipeline_step(data_dir, "1f1b", *bf16,
+                                               planted=True)
+    ref = steps["gpipe"]
+    for name, rec in steps.items():
+        if name != "gpipe" and _max_gap(rec["weights"], ref["weights"]):
+            raise RuntimeError(f"pipeline[{name}]: initialised off gpipe's "
+                               "weights")
+        print(f"pipeline[{name}] first step: loss {rec['loss']:.9f}, the "
+              f"unpipelined walk {rec['walk']:.9f}; launches "
+              f"{rec['launches']}; peak {rec['peak'] / 2**30:.2f} GiB "
+              f"({rec['resident'] / 2**30:.2f} GiB of weights and state "
+              "before it)")
+    for name in SCHEDULES:
+        rec = steps[name]
+        check_first_loss(f"pipeline[{name}] vs the unpipelined walk",
+                         rec["loss"], ref["walk"], PIPE_LOSS_TOL)
+        check_first_loss(f"pipeline[{name}] vs the dense walk", rec["loss"],
+                         ref["dense_walk"], FIRST_LOSS_TOL)
+        check_first_loss(f"pipeline[{name}] vs gpipe", rec["loss"],
+                         ref["loss"], PIPE_LOSS_TOL)
+        gap = _max_gap(rec["grads"], ref["grads"])
+        print(f"pipeline[{name}]: trunk gradients {gap:.2e} of max|g| from "
+              f"gpipe's (tol {PIPE_GRAD_TOL:g})")
+        if not gap <= PIPE_GRAD_TOL:
+            raise RuntimeError(f"pipeline[{name}]: trunk gradients off "
+                               "gpipe's")
+        want = {"flash_forward": int(PIPE_FORWARDS[name] * PIPE_LAYERS
+                                     * PIPE_M),
+                "flash_backward_dq": PIPE_LAYERS * PIPE_M,
+                "flash_backward_dkv": PIPE_LAYERS * PIPE_M}
+        check_launches(f"pipeline[{name}] one train step",
+                       {k: rec["launches"][k] for k in want}, want)
+    check_first_loss("pipeline[1f1b bf16] vs f32", steps["1f1b bf16"]["loss"],
+                     steps["1f1b"]["loss"], PIPE_BF16_TOL)
+    gaps = {name: _max_gap(steps[name]["grads"], steps["1f1b"]["grads"])
+            for name in ("1f1b bf16", "1f1b bf16 planted")}
+    for name, gap in gaps.items():
+        print(f"pipeline[{name}]: trunk gradients {gap:.2e} of max|g| from "
+              f"1f1b f32's (tol {PIPE_BF16_GRAD_TOL:g})")
+    if not gaps["1f1b bf16"] <= PIPE_BF16_GRAD_TOL:
+        raise RuntimeError("pipeline[1f1b bf16]: trunk gradients off f32's")
+    if gaps["1f1b bf16 planted"] <= PIPE_BF16_GRAD_TOL:
+        raise RuntimeError("pipeline[1f1b bf16 planted]: a dropped "
+                           "microbatch lies within the bf16 gradient limit")
+    for name in ("1f1b", "interleaved"):
+        print(f"pipeline[{name}]: peak {steps[name]['peak'] / 2**30:.2f} GiB "
+              f"against gpipe's {ref['peak'] / 2**30:.2f} GiB")
+        if not steps[name]["peak"] < ref["peak"]:
+            raise RuntimeError(f"pipeline[{name}]: peak memory not below "
+                               "gpipe's")
+    runs = {}
+    tokens = PIPE_BATCH * TRAIN_T
+    epoch = split_steps(TRAIN_ROWS, PIPE_BATCH)
+    for name, flags in (*SCHEDULES.items(),
+                        ("1f1b bf16", (*SCHEDULES["1f1b"], "--dtype",
+                                       "bfloat16"))):
+        label = f"gpt pipeline {name}"
+        _, runs[name] = _pipeline_run(data_dir, label, *flags,
+                                      per_step=tokens)
+        want = expected_launches(PIPE_LAYERS * PIPE_M, epoch,
+                                 PIPE_FORWARDS[name.split()[0]])
+        check_launches(f"workload[{label}]",
+                       {k: runs[name]["launches"][k] for k in want}, want)
+        _pipeline_profile(data_dir, flags, label, runs[name])
+    return steps, runs
+
+
+#: phase 29: BERT-base and transformer-base pipelined (gpipe, M 4 of 2
+#: rows), gpt staged in two with dense attention
+ZOO_PIPE = {"bert": ("--nstages", "4", "-p", "2"),
+            "transformer": ("--nstages", "2", "-p", "2")}
+
+
+def phase_pipeline_zoo(data_dir: Path):
+    """Phase 29; returns each run's figures."""
+    out = {}
+    for workload, flags in ZOO_PIPE.items():
+        data = _write_zoo_tokens(workload)
+        layers = ZOO_LAYERS[workload]
+        argv = ("-l", str(layers), "-s", str(ZOO_WIDTH[workload]), "-e", "1",
+                "-b", str(ZOO_BATCH), "--attention", "flash", *flags)
+        label = f"{workload} pipeline"
+        _, out[workload] = _pipeline_run(
+            data, label, argv=argv, workload=workload,
+            per_step=ZOO_BATCH * ZOO_T)
+        want = expected_launches(layers * ZOO_BATCH // 2,
+                                 split_steps(ZOO_ROWS, ZOO_BATCH))
+        check_launches(f"workload[{label}]",
+                       {k: out[workload]["launches"][k] for k in want}, want)
+        shutil.rmtree(data)
+    label = "gpt model"
+    _, _, out["gpt model"] = _workload_run(
+        "gpt", "-m", "model", "--nstages", "2", "-l", str(TRAIN_LAYERS),
+        "-s", "768", "-e", "1", "-b", str(TRAIN_BATCH), "--data-dir",
+        str(data_dir), base=(), label=label, per_step=TRAIN_BATCH * TRAIN_T,
+        unit="tokens")
+    check_launches(f"workload[{label}]", out["gpt model"]["launches"],
+                   dict.fromkeys(out["gpt model"]["launches"], 0))
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 27)),
+                    default=",".join(str(i) for i in range(1, 30)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -2836,7 +3275,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 27)) and opts.waves is None
+    complete = phases == set(range(1, 30)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -2878,7 +3317,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26} | set(range(8, 18))):
+    if phases & ({7, 25, 26, 28, 29} | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
     if phases & {8, 9, 10, 11, 12, 15, 16, 17}:
@@ -2928,6 +3367,15 @@ def main(argv=None) -> int:
     for phase, workload in ((25, "transformer"), (26, "bert")):
         if phase in phases:
             zoo[workload] = phase_zoo_lm(workload)
+    if 27 in phases:
+        phase_staged()
+    pipe = {}
+    if phases & {28, 29}:
+        data_dir = _write_tokens()
+        if 28 in phases:
+            _, pipe = phase_pipeline(data_dir)
+        if 29 in phases:
+            pipe.update(phase_pipeline_zoo(data_dir))
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -2937,6 +3385,8 @@ def main(argv=None) -> int:
                 for label, run in runs.items()}
         entry["zoo_ms"] = {case: rec[entry["name"]] for case, rec in
                            records.get("zoo", {}).items()}
+        entry["pipeline_launches"] = {label: run["launches"][entry["name"]]
+                                      for label, run in pipe.items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -57,6 +57,14 @@ class PdMConvStem(nn.Module):
         return F.relu(F.conv1d(x, self.weight.to(x.dtype),
                                self.bias.to(x.dtype)))
 
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        """flax ``Conv`` kernel ``(1, history, C)`` → ``(C, history, 1)``."""
+        conv = params["Conv_0"]
+        return {"weight": as_tensor(
+                    np.asarray(conv["kernel"]).transpose(2, 1, 0)),
+                "bias": as_tensor(conv["bias"])}
+
 
 class PoolReLU(nn.Module):
     """MaxPool1d(kernel=1) + ReLU: a no-op on non-negative inputs, a layer
@@ -106,6 +114,19 @@ class LSTMLayer(nn.Module):
                                    self.training, False, True)
         return h[0] if self.return_state else out
 
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        """flax ``OptimizedLSTMCell``'s per-gate kernels, stacked
+        transposed in gate order, and its hidden biases."""
+        cell = params["OptimizedLSTMCell_0"]
+        return {
+            "weight_ih": as_tensor(np.concatenate(
+                [np.asarray(cell[f"i{g}"]["kernel"]).T for g in GATES])),
+            "weight_hh": as_tensor(np.concatenate(
+                [np.asarray(cell[f"h{g}"]["kernel"]).T for g in GATES])),
+            "bias": as_tensor(np.concatenate(
+                [np.asarray(cell[f"h{g}"]["bias"]) for g in GATES]))}
+
 
 class RegressionHead(nn.Module):
     def __init__(self, in_features: int, num_targets: int = 5):
@@ -114,6 +135,10 @@ class RegressionHead(nn.Module):
 
     def forward(self, x):
         return self.dense(x).float()
+
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        return dense_state(params["Dense_0"], "dense")
 
 
 def cnn_lstm_layer_sequence(hidden_layers: int = 1, hidden_size: int = 128,
@@ -164,20 +189,12 @@ def load_flax_variables(variables) -> dict:
     ``(H, H)`` stacked transposed in gate order i, f, g, o, and its 4
     hidden biases into one ``(4H,)``."""
     params = variables["params"]
-    conv = params["PdMConvStem_0"]["Conv_0"]
-    sd = {"layers.0.weight": as_tensor(
-              np.asarray(conv["kernel"]).transpose(2, 1, 0)),
-          "layers.0.bias": as_tensor(conv["bias"])}
+    sd = {f"layers.0.{k}": v for k, v in
+          PdMConvStem.flax_state(params["PdMConvStem_0"]).items()}
     i = 0
     while f"LSTMLayer_{i}" in params:
-        cell = params[f"LSTMLayer_{i}"]["OptimizedLSTMCell_0"]
-        pre = f"layers.{i + 2}"
-        sd[f"{pre}.weight_ih"] = as_tensor(np.concatenate(
-            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in GATES]))
-        sd[f"{pre}.weight_hh"] = as_tensor(np.concatenate(
-            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in GATES]))
-        sd[f"{pre}.bias"] = as_tensor(np.concatenate(
-            [np.asarray(cell[f"h{g}"]["bias"]) for g in GATES]))
+        sd.update({f"layers.{i + 2}.{k}": v for k, v in
+                   LSTMLayer.flax_state(params[f"LSTMLayer_{i}"]).items()})
         i += 1
     sd.update(dense_state(params["RegressionHead_0"]["Dense_0"],
                           f"layers.{i + 2}.dense"))

@@ -147,6 +147,19 @@ class DenseBlock(nn.Module):
             x = torch.cat([x, layer(x)], dim=1)
         return x
 
+    @staticmethod
+    def flax_state(params, stats) -> dict:
+        sd, i = {}, 0
+        while f"DenseLayer_{i}" in params:
+            lp, ls = params[f"DenseLayer_{i}"], stats[f"DenseLayer_{i}"]
+            for j in (0, 1):
+                sd.update(_bn_state(lp[f"BatchNorm_{j}"], ls[f"BatchNorm_{j}"],
+                                    f"layers.{i}.norm{j}"))
+                sd[f"layers.{i}.conv{j}.weight"] = conv2d_weight(
+                    lp[f"Conv_{j}"]["kernel"])
+            i += 1
+        return sd
+
 
 class Transition(nn.Module):
     """BN→ReLU→Conv1×1(halve channels)→AvgPool2×2."""
@@ -159,6 +172,12 @@ class Transition(nn.Module):
     def forward(self, x):
         return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
 
+    @staticmethod
+    def flax_state(params, stats) -> dict:
+        sd = _bn_state(params["BatchNorm_0"], stats["BatchNorm_0"], "norm")
+        sd["conv.weight"] = conv2d_weight(params["Conv_0"]["kernel"])
+        return sd
+
 
 class Stem(nn.Module):
     """Conv7×7 s2 (BN/ReLU are the next layer, as in the reference)."""
@@ -170,6 +189,10 @@ class Stem(nn.Module):
     def forward(self, x):
         return self.conv(x)
 
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        return {"conv.weight": conv2d_weight(params["Conv_0"]["kernel"])}
+
 
 class StemNorm(nn.Module):
     def __init__(self, num_features: int):
@@ -178,6 +201,10 @@ class StemNorm(nn.Module):
 
     def forward(self, x):
         return F.relu(self.norm(x))
+
+    @staticmethod
+    def flax_state(params, stats) -> dict:
+        return _bn_state(params["BatchNorm_0"], stats["BatchNorm_0"], "norm")
 
 
 class StemPool(nn.Module):
@@ -210,6 +237,10 @@ class Classifier(nn.Module):
         if self.double_softmax:           # reference quirk Q4
             x = torch.softmax(x, dim=-1)
         return x.float()
+
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        return dense_state(params["Dense_0"], "dense")
 
 
 def pooled_size(image_size: tuple[int, int], dense_blocks: int
@@ -309,24 +340,14 @@ def load_flax_variables(variables) -> dict:
                         stats["StemNorm_0"]["BatchNorm_0"], "layers.1.norm"))
     pos, b = 3, 0
     while f"DenseBlock_{b}" in params:
-        bp, bs = params[f"DenseBlock_{b}"], stats[f"DenseBlock_{b}"]
-        i = 0
-        while f"DenseLayer_{i}" in bp:
-            lp, ls = bp[f"DenseLayer_{i}"], bs[f"DenseLayer_{i}"]
-            pre = f"layers.{pos}.layers.{i}"
-            for j in (0, 1):
-                sd.update(_bn_state(lp[f"BatchNorm_{j}"],
-                                    ls[f"BatchNorm_{j}"], f"{pre}.norm{j}"))
-                sd[f"{pre}.conv{j}.weight"] = conv2d_weight(
-                    lp[f"Conv_{j}"]["kernel"])
-            i += 1
+        block = DenseBlock.flax_state(params[f"DenseBlock_{b}"],
+                                      stats[f"DenseBlock_{b}"])
+        sd.update({f"layers.{pos}.{k}": v for k, v in block.items()})
         pos += 1
         if f"Transition_{b}" in params:
-            tp, ts = params[f"Transition_{b}"], stats[f"Transition_{b}"]
-            sd.update(_bn_state(tp["BatchNorm_0"], ts["BatchNorm_0"],
-                                f"layers.{pos}.norm"))
-            sd[f"layers.{pos}.conv.weight"] = conv2d_weight(
-                tp["Conv_0"]["kernel"])
+            trans = Transition.flax_state(params[f"Transition_{b}"],
+                                          stats[f"Transition_{b}"])
+            sd.update({f"layers.{pos}.{k}": v for k, v in trans.items()})
             pos += 1
         b += 1
     sd.update(dense_state(params["Classifier_0"]["Dense_0"],

@@ -32,6 +32,11 @@ class DenseReLU(nn.Module):
     def forward(self, x):
         return torch.relu(self.dense(x))
 
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        """The staged flax layer's ``Dense_0`` → ``dense``."""
+        return dense_state(params["Dense_0"], "dense")
+
 
 class DenseHead(nn.Module):
     def __init__(self, in_features: int, features: int,
@@ -46,6 +51,11 @@ class DenseHead(nn.Module):
             x = torch.sigmoid(x) if x.shape[-1] < 2 else \
                 torch.softmax(x, dim=-1)
         return x.float()
+
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        """The staged flax layer's ``Dense_0`` → ``dense``."""
+        return dense_state(params["Dense_0"], "dense")
 
 
 def mlp_layer_sequence(in_features: int, hidden_size: int = 38,

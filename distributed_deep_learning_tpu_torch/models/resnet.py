@@ -110,6 +110,21 @@ class BatchNorm(densenet.BatchNorm):
                 self.weight.zero_()
 
 
+def _block_state(bp, bs) -> dict:
+    """A flax residual block's ``Conv_j``/``BatchNorm_j`` (and ``proj``,
+    ``proj_bn``) → ``conv<j>``/``bn<j>`` (``proj``, ``proj_bn``)."""
+    sd, j = {}, 0
+    while f"Conv_{j}" in bp:
+        sd[f"conv{j}.weight"] = conv2d_weight(bp[f"Conv_{j}"]["kernel"])
+        sd.update(_bn_state(bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"],
+                            f"bn{j}"))
+        j += 1
+    if "proj" in bp:
+        sd["proj.weight"] = conv2d_weight(bp["proj"]["kernel"])
+        sd.update(_bn_state(bp["proj_bn"], bs["proj_bn"], "proj_bn"))
+    return sd
+
+
 def _projection(cin: int, cout: int, strides: int):
     """The shortcut's 1×1 conv and norm when the branch changes shape."""
     if cin == cout and strides == 1:
@@ -137,6 +152,8 @@ class BasicBlock(nn.Module):
             x = self.proj_bn(self.proj(x))
         return F.relu(x + y)
 
+    flax_state = staticmethod(_block_state)
+
 
 class BottleneckBlock(nn.Module):
     """1×1 → 3×3(stride) → 1×1(4×), with a projection shortcut when the
@@ -161,6 +178,8 @@ class BottleneckBlock(nn.Module):
         if self.proj is not None:
             x = self.proj_bn(self.proj(x))
         return F.relu(x + y)
+
+    flax_state = staticmethod(_block_state)
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -279,6 +298,55 @@ class ResNet(nn.Module):
         x = x.permute(0, 3, 1, 2)
         return run_layers([self.stem, *self.blocks, self.head], x, remat)
 
+    def layer_state_dict(self) -> dict:
+        """This model's state dict keyed ``layers.<i>.*`` in the order of
+        :func:`resnet_layer_sequence` (stem, blocks, head)."""
+        return _keyed({f"layers.{i}": layer for i, layer in
+                       enumerate([self.stem, *self.blocks, self.head])})
+
+
+class ResNetStem(Stem):
+    """The input stem as a stage layer (the staged layer list's first;
+    the 3×3 or the 7×7 stem, no space-to-depth form, as in JAX's
+    ``ResNetStem``)."""
+
+    def __init__(self, width: int, in_channels: int, small_inputs: bool):
+        super().__init__(width, in_channels, small_inputs, s2d=False)
+
+    @staticmethod
+    def flax_state(params, stats) -> dict:
+        sd = {"conv.weight": conv2d_weight(params["Conv_0"]["kernel"])}
+        sd.update(_bn_state(params["BatchNorm_0"], stats["BatchNorm_0"],
+                            "bn"))
+        return sd
+
+
+class ResNetHead(Head):
+    """Global average pool and the classifier as a stage layer."""
+
+    @staticmethod
+    def flax_state(params, stats=None) -> dict:
+        return dense_state(params["Dense_0"], "dense")
+
+
+def resnet_layer_sequence(stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                          block_cls: type = BottleneckBlock,
+                          num_classes: int = 1000, width: int = 64,
+                          small_inputs: bool = False,
+                          in_channels: int = 3) -> list[nn.Module]:
+    """:class:`ResNet` as a partitionable layer list (stem, residual
+    blocks, head) over the channels-last NCHW view, for the staged
+    modes."""
+    layers: list[nn.Module] = [ResNetStem(width, in_channels, small_inputs)]
+    cin = width
+    for i, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            strides = 2 if i > 0 and j == 0 else 1
+            layers.append(block_cls(cin, width * 2 ** i, strides))
+            cin = width * 2 ** i * block_cls.expansion
+    layers.append(ResNetHead(cin, num_classes))
+    return [layer.to(memory_format=torch.channels_last) for layer in layers]
+
 
 def resnet18(**kw) -> ResNet:
     return ResNet(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock, **kw)
@@ -341,6 +409,20 @@ class MnistCNN(nn.Module):
     def _head(self, x):
         return self.dense1(x).float()
 
+    def layer_state_dict(self) -> dict:
+        """This model's state dict keyed ``layers.<i>.*`` in the order of
+        the mnist workload's staged layer list (two conv-pools, the dense
+        head)."""
+        return _keyed({"layers.0.conv": self.conv0,
+                       "layers.1.conv": self.conv1,
+                       "layers.2.dense0": self.dense0,
+                       "layers.2.dense1": self.dense1})
+
+
+def _keyed(modules: dict) -> dict:
+    return {f"{prefix}.{k}": v for prefix, module in modules.items()
+            for k, v in module.state_dict().items()}
+
 
 def _bn_state(params, stats, prefix: str) -> dict:
     return {f"{prefix}.weight": as_tensor(params["scale"]),
@@ -360,18 +442,8 @@ def _resnet_state(params, stats) -> dict:
     names = sorted((k for k in params if "Block_" in k),
                    key=lambda k: int(k.rsplit("_", 1)[1]))
     for i, name in enumerate(names):
-        bp, bs, pre = params[name], stats[name], f"blocks.{i}"
-        j = 0
-        while f"Conv_{j}" in bp:
-            sd[f"{pre}.conv{j}.weight"] = conv2d_weight(bp[f"Conv_{j}"]
-                                                        ["kernel"])
-            sd.update(_bn_state(bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"],
-                                f"{pre}.bn{j}"))
-            j += 1
-        if "proj" in bp:
-            sd[f"{pre}.proj.weight"] = conv2d_weight(bp["proj"]["kernel"])
-            sd.update(_bn_state(bp["proj_bn"], bs["proj_bn"],
-                                f"{pre}.proj_bn"))
+        sd.update({f"blocks.{i}.{k}": v for k, v in
+                   _block_state(params[name], stats[name]).items()})
     sd.update(dense_state(params["Dense_0"], "head.dense"))
     return sd
 

@@ -370,6 +370,14 @@ def reset_transformer_(model: nn.Module,
         model.tok.weight.normal_(0.0, 0.02, generator=generator)
         if model.pos is not None:
             model.pos.normal_(0.0, 0.02, generator=generator)
+    return reset_linear_norm_(model, generator)
+
+
+def reset_linear_norm_(model: nn.Module,
+                       generator: Optional[torch.Generator] = None):
+    """Xavier-uniform ``nn.Linear`` weights with zero biases and unit
+    LayerNorm scales with zero biases, in module order."""
+    with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 fan_in, fan_out = mod.in_features, mod.out_features
@@ -917,6 +925,76 @@ class BertEncoder(_EncoderModel):
         return self.logits_from(h)
 
 
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def linear_flax_state(node, prefix, n_in_axes=1):
+    """A flax ``Dense``/``DenseGeneral`` (``n_in_axes`` input axes) →
+    ``nn.Linear``'s ``weight`` ``(out, in)`` and ``bias`` under
+    ``prefix``."""
+    kern = np.asarray(node["kernel"])
+    n_in = int(np.prod(kern.shape[:n_in_axes]))
+    return {f"{prefix}weight": _t(kern.reshape(n_in, -1).T),
+            f"{prefix}bias": _t(np.asarray(node["bias"]).reshape(-1))}
+
+
+def _norm_state(node, prefix):
+    return {f"{prefix}weight": _t(node["scale"]),
+            f"{prefix}bias": _t(node["bias"])}
+
+
+def _attention_state(node, prefix):
+    sd = {}
+    for name in ("q", "k", "v"):
+        sd.update(linear_flax_state(node[name], f"{prefix}{name}."))
+    sd.update(linear_flax_state(node["out"], f"{prefix}out.", n_in_axes=2))
+    return sd
+
+
+def layer_flax_state(lp, prefix: str) -> dict:
+    """One flax ``TransformerLayer``'s params → a :class:`TransformerLayer`
+    state under ``prefix`` (``""`` or ending in a dot).  flax numbers a
+    layer's LayerNorms in call order: self-attention, cross-attention
+    (decoder layers only), MLP."""
+    cross = "cross_attn" in lp
+    sd = _norm_state(lp["LayerNorm_0"], f"{prefix}ln_attn.")
+    sd.update(_attention_state(lp["self_attn"], f"{prefix}self_attn."))
+    if cross:
+        sd.update(_norm_state(lp["LayerNorm_1"], f"{prefix}ln_cross."))
+        sd.update(_attention_state(lp["cross_attn"], f"{prefix}cross_attn."))
+    sd.update(_norm_state(lp[f"LayerNorm_{2 if cross else 1}"],
+                          f"{prefix}ln_mlp."))
+    sd.update(linear_flax_state(lp["Dense_0"], f"{prefix}mlp_in."))
+    sd.update(linear_flax_state(lp["Dense_1"], f"{prefix}mlp_out."))
+    return sd
+
+
+def _stacked_trunk_state(trunk) -> dict:
+    """A ``PipelinedTrunk``'s flax params (``block_<i>`` subtrees whose
+    leaves lead with ``(S,)`` or ``(V, S)``) → ``stack.blocks.<i>...``
+    stacked the same way."""
+    lead = np.asarray(trunk["block_0"]["LayerNorm_0"]["scale"]).shape[:-1]
+    slices = []
+    for index in np.ndindex(*lead):
+        sd = {}
+        i = 0
+        while f"block_{i}" in trunk:
+            sub = _map_tree(lambda a: np.asarray(a)[index],
+                            trunk[f"block_{i}"])
+            sd.update(layer_flax_state(sub, f"stack.blocks.{i}."))
+            i += 1
+        slices.append(sd)
+    return {k: torch.stack([s[k] for s in slices]).reshape(
+                *lead, *slices[0][k].shape) for k in slices[0]}
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def load_flax_params(params) -> dict:
     """``state_dict`` from a flax ``params`` tree (nested dicts of numpy
     arrays, as ``jax.tree.map(np.asarray, params)`` gives them; a
@@ -924,70 +1002,46 @@ def load_flax_params(params) -> dict:
     :class:`CausalLM` (``layer_i`` and ``final_norm``),
     :class:`BertEncoder` (the same plus ``mlm_dense`` and ``mlm_norm``),
     :class:`TransformerSeq2Seq` (``enc_i``, ``enc_norm``, ``dec_i`` with
-    ``cross_attn``, ``dec_norm``) or the workload's
-    :class:`Seq2SeqAdapter` (the seq2seq tree under ``model``).  Dense
-    kernels ``(in, out)`` and the ``DenseGeneral`` head kernels ``(d, H,
-    hd)`` / ``(H, hd, d)`` become ``nn.Linear`` weights ``(out, in)``."""
+    ``cross_attn``, ``dec_norm``), the workload's
+    :class:`Seq2SeqAdapter` (the seq2seq tree under ``model``) or
+    ``models.pipelined_lm.PipelinedLM`` (``embed``, the stacked ``trunk``
+    and ``head``).  Dense kernels ``(in, out)`` and the ``DenseGeneral``
+    head kernels ``(d, H, hd)`` / ``(H, hd, d)`` become ``nn.Linear``
+    weights ``(out, in)``."""
     if "params" in params and "embed" not in params \
             and "model" not in params:
         params = params["params"]
     if "model" in params and "embed" not in params:
         return {f"model.{k}": v
                 for k, v in load_flax_params(params["model"]).items()}
-
-    def t(x):
-        return torch.from_numpy(np.array(x, copy=True))
-
-    def linear(node, prefix, n_in_axes=1):
-        kern = np.asarray(node["kernel"])
-        n_in = int(np.prod(kern.shape[:n_in_axes]))
-        return {f"{prefix}.weight": t(kern.reshape(n_in, -1).T),
-                f"{prefix}.bias": t(np.asarray(node["bias"]).reshape(-1))}
-
-    def norm(node, prefix):
-        return {f"{prefix}.weight": t(node["scale"]),
-                f"{prefix}.bias": t(node["bias"])}
-
-    def attention(node, prefix):
-        sd = {}
-        for name in ("q", "k", "v"):
-            sd.update(linear(node[name], f"{prefix}.{name}"))
-        sd.update(linear(node["out"], f"{prefix}.out", n_in_axes=2))
-        return sd
-
-    def layer(lp, pre):
-        # flax numbers a layer's LayerNorms in call order: self-attention,
-        # cross-attention (decoder layers only), MLP
-        cross = "cross_attn" in lp
-        sd = norm(lp["LayerNorm_0"], f"{pre}.ln_attn")
-        sd.update(attention(lp["self_attn"], f"{pre}.self_attn"))
-        if cross:
-            sd.update(norm(lp["LayerNorm_1"], f"{pre}.ln_cross"))
-            sd.update(attention(lp["cross_attn"], f"{pre}.cross_attn"))
-        sd.update(norm(lp[f"LayerNorm_{2 if cross else 1}"],
-                       f"{pre}.ln_mlp"))
-        sd.update(linear(lp["Dense_0"], f"{pre}.mlp_in"))
-        sd.update(linear(lp["Dense_1"], f"{pre}.mlp_out"))
+    if "trunk" in params:
+        sd = {"embed.tok.weight": _t(params["embed"]["tok"]["embedding"])}
+        if "pos" in params["embed"]:
+            sd["embed.pos"] = _t(params["embed"]["pos"])
+        sd.update({f"trunk.{k}": v
+                   for k, v in _stacked_trunk_state(params["trunk"]).items()})
+        sd.update(linear_flax_state(params["head"]["Dense_0"], "head.dense."))
         return sd
 
     def stack(prefix, into):
         i = 0
         while f"{prefix}_{i}" in params:
-            sd.update(layer(params[f"{prefix}_{i}"], f"{into}.{i}"))
+            sd.update(layer_flax_state(params[f"{prefix}_{i}"],
+                                       f"{into}.{i}."))
             i += 1
 
-    sd = {"tok.weight": t(params["embed"]["tok"]["embedding"])}
+    sd = {"tok.weight": _t(params["embed"]["tok"]["embedding"])}
     if "pos" in params["embed"]:
-        sd["pos"] = t(params["embed"]["pos"])
+        sd["pos"] = _t(params["embed"]["pos"])
     if "enc_0" in params:
         stack("enc", "enc")
         stack("dec", "dec")
-        sd.update(norm(params["enc_norm"], "enc_norm"))
-        sd.update(norm(params["dec_norm"], "dec_norm"))
+        sd.update(_norm_state(params["enc_norm"], "enc_norm."))
+        sd.update(_norm_state(params["dec_norm"], "dec_norm."))
         return sd
     stack("layer", "layers")
-    sd.update(norm(params["final_norm"], "final_norm"))
+    sd.update(_norm_state(params["final_norm"], "final_norm."))
     if "mlm_dense" in params:
-        sd.update(linear(params["mlm_dense"], "mlm_dense"))
-        sd.update(norm(params["mlm_norm"], "mlm_norm"))
+        sd.update(linear_flax_state(params["mlm_dense"], "mlm_dense."))
+        sd.update(_norm_state(params["mlm_norm"], "mlm_norm."))
     return sd

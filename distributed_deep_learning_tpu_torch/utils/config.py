@@ -1,7 +1,8 @@
 """Run configuration and the workload CLI: the port of
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
 runs (``mlp``, ``cnn``, ``lstm``, ``mnist``, ``resnet``, ``transformer``,
-``bert`` and ``gpt`` under ``-m sequential|data``, ``--dtype``,
+``bert`` and ``gpt`` under ``-m sequential|model|pipeline|data`` with
+``--nstages``, ``--pipeline-schedule`` and ``--virtual-stages``, ``--dtype``,
 ``--double-softmax``, ``--packed-cache``, ``--image-size``,
 ``--stem-s2d``, every ``--optimizer``, the step variants, checkpointing,
 and the post-train ``--generate`` and ``--serve [--paged]`` with
@@ -73,6 +74,11 @@ class Config:
     warmup_steps: int | None = None
     clip_norm: float | None = None
     world_size: int = 1                 # -r: ranks of a -m data run
+    microbatch: int | None = 2          # -p: pipeline microbatch SIZE
+                                        #   (the reference's; -m pipeline)
+    num_stages: int | None = None       # --nstages: model/pipeline stages
+    pipeline_schedule: str = "gpipe"    # gpipe | 1f1b | interleaved
+    virtual_stages: int = 2             # chunks a stage (interleaved)
     sync_in_local_data_mode: bool = True  # False: --no-sync (quirk Q1)
     remat: bool = False
     remat_policy: str = "nothing"
@@ -118,7 +124,6 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    10: "ROADMAP.md queue 1 item 10 (model and pipeline modes)",
     11: "ROADMAP.md queue 1 item 11 (sharded parallelism)",
     12: "ROADMAP.md queue 1 item 12 (training resilience)",
     13: "ROADMAP.md queue 1 item 13 (serving resilience and fleet)",
@@ -131,7 +136,6 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--nstages=": 10, "--pipeline-schedule=": 10, "--virtual-stages=": 10,
     "--mesh=": 11, "--zero=": 11, "--grad-compress=": 11, "--comm=": 11,
     "--comm-overlap": 11,
     "--elastic": 12, "--sentinel=": 12, "--sentinel-window=": 12,
@@ -146,8 +150,6 @@ UNPORTED_FLAGS = {
     "--metrics-file=": 14, "--obs": 14, "--obs-file=": 14, "--obs-trace=": 14,
     "--obs-rotate-mb=": 14, "--obs-blackbox=": 14, "--profile-dir=": 14,
 }
-
-_UNPORTED_MODES = {"model": 10, "pipeline": 10}
 
 #: reduced-precision storage the serving options take (None: the compute
 #: dtype, which keeps every exact-parity guarantee)
@@ -195,15 +197,27 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    default="cuda",
                    help="cuda (gpu is an alias) or cpu; cuda without a "
                         "card raises")
-    # -w: the image-decode threads of cnn and of resnet's ImageFolder; -p
-    # is accepted as the JAX CLI accepts it (it only matters under -m
-    # pipeline)
+    # -w: the image-decode threads of cnn and of resnet's ImageFolder
     p.add_argument("-w", "--nworkers", type=int, default=0)
     p.add_argument("-m", "--mode", choices=[m.value for m in Mode],
                    default="sequential")
     p.add_argument("-p", "--pipeline", type=int, default=2,
-                   help="pipeline microbatch size (ignored unless -m "
-                        "pipeline)")
+                   help="pipeline microbatch size (the reference's -p: a "
+                        "size, not a count; ignored unless -m pipeline)")
+    p.add_argument("--nstages", type=int, default=None,
+                   help="number of model/pipeline stages (default: the "
+                        "visible devices; stage i on device i mod n)")
+    p.add_argument("--pipeline-schedule",
+                   choices=["gpipe", "1f1b", "interleaved"],
+                   default="gpipe",
+                   help="pipeline schedule (-m pipeline, transformer/bert/"
+                        "gpt): gpipe = fill-drain, autograd's backward; "
+                        "1f1b = one-forward-one-backward with O(stages) "
+                        "activation residency; interleaved = 1f1b with "
+                        "--virtual-stages model chunks per stage")
+    p.add_argument("--virtual-stages", type=int, default=2,
+                   help="model chunks per stage for --pipeline-schedule "
+                        "interleaved (layers must divide nstages x this)")
     p.add_argument("-r", "--run", type=int, default=1,
                    help="ranks of a -m data run: with --spawn, this many "
                         "local processes; without, a launcher's environment "
@@ -379,10 +393,6 @@ def parse_args(argv: Sequence[str] | None = None,
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
                 f"{flag.rstrip('=')} is not ported yet: {ROADMAP_ITEMS[item]}")
-    if args.mode in _UNPORTED_MODES:
-        raise NotImplementedError(
-            f"-m {args.mode} is not ported yet: "
-            f"{ROADMAP_ITEMS[_UNPORTED_MODES[args.mode]]}")
     return Config(
         num_layers=args.nlayers, size=args.size, epochs=args.epochs,
         batch_size=args.batch,
@@ -399,6 +409,9 @@ def parse_args(argv: Sequence[str] | None = None,
         label_smoothing=args.label_smoothing, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, clip_norm=args.clip_norm,
         world_size=args.run, sync_in_local_data_mode=args.sync,
+        microbatch=args.pipeline, num_stages=args.nstages,
+        pipeline_schedule=args.pipeline_schedule,
+        virtual_stages=args.virtual_stages,
         remat=args.remat, remat_policy=args.remat_policy,
         grad_accum=args.grad_accum, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,

@@ -1,7 +1,19 @@
 """Shared workload runner: config → data → model → train.  The port of
-``distributed_deep_learning_tpu/workloads/base.py`` for ``-m sequential``
-and ``-m data``; the other modes are refused by the CLI
-(:mod:`..utils.config`) and by :func:`run_workload`.
+``distributed_deep_learning_tpu/workloads/base.py``:
+
+=============  ==========================================================
+mode           execution
+=============  ==========================================================
+sequential     one device, the whole model
+data           one process per rank, ``DistributedDataParallel``
+model          the workload's layer list split into stages
+               (:class:`StagedTrainer`), stage ``i`` on device ``i mod
+               n``, activations moved at stage boundaries
+pipeline       the same, in ``-p``-sized chunks; for ``transformer``,
+               ``bert`` and ``gpt`` the pipelined LM instead
+               (:func:`_run_spmd_pipelined`: a stacked trunk under the
+               GPipe, 1F1B or interleaved schedule)
+=============  ==========================================================
 
 ``-m data`` runs one process per rank (``--spawn``, or a launcher's
 environment; :mod:`..runtime.bootstrap`), the model wrapped in
@@ -30,12 +42,18 @@ from distributed_deep_learning_tpu_torch.data.splits import (
     shard_indices, train_val_test_split)
 from distributed_deep_learning_tpu_torch.models.densenet import \
     global_batch_statistics
+from distributed_deep_learning_tpu_torch.parallel.mpmd import MPMDPipeline
+from distributed_deep_learning_tpu_torch.parallel.partition import \
+    validate_assignment
+from distributed_deep_learning_tpu_torch.parallel.staging import StagedModel
 from distributed_deep_learning_tpu_torch.runtime import bootstrap
 from distributed_deep_learning_tpu_torch.train import schedules
 from distributed_deep_learning_tpu_torch.train.elastic import resume_point
 from distributed_deep_learning_tpu_torch.train.loop import EpochResult, fit
 from distributed_deep_learning_tpu_torch.train.state import (
     Optimizer, TrainState, create_train_state)
+from distributed_deep_learning_tpu_torch.train.objectives import \
+    prediction_metrics
 from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils.checkpoint import \
     Checkpointer
@@ -51,13 +69,21 @@ class WorkloadSpec:
     run before training; ``post_train(config, state, logger, dataset)``
     runs ``--generate``/``--serve`` after it.  ``remat_policies``: the
     ``--remat-policy`` values the model takes; ``double_softmax``: whether
-    its head takes ``--double-softmax``."""
+    its head takes ``--double-softmax``.  The staged modes read
+    ``build_layers(config, dataset)`` (the partitionable layer list),
+    ``partitioner(n_layers, n_stages)`` and ``stage_input(config)`` (the
+    input conversion stage 0 applies, or None); ``build_pipelined(config,
+    dataset, n_stages)`` makes ``-m pipeline`` run the pipelined LM."""
 
     name: str
     build_dataset: Callable[[Config], Any]
     build_model: Callable[[Config, Any], nn.Module]
     build_loss: Callable[[Config], Callable]
     build_optimizer: Callable[[Config, int], Optimizer]
+    build_layers: Optional[Callable[[Config, Any], list]] = None
+    partitioner: Optional[Callable[[int, int], np.ndarray]] = None
+    stage_input: Optional[Callable[[Config], Callable]] = None
+    build_pipelined: Optional[Callable[[Config, Any, int], nn.Module]] = None
     pre_train_check: Optional[Callable[[Config, Any], None]] = None
     post_train: Optional[Callable[..., None]] = None
     remat_policies: tuple[str, ...] = REMAT_POLICIES
@@ -67,6 +93,19 @@ class WorkloadSpec:
 def config_dtype(config: Config) -> torch.dtype:
     """The compute dtype ``--dtype`` selects."""
     return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def cast_input(config: Config):
+    """Stage 0's input conversion for flat features: the compute dtype."""
+    dtype = config_dtype(config)
+    return lambda x: x.to(dtype)
+
+
+def nchw_input(config: Config):
+    """Stage 0's input conversion for NHWC images: the compute dtype and
+    the channels-last NCHW view the conv layers take."""
+    dtype = config_dtype(config)
+    return lambda x: x.to(dtype).permute(0, 3, 1, 2)
 
 
 def example_shape(dataset) -> tuple[int, ...]:
@@ -202,9 +241,6 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
     history; on ``-m data`` each rank's own, rank 0 logging).
     ``init_state_dict`` replaces the seeded initialisation (the tests pass
     the JAX package's init through it)."""
-    if config.mode not in (Mode.SEQUENTIAL, Mode.DATA):
-        raise NotImplementedError(f"-m {config.mode.value} is not ported "
-                                  f"yet: {ROADMAP_ITEMS[10]}")
     if (config.generate_tokens or config.serve) and spec.post_train is None:
         flag = "--generate" if config.generate_tokens else "--serve"
         raise ValueError(f"{flag} is not supported by workload "
@@ -233,6 +269,16 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         # f32 means f32: cuDNN's convolutions and LSTM take TF32 unless told
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    if config.mode in (Mode.MODEL, Mode.PIPELINE):
+        world = bootstrap.env_topology()[1]
+        if config.world_size > 1 or world > 1:
+            raise NotImplementedError(
+                f"-m {config.mode.value} runs its stages from one process "
+                f"(no data axis); a multi-rank launch needs the mesh: "
+                f"{ROADMAP_ITEMS[11]}")
+        if config.mode is Mode.PIPELINE and spec.build_pipelined is not None:
+            return _run_spmd_pipelined(spec, config, init_state_dict)
+        return _run_staged(spec, config, init_state_dict)
     if config.mode is Mode.SEQUENTIAL:
         return _train(spec, config, bootstrap.DistEnv(
             device=resolve_device(config.device)), init_state_dict)
@@ -258,16 +304,29 @@ def build_dataset(spec: WorkloadSpec, config: Config):
     return spec.build_dataset(config)
 
 
-def _train(spec, config, env, init_state_dict):
-    device = env.device
-    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
+def _dataset_splits(spec, config):
+    """The dataset (checked by ``pre_train_check``) and its split."""
     dataset = build_dataset(spec, config)
     if spec.pre_train_check is not None:
         spec.pre_train_check(config, dataset)
     # DDL_DATA_LIMIT caps the examples considered (CI / smoke runs)
     limit = int(os.environ.get("DDL_DATA_LIMIT", "0"))
     n = min(len(dataset), limit) if limit else len(dataset)
-    splits = train_val_test_split(n, seed=config.seed)
+    return dataset, train_val_test_split(n, seed=config.seed)
+
+
+def _optimizer(spec, config, splits) -> Optimizer:
+    epoch_steps = max(1, len(splits.train) // config.batch_size)
+    tx = build_optimizer(spec, config, epoch_steps)
+    if config.clip_norm:
+        tx = dataclasses.replace(tx, clip_norm=config.clip_norm)
+    return tx
+
+
+def _train(spec, config, env, init_state_dict):
+    device = env.device
+    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
+    dataset, splits = _dataset_splits(spec, config)
     data_parallel = config.mode is Mode.DATA
     if data_parallel and not config.sync_in_local_data_mode:
         # reference quirk Q1: the ranks train independent replicas, each
@@ -279,10 +338,7 @@ def _train(spec, config, env, init_state_dict):
             name: shard_indices(getattr(splits, name), shards, env.rank)
             for name in ("train", "val", "test")})
         data_parallel = False
-    epoch_steps = max(1, len(splits.train) // config.batch_size)
-    tx = build_optimizer(spec, config, epoch_steps)
-    if config.clip_norm:
-        tx = dataclasses.replace(tx, clip_norm=config.clip_norm)
+    tx = _optimizer(spec, config, splits)
     world = env.world if data_parallel else 1
     loaders = make_loaders(dataset, splits, config.batch_size, device,
                            seed=config.seed,
@@ -319,6 +375,311 @@ def _train(spec, config, env, init_state_dict):
                          resume_batch=resume_batch,
                          resume_totals=resume_totals)
     # every rank runs the hook, as in the JAX package; rank 0 logs
+    if (config.generate_tokens or config.serve) and \
+            spec.post_train is not None:
+        spec.post_train(config, state, logger, dataset)
+    return state, history
+
+
+# ---------------------------------------------------------------------------
+# MP / PP: staged training (MPMD)
+# ---------------------------------------------------------------------------
+
+def _devices(config: Config) -> list[torch.device]:
+    """``-d cpu``: the CPU; else every visible card (raises without
+    one)."""
+    device = resolve_device(config.device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@dataclasses.dataclass
+class StagedState:
+    """Staged training's state: the staged model and one
+    :class:`..train.state.TrainState` a stage (its module, its optimizer
+    and its own update count), as the JAX package keeps one optimizer
+    state a stage; ``step`` counts train steps."""
+
+    model: StagedModel
+    stages: list[TrainState]
+    step: int = 0
+
+
+class StagedTrainer:
+    """Trains a :class:`StagedModel` with stage ``i`` on ``devices[i]``:
+    the forward walks the stages through its :class:`MPMDPipeline` (in
+    ``microbatch_size`` chunks, the ragged last one kept, the outputs
+    concatenated; BatchNorm statistics advance once a chunk, in chunk
+    order), the loss is taken on the last stage's device, autograd runs
+    the backward across the ``.to(device)`` boundaries, and each stage's
+    optimizer updates its own parameters.  So ``--clip-norm`` clips each
+    stage's gradients by that stage's norm, as in the JAX package."""
+
+    def __init__(self, staged: StagedModel, devices, loss_fn, tx: Optimizer,
+                 microbatch_size: int | None = None):
+        self.pipeline = MPMDPipeline(staged, devices, microbatch_size)
+        self.staged, self.devices = staged, self.pipeline.devices
+        self.loss_fn, self.tx = loss_fn, tx
+
+    def init(self, seed: int, init_state_dict: dict | None = None
+             ) -> StagedState:
+        """Initialise from ``seed`` (the sequential model's draws) or load
+        ``init_state_dict``, place the stages and build their optimizers."""
+        self.staged.reset_parameters(torch.Generator().manual_seed(seed))
+        if init_state_dict is not None:
+            self.staged.load_state_dict(init_state_dict)
+        stages = []
+        for stage in self.pipeline.place().stages:
+            stages.append(TrainState(
+                model=stage, tx=self.tx,
+                optimizer=self.tx.build(stage.named_parameters(),
+                                        layout=_stage_layout(stage))))
+        return StagedState(model=self.staged, stages=stages)
+
+    def forward(self, x, train: bool = False):
+        """Microbatched (pipeline) or whole-batch (model) staged forward."""
+        return self.pipeline.pipelined_forward(x, train)
+
+    def train_step(self, state: StagedState, x, y):
+        for st in state.stages:
+            st.optimizer.zero_grad(set_to_none=True)
+        y = y.to(self.devices[-1])
+        pred = self.forward(x, train=True)
+        loss = self.loss_fn(pred, y)
+        loss.backward()
+        for st in state.stages:
+            st.apply_gradients()
+        state.step += 1
+        return state, prediction_metrics(pred.detach(), y, loss.detach())
+
+    @torch.no_grad()
+    def eval_step(self, state: StagedState, x, y):
+        y = y.to(self.devices[-1])
+        pred = self.forward(x, train=False)
+        return prediction_metrics(pred, y, self.loss_fn(pred, y))
+
+
+def _stage_layout(stage):
+    """Adafactor's flax layouts for a stage holding transformer blocks
+    (``models.transformer.flax_layout``), else None."""
+    from distributed_deep_learning_tpu_torch.models.transformer import (
+        TransformerLayer, flax_layout)
+
+    blocks = [m for m in stage.modules() if isinstance(m, TransformerLayer)]
+    if not blocks:
+        return None
+    head_dim = blocks[0].self_attn.head_dim
+    return lambda name: flax_layout(name, head_dim)
+
+
+def _mpmd_refusals(config: Config) -> list[str]:
+    """The JAX package's staged-MPMD refusals that the port's CLI parses
+    (the others name their own ROADMAP items at parse time)."""
+    return [flag for cond, flag in (
+        (config.checkpoint_dir, "--checkpoint-dir"),
+        (config.resume, "--resume"),
+        (config.grad_accum > 1, "--grad-accum"),
+        (config.remat, "--remat"),
+        (config.dropout > 0, "--dropout")) if cond]
+
+
+def staged_setup(spec: WorkloadSpec, config: Config, logger,
+                 init_state_dict=None):
+    """``(trainer, state, dataset, loaders)`` of a staged run: the
+    workload's layer list partitioned into ``--nstages`` stages (default:
+    one a device, at most one a layer), stage ``i`` on device ``i mod
+    n``, initialised from ``--seed`` or ``init_state_dict``."""
+    bad = _mpmd_refusals(config)
+    if bad:
+        raise ValueError(
+            f"staged MPMD mode {config.mode.value!r} does not support "
+            f"{', '.join(bad)}; use -m data (or -m pipeline for workloads "
+            "with an SPMD pipeline, which supports checkpointing and remat)")
+    devices = _devices(config)
+    dataset, splits = _dataset_splits(spec, config)
+    tx = _optimizer(spec, config, splits)
+    layers = list(spec.build_layers(config, dataset))
+    n_stages = config.num_stages or min(len(devices), len(layers))
+    assignment = validate_assignment(
+        spec.partitioner(len(layers), n_stages), n_stages)
+    staged = StagedModel.from_layers(
+        layers, assignment, n_stages,
+        spec.stage_input(config) if spec.stage_input else None)
+    stage_devices = [devices[i % len(devices)] for i in range(n_stages)]
+    microbatch = config.microbatch if config.mode is Mode.PIPELINE else None
+    trainer = StagedTrainer(staged, stage_devices, spec.build_loss(config),
+                            tx, microbatch_size=microbatch)
+    logger.info(f"staged {config.mode.value}: {n_stages} stages of "
+                f"{[len(s.layers) for s in staged.stages]} layers on "
+                f"{', '.join(map(str, stage_devices))}")
+    state = trainer.init(config.seed, init_state_dict)
+    loaders = make_loaders(dataset, splits, config.batch_size,
+                           stage_devices[0], seed=config.seed)
+    return trainer, state, dataset, loaders
+
+
+def _run_staged(spec: WorkloadSpec, config: Config, init_state_dict):
+    """``-m model`` and, for the workloads without a pipelined LM, ``-m
+    pipeline``: the layer list staged over the devices."""
+    logger = PhaseLogger(verbose=True)
+    trainer, state, dataset, loaders = staged_setup(spec, config, logger,
+                                                    init_state_dict)
+    state, history = fit(state, trainer.train_step, trainer.eval_step,
+                         *loaders, epochs=config.epochs, logger=logger)
+    if (config.generate_tokens or config.serve) and \
+            spec.post_train is not None:
+        spec.post_train(config, state, logger, dataset)
+    return state, history
+
+
+# ---------------------------------------------------------------------------
+# -m pipeline for the LMs: the stacked trunk under a schedule
+# ---------------------------------------------------------------------------
+
+def _make_1f1b_train_step(model, loss_fn, microbatch: int | None,
+                          interleaved: bool = False):
+    """Train step of a ``models.pipelined_lm.PipelinedLM`` under the 1F1B
+    schedule (``parallel.spmd_pipeline.spmd_pipeline_1f1b``) or its
+    interleaved variant: the embedding runs outside the pipeline, its
+    backward fed by the pipeline's ``dx``; the head and the loss run on
+    the last stage inside it.  The loss is the sum of the microbatch means
+    over their count; correct and count are summed."""
+    from torch.func import functional_call
+
+    from distributed_deep_learning_tpu_torch.parallel.spmd_pipeline import (
+        spmd_pipeline_1f1b, spmd_pipeline_interleaved)
+
+    pipeline = spmd_pipeline_interleaved if interleaved \
+        else spmd_pipeline_1f1b
+
+    def head_loss(hp, h_mb, y_mb):
+        logits = functional_call(model.head, hp, (h_mb,))
+        loss = loss_fn(logits, y_mb)
+        return loss, prediction_metrics(logits.detach(), y_mb,
+                                        loss.detach())
+
+    def train_step(state: TrainState, x, y):
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        h = model.embed(x)
+        loss, tg, hg, dh, aux = pipeline(
+            model.trunk.stage_fn, head_loss, model.trunk.stacked(),
+            dict(model.head.named_parameters()), h.detach(), y,
+            microbatch_size=microbatch, has_aux=True,
+            seed=model.dropout_seed(state.generator))
+        h.backward(dh.to(h.dtype))
+        for k, p in model.trunk.stacked().items():
+            p.grad = tg[k].to(p.dtype)
+        for k, p in model.head.named_parameters():
+            p.grad = hg[k].to(p.dtype)
+        state.apply_gradients()
+        return state, {"loss": loss, "correct": aux["correct"],
+                       "count": aux["count"]}
+
+    return train_step
+
+
+def pipeline_stages(config: Config, n_devices: int) -> int:
+    """``--nstages``, or JAX's default: the largest stage count dividing
+    both the trunk's depth and the device count."""
+    if config.num_stages:
+        return config.num_stages
+    return max((s for s in range(1, n_devices + 1)
+                if config.num_layers % s == 0 and n_devices % s == 0),
+               default=1)
+
+
+def snap_microbatch(batch: int, microbatch: int | None) -> int:
+    """JAX's snapping at ``dp = 1``: ``-p`` when it divides the batch,
+    else the nearest divisor (the smaller on a tie)."""
+    mb = microbatch or 1
+    if batch % mb == 0:
+        return mb
+    valid = [d for d in range(1, batch + 1) if batch % d == 0]
+    return min(valid, key=lambda d: (abs(d - mb), d))
+
+
+def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
+                     init_state_dict=None):
+    """``(config, state, train_step, eval_step, dataset, loaders)`` of a
+    ``-m pipeline`` run of a pipelined LM: one process walks the
+    schedule's ticks, every stage on the one device (``dp = 1``), the
+    trunk's parameters stacked in JAX's layout (one optimizer over the
+    whole model, so ``--clip-norm`` is global); ``config`` carries the
+    snapped ``-p``."""
+    if config.pipeline_schedule == "interleaved" and \
+            config.virtual_stages < 2:
+        raise ValueError(f"--pipeline-schedule interleaved needs "
+                         f"--virtual-stages >= 2 (got "
+                         f"{config.virtual_stages}); with one chunk per "
+                         "device use --pipeline-schedule 1f1b")
+    hand_scheduled = config.pipeline_schedule in ("1f1b", "interleaved")
+    if config.remat_policy != "nothing" and hand_scheduled:
+        raise ValueError("--remat-policy has no effect under "
+                         "--pipeline-schedule 1f1b/interleaved")
+    if config.grad_accum > 1:
+        raise ValueError("--grad-accum: -m pipeline takes no gradient "
+                         "accumulation (its microbatches are the "
+                         "accumulation; the JAX package's pipeline ignores "
+                         "the flag); use -p to size them")
+    device = resolve_device(config.device)
+    n_stages = pipeline_stages(config, len(_devices(config)))
+    logger.info(f"SPMD pipeline: {n_stages} stages x 1-way data parallel "
+                f"({config.pipeline_schedule}, every stage on {device})")
+    if hand_scheduled and config.remat:
+        logger.info("--remat: the 1f1b/interleaved backward recomputes "
+                    "each stage already")
+    snapped = snap_microbatch(config.batch_size, config.microbatch)
+    if snapped != (config.microbatch or 1):
+        logger.info(f"microbatch {config.microbatch} incompatible with "
+                    f"batch {config.batch_size} / dp 1; using {snapped}")
+    config = config.replace(microbatch=snapped)
+    dataset, splits = _dataset_splits(spec, config)
+    tx = _optimizer(spec, config, splits)
+    model = spec.build_pipelined(config, dataset, n_stages)
+    model.reset_parameters(torch.Generator().manual_seed(config.seed))
+    if init_state_dict is not None:
+        model.load_state_dict(init_state_dict)
+    model.to(device)
+    # a CPU generator: each step draws its dropout seed without a sync
+    gen = torch.Generator().manual_seed(config.seed + 1) \
+        if config.dropout > 0 else None
+    state = TrainState(model=model, tx=tx, generator=gen,
+                       optimizer=tx.build(model.named_parameters(),
+                                          layout=model.flax_layout))
+    loss_fn = spec.build_loss(config)
+    train_step, eval_step = make_step_fns(
+        loss_fn, remat=config.remat and not hand_scheduled,
+        remat_policy=config.remat_policy)
+    if hand_scheduled:
+        train_step = _make_1f1b_train_step(
+            model, loss_fn, config.microbatch,
+            interleaved=config.pipeline_schedule == "interleaved")
+    loaders = make_loaders(dataset, splits, config.batch_size, device,
+                           seed=config.seed)
+    return config, state, train_step, eval_step, dataset, loaders
+
+
+def _run_spmd_pipelined(spec: WorkloadSpec, config: Config,
+                        init_state_dict):
+    """``-m pipeline`` for the workloads with a pipelined LM
+    (:func:`pipelined_setup`), with ``--checkpoint-dir``/``--resume``."""
+    logger = PhaseLogger(verbose=True)
+    config, state, train_step, eval_step, dataset, loaders = \
+        pipelined_setup(spec, config, logger, init_state_dict)
+    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
+        _maybe_checkpointer(config, 0, shared=False)
+    if ckpt is not None and ckpt_step is not None:
+        state, start_epoch, resume_batch, resume_totals = _restore_resume(
+            ckpt, state, ckpt_step, start_epoch, resume_batch, resume_totals,
+            logger)
+    state, history = fit(state, train_step, eval_step, *loaders,
+                         epochs=config.epochs, logger=logger,
+                         checkpointer=ckpt, start_epoch=start_epoch,
+                         checkpoint_every=config.checkpoint_every,
+                         resume_batch=resume_batch,
+                         resume_totals=resume_totals)
     if (config.generate_tokens or config.serve) and \
             spec.post_train is not None:
         spec.post_train(config, state, logger, dataset)

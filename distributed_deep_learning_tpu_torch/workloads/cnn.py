@@ -16,13 +16,18 @@ from __future__ import annotations
 
 from distributed_deep_learning_tpu_torch.data.datasets import synthetic_pcb
 from distributed_deep_learning_tpu_torch.data.pcb import PCBDataset
-from distributed_deep_learning_tpu_torch.models.densenet import DenseNet
+import torch
+
+from distributed_deep_learning_tpu_torch.models.densenet import (
+    DenseNet, densenet_layer_sequence)
+from distributed_deep_learning_tpu_torch.parallel.partition import \
+    block_partition
 from distributed_deep_learning_tpu_torch.train.state import \
     reference_optimizer
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
-    WorkloadSpec, config_dtype, example_shape, run_workload)
+    WorkloadSpec, config_dtype, example_shape, nchw_input, run_workload)
 from distributed_deep_learning_tpu_torch.workloads.mlp import \
     classifier_loss
 
@@ -57,11 +62,24 @@ def _model(config: Config, dataset) -> DenseNet:
                     image_size=(h, w))
 
 
+def _layers(config: Config, dataset):
+    h, w, c = example_shape(dataset)
+    return [layer.to(memory_format=torch.channels_last)
+            for layer in densenet_layer_sequence(
+                dense_blocks=config.num_layers, bn_size=config.size,
+                num_classes=_num_classes(dataset),
+                double_softmax=config.double_softmax, in_channels=c,
+                image_size=(h, w))]
+
+
 SPEC = WorkloadSpec(
     name="cnn",
     build_dataset=_dataset,
     build_model=_model,
     build_loss=classifier_loss,
+    build_layers=_layers,
+    partitioner=block_partition,   # reference CNN/model.py:196-201
+    stage_input=nchw_input,
     remat_policies=("nothing",),
     double_softmax=True,
     build_optimizer=lambda c, steps: reference_optimizer(

@@ -18,7 +18,10 @@ import os
 
 from distributed_deep_learning_tpu_torch.data.datasets import synthetic_pdm
 from distributed_deep_learning_tpu_torch.data.pdm import load_pdm
-from distributed_deep_learning_tpu_torch.models.cnn_lstm import CNNLSTM
+from distributed_deep_learning_tpu_torch.models.cnn_lstm import (
+    CNNLSTM, cnn_lstm_layer_sequence)
+from distributed_deep_learning_tpu_torch.parallel.partition import \
+    lstm_aware_partition
 from distributed_deep_learning_tpu_torch.train.objectives import (RowMean,
                                                                   l1_loss)
 from distributed_deep_learning_tpu_torch.train.state import \
@@ -26,7 +29,7 @@ from distributed_deep_learning_tpu_torch.train.state import \
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
-    WorkloadSpec, config_dtype, example_shape, run_workload)
+    WorkloadSpec, cast_input, config_dtype, example_shape, run_workload)
 
 NUM_TARGETS = 5
 
@@ -48,11 +51,21 @@ def _model(config: Config, dataset) -> CNNLSTM:
                    num_features=features, dtype=config_dtype(config))
 
 
+def _layers(config: Config, dataset):
+    history, features = example_shape(dataset)
+    return cnn_lstm_layer_sequence(config.num_layers, config.size,
+                                   NUM_TARGETS, history=history,
+                                   num_features=features)
+
+
 SPEC = WorkloadSpec(
     name="lstm",
     build_dataset=_dataset,
     build_model=_model,
     build_loss=lambda c: RowMean(l1_loss),
+    build_layers=_layers,
+    partitioner=lstm_aware_partition,   # reference LSTM/model.py:98-124
+    stage_input=cast_input,
     remat_policies=("nothing",),
     build_optimizer=lambda c, steps: reference_optimizer("lstm",
                                                          c.learning_rate),

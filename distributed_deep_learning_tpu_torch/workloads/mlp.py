@@ -16,7 +16,10 @@ import os
 
 from distributed_deep_learning_tpu_torch.data.datasets import synthetic_mqtt
 from distributed_deep_learning_tpu_torch.data.mqtt import load_mqtt
-from distributed_deep_learning_tpu_torch.models.mlp import MLP
+from distributed_deep_learning_tpu_torch.models.mlp import (
+    MLP, mlp_layer_sequence)
+from distributed_deep_learning_tpu_torch.parallel.partition import \
+    balanced_partition
 from distributed_deep_learning_tpu_torch.train.objectives import (
     RowMean, cross_entropy_loss)
 from distributed_deep_learning_tpu_torch.train.state import \
@@ -24,7 +27,7 @@ from distributed_deep_learning_tpu_torch.train.state import \
 from distributed_deep_learning_tpu_torch.utils.config import (Config,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
-    WorkloadSpec, config_dtype, example_shape, run_workload)
+    WorkloadSpec, cast_input, config_dtype, example_shape, run_workload)
 
 NUM_CLASSES = 5
 
@@ -45,6 +48,12 @@ def _model(config: Config, dataset) -> MLP:
                dtype=config_dtype(config))
 
 
+def _layers(config: Config, dataset):
+    return mlp_layer_sequence(example_shape(dataset)[-1], config.size,
+                              config.num_layers, NUM_CLASSES,
+                              config.double_softmax)
+
+
 def classifier_loss(config: Config) -> RowMean:
     """Softmax CE; under ``--double-softmax`` on the head's probabilities
     (quirk Q4: the same math)."""
@@ -59,6 +68,9 @@ SPEC = WorkloadSpec(
     build_dataset=_dataset,
     build_model=_model,
     build_loss=classifier_loss,
+    build_layers=_layers,
+    partitioner=balanced_partition,   # reference MLP/model.py:62-76
+    stage_input=cast_input,
     remat_policies=("nothing",),
     double_softmax=True,
     build_optimizer=lambda c, steps: reference_optimizer("mlp",

@@ -30,6 +30,16 @@ prompts and ``--serve`` serves a seeded trace through the slot engine
 (``--paged``: the paged engine, ``--draft N`` speculating with its first N
 layers), both on the trained weights at the run's ``--dtype``, the KV
 cache and weights stored as ``--kv-dtype`` and ``--weight-dtype`` say.
+
+``-m model`` stages each workload's layer list: ResNet's stem, blocks and
+head, and for the LMs an embedding, the blocks and a head attending
+densely, as the JAX package's lists do.  ``-m pipeline`` stages ResNet
+the same way and runs the LMs as :class:`..models.pipelined_lm.PipelinedLM`
+(``transformer``: a decoder-only causal LM over source⊕target read at
+the target positions; ``bert``: a bidirectional trunk with an untied
+head; ``gpt``: its options but the padding mask), whose trunk takes the
+flash kernels under ``--attention auto`` on ``cuda``.  After a staged
+run ``--generate`` and ``--serve`` are skipped with JAX's notice.
 """
 
 from __future__ import annotations
@@ -47,17 +57,24 @@ from distributed_deep_learning_tpu_torch.data.tokens import (lm_dataset,
                                                              load_tokens,
                                                              mlm_dataset,
                                                              seq2seq_dataset)
+from distributed_deep_learning_tpu_torch.models.pipelined_lm import (
+    LMEmbed, LMHead, PipelinedLM)
 from distributed_deep_learning_tpu_torch.models.resnet import (
-    BasicBlock, BottleneckBlock, ResNet)
+    BasicBlock, BottleneckBlock, ResNet, resnet_layer_sequence)
 from distributed_deep_learning_tpu_torch.models.transformer import (
     BertEncoder, CausalLM, Seq2SeqAdapter, TransformerSeq2Seq, generate)
 from distributed_deep_learning_tpu_torch.train.objectives import (
     RowMean, TokenCrossEntropy, cross_entropy_loss)
 from distributed_deep_learning_tpu_torch.train.state import Optimizer
-from distributed_deep_learning_tpu_torch.utils.config import (Config,
+from distributed_deep_learning_tpu_torch.parallel.partition import \
+    balanced_partition
+from distributed_deep_learning_tpu_torch.parallel.pipeline_transformer \
+    import TrunkBlock
+from distributed_deep_learning_tpu_torch.utils.config import (Config, Mode,
                                                               parse_args)
 from distributed_deep_learning_tpu_torch.workloads.base import (
-    WorkloadSpec, adamw, config_dtype, resolve_lr, run_workload)
+    WorkloadSpec, adamw, config_dtype, example_shape, nchw_input,
+    resolve_lr, run_workload)
 
 _RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 
@@ -103,11 +120,27 @@ def _resnet_model(config: Config, dataset) -> ResNet:
                   dtype=config_dtype(config))
 
 
+def _resnet_layers(config: Config, dataset):
+    if config.stem_s2d:
+        raise ValueError("--stem-s2d: the staged ResNet's stem has no "
+                         "space-to-depth form (the JAX package runs the 7x7 "
+                         "stem there); drop the flag or use -m data")
+    depth, num_classes, small = _resnet_geometry(config, dataset)
+    return resnet_layer_sequence(
+        stage_sizes=_RESNET_LAYERS[depth],
+        block_cls=BottleneckBlock if depth >= 50 else BasicBlock,
+        num_classes=num_classes, width=64, small_inputs=small,
+        in_channels=example_shape(dataset)[-1])
+
+
 RESNET_SPEC = WorkloadSpec(
     name="resnet",
     build_dataset=_resnet_dataset,
     build_model=_resnet_model,
     build_loss=lambda c: RowMean(cross_entropy_loss),
+    build_layers=_resnet_layers,
+    partitioner=balanced_partition,
+    stage_input=nchw_input,
     remat_policies=("nothing",),
     # optax.sgd(lr, momentum=0.9), lr 0.1 unless --lr moves it off 1e-3
     build_optimizer=lambda c, steps: Optimizer("momentum", resolve_lr(
@@ -133,6 +166,49 @@ def _attention_fn(config: Config) -> str:
 def _vocab(dataset) -> int:
     """Carried by file-based token datasets, 1024 for the synthetic twin."""
     return int(getattr(dataset, "vocab_size", 1024))
+
+
+def _n_chunks(config: Config) -> int:
+    """Chunks a stage of the interleaved schedule (1 for gpipe/1f1b)."""
+    return (config.virtual_stages
+            if config.pipeline_schedule == "interleaved" else 1)
+
+
+def _lm_geometry(config: Config, dataset):
+    """``(d_model, heads, mlp_dim, src_len, tgt_len)`` of the LM variants."""
+    d = config.size
+    tgt_len = dataset.targets.shape[1]
+    src_len = dataset.features.shape[1] - tgt_len
+    return d, max(2, d // 64), 4 * d, src_len, tgt_len
+
+
+def _pipelined(config: Config, dataset, n_stages: int, **kw) -> PipelinedLM:
+    d = config.size
+    return PipelinedLM(vocab_size=_vocab(dataset),
+                       num_layers=config.num_layers, d_model=d,
+                       num_heads=max(2, d // 64), mlp_dim=4 * d,
+                       n_stages=n_stages, microbatch_size=config.microbatch,
+                       dtype=config_dtype(config),
+                       attention=_attention_fn(config),
+                       dropout_rate=config.dropout,
+                       n_chunks=_n_chunks(config), **kw)
+
+
+def _lm_layers(config: Config, dataset, name: str, *, causal: bool,
+               take=None, max_len: int = 4096, **block_kw):
+    """``-m model``'s LM layer list of workload ``name``: embedding,
+    blocks attending densely (the JAX lists pass no attention function),
+    head."""
+    if config.attention == "flash":
+        raise ValueError(f"--attention flash: the staged layer list of "
+                         f"{name!r} attends densely, as the JAX package's "
+                         "does; use -m pipeline for the flash kernels")
+    d, heads, mlp, _, _ = _lm_geometry(config, dataset)
+    vocab = _vocab(dataset)
+    pos = "rope" if block_kw.get("rope") else "learned"
+    return [LMEmbed(vocab, d, max_len, config_dtype(config), pos)] + [
+        TrunkBlock(d, heads, mlp, causal=causal, **block_kw)
+        for _ in range(config.num_layers)] + [LMHead(d, vocab, take)]
 
 
 # --- transformer (WMT seq2seq) --------------------------------------------
@@ -162,11 +238,28 @@ def _transformer_model(config: Config, dataset) -> Seq2SeqAdapter:
     return Seq2SeqAdapter(inner, src_len)
 
 
+def _transformer_pipelined(config: Config, dataset, n_stages: int):
+    """A decoder-only causal LM over source⊕target, its head reading the
+    target positions (``take = (src_len - 1, tgt_len)``)."""
+    _, _, _, src_len, tgt_len = _lm_geometry(config, dataset)
+    return _pipelined(config, dataset, n_stages, causal=True,
+                      head_take=(src_len - 1, tgt_len))
+
+
+def _transformer_layers(config: Config, dataset):
+    _, _, _, src_len, tgt_len = _lm_geometry(config, dataset)
+    return _lm_layers(config, dataset, "transformer", causal=True,
+                      take=(src_len - 1, tgt_len))
+
+
 TRANSFORMER_SPEC = WorkloadSpec(
     name="transformer",
     build_dataset=_wmt_dataset,
     build_model=_transformer_model,
     build_loss=_token_ce_loss,
+    build_layers=_transformer_layers,
+    partitioner=balanced_partition,
+    build_pipelined=_transformer_pipelined,
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
 )
@@ -197,11 +290,24 @@ def _bert_model(config: Config, dataset) -> BertEncoder:
                        dtype=config_dtype(config))
 
 
+def _bert_pipelined(config: Config, dataset, n_stages: int) -> PipelinedLM:
+    """A bidirectional trunk and an untied MLM head (the full
+    ``BertEncoder``'s tied head stays in ``-m sequential|data``)."""
+    return _pipelined(config, dataset, n_stages, causal=False)
+
+
+def _bert_layers(config: Config, dataset):
+    return _lm_layers(config, dataset, "bert", causal=False)
+
+
 BERT_SPEC = WorkloadSpec(
     name="bert",
     build_dataset=_mlm_dataset,
     build_model=_bert_model,
     build_loss=_token_ce_loss,
+    build_layers=_bert_layers,
+    partitioner=balanced_partition,
+    build_pipelined=_bert_pipelined,
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
 )
@@ -228,14 +334,33 @@ def _gpt_model(config: Config, dataset) -> CausalLM:
                     dropout_rate=config.dropout, dtype=config_dtype(config))
 
 
+def _gpt_layers(config: Config, dataset):
+    """``-m model``: embedding, causal blocks, a head at every position."""
+    return _lm_layers(config, dataset, "gpt", causal=True,
+                      max_len=max(dataset.features.shape[1], 8),
+                      rope=config.pos_embedding == "rope",
+                      window=config.attention_window,
+                      num_kv_heads=config.num_kv_heads)
+
+
+def _gpt_pipelined(config: Config, dataset, n_stages: int) -> PipelinedLM:
+    return _pipelined(config, dataset, n_stages, causal=True,
+                      max_len=max(dataset.features.shape[1], 4096),
+                      pos_embedding=config.pos_embedding,
+                      attention_window=config.attention_window,
+                      num_kv_heads=config.num_kv_heads)
+
+
 #: prompt length _gpt_generate slices from the dataset (rows 0-1)
 _GENERATE_PROMPT_LEN = 8
 
 
 def _gpt_pre_check(config: Config, dataset) -> None:
     """Reject an impossible ``--generate N`` before training: generate()
-    checks prompt + N <= max_len itself, but only after training."""
-    if not config.generate_tokens:
+    checks prompt + N <= max_len itself, but only after training.  The
+    staged modes are exempt: :func:`_gpt_post` skips generation there."""
+    if not config.generate_tokens or config.mode in (Mode.MODEL,
+                                                     Mode.PIPELINE):
         return
     max_len = max(dataset.features.shape[1], 8)  # mirrors _gpt_model
     prompt = min(_GENERATE_PROMPT_LEN, dataset.features.shape[1])
@@ -355,6 +480,16 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
 
 
 def _gpt_post(config: Config, state, logger, dataset) -> None:
+    if config.mode in (Mode.MODEL, Mode.PIPELINE):
+        # staged states hold per-stage or pipelined parameters, not the
+        # CausalLM's: a notice after a finished run, as in JAX
+        if config.generate_tokens:
+            logger.info("generate skipped: --generate needs the whole-model "
+                        "parameter tree (-m data or sequential)")
+        if config.serve:
+            logger.info("serve skipped: --serve needs the whole-model "
+                        "parameter tree (-m data or sequential)")
+        return
     if config.generate_tokens:
         _gpt_generate(config, state, logger, dataset)
     if config.serve:
@@ -366,6 +501,9 @@ GPT_SPEC = WorkloadSpec(
     build_dataset=_gpt_dataset,
     build_model=_gpt_model,
     build_loss=_token_ce_loss,
+    build_layers=_gpt_layers,
+    partitioner=balanced_partition,
+    build_pipelined=_gpt_pipelined,
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
     pre_train_check=_gpt_pre_check,

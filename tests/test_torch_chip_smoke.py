@@ -187,7 +187,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               20: "phase_window", 15: "phase_cli_spec_quant",
               21: "phase_workloads", 22: "phase_workload_variants",
               23: "phase_workload_checkpoint", 24: "phase_resnet",
-              25: "phase_zoo_lm", 26: "phase_zoo_lm"}
+              25: "phase_zoo_lm", 26: "phase_zoo_lm", 27: "phase_staged",
+              28: "phase_pipeline", 29: "phase_pipeline_zoo"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -220,11 +221,13 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_fused_head", {}), ("phase_optimizers", {}),
             ("phase_workloads", {}), ("phase_workload_variants", {}),
             ("phase_workload_checkpoint", None), ("phase_resnet", {}),
-            ("phase_zoo_lm", {"flash": {"launches": {}}})):
+            ("phase_zoo_lm", {"flash": {"launches": {}}}),
+            ("phase_staged", {}), ("phase_pipeline", ({}, {})),
+            ("phase_pipeline_zoo", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 27)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 30)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -359,3 +362,108 @@ def test_zoo_launch_check_holds_and_fails_a_dense_cross_attention(
     got, want = _zoo_launches(monkeypatch, tmp_path, planted=True)
     with pytest.raises(RuntimeError, match="flash kernels"):
         chip_smoke.check_launches("planted", got, want)
+
+
+@pytest.mark.parametrize("workload", ["resnet", "mnist"])
+def test_layer_keyed_maps_the_sequential_model_onto_the_stages(workload):
+    """Phase 27's mapping: the sequential model's state dict, keyed by
+    ``layer_state_dict`` and split by ``from_sequential``, holds exactly the
+    staged model's keys, and a staged model made from the same seed holds
+    the same tensors (so the phase's ``-m model`` vs ``-m sequential``
+    comparison starts from one set of weights)."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.parallel.staging import (
+        StagedModel, layer_state_dict)
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+
+    cfg = parse_args([*chip_smoke.STAGED_WORKLOADS[workload], "-d", "cpu"],
+                     workload=workload)
+    spec = get_spec(workload)
+    dataset = spec.build_dataset(cfg)
+    seq = spec.build_model(cfg, dataset)
+    seq.reset_parameters(torch.Generator().manual_seed(0))
+    layers = spec.build_layers(cfg, dataset)
+    staged = StagedModel.from_layers(layers, spec.partitioner(len(layers),
+                                                              2), 2)
+    staged.reset_parameters(torch.Generator().manual_seed(0))
+    mapped = staged.from_sequential(layer_state_dict(seq))
+    assert set(mapped) == set(staged.state_dict())
+    for k, v in staged.state_dict().items():
+        torch.testing.assert_close(mapped[k], v, rtol=0, atol=0, msg=k)
+
+
+def test_pipeline_gradient_gap_finds_a_dropped_microbatch():
+    """Phase 28's gradient agreement on the CPU at a small width: gpipe's
+    and interleaved's trunk gradients, per layer in the model's order
+    (``_global_layers``), lie within ``PIPE_GRAD_TOL``; the interleaved
+    step with the last microbatch's trunk gradient left out lies beyond
+    it."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.pipelined_lm import \
+        PipelinedLM
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+    from distributed_deep_learning_tpu_torch.train.state import (Optimizer,
+                                                                 TrainState)
+    from distributed_deep_learning_tpu_torch.train.step import make_step_fns
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        _make_1f1b_train_step
+
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(1, 50, (4, 12), generator=g)
+    targets = torch.randint(1, 50, (4, 12), generator=g)
+
+    def grads(n_chunks, drop_last=False):
+        model = PipelinedLM(vocab_size=50, num_layers=4, d_model=32,
+                            num_heads=4, mlp_dim=64, n_stages=2,
+                            microbatch_size=1, n_chunks=n_chunks,
+                            max_len=12, causal=True)
+        model.reset_parameters(torch.Generator().manual_seed(1))
+        tx = Optimizer("sgd", 0.0)
+        state = TrainState(model=model, tx=tx,
+                           optimizer=tx.build(model.named_parameters()))
+        if n_chunks == 1:
+            step = make_step_fns(TokenCrossEntropy())[0]
+        else:
+            step = _make_1f1b_train_step(model, TokenCrossEntropy(), 1,
+                                         interleaved=True)
+        if drop_last:
+            chip_smoke.drop_last_microbatch(model, 4)
+        step(state, tokens, targets)
+        return chip_smoke._global_layers(model.trunk, {
+            k: p.grad.clone() for k, p in model.trunk.stacked().items()})
+
+    want = grads(1)
+    assert chip_smoke._max_gap(grads(2), want) <= chip_smoke.PIPE_GRAD_TOL
+    assert chip_smoke._max_gap(grads(2, drop_last=True), want) > \
+        chip_smoke.PIPE_GRAD_TOL
+
+
+def test_dense_walk_holds_the_flash_trunk_and_restores_it():
+    """Phase 28's independent reference on the CPU: the unpipelined walk
+    of a flash-attention ``PipelinedLM`` with its trunk switched to dense
+    attention gives the flash walk's loss within phases 25-26's limit,
+    and the trunk attends by flash again afterwards."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.pipelined_lm import \
+        PipelinedLM
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(1, 50, (4, 12), generator=g)
+    targets = torch.randint(1, 50, (4, 12), generator=g)
+    model = PipelinedLM(vocab_size=50, num_layers=4, d_model=32, num_heads=4,
+                        mlp_dim=64, n_stages=2, microbatch_size=1,
+                        max_len=12, causal=True, attention="flash")
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        flash = TokenCrossEntropy()(model.eval().apply_sequential(tokens),
+                                    targets).item()
+    dense = chip_smoke.dense_walk(model, tokens, targets)
+    assert abs(dense - flash) <= chip_smoke.FIRST_LOSS_TOL * abs(flash)
+    assert {b.attention for b in model.trunk.stage.blocks} == {"flash"}

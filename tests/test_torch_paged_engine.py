@@ -240,9 +240,17 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch.models.resnet\n"
             "import distributed_deep_learning_tpu_torch.data.packed\n"
             "import distributed_deep_learning_tpu_torch.data.imagefolder\n"
+            "import distributed_deep_learning_tpu_torch.parallel.partition\n"
+            "import distributed_deep_learning_tpu_torch.parallel.staging\n"
+            "import distributed_deep_learning_tpu_torch.parallel.mpmd\n"
+            "import distributed_deep_learning_tpu_torch.parallel."
+            "spmd_pipeline\n"
+            "import distributed_deep_learning_tpu_torch.parallel."
+            "pipeline_transformer\n"
+            "import distributed_deep_learning_tpu_torch.models.pipelined_lm\n"
             "from distributed_deep_learning_tpu_torch.workloads import "
             "get_spec\n"
-            "for w in ('resnet', 'transformer', 'bert'):\n"
+            "for w in ('resnet', 'transformer', 'bert', 'gpt'):\n"
             "    get_spec(w)\n"
             "distributed_deep_learning_tpu_torch.native.get_lib()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

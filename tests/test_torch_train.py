@@ -238,14 +238,16 @@ def test_cli_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["-m", "model"], "item 10"), (["-m", "pipeline"], "item 10"),
-    (["--publish-weights", "p"], "item 13"), (["--nstages", "2"], "item 10"),
+    (["--target-mesh", "data=2"], "item 14"), (["--canary-slots", "2"],
+                                                "item 13"),
+    (["--publish-weights", "p"], "item 13"), (["--heartbeat-timeout", "5"],
+                                              "item 12"),
     (["--heartbeat-dir", "d"], "item 12"), (["--zero", "1"], "item 11"),
     (["--mesh", "data=2"], "item 11"), (["--comm", "int8"], "item 11"),
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
     (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
     (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
-    (["--virtual-stages", "2"], "item 10"), (["--obs-file", "f"], "item 14"),
+    (["--plan", "p.json"], "item 14"), (["--obs-file", "f"], "item 14"),
     (["--reload-watch", "d"], "item 13"), (["--sentinel-window", "5"],
                                            "item 12"),
     (["--disagg"], "item 13"), (["--replicas", "2"], "item 13"),
