@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 21,22,23  # the reference's workloads
     python3 chip_smoke.py --phases 1,7,24,25,26  # the north-star zoo
     python3 chip_smoke.py --phases 1,7,27,28,29  # model and pipeline modes
+    python3 chip_smoke.py --phases 1,2,7,30  # moe
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -49,12 +50,14 @@ Phases, in order; any failure raises and exits non-zero:
    the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
    f32 and bf16, plus padding with a fully padded row, GQA, a sliding
    window, a ragged T, a non-causal cross shape and head dims 16, 32 and
-   128 in both dtypes (B 1, H 2, T 512), and the shapes phases 25-26 drive,
-   each timed against SDPA: the training shape non-causal in bf16,
-   BERT-base's (B 8, H 12, T 512, non-causal, padded keys with a fully
-   padded row), the seq2seq cross-attention's (B 8, H 8, Tq 256, Tk 255,
-   non-causal, padded source) and the synthetic twins' T 32 (B 4, H 8,
-   causal and non-causal, padded), each in f32 and bf16; median times of
+   128 in both dtypes (B 1, H 2, T 512), and the shapes phases 25, 26 and
+   30 drive, each timed against SDPA: the training shape non-causal in
+   bf16, BERT-base's (B 8, H 12, T 512, non-causal, padded keys with a
+   fully padded row), the seq2seq cross-attention's (B 8, H 8, Tq 256, Tk
+   255, non-causal, padded source), the synthetic twins' T 32 (B 4, H 8,
+   causal and non-causal, padded) and moe's (H 4, non-causal: the MLM
+   twin's B 32, T 64, no pads; the BERT rows' B 8, T 512, padded keys with
+   a fully padded row), each in f32 and bf16; median times of
    each kernel, its
    plain version and ``scaled_dot_product_attention`` (forward, and
    forward plus backward: a yardstick the port never calls) beside the
@@ -220,14 +223,35 @@ Phases, in order; any failure raises and exits non-zero:
     2``) on phases 25-26's rows: finite losses, the flash kernels'
     launches exact (L·M forwards a step; non-causal for BERT, no key
     mask: the trunk attends pads, as JAX's); ``gpt -m model --nstages 2``
-    on phase 8's rows: dense attention, as in JAX, no launch.
+    on phase 8's rows: dense attention, as in JAX, no launch;
+30. ``moe`` (the GShard top-2 MoELM at the CLI default: 4 layers, 1 and
+    3 routed over 8 experts, d 256, 4 heads, MLP 1024) through the CLI,
+    1 epoch, on (a) the synthetic MLM twin at ``-b 32`` (T 64: 2048
+    tokens a step, capacity 512) and (b) phase 26's 96 BERT rows of 512
+    ids at ``-b 8`` (4096 tokens, capacity 1024; ragged pad tails), each
+    in f32 and bf16: the flash kernels' launches exact (4 forwards a step,
+    4 dQ and 4 dK/dV a train step); the first step's forward on the card
+    from the run's seeded init: its task loss equals the logged first
+    loss (1e-6: the load-balance term, which must be finite and positive,
+    is added to the objective only), each routed layer's dropped share,
+    the ``(G, E, C)`` dispatch shape and one gating call's peak memory;
+    the f32 first loss within 1e-4 of the CPU's, bf16's within 2e-2 of
+    f32's, and ``-m data`` at world 1 within 1e-6 of ``-m sequential``;
+    step time, tokens/s, peak and a profiler window's idle share (the
+    ``-m data`` run's window through ``DistributedDataParallel``).
 
-Phases 8-12, 16, 17, 21, 22 and 24-29 print step time, throughput and
-peak memory; phases 21, 24-26 and 28 a profiler window's kernel time and
-idle share, 24-26 also the flash kernels' time and the step's operations
-against the bf16 tensor-core rate (``step_operations``).  The line before
-the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
-"device": {...}}``.  Nothing here imports JAX.
+Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
+workload each (``cnn``; ResNet-50 from the packed cache): the train
+loader unwrapped (the runner's default) and two batches deep, in turns,
+with the step time and the idle share while the loader forms the
+batches.
+
+Phases 8-12, 16, 17, 21, 22 and 24-30 print step time, throughput and
+peak memory; phases 21, 24-26, 28 and 30 a profiler window's kernel time
+and idle share, 24-26 and 30 also the flash kernels' time and the step's
+operations against the bf16 tensor-core rate (``step_operations``).  The
+line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -981,10 +1005,12 @@ def phase_slot_engine(rec):
 
 #: the training path's attention shape: 4 rows of 2048 tokens, 12 heads of 64
 TRAIN_SHAPE = dict(B=4, H=12, Hkv=12, Tq=2048, Tk=2048, D=64)
-#: the shapes phases 25-26 drive, each timed against SDPA: BERT-base's
-#: (padded keys, a fully padded row), the seq2seq cross-attention's (Tk =
-#: Tq - 1, as an odd tokens.npy row gives it) and the synthetic twins'
-#: T 32, each in f32 and bf16
+#: the shapes phases 25-26 and 30 drive, each timed against SDPA:
+#: BERT-base's (padded keys, a fully padded row), the seq2seq
+#: cross-attention's (Tk = Tq - 1, as an odd tokens.npy row gives it), the
+#: synthetic twins' T 32, and moe's 4 heads of 64 on the MLM twin (b 32 of
+#: 64 ids, no pads) and on the BERT rows (b 8 of 512, ragged pad tails),
+#: each in f32 and bf16
 ZOO_FLASH_CASES = [
     ("noncausal_bf16", {"causal": False, "dtype": "bf16"}),
     *((f"bert_shape_{dt}", {"B": 8, "H": 12, "Hkv": 12, "Tq": 512,
@@ -997,6 +1023,12 @@ ZOO_FLASH_CASES = [
                                   "Tk": 32, "causal": kind == "causal",
                                   "pad": 10, "dtype": dt})
       for kind in ("causal", "noncausal") for dt in ("f32", "bf16")),
+    *((f"moe_mlm_{dt}", {"B": 32, "H": 4, "Hkv": 4, "Tq": 64, "Tk": 64,
+                         "causal": False, "dtype": dt})
+      for dt in ("f32", "bf16")),
+    *((f"moe_bert_rows_{dt}", {"B": 8, "H": 4, "Hkv": 4, "Tq": 512,
+                               "Tk": 512, "causal": False, "pad": 300,
+                               "dtype": dt}) for dt in ("f32", "bf16")),
 ]
 ZOO_NAMES = {name for name, _ in ZOO_FLASH_CASES}
 FLASH_CASES = [
@@ -2341,11 +2373,15 @@ FIRST_LOSS_TOL, BF16_FIRST_LOSS_TOL, DATA_FIRST_LOSS_TOL = 1e-4, 2e-2, 1e-6
 RESTORE_TOL = 1e-6
 
 
-def _step_setup(workload: str, argv, device: str):
+def _step_setup(workload: str, argv, device: str, prefetch: int = 0,
+                data: bool = False):
     """``(state, train_step, train_loader)`` of ``workload`` under ``argv``
     on ``device``, built as the CLI builds its run: the same dataset,
     split (``DDL_DATA_LIMIT`` honoured as the runner honours it), seeded
-    initialisation and recipe; the loader set to epoch 1."""
+    initialisation and recipe; the loader set to epoch 1, ``prefetch``
+    batches deep (``make_loaders``'s).  ``data``: the ``-m data`` step of
+    one rank, the model wrapped as the runner wraps it (the default
+    process group must exist)."""
     import os
 
     from distributed_deep_learning_tpu_torch.data.loader import make_loaders
@@ -2366,12 +2402,26 @@ def _step_setup(workload: str, argv, device: str):
     splits = train_val_test_split(
         min(len(dataset), limit) if limit else len(dataset), seed=cfg.seed)
     train, _, _ = make_loaders(dataset, splits, cfg.batch_size, device,
-                               seed=cfg.seed)
+                               seed=cfg.seed, prefetch=prefetch)
     epoch_steps = max(1, len(splits.train) // cfg.batch_size)
     state = create_train_state(spec.build_model(cfg, dataset), cfg.seed,
                                build_optimizer(spec, cfg, epoch_steps),
                                device=device)
-    step, _ = make_step_fns(spec.build_loss(cfg))
+    ddp = None
+    if data:
+        import torch
+        from torch.nn.parallel import DistributedDataParallel
+
+        from distributed_deep_learning_tpu_torch.models.densenet import \
+            global_batch_statistics
+        from distributed_deep_learning_tpu_torch.models.moe import \
+            global_routing
+        global_batch_statistics(state.model)
+        global_routing(state.model)
+        ddp = DistributedDataParallel(
+            state.model, device_ids=[torch.cuda.current_device()]
+            if device == "cuda" else None)
+    step, _ = make_step_fns(spec.build_loss(cfg), ddp=ddp)
     train.set_epoch(1)
     return state, step, train
 
@@ -2385,33 +2435,50 @@ def first_step_loss(workload: str, argv, device: str) -> float:
 
 
 def device_busy_share(workload: str, steps: int = 8, argv=WORKLOAD_FLAGS,
-                      warmup: int = 3):
+                      warmup: int = 3, data: bool = False):
     """``(busy ms, wall ms, top, flash ms)`` a train step of ``workload``
     under ``argv`` (phase 21's settings by default): ``steps`` steps after
     ``warmup`` warm-up steps under ``torch.profiler``, the wall clock
     synchronised around them, busy the sum of the card's kernel times
     (None when the profiler sees no device time), ``top`` the 4 largest
     ``(kernel, ms a step, calls a step)`` and ``flash ms`` the flash
-    kernels' time a step."""
-    state, step, train = _step_setup(workload, argv, "cuda")
-    return profile_window(step, state, train, steps, warmup)
+    kernels' time a step.  ``data``: the ``-m data`` step at world 1, in a
+    process group of its own (NCCL, as the CLI's)."""
+    if not data:
+        state, step, train = _step_setup(workload, argv, "cuda")
+        return profile_window(step, state, train, steps, warmup)
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+
+    _, created = bootstrap.initialize("cuda")
+    try:
+        state, step, train = _step_setup(workload, argv, "cuda", data=True)
+        return profile_window(step, state, train, steps, warmup)
+    finally:
+        if created:
+            bootstrap.shutdown()
 
 
-def profile_window(step, state, train, steps: int, warmup: int):
+def _cycle(train):
+    """The loader's batches in turn, from its start again when they run
+    out (closing it closes the loader's pass, and a prefetch thread)."""
+    while True:
+        yield from train.iter_batches()
+
+
+def profile_window(step, state, train, steps: int, warmup: int,
+                   live: bool = False):
     """:func:`device_busy_share`'s window over ``step`` and ``state``:
     ``warmup`` steps, then ``steps`` under ``torch.profiler`` (the
-    loader's batches in turn, from its start again when they run out)."""
+    loader's batches in turn, from its start again when they run out),
+    the batches formed before the window, or inside it when ``live``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def cycle():
-        while True:
-            yield from train.iter_batches()
-
-    batches = cycle()
+    batches = _cycle(train)
     for _ in range(warmup):
         step(state, *next(batches))
-    window = [next(batches) for _ in range(steps)]
+    window = (next(batches) for _ in range(steps)) if live else \
+        [next(batches) for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2420,6 +2487,7 @@ def profile_window(step, state, train, steps: int, warmup: int):
             step(state, x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    batches.close()
     # device events but the spans of annotated ranges (such as
     # ``Optimizer.step``), which cover kernels counted on their own
     kernels = sorted((e for e in prof.key_averages()
@@ -2445,6 +2513,56 @@ def check_first_loss(label: str, got: float, want: float,
         raise RuntimeError(f"{label}: first loss {got!r} is {rel:.2e} from "
                            f"{want!r}, beyond {tol:g}")
     return rel
+
+
+#: item 18's A/B: the train loader unwrapped (0, the runner's default) and
+#: two batches deep (2), in turns; timed steps and a profiler window of as
+#: many, each after warm-up steps, the batches formed while the steps run;
+#: phase 21 runs it on one workload (phase 24 on ResNet-50's packed cache)
+PREFETCH_AB = (0, 2, 2, 0)
+PREFETCH_WORKLOAD = "cnn"
+PREFETCH_STEPS = dict(steps=12, warmup=3)
+
+
+def prefetch_ab(workload: str, argv, label: str) -> dict:
+    """``{depth: [(ms a step, idle share or None), ...]}`` of ``workload``
+    under ``argv`` with the train loader ``PREFETCH_AB``'s depths deep, in
+    turns: the step time on the synchronised host clock over
+    ``PREFETCH_STEPS`` steps, then the card's kernel time over as many
+    under ``torch.profiler`` (idle share against the unprofiled step)."""
+    import torch
+
+    out = {}
+    steps, warmup = PREFETCH_STEPS["steps"], PREFETCH_STEPS["warmup"]
+    for depth in PREFETCH_AB:
+        state, step, train = _step_setup(workload, argv, "cuda",
+                                         prefetch=depth)
+        batches = _cycle(train)
+        for _ in range(warmup):
+            step(state, *next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, *next(batches))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        batches.close()
+        busy, _, _, _ = profile_window(step, state, train, steps, warmup,
+                                       live=True)
+        idle = None if busy is None else 1 - busy / step_ms
+        out.setdefault(depth, []).append((step_ms, idle))
+        print(f"prefetch[{label}] depth {depth}: {step_ms:.3f} ms a step "
+              f"over {steps} steps, batches formed while they run; "
+              + ("idle share not measured (the profiler saw no device "
+                 "time)" if idle is None else
+                 f"{busy:.3f} ms of kernels a step: idle share {idle:.3f}"))
+        del state, step, train
+        gc.collect()
+    a, b = (statistics.median(ms for ms, _ in out[d]) for d in (0, 2))
+    print(f"prefetch[{label}]: depth 2 against depth 0: {b:.3f} against "
+          f"{a:.3f} ms a step (medians of {PREFETCH_AB.count(0)} runs "
+          f"each, {b / a - 1:+.1%})")
+    return out
 
 
 def _kernel_counters():
@@ -2545,6 +2663,8 @@ def phase_workloads():
               f"the synchronised host clock, {share}; largest: "
               + "; ".join(f"{name} {ms:.3f} ms x{n:g}"
                           for name, ms, n in top))
+        if w == PREFETCH_WORKLOAD:
+            perf[w]["prefetch"] = prefetch_ab(w, WORKLOAD_FLAGS, w)
     print("workloads: kernel launches " + ", ".join(
         f"{name} {sum(p['launches'][name] for p in perf.values())}"
         for name in perf[WORKLOADS[0]]["launches"])
@@ -2718,13 +2838,16 @@ def _zoo_run(workload: str, argv, label: str, unit: str, per_step: int):
     return perf
 
 
-def _zoo_profile(workload: str, argv, label: str, perf) -> None:
-    """Phase 21's profiler window on ``argv`` and the step's operations
-    bound at the bf16 tensor-core rate, beside the run's step time."""
+def _zoo_profile(workload: str, argv, label: str, perf, ops=None,
+                 data: bool = False) -> None:
+    """Phase 21's profiler window on ``argv`` (the ``-m data`` step when
+    ``data``) and the step's operations (``ops``, or
+    :func:`step_operations`'s count) bound at the bf16 tensor-core rate,
+    beside the run's step time."""
     busy, wall, top, flash = device_busy_share(workload, argv=argv,
-                                               **ZOO_PROFILE)
+                                               data=data, **ZOO_PROFILE)
     step_ms = perf["step_s"] * 1e3
-    ops = step_operations(workload, argv)
+    ops = ops or step_operations(workload, argv)
     bound = ops / BF16_FLOPS_PER_S * 1e3
     perf.update(busy_ms=busy, flash_ms=flash, ops=ops, bound_ms=bound)
     share = ("not measured (the profiler saw no device time)"
@@ -2825,6 +2948,8 @@ def phase_resnet():
                                      "images", IMAGENET_BATCH)
         _no_flash(label, perf)
         _zoo_profile("resnet", (*flags, *extra), label, perf)
+    out["resnet50 bf16 s2d"]["prefetch"] = prefetch_ab(
+        "resnet", (*flags, "--stem-s2d"), "resnet50 bf16 s2d")
     gap = s2d_forward_gap(cache)
     print(f"workload[resnet50]: f32 first-step forward, s2d stem at the "
           f"7x7 stem's mapped weights: largest gap {gap:.2e} of max|logit| "
@@ -3261,12 +3386,132 @@ def phase_pipeline_zoo(data_dir: Path):
     return out
 
 
+# --- phase 30: moe, the GShard top-2 MoELM ----------------------------------
+
+#: the CLI default width: 4 layers (1 and 3 routed, 8 experts top-2), d
+#: 256, 4 heads, MLP 1024; one flash attention a layer
+MOE_BASE = ("-l", "4", "-s", "256", "-e", "1")
+MOE_LAYERS = 4
+#: label -> (flags, rows, batch, T): (a) the synthetic MLM twin (1024 rows
+#: of 64 ids; G 2048 tokens a step, capacity 512), (b) phase 26's BERT rows
+#: (G 4096, capacity 1024), whose ragged pad tails drive the key mask
+MOE_CONFIGS = {"mlm b32": ((), 1024, 32, 64),
+               "bert rows b8": (("--data-dir",), ZOO_ROWS, ZOO_BATCH, ZOO_T)}
+
+
+def moe_first_step(argv, device: str) -> dict:
+    """The first train step's forward of ``moe`` under ``argv`` on
+    ``device`` (the CLI's first batch and seeded initialisation), its
+    routing read from each router's logits: the task loss, the sown
+    load-balance term (what the step adds to the objective, not to the
+    logged loss), each routed layer's dropped share of its token-expert
+    assignments, the ``(G, E, C)`` shape and, on the card, the peak
+    memory one ``top2_gating`` call adds (its dispatch and combine
+    tensors and their intermediates)."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.layers import \
+        collect_losses
+    from distributed_deep_learning_tpu_torch.models.moe import (MoEMLP,
+                                                               top2_gating)
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        TokenCrossEntropy
+
+    state, _, train = _step_setup("moe", argv, device)
+    batches = train.iter_batches()
+    x, y = next(batches)
+    batches.close()
+    routed = [m for m in state.model.modules() if isinstance(m, MoEMLP)]
+    logits = []
+    hooks = [m.router.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach())) for m in routed]
+    with torch.no_grad(), collect_losses() as sown:
+        pred = state.model.train()(x)
+    for h in hooks:
+        h.remove()
+    out = {"loss": TokenCrossEntropy()(pred, y).item(),
+           "aux": float(sum(sown)), "dropped": [], "peak": None}
+    for mod, lg in zip(routed, logits):
+        C = mod.capacity(lg.shape[0])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        dispatch, _, _ = top2_gating(lg, C)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            out["peak"] = torch.cuda.max_memory_allocated() - base
+        out["shape"] = tuple(dispatch.shape)
+        out["dropped"].append(1 - dispatch.sum().item() / (2 * lg.shape[0]))
+        del dispatch
+    return out
+
+
+def phase_moe():
+    """Phase 30; returns each run's figures."""
+    bert = _write_zoo_tokens("bert")
+    out = {}
+    for config, (flags, rows, batch, T) in MOE_CONFIGS.items():
+        flags = (*flags, str(bert)) if flags else ()
+        argv = (*MOE_BASE, "-b", str(batch), *flags)
+        want = expected_launches(MOE_LAYERS, split_steps(rows, batch))
+        for dtype in ("f32", "bf16"):
+            label = f"moe {config} {dtype}"
+            extra = ("--dtype", "bfloat16") if dtype == "bf16" else ()
+            out[label] = perf = _zoo_run("moe", (*argv, *extra), label,
+                                         "tokens", batch * T)
+            check_launches(f"workload[{label}]",
+                           {k: perf["launches"][k] for k in want}, want)
+            first = moe_first_step((*argv, *extra), "cuda")
+            peak = first["peak"]
+            print(f"moe[{label}]: first step on the card: task loss "
+                  f"{first['loss']:.9f} (the logged loss: "
+                  f"{perf['first_loss']:.9f}), load-balance term "
+                  f"{first['aux']:.9f} (added to the objective only); "
+                  f"dropped share of token-expert assignments "
+                  + ", ".join(f"{d:.4f}" for d in first["dropped"])
+                  + f" (routed layers 1, 3); dispatch and combine "
+                  f"{first['shape']} f32, one gating call's peak "
+                  f"{peak / 2**20:.1f} MiB")
+            if not (math.isfinite(first["aux"]) and first["aux"] > 0):
+                raise RuntimeError(f"moe[{label}]: load-balance term "
+                                   f"{first['aux']!r} not finite and "
+                                   "positive")
+            check_first_loss(f"moe[{label}] logged loss vs the task loss",
+                             perf["first_loss"], first["loss"],
+                             DATA_FIRST_LOSS_TOL)
+            # the same shapes in either dtype: one operations count
+            _zoo_profile("moe", (*argv, *extra), label, perf,
+                         ops=out[f"moe {config} f32"].get("ops"))
+        check_first_loss(f"moe[{config}] card vs cpu",
+                         out[f"moe {config} f32"]["first_loss"],
+                         first_step_loss("moe", argv, "cpu"),
+                         FIRST_LOSS_TOL)
+        check_first_loss(f"moe[{config}] bf16 vs f32",
+                         out[f"moe {config} bf16"]["first_loss"],
+                         out[f"moe {config} f32"]["first_loss"],
+                         BF16_FIRST_LOSS_TOL)
+        label = f"moe {config} data"
+        out[label] = perf = _zoo_run("moe", (*argv, "-m", "data"), label,
+                                     "tokens", batch * T)
+        check_launches(f"workload[{label}]",
+                       {k: perf["launches"][k] for k in want}, want)
+        check_first_loss(f"moe[{config}] -m data world 1 vs sequential",
+                         perf["first_loss"],
+                         out[f"moe {config} f32"]["first_loss"],
+                         DATA_FIRST_LOSS_TOL)
+        _zoo_profile("moe", argv, label, perf,
+                     ops=out[f"moe {config} f32"].get("ops"), data=True)
+    shutil.rmtree(bert)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 30)),
+                    default=",".join(str(i) for i in range(1, 31)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -3275,7 +3520,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 30)) and opts.waves is None
+    complete = phases == set(range(1, 31)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -3283,6 +3528,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def lap(done):
+        print(f"time: phases {done} done at {time.perf_counter() - t0:.1f} "
+              "s")
+
     phase_device()
     builds = start_builds()
     kernels = []
@@ -3315,11 +3565,13 @@ def main(argv=None) -> int:
         _full_width.cache_clear()
         gc.collect()
         torch.cuda.empty_cache()
+        lap("2-5, 13, 14, 18-20")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29} | set(range(8, 18))):
+    if phases & ({7, 25, 26, 28, 29, 30} | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
+    lap("6-7")
     if phases & {8, 9, 10, 11, 12, 15, 16, 17}:
         data_dir = _write_tokens()
         hist = launches = perf = None
@@ -3355,20 +3607,25 @@ def main(argv=None) -> int:
                             "bf16": records.get("bf16", {}).get(name),
                             "bf16_train_launches":
                                 (bf16_launches or {}).get(name)})
+        lap("8-12, 15-17")
     if phases & {21, 22}:
         workloads = phase_workloads()
         if 22 in phases:
             phase_workload_variants(workloads)
+        lap("21-22")
     if 23 in phases:
         phase_workload_checkpoint()
     if 24 in phases:
         phase_resnet()
+        lap("23-24")
     zoo = {}
     for phase, workload in ((25, "transformer"), (26, "bert")):
         if phase in phases:
             zoo[workload] = phase_zoo_lm(workload)
+            lap(phase)
     if 27 in phases:
         phase_staged()
+        lap(27)
     pipe = {}
     if phases & {28, 29}:
         data_dir = _write_tokens()
@@ -3376,6 +3633,8 @@ def main(argv=None) -> int:
             _, pipe = phase_pipeline(data_dir)
         if 29 in phases:
             pipe.update(phase_pipeline_zoo(data_dir))
+        lap("28-29")
+    moe = phase_moe() if 30 in phases else {}
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -3387,6 +3646,8 @@ def main(argv=None) -> int:
                            records.get("zoo", {}).items()}
         entry["pipeline_launches"] = {label: run["launches"][entry["name"]]
                                       for label, run in pipe.items()}
+        entry["moe_launches"] = {label: run["launches"][entry["name"]]
+                                 for label, run in moe.items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -1,7 +1,7 @@
 """Package entry point: ``python -m distributed_deep_learning_tpu_torch
 <workload> [flags]``, the JAX package's CLI (``-l -s -e -b -d -w -m -p
--r`` and its extensions); the port trains every workload but ``moe``
-under ``-m sequential|data``.
+-r`` and its extensions); the port trains every workload of it under
+``-m sequential|data``.
 ``--spawn -r N`` runs N local ranks (:mod:`.runtime.launch`) and prints
 their output in rank order."""
 

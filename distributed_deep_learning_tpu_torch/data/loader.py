@@ -13,11 +13,19 @@ microbatches before sharding them).  On the card each host batch is
 copied into pinned memory and sent with ``non_blocking=True`` on a copy
 stream; batch k+1's copy is queued before batch k is handed over, so it
 runs while step k computes.
+
+:func:`make_loaders` can wrap the train loader in :class:`PrefetchLoader`
+(JAX's): a thread gathers the next batches and queues their uploads while
+the caller's step runs, and the caller's thread makes its stream wait for
+each batch's copy as it takes the batch.  It does so only when asked
+(``prefetch > 0``; see :func:`make_loaders`).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import queue
+import threading
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -79,21 +87,34 @@ class DeviceLoader:
     def iter_batches(self, skip: int = 0
                      ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
         """Device batches after the first ``skip``."""
+        prev = None
+        for cur in self.iter_staged(skip):
+            if prev is not None:
+                yield self.hand_over(prev)
+            prev = cur
+        if prev is not None:
+            yield self.hand_over(prev)
+
+    def iter_staged(self, skip: int = 0) -> Iterator:
+        """The batches after the first ``skip`` on their way to the
+        device, for :meth:`hand_over`: on the card each batch's tensors,
+        their copy queued on a copy stream, and the event recorded after
+        it; elsewhere the tensors."""
         if self.device.type != "cuda":
             for x, y in self.iter_host_batches(skip):
                 yield (torch.from_numpy(x).to(self.device),
                        torch.from_numpy(y).to(self.device))
             return
         copy = torch.cuda.Stream(self.device)
-        compute = torch.cuda.current_stream(self.device)
-        prev = None
         for batch in self.iter_host_batches(skip):
-            cur = self._upload(batch, copy)
-            if prev is not None:
-                yield _hand_over(*prev, compute)
-            prev = cur
-        if prev is not None:
-            yield _hand_over(*prev, compute)
+            yield self._upload(batch, copy)
+
+    def hand_over(self, staged):
+        """A staged batch's tensors, the calling thread's current stream
+        made to wait for their copy and to own their memory."""
+        if self.device.type != "cuda":
+            return staged
+        return _hand_over(*staged, torch.cuda.current_stream(self.device))
 
     def _upload(self, batch, copy: "torch.cuda.Stream"):
         with torch.cuda.stream(copy):
@@ -111,6 +132,94 @@ def _hand_over(tensors, done, stream):
     for t in tensors:
         t.record_stream(stream)
     return tensors
+
+
+class PrefetchLoader:
+    """JAX's ``PrefetchLoader`` over a :class:`DeviceLoader`: while the
+    caller's step k runs, a thread builds batches k+1..k+``depth`` (the
+    host gather and, on the card, the pinned upload on the copy stream;
+    :meth:`DeviceLoader.iter_staged`), and the caller's thread hands each
+    over to its own stream as it takes it.  The batches are the wrapped
+    loader's, in its order.  ``iter_batches(skip)`` skips inside the
+    wrapped loader, before any gather; an early ``break`` (closing the
+    iterator) stops and joins the thread, and an exception raised in the
+    thread is raised in the caller."""
+
+    def __init__(self, loader: DeviceLoader, depth: int = 2):
+        self.loader = loader
+        self.depth = max(1, int(depth))
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+        return self.iter_batches()
+
+    def iter_batches(self, skip: int = 0
+                     ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+        loader = self.loader
+        return _prefetched(lambda: loader.iter_staged(skip),
+                           loader.hand_over, loader.device, self.depth)
+
+
+def _prefetched(source: Callable[[], Iterator], hand_over, device,
+                depth: int):
+    """``hand_over(item)`` for each item of ``source()``, which a thread
+    iterates at most ``depth`` items ahead, on ``device`` (an index-less
+    ``cuda`` is the caller's current card)."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    empty = queue.Empty     # still bound if the generator closes at exit
+    end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # a bounded wait, so that an abandoned consumer (an early break
+        # from the epoch loop) never strands the producer on a full queue
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            if device.type == "cuda":
+                # a new thread's current card is 0: rank r of a spawned
+                # -m data run pins and copies for cuda:r
+                torch.cuda.set_device(device)
+            for item in source():
+                if not put(item):
+                    return
+        except BaseException as exc:    # raised again in the consumer
+            put(exc)
+            return
+        put(end)
+
+    thread = threading.Thread(target=produce, name="prefetch", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield hand_over(item)
+    finally:
+        stop.set()
+        while True:     # unblock a producer mid-put
+            try:
+                q.get_nowait()
+            except empty:
+                break
+        thread.join(timeout=5.0)
 
 
 def local_rows(batch_size: int, rank: int = 0, world: int = 1,
@@ -133,15 +242,22 @@ def local_rows(batch_size: int, rank: int = 0, world: int = 1,
 
 def make_loaders(dataset: ArrayDataset, splits, batch_size: int, device,
                  seed: int = 42, *, rank: int = 0, world: int = 1,
-                 accum: int = 1):
+                 accum: int = 1, prefetch: int = 0):
     """(train, val, test) loaders with the reference's semantics: train
     shuffles per epoch, the eval splits iterate in fixed order.  Each
     yields this rank's rows of every global batch; only the train loader
     is laid out for ``accum`` microbatches (evaluation takes whole
-    batches)."""
+    batches).  ``prefetch > 0`` wraps the train loader in
+    :class:`PrefetchLoader`, that many batches deep.  The JAX package
+    prefetches 2 deep; here the default is 0 (not wrapped), because on an
+    H100 the thread made no step reliably faster (``chip_smoke.py``'s
+    ``prefetch_ab``): it contends for the interpreter lock with the
+    thread that launches the kernels."""
     kw = dict(seed=seed, rank=rank, world=world)
     train = DeviceLoader(dataset, splits.train, batch_size, device,
                          shuffle=True, accum=accum, **kw)
+    if prefetch:
+        train = PrefetchLoader(train, depth=prefetch)
     val = DeviceLoader(dataset, splits.val, batch_size, device, **kw)
     test = DeviceLoader(dataset, splits.test, batch_size, device, **kw)
     return train, val, test

@@ -133,6 +133,28 @@ def _recompute():
         _state.recomputing = before
 
 
+def sow_loss(value: torch.Tensor) -> None:
+    """flax's ``self.sow("losses", ...)``: add ``value`` to the losses
+    that :func:`collect_losses` gathers in this thread; a no-op outside
+    one (evaluation, and a ``--remat`` recompute, which runs in the
+    backward after the train step's forward has closed its collection)."""
+    sink = getattr(_state, "losses", None)
+    if sink is not None:
+        sink.append(value)
+
+
+@contextlib.contextmanager
+def collect_losses():
+    """Gather the losses a forward sows (:func:`sow_loss`) into the
+    yielded list, as the JAX package's train state makes the ``losses``
+    collection mutable for a train step's apply."""
+    before, _state.losses = getattr(_state, "losses", None), []
+    try:
+        yield _state.losses
+    finally:
+        _state.losses = before
+
+
 def run_layers(layers: Sequence[Callable], x, remat: Optional[str] = None):
     """``x`` through ``layers`` in order.  ``remat="nothing"`` keeps only
     each layer's input and recomputes the layer in the backward

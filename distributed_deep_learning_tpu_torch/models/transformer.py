@@ -180,12 +180,20 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with f32 statistics and f32 scale/bias, returning
-    the input's dtype (flax's ``LayerNorm(dtype=...)``)."""
+    ``dtype`` (flax's ``LayerNorm(dtype=...)``), or the input's dtype when
+    ``dtype`` is None (the models whose residual stream stays in the
+    compute dtype)."""
+
+    def __init__(self, normalized_shape, eps: float = 1e-5, *,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(normalized_shape, eps=eps)
+        self.out_dtype = dtype
 
     def forward(self, x):
         return F.layer_norm(recomputable(torch.Tensor.float, x),
                             self.normalized_shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+                            self.bias.float(), self.eps).to(
+                                self.out_dtype or x.dtype)
 
 
 def remat_call(fn, x, policy: str, generator: Optional[torch.Generator]):
@@ -412,23 +420,28 @@ class TransformerLayer(nn.Module):
     """Pre-LN block: self-attention, then (``cross_attention``) attention
     over an encoder's output, then the MLP, each with a residual.
     ``causal`` is the self-attention's masking, read by the model that
-    builds the layer's attention (:meth:`attends`)."""
+    builds the layer's attention (:meth:`attends`).  ``dtype`` is the
+    LayerNorms' output dtype (None: their input's).  A subclass with its
+    own :meth:`feed_forward` passes ``mlp_dim=None`` (no dense MLP)."""
 
-    def __init__(self, d_model: int, num_heads: int, mlp_dim: int, *,
+    def __init__(self, d_model: int, num_heads: int,
+                 mlp_dim: Optional[int], *,
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  ln_eps: float = 1e-6, causal: bool = False,
-                 cross_attention: bool = False):
+                 cross_attention: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.causal, self.cross_attention = causal, cross_attention
-        self.ln_attn = LayerNorm(d_model, eps=ln_eps)
+        self.ln_attn = LayerNorm(d_model, eps=ln_eps, dtype=dtype)
         self.self_attn = MultiHeadAttention(d_model, num_heads,
                                             num_kv_heads, rope)
         if cross_attention:
-            self.ln_cross = LayerNorm(d_model, eps=ln_eps)
+            self.ln_cross = LayerNorm(d_model, eps=ln_eps, dtype=dtype)
             self.cross_attn = MultiHeadAttention(d_model, num_heads)
-        self.ln_mlp = LayerNorm(d_model, eps=ln_eps)
-        self.mlp_in = Dense(d_model, mlp_dim)
-        self.mlp_out = Dense(mlp_dim, d_model)
+        self.ln_mlp = LayerNorm(d_model, eps=ln_eps, dtype=dtype)
+        if mlp_dim is not None:
+            self.mlp_in = Dense(d_model, mlp_dim)
+            self.mlp_out = Dense(mlp_dim, d_model)
 
     def attends(self, attention: str, self_valid=None, cross_valid=None):
         """``(attend, cross_attend)`` for :meth:`forward`: the
@@ -471,9 +484,12 @@ class TransformerLayer(nn.Module):
                 q, k, v)
             h = self.cross_attn.out(o)
             x = x + (h if drop is None else drop(h))
-        h = recomputable(_gelu, self.mlp_in(recomputable(self.ln_mlp, x)))
-        h = self.mlp_out(h)
+        h = self.feed_forward(recomputable(self.ln_mlp, x))
         return x + (h if drop is None else drop(h))
+
+    def feed_forward(self, h):
+        """The MLP on the normalised residual ``h``."""
+        return self.mlp_out(recomputable(_gelu, self.mlp_in(h)))
 
 
 class CausalLM(nn.Module):
@@ -671,7 +687,8 @@ def flax_layout(name: str, head_dim: int):
     if kind == "out" and leaf == "weight":
         return (lambda t: t.T.reshape(-1, hd, t.shape[0]),
                 lambda t: t.reshape(-1, t.shape[-1]).T)
-    if leaf == "weight" and kind in ("mlp_in", "mlp_out", "mlm_dense"):
+    if leaf == "weight" and kind in ("mlp_in", "mlp_out", "mlm_dense",
+                                     "router"):
         return (lambda t: t.T, lambda t: t.T)
     return _same, _same
 
@@ -953,10 +970,13 @@ def _attention_state(node, prefix):
 
 
 def layer_flax_state(lp, prefix: str) -> dict:
-    """One flax ``TransformerLayer``'s params → a :class:`TransformerLayer`
-    state under ``prefix`` (``""`` or ending in a dot).  flax numbers a
-    layer's LayerNorms in call order: self-attention, cross-attention
-    (decoder layers only), MLP."""
+    """One flax ``TransformerLayer``'s (or ``MoETransformerLayer``'s)
+    params → a :class:`TransformerLayer` (``models.moe``'s
+    ``MoETransformerLayer``) state under ``prefix`` (``""`` or ending in a
+    dot).  flax numbers a layer's LayerNorms in call order:
+    self-attention, cross-attention (decoder layers only), MLP.  The
+    routed MLP's ``w_in``/``w_out`` keep flax's ``(E, d, m)``/``(E, m,
+    d)`` layout."""
     cross = "cross_attn" in lp
     sd = _norm_state(lp["LayerNorm_0"], f"{prefix}ln_attn.")
     sd.update(_attention_state(lp["self_attn"], f"{prefix}self_attn."))
@@ -965,6 +985,12 @@ def layer_flax_state(lp, prefix: str) -> dict:
         sd.update(_attention_state(lp["cross_attn"], f"{prefix}cross_attn."))
     sd.update(_norm_state(lp[f"LayerNorm_{2 if cross else 1}"],
                           f"{prefix}ln_mlp."))
+    if "moe" in lp:
+        moe = lp["moe"]
+        sd.update(linear_flax_state(moe["router"], f"{prefix}moe.router."))
+        sd[f"{prefix}moe.w_in"] = _t(moe["w_in"])
+        sd[f"{prefix}moe.w_out"] = _t(moe["w_out"])
+        return sd
     sd.update(linear_flax_state(lp["Dense_0"], f"{prefix}mlp_in."))
     sd.update(linear_flax_state(lp["Dense_1"], f"{prefix}mlp_out."))
     return sd
@@ -1001,6 +1027,7 @@ def load_flax_params(params) -> dict:
     ``{"params": ...}`` wrapper is accepted) for the model it comes from:
     :class:`CausalLM` (``layer_i`` and ``final_norm``),
     :class:`BertEncoder` (the same plus ``mlm_dense`` and ``mlm_norm``),
+    ``models.moe.MoELM`` (``layer_i`` and ``moe_layer_i`` in turn),
     :class:`TransformerSeq2Seq` (``enc_i``, ``enc_norm``, ``dec_i`` with
     ``cross_attn``, ``dec_norm``), the workload's
     :class:`Seq2SeqAdapter` (the seq2seq tree under ``model``) or
@@ -1039,7 +1066,13 @@ def load_flax_params(params) -> dict:
         sd.update(_norm_state(params["enc_norm"], "enc_norm."))
         sd.update(_norm_state(params["dec_norm"], "dec_norm."))
         return sd
-    stack("layer", "layers")
+    i = 0
+    while True:
+        lp = params.get(f"layer_{i}", params.get(f"moe_layer_{i}"))
+        if lp is None:
+            break
+        sd.update(layer_flax_state(lp, f"layers.{i}."))
+        i += 1
     sd.update(_norm_state(params["final_norm"], "final_norm."))
     if "mlm_dense" in params:
         sd.update(linear_flax_state(params["mlm_dense"], "mlm_dense."))

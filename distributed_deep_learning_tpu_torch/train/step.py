@@ -16,6 +16,17 @@ DDP's average of those gradients is the gradient of the global mean, and
 the metrics are the global batch's, as JAX logs them.  At world 1 the
 scale is exactly 1.  ``loss_fn.sites(targets)`` gives the count (see
 :class:`..objectives.TokenCrossEntropy`).
+
+Auxiliary losses follow the JAX train state's convention: what a train
+forward sows (:func:`..models.layers.sow_loss`, the MoE load-balance
+losses) is summed and added to the objective, one microbatch at a time,
+but not to the logged loss; evaluation sows nothing into a collection.
+The collection closes when the forward returns, so a ``--remat``
+recompute in the backward adds nothing.  A model that sows nothing
+computes exactly the objective it did without the collection.  Under
+``-m data`` every rank adds the same global term (``models.moe``'s
+routing sums it over the ranks differentiably), and DDP's average of the
+ranks' gradients is its gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from distributed_deep_learning_tpu_torch.models.layers import \
+    collect_losses
 from distributed_deep_learning_tpu_torch.train.objectives import \
     prediction_metrics
 from distributed_deep_learning_tpu_torch.train.state import TrainState
@@ -83,7 +96,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
             sync = contextlib.nullcontext() if ddp is None \
                 or i == accum_steps - 1 else ddp.no_sync()
             with sync:
-                pred = net(mx, generator=state.generator, **kw)
+                with collect_losses() as sown:
+                    pred = net(mx, generator=state.generator, **kw)
                 loss = loss_fn(pred, my)
                 if ddp is None:
                     objective = loss
@@ -93,6 +107,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                     objective, mm = global_mean(loss, pred, my, loss_fn,
                                                 world)
                     metrics.append(mm)
+                if sown:
+                    objective = objective + sum(sown)
                 (objective / accum_steps).backward()   # exact at 1
         state.apply_gradients()
         # JAX's accumulated metrics: mean loss, summed correct and count

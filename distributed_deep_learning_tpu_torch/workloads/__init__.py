@@ -1,9 +1,6 @@
 """Workload registry: the JAX package's workload names.  The port runs
-``mlp``, ``cnn``, ``lstm``, ``mnist``, ``resnet``, ``transformer``,
-``bert`` and ``gpt``; ``moe`` raises naming the ROADMAP item that ports
-it."""
+every one of them."""
 
-from distributed_deep_learning_tpu_torch.utils.config import ROADMAP_ITEMS
 from distributed_deep_learning_tpu_torch.workloads.base import (  # noqa: F401
     WorkloadSpec, run_workload)
 
@@ -22,14 +19,10 @@ def get_spec(name: str) -> WorkloadSpec:
         from distributed_deep_learning_tpu_torch.workloads.lstm import SPEC
     elif name == "mnist":
         from distributed_deep_learning_tpu_torch.workloads.mnist import SPEC
-    elif name in ("resnet", "transformer", "bert", "gpt"):
+    elif name in ("resnet", "transformer", "bert", "moe", "gpt"):
         from distributed_deep_learning_tpu_torch.workloads.northstar import \
             SPECS
         SPEC = SPECS[name]
-    elif name == "moe":
-        # its router and experts shard over an expert axis
-        raise NotImplementedError(f"workload {name!r} is not ported yet: "
-                                  f"{ROADMAP_ITEMS[11]}")
     else:
         raise ValueError(f"unknown workload {name!r}; choose one of "
                          f"{'|'.join(WORKLOADS)}")

@@ -42,6 +42,7 @@ from distributed_deep_learning_tpu_torch.data.splits import (
     shard_indices, train_val_test_split)
 from distributed_deep_learning_tpu_torch.models.densenet import \
     global_batch_statistics
+from distributed_deep_learning_tpu_torch.models.moe import global_routing
 from distributed_deep_learning_tpu_torch.parallel.mpmd import MPMDPipeline
 from distributed_deep_learning_tpu_torch.parallel.partition import \
     validate_assignment
@@ -73,7 +74,10 @@ class WorkloadSpec:
     ``build_layers(config, dataset)`` (the partitionable layer list),
     ``partitioner(n_layers, n_stages)`` and ``stage_input(config)`` (the
     input conversion stage 0 applies, or None); ``build_pipelined(config,
-    dataset, n_stages)`` makes ``-m pipeline`` run the pipelined LM."""
+    dataset, n_stages)`` makes ``-m pipeline`` run the pipelined LM.
+    ``decoder_options``: whether the model takes gpt's ``--pos rope``,
+    ``--window`` and ``--kv-heads``; ``token_ce``: whether its loss takes
+    ``--label-smoothing`` (the JAX runner refuses each elsewhere)."""
 
     name: str
     build_dataset: Callable[[Config], Any]
@@ -88,6 +92,8 @@ class WorkloadSpec:
     post_train: Optional[Callable[..., None]] = None
     remat_policies: tuple[str, ...] = REMAT_POLICIES
     double_softmax: bool = False
+    decoder_options: bool = False
+    token_ce: bool = False
 
 
 def config_dtype(config: Config) -> torch.dtype:
@@ -245,15 +251,35 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         flag = "--generate" if config.generate_tokens else "--serve"
         raise ValueError(f"{flag} is not supported by workload "
                          f"{spec.name!r} (gpt only)")
-    if config.attention_window is not None and config.attention_window < 1:
-        raise ValueError(f"--window must be >= 1, got "
-                         f"{config.attention_window}")
-    if config.label_smoothing and not 0.0 < config.label_smoothing < 1.0:
-        raise ValueError(f"--label-smoothing must be in (0, 1), got "
-                         f"{config.label_smoothing}")
-    if config.num_kv_heads is not None and config.num_kv_heads < 1:
-        raise ValueError(f"--kv-heads must be >= 1, got "
-                         f"{config.num_kv_heads}")
+    # the JAX runner's refusals, in its order and with its messages
+    if config.pos_embedding != "learned" and not spec.decoder_options:
+        raise ValueError(f"--pos {config.pos_embedding} is a gpt option; "
+                         f"workload {spec.name!r} uses its own position "
+                         "scheme")
+    if config.attention_window is not None:
+        if config.attention_window < 1:
+            raise ValueError(f"--window must be >= 1, got "
+                             f"{config.attention_window}")
+        if not spec.decoder_options:
+            raise ValueError(f"--window needs a causal decoder-only model; "
+                             f"workload {spec.name!r} has bidirectional or "
+                             "cross attention sites")
+    if config.label_smoothing:
+        if not 0.0 < config.label_smoothing < 1.0:
+            raise ValueError(f"--label-smoothing must be in (0, 1), got "
+                             f"{config.label_smoothing}")
+        if not spec.token_ce:
+            raise ValueError("--label-smoothing applies to the token-CE "
+                             f"workloads (transformer/bert/moe/gpt), not "
+                             f"{spec.name!r}")
+    if config.num_kv_heads is not None:
+        if config.num_kv_heads < 1:
+            raise ValueError(f"--kv-heads must be >= 1, got "
+                             f"{config.num_kv_heads}")
+        if not spec.decoder_options:
+            raise ValueError("--kv-heads (grouped-query attention) is a "
+                             f"gpt option; workload {spec.name!r} models "
+                             "define their own head layout")
     if config.grad_accum > 1 and config.remat:
         raise ValueError("--remat with --grad-accum is not implemented; "
                          "drop one of the two")
@@ -358,9 +384,10 @@ def _train(spec, config, env, init_state_dict):
             logger)
     ddp = None
     if data_parallel:
-        # BatchNorm statistics over the global batch, as JAX's jit takes
-        # them over the sharded batch
+        # BatchNorm statistics and MoE routing over the global batch, as
+        # JAX's jit takes them over the sharded batch
         global_batch_statistics(state.model)
+        global_routing(state.model)
         ddp = DistributedDataParallel(
             state.model,
             device_ids=[device.index] if device.type == "cuda" else None)

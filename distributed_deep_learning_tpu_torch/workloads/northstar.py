@@ -1,11 +1,12 @@
 """The north-star workloads: the port of
 ``distributed_deep_learning_tpu/workloads/northstar.py`` for ``resnet``,
-``transformer`` (WMT seq2seq), ``bert`` (C4 MLM) and ``gpt`` (decoder-only
-causal LM)::
+``transformer`` (WMT seq2seq), ``bert`` (C4 MLM), ``moe`` (the
+sparse-expert MLM) and ``gpt`` (decoder-only causal LM)::
 
     python -m distributed_deep_learning_tpu_torch resnet -s 50 -e 1 -b 32
     python -m distributed_deep_learning_tpu_torch transformer -l 6 -s 512
     python -m distributed_deep_learning_tpu_torch bert -l 12 -s 768
+    python -m distributed_deep_learning_tpu_torch moe -l 4 -s 256
     python -m distributed_deep_learning_tpu_torch gpt -m sequential -e 1
     python -m distributed_deep_learning_tpu_torch gpt -e 1 --generate 16 \\
         --serve [--paged]
@@ -19,6 +20,10 @@ ImageFolder tree under ``--data-dir`` decoded at ``--image-size`` in
 form.  ``transformer`` (source and target 32 ids) and ``bert`` (T 64,
 masked sites only) train on their synthetic twins over a 1024-id
 vocabulary unless ``--data-dir`` holds a ``tokens.npy``; both take AdamW.
+``moe`` trains on ``bert``'s data with AdamW: ``models.moe.MoELM``, 8
+experts top-2 in every odd layer, its load-balance loss added to the
+objective, routed over the global batch under ``-m data``; the staged
+modes refuse it, as the JAX package does.
 ``gpt``: synthetic T=64, vocabulary-1024 data unless ``--data-dir`` holds
 a ``tokens.npy``.  ``--attention auto`` resolves to the flash kernels on
 ``cuda`` and to dense attention on the CPU (the TPU package's
@@ -57,6 +62,7 @@ from distributed_deep_learning_tpu_torch.data.tokens import (lm_dataset,
                                                              load_tokens,
                                                              mlm_dataset,
                                                              seq2seq_dataset)
+from distributed_deep_learning_tpu_torch.models.moe import MoELM
 from distributed_deep_learning_tpu_torch.models.pipelined_lm import (
     LMEmbed, LMHead, PipelinedLM)
 from distributed_deep_learning_tpu_torch.models.resnet import (
@@ -262,6 +268,7 @@ TRANSFORMER_SPEC = WorkloadSpec(
     build_pipelined=_transformer_pipelined,
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
+    token_ce=True,
 )
 
 
@@ -310,6 +317,36 @@ BERT_SPEC = WorkloadSpec(
     build_pipelined=_bert_pipelined,
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
+    token_ce=True,
+)
+
+
+# --- moe (sparse-expert MLM) -----------------------------------------------
+
+def _moe_model(config: Config, dataset) -> MoELM:
+    d = config.size
+    return MoELM(vocab_size=_vocab(dataset), num_layers=config.num_layers,
+                 d_model=d, num_heads=max(2, d // 64), mlp_dim=4 * d,
+                 num_experts=8, attention=_attention_fn(config),
+                 dropout_rate=config.dropout, dtype=config_dtype(config))
+
+
+def _moe_no_staging(config: Config, dataset):
+    raise ValueError(
+        "moe parallelises over experts, not stages: use -m data with "
+        "--mesh expert=K (staged modes would drop the router's "
+        "load-balance aux loss)")
+
+
+MOE_SPEC = WorkloadSpec(
+    name="moe",
+    build_dataset=_mlm_dataset,
+    build_model=_moe_model,
+    build_loss=_token_ce_loss,
+    build_layers=_moe_no_staging,
+    build_optimizer=lambda c, steps: adamw(
+        resolve_lr(c, steps, c.learning_rate)),
+    token_ce=True,
 )
 
 
@@ -508,10 +545,12 @@ GPT_SPEC = WorkloadSpec(
         resolve_lr(c, steps, c.learning_rate)),
     pre_train_check=_gpt_pre_check,
     post_train=_gpt_post,
+    decoder_options=True,
+    token_ce=True,
 )
 
 SPECS = {"resnet": RESNET_SPEC, "transformer": TRANSFORMER_SPEC,
-         "bert": BERT_SPEC, "gpt": GPT_SPEC}
+         "bert": BERT_SPEC, "moe": MOE_SPEC, "gpt": GPT_SPEC}
 
 
 def main(argv=None, workload: str = "gpt"):

@@ -188,7 +188,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               21: "phase_workloads", 22: "phase_workload_variants",
               23: "phase_workload_checkpoint", 24: "phase_resnet",
               25: "phase_zoo_lm", 26: "phase_zoo_lm", 27: "phase_staged",
-              28: "phase_pipeline", 29: "phase_pipeline_zoo"}
+              28: "phase_pipeline", 29: "phase_pipeline_zoo",
+              30: "phase_moe"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -223,11 +224,11 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_workload_checkpoint", None), ("phase_resnet", {}),
             ("phase_zoo_lm", {"flash": {"launches": {}}}),
             ("phase_staged", {}), ("phase_pipeline", ({}, {})),
-            ("phase_pipeline_zoo", {})):
+            ("phase_pipeline_zoo", {}), ("phase_moe", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 30)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 31)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -294,6 +295,78 @@ def test_first_loss_check_with_a_cpu_stand_in(monkeypatch):
     with pytest.raises(RuntimeError, match="first loss"):
         chip_smoke.check_first_loss("planted", want * (1 + 10 * tol), want,
                                     tol)
+
+
+def test_moe_first_step_reads_the_logged_loss_and_the_routing(monkeypatch):
+    """Phase 30's first-step reading on a CPU stand-in: the task loss of
+    the seeded model's first batch equals the first loss the CLI logs
+    (the load-balance term, positive, stays out of it), and the router
+    logits give each routed layer's dropped share at the run's capacity;
+    no device number is taken on the CPU."""
+    from distributed_deep_learning_tpu_torch.__main__ import main
+
+    monkeypatch.setenv("DDL_DATA_LIMIT", "64")
+    argv = ["-l", "2", "-s", "32", "-b", "8"]
+    first = chip_smoke.moe_first_step(argv, "cpu")
+    _, hist = main(["moe", *argv, "-e", "1", "-d", "cpu"])
+    chip_smoke.check_first_loss("stand-in", hist[0].step_losses[0],
+                                first["loss"], chip_smoke.DATA_FIRST_LOSS_TOL)
+    assert first["aux"] > 0 and first["peak"] is None
+    assert first["shape"] == (8 * 64, 8, 2 * 8 * 64 // 8)
+    assert len(first["dropped"]) == 1
+    assert 0 < first["dropped"][0] < 1          # capacity binds
+    with pytest.raises(RuntimeError, match="first loss"):
+        chip_smoke.check_first_loss("planted: the objective logged",
+                                    first["loss"] + first["aux"],
+                                    first["loss"],
+                                    chip_smoke.DATA_FIRST_LOSS_TOL)
+
+
+def test_prefetch_ab_helpers_stop_their_threads():
+    """Item 18's A/B reads batches through ``_cycle`` over a prefetching
+    loader; closing it stops the loader's thread."""
+    import threading
+
+    state, step, train = chip_smoke._step_setup(
+        "mlp", ["-l", "1", "-s", "8", "-b", "16"], "cpu", prefetch=2)
+    batches = chip_smoke._cycle(train)
+    n = len(train)
+    seen = [next(batches) for _ in range(n + 2)]   # into a second pass
+    step(state, *seen[-1])
+    batches.close()
+    for t in threading.enumerate():
+        if t.name == "prefetch":
+            t.join(10.0)
+            assert not t.is_alive()
+
+
+def test_step_setup_data_step_is_the_sequential_step_at_world_1():
+    """Phase 30's ``-m data`` profiler window steps through
+    ``DistributedDataParallel`` as the runner wraps the model; at world 1
+    (gloo here) its first step's loss and update are the sequential
+    step's."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+
+    argv = ["-l", "2", "-s", "32", "-b", "8"]
+    runs = {}
+    for data in (True, False):
+        _, created = bootstrap.initialize("cpu") if data else (None, False)
+        try:
+            state, step, train = chip_smoke._step_setup("moe", argv, "cpu",
+                                                        data=data)
+            x, y = next(train.iter_batches())
+            loss = step(state, x, y)[1]["loss"].item()
+            runs[data] = loss, [p.detach().clone()
+                                for p in state.model.parameters()]
+        finally:
+            if created:
+                bootstrap.shutdown()
+    assert abs(runs[True][0] - runs[False][0]) <= \
+        chip_smoke.DATA_FIRST_LOSS_TOL * abs(runs[False][0])
+    for got, want in zip(runs[True][1], runs[False][1]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
 def _zoo_launches(monkeypatch, tmp_path, planted):

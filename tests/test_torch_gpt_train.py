@@ -194,8 +194,8 @@ def test_cli_prints_the_phase_log():
 def test_cli_refuses_other_workloads_and_cuda_without_a_card():
     from distributed_deep_learning_tpu_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["moe", "-d", "cpu"])
+    with pytest.raises(ValueError, match="unknown workload 'vit'"):
+        main(["vit", "-d", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             main(["gpt", "-l", "1", "-s", "32"])

@@ -248,9 +248,10 @@ def test_importing_the_port_loads_no_jax():
             "import distributed_deep_learning_tpu_torch.parallel."
             "pipeline_transformer\n"
             "import distributed_deep_learning_tpu_torch.models.pipelined_lm\n"
+            "import distributed_deep_learning_tpu_torch.models.moe\n"
             "from distributed_deep_learning_tpu_torch.workloads import "
             "get_spec\n"
-            "for w in ('resnet', 'transformer', 'bert', 'gpt'):\n"
+            "for w in ('resnet', 'transformer', 'bert', 'moe', 'gpt'):\n"
             "    get_spec(w)\n"
             "distributed_deep_learning_tpu_torch.native.get_lib()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -4,8 +4,8 @@ bit-identical to the run that was never stopped (the dropout generator
 rides in the checkpoint); each schedule's forward launches on the CPU are
 none (the flash kernels' plain versions run there); and the refusals:
 JAX's, with its messages (the MPMD flag list, interleaved without
-``--virtual-stages >= 2``, ``--remat-policy`` under 1F1B), ``moe``
-naming ROADMAP item 11, and the port's own where JAX drops a flag
+``--virtual-stages >= 2``, ``--remat-policy`` under 1F1B, ``moe`` under
+either staged mode), and the port's own where JAX drops a flag
 silently (``--grad-accum`` under ``-m pipeline``, ``--stem-s2d`` on the
 staged ResNet, ``--attention flash`` on a staged LM layer list) or where
 one card cannot hold the run (a multi-rank launch)."""
@@ -110,6 +110,7 @@ JAX_REFUSALS = {
     "1f1b remat policy": ("bert", ["-m", "pipeline", "--pipeline-schedule",
                                    "1f1b", "--remat", "--remat-policy",
                                    "dots"]),
+    "moe model": ("moe", ["-m", "model"]),
 }
 
 
@@ -128,7 +129,8 @@ def test_refusals_match_jax(case, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["moe", "-m", "pipeline"], NotImplementedError, "item 11"),
+    (["moe", "-m", "pipeline"], ValueError,
+     "moe parallelises over experts, not stages"),
     (PIPE[:1] + ["-m", "pipeline", "--grad-accum", "2"], ValueError,
      "--grad-accum: -m pipeline takes no gradient accumulation"),
     (["resnet", "-m", "model", "--stem-s2d"], ValueError,

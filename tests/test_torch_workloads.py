@@ -20,8 +20,10 @@ and training recipes against the JAX package's, and against itself.
 * What item 9 used to refuse now runs one epoch at ``DDL_DATA_LIMIT``
   (``resnet``, small ``transformer`` and ``bert``, ``--image-size`` and
   ``--stem-s2d``, which ``cnn`` ignores as the JAX CLI does, and
-  ``--packed-cache``); ``moe`` names item 11, ``--remat-policy dots`` on
-  a conv model item 16.
+  ``--packed-cache``) and ``moe`` (two narrow layers, one routed);
+  ``--remat-policy dots`` on a conv model names item 16; the four gpt and
+  token-CE flags that the JAX runner refuses elsewhere raise its
+  messages.
 """
 
 import contextlib
@@ -262,7 +264,17 @@ def test_cnn_resume_restores_batch_norm_buffers(tmp_path, monkeypatch):
     (["resnet"], None, None),
     (["transformer", "-l", "1", "-s", "64"], None, None),
     (["bert", "-l", "1", "-s", "64"], None, None),
-    (["moe"], NotImplementedError, "item 11"),
+    (["moe", "-l", "2", "-s", "64"], None, None),
+    (["moe", "-l", "2", "-s", "64", "--label-smoothing", "0.1"], None,
+     None),
+    (["mlp", "--label-smoothing", "0.1"], ValueError,
+     "applies to the token-CE workloads"),
+    (["bert", "-l", "1", "-s", "64", "--window", "8"], ValueError,
+     "needs a causal decoder-only model"),
+    (["resnet", "--kv-heads", "2"], ValueError,
+     r"--kv-heads \(grouped-query attention\) is a gpt option"),
+    (["bert", "-l", "1", "-s", "64", "--pos", "rope"], ValueError,
+     "is a gpt option; workload 'bert' uses its own position scheme"),
     (["cnn", "--image-size", "32"], None, None),
     (["cnn", "--stem-s2d"], None, None),
     (["mlp", "--packed-cache", "{packed}"], None, None),
