@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,7,24,25,26  # the north-star zoo
     python3 chip_smoke.py --phases 1,7,27,28,29  # model and pipeline modes
     python3 chip_smoke.py --phases 1,2,7,30  # moe
+    python3 chip_smoke.py --phases 1,7,31  # sharded state
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -238,7 +239,22 @@ Phases, in order; any failure raises and exits non-zero:
     the f32 first loss within 1e-4 of the CPU's, bf16's within 2e-2 of
     f32's, and ``-m data`` at world 1 within 1e-6 of ``-m sequential``;
     step time, tokens/s, peak and a profiler window's idle share (the
-    ``-m data`` run's window through ``DistributedDataParallel``).
+    ``-m data`` run's window through ``DistributedDataParallel``);
+31. sharded state: ``gpt`` at phase 8's width (12 x 768, T 2048, V
+    32768) on 24 of its rows (4 train steps and a test step a run) under
+    ``-m data`` at world 1, plain, ``--zero 1`` and ``--zero fsdp``, in
+    f32 and bf16: the flash kernels' launches exact, each sharded run's
+    first loss within 1e-6 of the plain run's from the same weights, step
+    time, peak memory and the optimizer state and parameter bytes a rank
+    holds beside the plain run's (and phase 11's, when it ran); then two
+    ranks on the one card over gloo (``DDL_BACKEND=gloo``: NCCL gives no
+    two ranks one card), once a probe of the collectives the modes need
+    on CUDA tensors passes (a failing op is printed and the legs are not
+    run): ``gpt --mesh model=2`` (f32, the same rows) and ``moe --mesh
+    expert=2`` (phase 30's MLM twin, 4 train steps), each rank's first
+    loss within 1e-5 of the world-1 run's, every flash launch on ``H/2``
+    heads for gpt (all ``H`` for moe, whose attention is replicated),
+    launches exact, and the step time.
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -246,7 +262,7 @@ loader unwrapped (the runner's default) and two batches deep, in turns,
 with the step time and the idle share while the loader forms the
 batches.
 
-Phases 8-12, 16, 17, 21, 22 and 24-30 print step time, throughput and
+Phases 8-12, 16, 17, 21, 22 and 24-31 print step time, throughput and
 peak memory; phases 21, 24-26, 28 and 30 a profiler window's kernel time
 and idle share, 24-26 and 30 also the flash kernels' time and the step's
 operations against the bf16 tensor-core rate (``step_operations``).  The
@@ -263,6 +279,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1383,9 +1400,11 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    opt_state_bytes = sum(t.numel() * t.element_size()
-                          for st in state.optimizer.state.values()
-                          for t in st.values() if torch.is_tensor(t))
+    from distributed_deep_learning_tpu_torch.parallel.zero import (
+        optimizer_state_bytes, param_bytes)
+
+    opt_state_bytes = optimizer_state_bytes(state.optimizer)
+    params_bytes = param_bytes(state.model)
     del state
     peak = torch.cuda.max_memory_allocated()
     train = hist[0]
@@ -1405,7 +1424,8 @@ def _train(data_dir: Path, attention: str, *flags, label=None,
     return hist, launches, dict(step_s=step_s, tokens_per_s=tok_s, peak=peak,
                                 decode_launches=paged_flash_decode.launches,
                                 log="".join(tee.kept), served=served,
-                                opt_state_bytes=opt_state_bytes)
+                                opt_state_bytes=opt_state_bytes,
+                                param_bytes=params_bytes)
 
 
 def split_steps(rows: int, batch: int) -> list[int]:
@@ -3506,12 +3526,216 @@ def phase_moe():
     return out
 
 
+# --- phase 31: sharded training state ---------------------------------------
+
+#: phase 8's rows cut to 4 train steps and a test step (DDL_DATA_LIMIT);
+#: moe's MLM twin to 4 train steps at -b 32
+SHARD_ROWS, MOE_SHARD_ROWS = 24, 192
+#: a sharded run's first loss against the plain run's: the same
+#: arithmetic at world 1 (FSDP's and ZeRO's collectives move whole
+#: values), and across two ranks the split products' sums
+SHARD_FIRST_LOSS_TOL, TWO_RANK_FIRST_LOSS_TOL = 1e-6, 1e-5
+
+#: one rank of the two-rank legs: a probe of the collectives the modes
+#: need on CUDA tensors over gloo, then each leg through the CLI, the
+#: flash kernels' launches and the head counts they saw recorded
+TWO_RANK = r"""
+import collections, json, os, statistics, sys, time
+import torch
+import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.__main__ import main as cli
+from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+legs, ports = json.loads(sys.argv[1]), sys.argv[2].split(",")
+rank = int(os.environ["RANK"])
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+os.environ["MASTER_PORT"] = ports[0]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ports[0]}",
+                        rank=rank, world_size=2)
+probe = []
+for op, fn in (
+        ("all_reduce", lambda t: dist.all_reduce(t)),
+        ("all_reduce max", lambda t: dist.all_reduce(t, op=dist.ReduceOp.MAX)),
+        ("broadcast", lambda t: dist.broadcast(t, 0)),
+        ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)
+                                                  for _ in range(2)], t)),
+        ("new_group all_reduce", lambda t: dist.all_reduce(
+            t, group=dist.new_group([0, 1])))):
+    t = torch.full((4,), float(rank + 1), device=dev)
+    try:
+        fn(t)
+        torch.cuda.synchronize()
+        probe.append([op, None])
+    except Exception as e:                      # report, do not run legs
+        probe.append([op, f"{type(e).__name__}: {e}"[:300]])
+dist.destroy_process_group()
+out = {"probe": probe}
+if all(err is None for _, err in probe):
+    heads, real = collections.Counter(), fa._launch
+
+    def counting(name, q, *args, **kw):
+        heads[f"{name} H={q.shape[2]}"] += 1
+        return real(name, q, *args, **kw)
+
+    fa._launch = counting
+    counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    for (label, leg), port in zip(legs.items(), ports[1:]):
+        os.environ["MASTER_PORT"] = port
+        os.environ["DDL_DATA_LIMIT"] = str(leg["rows"])
+        heads.clear()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = cli(leg["argv"])
+        torch.cuda.synchronize()
+        del state
+        train = hist[0]
+        out[label] = {
+            "first_loss": train.step_losses[0],
+            "losses": train.step_losses,
+            "step_s": statistics.median(train.step_seconds[1:]),
+            "launches": {c.__name__: c.launches for c in counters},
+            "heads": dict(heads),
+            "peak": torch.cuda.max_memory_allocated()}
+print("TWO_RANK " + json.dumps(out), flush=True)
+"""
+
+
+def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
+    """Run :data:`TWO_RANK` as two ranks on card 0 (gloo, torchrun's
+    environment); returns each rank's record.  A rank that fails or is
+    still running at ``timeout`` fails the phase (every rank is
+    stopped)."""
+    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
+        free_port
+
+    ports = ",".join(str(free_port()) for _ in range(len(legs) + 1))
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                       DDL_BACKEND="gloo", OMP_NUM_THREADS="4",
+                       PYTHONPATH=str(ROOT))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", TWO_RANK, json.dumps(legs), ports],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        found = [line for line in o.splitlines()
+                 if line.startswith("TWO_RANK ")]
+        if p.returncode or len(found) != 1:
+            raise RuntimeError(f"two ranks on one card: rank {rank} exited "
+                               f"{p.returncode}:\n{o[-3000:]}")
+        records.append(json.loads(found[0][len("TWO_RANK "):]))
+    return records
+
+
+def phase_sharded(data_dir: Path, data_perf=None) -> dict:
+    """Phase 31; returns each run's figures (launches by kernel)."""
+    want = expected_launches(TRAIN_LAYERS, split_steps(SHARD_ROWS,
+                                                       TRAIN_BATCH))
+    out = {}
+    os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+    try:
+        for dtype in ("f32", "bf16"):
+            extra = ("--dtype", "bfloat16") if dtype == "bf16" else ()
+            runs = {}
+            for zero in ("none", "1", "fsdp"):
+                label = f"data {dtype}" + ("" if zero == "none"
+                                           else f" zero {zero}")
+                hist, launches, perf = _train(
+                    data_dir, "flash", *extra, "--zero", zero, label=label,
+                    mode="data")
+                perf.pop("served")
+                perf.update(first_loss=hist[0].step_losses[0],
+                            launches=launches)
+                runs[zero] = out[label] = perf
+                check_launches(f"sharded[{label}]", launches, want)
+            plain = runs["none"]
+            for zero in ("1", "fsdp"):
+                perf = runs[zero]
+                label = f"data {dtype} zero {zero}"
+                check_first_loss(f"sharded[{label}] vs plain -m data",
+                                 perf["first_loss"], plain["first_loss"],
+                                 SHARD_FIRST_LOSS_TOL)
+                print(f"sharded[{label}]: {perf['step_s']:.4f} s/step vs "
+                      f"{plain['step_s']:.4f} plain; peak "
+                      f"{perf['peak'] / 2**30:.2f} GiB vs "
+                      f"{plain['peak'] / 2**30:.2f}; optimizer state a rank "
+                      f"{perf['opt_state_bytes'] / 2**20:.1f} MiB vs "
+                      f"{plain['opt_state_bytes'] / 2**20:.1f}; parameters "
+                      f"a rank {perf['param_bytes'] / 2**20:.1f} MiB vs "
+                      f"{plain['param_bytes'] / 2**20:.1f}"
+                      + (f"; phase 11 (bf16, 48 rows): "
+                         f"{data_perf['step_s']:.4f} s/step, peak "
+                         f"{data_perf['peak'] / 2**30:.2f} GiB, optimizer "
+                         f"state {data_perf['opt_state_bytes'] / 2**20:.1f}"
+                         " MiB" if data_perf else ""))
+        # the world-1 reference of the expert leg
+        moe_argv = ("-m", "data", *MOE_BASE, "-b", "32")
+        os.environ["DDL_DATA_LIMIT"] = str(MOE_SHARD_ROWS)
+        out["moe data f32"] = moe = _zoo_run("moe", moe_argv, "moe data f32",
+                                             "tokens", 32 * 64)
+    finally:
+        os.environ.pop("DDL_DATA_LIMIT", None)
+    gpt_argv = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768",
+                "-e", "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
+                "--data-dir", str(data_dir), "--mesh", "model=2"]
+    legs = {"gpt model=2": {"argv": gpt_argv, "rows": SHARD_ROWS},
+            "moe expert=2": {"argv": ["moe", *moe_argv, "--mesh",
+                                      "expert=2"],
+                             "rows": MOE_SHARD_ROWS}}
+    t0 = time.perf_counter()
+    records = _two_rank_legs(legs)
+    print(f"two ranks on one card: {time.perf_counter() - t0:.1f} s for "
+          "the probe and both legs (two processes, gloo)")
+    for op, err in records[0]["probe"]:
+        print(f"two ranks on one card: gloo {op} of CUDA tensors: "
+              + ("ok" if err is None else f"FAILED ({err})"))
+    if any(err is not None for r in records for _, err in r["probe"]):
+        print("two ranks on one card: a collective the modes need is "
+              "missing; the --mesh model|expert legs are verified on the "
+              "CPU only")
+        return out
+    refs = {"gpt model=2": (out["data f32"]["first_loss"], want, 12),
+            "moe expert=2": (moe["first_loss"],
+                             expected_launches(MOE_LAYERS, split_steps(
+                                 MOE_SHARD_ROWS, 32)), 4)}
+    for label, (ref, leg_want, heads) in refs.items():
+        split = heads // 2 if label.startswith("gpt") else heads
+        for rank, rec in enumerate(records):
+            r = rec[label]
+            check_first_loss(f"two-rank[{label}] rank {rank} vs world 1",
+                             r["first_loss"], ref, TWO_RANK_FIRST_LOSS_TOL)
+            check_launches(f"two-rank[{label}] rank {rank}", r["launches"],
+                           leg_want)
+            seen = {k.split(" H=")[1] for k in r["heads"]}
+            print(f"two-rank[{label}] rank {rank}: {r['step_s']:.4f} s/step"
+                  f" (gloo on one card), peak {r['peak'] / 2**30:.2f} GiB, "
+                  f"flash launches by head count {r['heads']}")
+            if seen != {str(split)}:
+                raise RuntimeError(f"two-rank[{label}]: the flash kernels "
+                                   f"saw {seen} heads, expected {split}")
+        out[f"two-rank {label}"] = {"launches": records[0][label]["launches"],
+                                    "step_s": records[0][label]["step_s"]}
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 31)),
+                    default=",".join(str(i) for i in range(1, 32)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -3520,7 +3744,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 31)) and opts.waves is None
+    complete = phases == set(range(1, 32)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -3568,10 +3792,11 @@ def main(argv=None) -> int:
         lap("2-5, 13, 14, 18-20")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30} | set(range(8, 18))):
+    if phases & ({7, 25, 26, 28, 29, 30, 31} | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
     lap("6-7")
+    data_perf = None
     if phases & {8, 9, 10, 11, 12, 15, 16, 17}:
         data_dir = _write_tokens()
         hist = launches = perf = None
@@ -3579,7 +3804,7 @@ def main(argv=None) -> int:
             hist, launches, perf = phase_train_flash(data_dir)
         if 9 in phases:
             phase_train_dense(data_dir, hist, perf)
-        bf16_hist = bf16_launches = bf16_perf = data_perf = None
+        bf16_hist = bf16_launches = bf16_perf = None
         if phases & {10, 11, 15, 16, 17}:
             bf16_hist, bf16_launches, bf16_perf = phase_train_bf16(
                 data_dir, hist, serve=15 in phases)
@@ -3635,6 +3860,10 @@ def main(argv=None) -> int:
             pipe.update(phase_pipeline_zoo(data_dir))
         lap("28-29")
     moe = phase_moe() if 30 in phases else {}
+    sharded = {}
+    if 31 in phases:
+        sharded = phase_sharded(_write_tokens(), data_perf)
+        lap(31)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -3648,6 +3877,9 @@ def main(argv=None) -> int:
                                       for label, run in pipe.items()}
         entry["moe_launches"] = {label: run["launches"][entry["name"]]
                                  for label, run in moe.items()}
+        entry["sharded_launches"] = {
+            label: run["launches"][entry["name"]]
+            for label, run in sharded.items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

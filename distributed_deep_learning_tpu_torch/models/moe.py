@@ -20,6 +20,13 @@ all-reduce of the summed router probabilities).  The collectives run on
 their own process group, so they cannot interleave with DDP's gradient
 all-reduces, which run on the default group during the backward while a
 ``--remat`` recompute routes again.
+
+Under ``--mesh expert=K`` (:func:`moe_param_rules`) each rank of an
+expert group holds ``E/K`` experts' kernels and sees the same tokens
+(the batch is split over the batch axes only): it routes every token as
+the others do, runs its own experts' slots, and the ranks sum their
+partial outputs (a differentiable all-reduce over the expert group).
+The routing itself stays on the batch axes' group.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from torch import nn
 from distributed_deep_learning_tpu_torch.models.layers import sow_loss
 from distributed_deep_learning_tpu_torch.models.transformer import (
     Dense, LayerNorm, TransformerLayer, _EncoderModel, _gelu, recomputable)
+from distributed_deep_learning_tpu_torch.parallel.shards import (
+    copy_to, reduce_from)
 
 
 def _routing_totals(counts: torch.Tensor, group) -> tuple:
@@ -136,7 +145,9 @@ class MoEMLP(nn.Module):
     products run in ``dtype``.  The output is f32 (the flax module casts
     it), so under bf16 the residual stream it is added to becomes f32.
     The load-balance loss, times ``aux_loss_weight``, is sown.  ``group``
-    (:func:`global_routing`) routes over every rank's tokens."""
+    (:func:`global_routing`) routes over every rank's tokens.  Split over
+    an expert group (``expert_group``; ``parallel.tensor_parallel``),
+    ``w_in``/``w_out`` hold the experts from ``expert_start`` on."""
 
     def __init__(self, d_model: int, num_experts: int = 8,
                  mlp_dim: int = 2048, capacity_factor: float = 2.0,
@@ -149,6 +160,7 @@ class MoEMLP(nn.Module):
         self.w_in = nn.Parameter(torch.empty(num_experts, d_model, mlp_dim))
         self.w_out = nn.Parameter(torch.empty(num_experts, mlp_dim, d_model))
         self.group = None
+        self.expert_group, self.expert_start = None, 0
 
     def reset_experts(self, generator: Optional[torch.Generator] = None):
         """flax's ``xavier_uniform`` on the expert kernels (the router is
@@ -171,6 +183,13 @@ class MoEMLP(nn.Module):
         dispatch, combine, aux = top2_gating(logits, self.capacity(G),
                                              self.group)
         sow_loss(self.aux_loss_weight * aux)
+        if self.expert_group is not None:
+            # this rank's experts: the tokens and the gates are replicated,
+            # so each rank's branch adds its part of their gradients
+            lo, n = self.expert_start, self.w_in.shape[0]
+            tokens = copy_to(tokens, self.expert_group)
+            combine = copy_to(combine, self.expert_group)[:, lo:lo + n]
+            dispatch = dispatch[:, lo:lo + n]
         # the products' outputs are what --remat-policy dots keeps (jax's
         # dots_saveable); the casts and the GELU between them recompute
         w_in = recomputable(self.w_in.to, dt)
@@ -182,6 +201,7 @@ class MoEMLP(nn.Module):
         expert_out = torch.einsum("ecm,emd->ecd", h, w_out)
         out = torch.einsum("gec,ecd->gd", recomputable(combine.to, dt),
                            expert_out)
+        out = reduce_from(out, self.expert_group)
         return out.reshape(B, T, d).float()
 
 
@@ -244,15 +264,32 @@ class MoELM(_EncoderModel):
         return self.logits_from(self.final_norm(x))
 
 
-def global_routing(model: nn.Module) -> nn.Module:
+def global_routing(model: nn.Module, ranks=None) -> nn.Module:
     """Route every :class:`MoEMLP` of ``model`` over the global batch of a
-    synced ``-m data`` step: one new process group (made by every rank,
-    which all hold the same model) when the default group has more than
-    one rank; nothing at world 1, where this rank's tokens are the
-    batch."""
+    synced ``-m data`` step: one new process group over this rank's batch
+    group (``ranks``, its ranks in every group, each a list: the batch
+    axes of a mesh; default the whole world) when it has more than one
+    rank; nothing when this rank's tokens are the batch.  Every rank
+    makes every group, in one order."""
     layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
-    if layers and dist.is_initialized() and dist.get_world_size() > 1:
-        group = dist.new_group()
-        for mod in layers:
-            mod.group = group
+    if not (layers and dist.is_initialized()):
+        return model
+    if ranks is None:
+        ranks = [list(range(dist.get_world_size()))]
+    mine = None
+    for row in ranks:
+        if len(row) > 1:
+            group = dist.new_group(row)
+            if dist.get_rank() in row:
+                mine = group
+    for mod in layers:
+        mod.group = mine
     return model
+
+
+def moe_param_rules(axis: str = "expert"):
+    """Sharding rules for ``parallel.tensor_parallel``: the
+    expert-stacked kernels split their leading ``E`` axis over ``axis``;
+    the router stays replicated (every rank routes its own tokens)."""
+    return ((r"(^|.*\.)w_in$", 0, axis),
+            (r"(^|.*\.)w_out$", 0, axis))

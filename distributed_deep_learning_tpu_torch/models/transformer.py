@@ -59,6 +59,8 @@ from distributed_deep_learning_tpu_torch.models.layers import lecun_normal_
 from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
 from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy
+from distributed_deep_learning_tpu_torch.parallel.shards import (
+    copy_to, gather_last)
 
 #: ``attend(layer_index, q, k, v) -> y``: q ``(B, T, H, hd)``, k/v
 #: ``(B, T, Hkv, hd)``, y ``(B, T, H, hd)``
@@ -326,7 +328,13 @@ def causal_prefix_attention(q, k, v, key_valid, start, *, window=None):
 
 class MultiHeadAttention(nn.Module):
     """q/k/v projections to heads, RoPE, and the output projection; the
-    attention between them is the caller's."""
+    attention between them is the caller's.
+
+    Under tensor parallelism (``parallel.tensor_parallel``) the
+    projections hold this rank's heads: ``num_heads`` and ``kv_heads``
+    are the local counts (the GQA group is unchanged), and ``tp_group``
+    is the ``model`` group, whose ranks sum their gradients of the input
+    in the backward."""
 
     def __init__(self, d_model: int, num_heads: int,
                  num_kv_heads: Optional[int] = None, rope: bool = False):
@@ -343,6 +351,7 @@ class MultiHeadAttention(nn.Module):
         self.k = Dense(d_model, kv_heads * hd)
         self.v = Dense(d_model, kv_heads * hd)
         self.out = Dense(num_heads * hd, d_model)
+        self.tp_group = None
 
     @property
     def group(self) -> int:
@@ -354,7 +363,8 @@ class MultiHeadAttention(nn.Module):
         cross-attention reads the encoder's output), rotated at
         ``positions`` under RoPE."""
         B, T, _ = x.shape
-        kv = x if x_kv is None else x_kv
+        x = copy_to(x, self.tp_group)
+        kv = x if x_kv is None else copy_to(x_kv, self.tp_group)
         S = kv.shape[1]
         q = self.q(x).view(B, T, self.num_heads, self.head_dim)
         k = self.k(kv).view(B, S, self.kv_heads, self.head_dim)
@@ -414,6 +424,19 @@ def attend_qkv(attention: str, attn: MultiHeadAttention, q, k, v, *,
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+def tied_logits(tok: nn.Embedding, hidden):
+    """The weight-tied output projection, f32 on both operands.  A table
+    split over its vocabulary (``parallel.tensor_parallel``'s
+    ``VocabParallelEmbedding``: ``group``, ``vocab_start``,
+    ``vocab_total``) computes its rows' logits and gathers every rank's."""
+    group = getattr(tok, "group", None)
+    h = copy_to(hidden.float(), group)
+    logits = torch.einsum("...d,vd->...v", h, tok.weight.float())
+    if group is None:
+        return logits
+    return gather_last(logits, group, tok.vocab_start, tok.vocab_total)
 
 
 class TransformerLayer(nn.Module):
@@ -600,9 +623,9 @@ class CausalLM(nn.Module):
         return self.logits_from(h) if self.with_logits else h
 
     def logits_from(self, hidden):
-        """Weight-tied output projection, f32 on both operands."""
-        return torch.einsum("...d,vd->...v", hidden.float(),
-                            self.tok.weight.float())
+        """Weight-tied output projection, f32 on both operands
+        (:func:`tied_logits`)."""
+        return tied_logits(self.tok, hidden)
 
     def loss(self, hidden, targets):
         """Mean next-token cross-entropy through the fused head
@@ -612,9 +635,11 @@ class CausalLM(nn.Module):
         ``tokens[:, :-1]`` against ``tokens[:, 1:]``."""
         # -1 never equals a vocabulary id, so it excludes nothing
         ignore_id = self.pad_id if self.pad_id is not None else -1
-        return fused_linear_cross_entropy(hidden.float(),
-                                          self.tok.weight.float(), targets,
-                                          ignore_id)
+        # a vocab-split table: each rank's rows, combined over its group
+        return fused_linear_cross_entropy(
+            hidden.float(), self.tok.weight.float(), targets, ignore_id,
+            group=getattr(self.tok, "group", None),
+            vocab_start=getattr(self.tok, "vocab_start", 0))
 
     # --- dense KV cache (the flax decode-mode cache) ----------------------
     def init_cache(self, batch: int, total_len: int) -> dict:
@@ -812,9 +837,9 @@ class _EncoderModel(nn.Module):
         return self.tok(tokens).to(self.dtype) + self.pos[:T].to(self.dtype)
 
     def logits_from(self, hidden):
-        """Weight-tied output projection, f32 on both operands."""
-        return torch.einsum("...d,vd->...v", hidden.float(),
-                            self.tok.weight.float())
+        """Weight-tied output projection, f32 on both operands
+        (:func:`tied_logits`)."""
+        return tied_logits(self.tok, hidden)
 
     def _drop(self, generator):
         if not (self.training and self.dropout_rate > 0):

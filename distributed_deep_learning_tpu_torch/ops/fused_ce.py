@@ -23,11 +23,19 @@ Semantics are the JAX op's: a vocabulary that the block does not divide
 gets a zero-padded last block whose columns are masked to ``NEG_INF``;
 rows whose target is ``ignore_id`` count for nothing, and the loss is the
 mean over the counted rows (at least one).
+
+Under tensor parallelism the table is split over its vocabulary (rows
+``vocab_start`` on of the whole table on this rank of ``group``): each
+rank folds its own rows' blocks, the ranks combine the running max, the
+sum of exp (rescaled to the common max) and the target's logit (held by
+one rank) into every row's log-sum-exp, and in the backward each rank
+computes its rows of ``dW`` and its part of ``dh``, which the ranks sum.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 NEG_INF = -1e30
 
@@ -64,7 +72,8 @@ def _targets_in(targets, start, block):
 
 class _FusedLinearCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, table, targets, ignore_id, block):
+    def forward(ctx, h, table, targets, ignore_id, block, group,
+                vocab_start):
         N = h.shape[0]
         h32 = h.float()
         m = h32.new_full((N,), NEG_INF)
@@ -76,15 +85,24 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             s = s * torch.exp(m - new_m) + torch.exp(
                 logits - new_m[:, None]).sum(-1)
             m = new_m
-            local, inside = _targets_in(targets, start, wb.shape[0])
+            local, inside = _targets_in(targets, vocab_start + start,
+                                        wb.shape[0])
             picked = logits.gather(1, local[:, None])[:, 0]
             tgt = torch.where(inside, picked, tgt)
+        if group is not None:
+            top = m.clone()
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+            s = s * torch.exp(m - top)
+            dist.all_reduce(s, group=group)
+            dist.all_reduce(tgt, group=group)
+            m = top
         logz = m + torch.log(s)
         valid = targets != ignore_id
         count = valid.sum().clamp_min(1)
         loss = torch.where(valid, logz - tgt, 0.0).sum() / count
         ctx.save_for_backward(h, table, targets, logz)
         ctx.ignore_id, ctx.block = ignore_id, block
+        ctx.group, ctx.vocab_start = group, vocab_start
         return loss
 
     @staticmethod
@@ -101,27 +119,34 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         for start, wb, width in _blocks(table, ctx.block):
             logits = _block_logits(h32, wb, width)
             delta = torch.exp(logits - logz[:, None])       # softmax block
-            local, inside = _targets_in(targets, start, wb.shape[0])
+            local, inside = _targets_in(targets, ctx.vocab_start + start,
+                                        wb.shape[0])
             delta.scatter_add_(1, local[:, None], -inside.float()[:, None])
             delta *= scale[:, None]
             if want_h:
                 dh += delta @ wb
             if want_w:
                 dw[start:start + width] = (delta.T @ h32)[:width]
+        if want_h and ctx.group is not None:
+            dist.all_reduce(dh, group=ctx.group)
         return (dh.to(h.dtype) if want_h else None,
-                dw.to(table.dtype) if want_w else None, None, None, None)
+                dw.to(table.dtype) if want_w else None,
+                None, None, None, None, None)
 
 
 def fused_linear_cross_entropy(h, table, targets, ignore_id: int = 0,
-                               block: int = 512):
+                               block: int = 512, *, group=None,
+                               vocab_start: int = 0):
     """Mean cross-entropy of ``softmax(h @ table.T)`` against ``targets``
     without the ``(N, V)`` logits.
 
     ``h`` is ``(..., d)``, ``table`` ``(V, d)`` (the embedding layout of
     the tied head), ``targets`` ``(...)`` ids; rows whose target is
     ``ignore_id`` are left out of the mean.  Differentiable in ``h`` and
-    ``table``; the gradients come back in their dtypes."""
+    ``table``; the gradients come back in their dtypes.  With ``group``,
+    ``table`` holds the rows ``vocab_start`` on of a table split over the
+    ranks of ``group``, and ``h`` is the same on each of them."""
     d = h.shape[-1]
     return _FusedLinearCrossEntropy.apply(
         h.reshape(-1, d), table, targets.reshape(-1).long(), int(ignore_id),
-        int(block))
+        int(block), group, int(vocab_start))

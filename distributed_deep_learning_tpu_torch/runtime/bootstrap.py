@@ -10,7 +10,10 @@ is ``MASTER_ADDR``/``MASTER_PORT`` when the launcher gives them, else
 loopback on a free port.  The backend is ``nccl`` on ``cuda`` and ``gloo``
 on the CPU; each rank owns ``cuda:<local_rank>``, and ranks that outnumber
 the visible cards raise (NCCL cannot give two ranks one card, and nothing
-falls back to gloo or to the CPU).
+falls back to gloo or to the CPU).  ``DDL_BACKEND=gloo`` asks for gloo on
+``cuda`` as well (its collectives stage CUDA tensors through the host):
+then ranks may share a card, rank ``r`` on ``cuda:<local_rank mod
+cards>``.
 """
 
 from __future__ import annotations
@@ -63,11 +66,16 @@ def initialize(device: str = "cuda") -> tuple[DistEnv, bool]:
     for this rank, or when an existing group uses the other backend."""
     kind = torch.device(device).type
     backend = "nccl" if kind == "cuda" else "gloo"
+    shared = kind == "cuda" and os.environ.get("DDL_BACKEND") == "gloo"
+    if shared:
+        backend = "gloo"
     rank, world, local = env_topology()
     if kind == "cuda":
         resolve_device("cuda")
         cards = torch.cuda.device_count()
-        if local >= cards:
+        if shared:
+            local %= cards
+        elif local >= cards:
             raise RuntimeError(f"rank {rank} (local rank {local}) has no card"
                                f": {cards} visible; NCCL cannot give two "
                                "ranks one card (run at most one rank per "
@@ -92,7 +100,7 @@ def initialize(device: str = "cuda") -> tuple[DistEnv, bool]:
     dist.init_process_group(backend,
                             init_method=f"tcp://{addr}:{port or free_port()}",
                             world_size=world, rank=rank,
-                            device_id=dev if kind == "cuda" else None)
+                            device_id=dev if backend == "nccl" else None)
     return DistEnv(rank, world, dev), True
 
 

@@ -6,7 +6,8 @@
 processes with torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` on loopback and a
 free ``MASTER_PORT``), which :mod:`.bootstrap` reads.  On ``cuda`` each
-rank takes one card, so N beyond the visible cards is refused.
+rank takes one card, so N beyond the visible cards is refused (unless
+``DDL_BACKEND=gloo`` lets ranks share a card).
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
 
 
 def launch_local(n_processes: int, argv: Sequence[str], *,
-                 device: str = "cuda", timeout: float | None = None
+                 device: str = "cuda", timeout: float | None = None,
+                 module: str = "distributed_deep_learning_tpu_torch"
                  ) -> list[subprocess.CompletedProcess]:
-    """Run ``python -m distributed_deep_learning_tpu_torch <argv>`` as
+    """Run ``python -m <module> <argv>`` (the CLI by default; the
+    sharded-state selftest is ``runtime.selftest``) as
     ``n_processes`` ranks; returns
     their CompletedProcess list in rank order, each with its stdout and
     stderr combined.  Raises ``ValueError`` for fewer than 2 ranks,
@@ -37,7 +40,8 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
     if n_processes < 2:
         raise ValueError(f"--spawn needs -r N with N >= 2, got "
                          f"{n_processes}")
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and \
+            os.environ.get("DDL_BACKEND") != "gloo":
         cards = torch.cuda.device_count()
         if n_processes > cards:
             raise RuntimeError(f"--spawn -r {n_processes} on cuda needs "
@@ -58,8 +62,7 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
             env.setdefault("OMP_NUM_THREADS", "1")   # as torchrun sets it
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "distributed_deep_learning_tpu_torch",
-                 *argv], env=env,
+                [sys.executable, "-m", module, *argv], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         # drain every pipe at once: a rank blocked on a full pipe would
         # stall the collective its peers wait in

@@ -19,6 +19,13 @@ LAMB and Adafactor have no torch counterpart with optax's semantics, so
 parameter's second moment over the two largest axes of its FLAX shape
 (the model's ``flax_layout``), which is not the shape of the torch tensor
 for the attention projections.
+
+Sharded parameters (``--zero fsdp``'s DTensors, tensor parallelism's
+slices: :mod:`..parallel.shards`) keep every statistic a statistic of the
+whole parameter, as XLA computes it over the logical array: the clip's
+global norm and LAMB's norms sum each rank's part over its group, and
+Adafactor takes its factored moments of the gathered whole parameter and
+applies this rank's part of the update (its state is kept whole).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 from torch import nn
 
 from distributed_deep_learning_tpu_torch import resolve_device
+from distributed_deep_learning_tpu_torch.parallel.shards import (
+    local, local_part, shard_groups, whole, whole_sum)
 from distributed_deep_learning_tpu_torch.train.schedules import step_decay
 
 #: optax's defaults for adam/adamw
@@ -44,17 +53,35 @@ ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY_RATE, ADAFACTOR_EPS = 128, 0.8, 1e-30
 ADAFACTOR_CLIP, ADAFACTOR_MIN_SCALE = 1.0, 1e-3
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> None:
+def clip_by_global_norm(grads: list, max_norm: float,
+                        params: list | None = None) -> None:
     """``optax.clip_by_global_norm`` in place: every gradient becomes
     ``g / norm * max_norm`` when the global norm reaches ``max_norm``, and
     stays as it is below it (``clip_grad_norm_`` would add 1e-6 to the
-    norm and scale below it too).  No host sync."""
+    norm and scale below it too).  No host sync.  ``params`` (the
+    gradients' parameters) makes the norm that of the whole parameters
+    when some are split across ranks: each group's squared sums are
+    summed over it once."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    if params is None or not any(shard_groups(p) for p in params):
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        by_groups: dict = {}
+        for p, g in zip(params, grads):
+            key = tuple(shard_groups(p))
+            sq = local(g).float().pow(2).sum()
+            by_groups[key] = by_groups.get(key, 0) + sq
+        total = 0
+        for key, sq in by_groups.items():
+            for group in key:
+                torch.distributed.all_reduce(sq, group=group)
+            total = total + sq
+        norm = torch.sqrt(total)
     keep = norm < max_norm
     for g in grads:
+        g = local(g)
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
@@ -62,7 +89,10 @@ class Lamb(torch.optim.Optimizer):
     """``optax.lamb``: Adam's bias-corrected direction ``m / (sqrt(v) +
     eps)``, plus ``weight_decay * p`` on the decayed parameters, scaled by
     each parameter's trust ratio ``|p| / |u|`` (1 where either norm is 0),
-    times the learning rate.  The decay is per parameter group."""
+    times the learning rate.  The decay is per parameter group.  A split
+    parameter's moments are its local part (``local_state``)."""
+
+    local_state = True
 
     def __init__(self, params, lr, weight_decay=0.0):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
@@ -77,9 +107,9 @@ class Lamb(torch.optim.Optimizer):
                 st = self.state[p]
                 if not st:
                     st["count"] = 0
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
-                g = p.grad
+                    st["mu"] = torch.zeros_like(local(p))
+                    st["nu"] = torch.zeros_like(local(p))
+                g, w = local(p.grad), local(p)
                 st["count"] += 1
                 t = st["count"]
                 mu = st["mu"].copy_((1 - b1) * g + b1 * st["mu"])
@@ -87,12 +117,18 @@ class Lamb(torch.optim.Optimizer):
                 u = (mu / (1 - b1 ** t)) / (
                     torch.sqrt(nu / (1 - b2 ** t)) + eps)
                 if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
-                pn, un = torch.linalg.vector_norm(p), \
-                    torch.linalg.vector_norm(u)
+                    u = u + group["weight_decay"] * w
+                if shard_groups(p):
+                    # the whole parameter's norms: sum the parts' squares
+                    sq = whole_sum(p, torch.stack([w.pow(2).sum(),
+                                                   u.pow(2).sum()]))
+                    pn, un = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+                else:
+                    pn, un = torch.linalg.vector_norm(w), \
+                        torch.linalg.vector_norm(u)
                 ratio = torch.where((pn == 0) | (un == 0),
                                     torch.ones_like(pn), pn / un)
-                p.sub_(group["lr"] * (u * ratio))
+                w.sub_(group["lr"] * (u * ratio))
 
 
 class Adafactor(torch.optim.Optimizer):
@@ -101,7 +137,12 @@ class Adafactor(torch.optim.Optimizer):
     least ``ADAFACTOR_MIN_DIM`` entries (elementwise otherwise), with the
     decay ``1 - (t + 1) ** -0.8``; the update clipped to a block RMS of 1,
     times the learning rate and the parameter's RMS (at least 1e-3).
-    ``layouts`` maps a parameter to its ``(to_flax, from_flax)`` pair."""
+    ``layouts`` maps a parameter to its ``(to_flax, from_flax)`` pair.
+    A split parameter's gradient and value are gathered whole first, and
+    its part of the update applied (the state is the whole
+    parameter's: ``whole_state``)."""
+
+    whole_state = True
 
     def __init__(self, params, lr, layouts=None):
         super().__init__(params, dict(lr=lr))
@@ -125,7 +166,9 @@ class Adafactor(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 to_flax, from_flax = self.layouts.get(p, (_same, _same))
-                g = to_flax(p.grad)
+                split = bool(shard_groups(p))
+                p_whole = whole(p, p.detach()) if split else p
+                g = to_flax(whole(p, p.grad) if split else p.grad)
                 dims = self.factored_dims(tuple(g.shape))
                 st = self.state[p]
                 if not st:
@@ -160,11 +203,14 @@ class Adafactor(torch.optim.Optimizer):
                         * (col ** -0.5).unsqueeze(d1)
                 rms = torch.sqrt(torch.mean(u * u))
                 u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
-                p_rms = torch.sqrt(torch.mean(p * p))
+                p_rms = torch.sqrt(torch.mean(p_whole * p_whole))
                 u = u * group["lr"] * torch.where(
                     p_rms <= ADAFACTOR_MIN_SCALE,
                     torch.full_like(p_rms, ADAFACTOR_MIN_SCALE), p_rms)
-                p.sub_(from_flax(u))
+                if split:
+                    local(p).sub_(local_part(p, from_flax(u)))
+                else:
+                    p.sub_(from_flax(u))
 
 
 def _same(t):
@@ -195,6 +241,14 @@ class Optimizer:
         """The torch optimizer over ``named_params``; ``layout(name)``
         gives a parameter's ``(to_flax, from_flax)`` pair (Adafactor's
         factoring reads the flax shape)."""
+        cls, params, kwargs = self.parts(named_params, layout)
+        return cls(params, **kwargs)
+
+    def parts(self, named_params: Iterable, layout: Callable | None = None
+              ) -> tuple[type, list, dict]:
+        """``(class, params or param groups, keyword arguments)`` of the
+        torch optimizer :meth:`build` makes (what a wrapper such as
+        ZeRO's builds it from)."""
         named = [(n, p) for n, p in named_params if p.requires_grad]
         params = [p for _, p in named]
         lr = self.lr_at(0)
@@ -204,24 +258,26 @@ class Optimizer:
                   {"params": [p for n, p in named if not mask(n, p)],
                    "weight_decay": 0.0}]
         if self.kind == "sgd":
-            return torch.optim.SGD(params, lr=lr)
+            return torch.optim.SGD, params, dict(lr=lr)
         if self.kind == "momentum":
             # optax trace: t = g + 0.9 t, update -lr t; torch's buffer
             # starts at g and follows the same recurrence
-            return torch.optim.SGD(params, lr=lr, momentum=0.9)
+            return torch.optim.SGD, params, dict(lr=lr, momentum=0.9)
         if self.kind == "adam":
-            return torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS)
+            return torch.optim.Adam, params, dict(lr=lr, betas=BETAS,
+                                                  eps=EPS)
         if self.kind == "adamw":
             # torch's AdamW and optax.adamw coincide: eps is added to
             # sqrt of the bias-corrected second moment, and the decay is
             # decoupled and scaled by the (scheduled) learning rate:
             # p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)
-            return torch.optim.AdamW(groups, lr=lr, betas=BETAS, eps=EPS)
+            return torch.optim.AdamW, groups, dict(lr=lr, betas=BETAS,
+                                                   eps=EPS)
         if self.kind == "lamb":
-            return Lamb(groups, lr=lr)
+            return Lamb, groups, dict(lr=lr)
         if self.kind == "adafactor":
             layouts = {p: layout(n) for n, p in named} if layout else None
-            return Adafactor(params, lr=lr, layouts=layouts)
+            return Adafactor, params, dict(lr=lr, layouts=layouts)
         raise ValueError(f"unknown optimizer kind {self.kind!r}")
 
 
@@ -255,9 +311,10 @@ class TrainState:
     def apply_gradients(self) -> None:
         """Clip, set the learning rate for this update's count, step."""
         if self.tx.clip_norm is not None:
-            clip_by_global_norm([p.grad for g in self.optimizer.param_groups
-                                 for p in g["params"] if p.grad is not None],
-                                self.tx.clip_norm)
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"] if p.grad is not None]
+            clip_by_global_norm([p.grad for p in params], self.tx.clip_norm,
+                                params)
         lr = self.tx.lr_at(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -268,18 +325,23 @@ class TrainState:
 def create_train_state(model: nn.Module, seed: int, tx: Optimizer,
                        init_state_dict: dict | None = None, *,
                        device="cuda",
-                       dropout_seed: int | None = None) -> TrainState:
+                       dropout_seed: int | None = None,
+                       shard: Callable | None = None) -> TrainState:
     """Initialise ``model`` from ``seed`` (its ``reset_parameters``), or
     load ``init_state_dict`` over it (the tests carry JAX weights across
     with ``load_flax_params``), move it to ``device`` (``cuda`` unless the
-    caller asks for the CPU; raises without a card) and build the
-    optimizer.  ``dropout_seed`` seeds the dropout generator on ``device``
-    (None: no generator, for models without dropout)."""
+    caller asks for the CPU; raises without a card), split it across
+    ranks with ``shard(model)`` when given (tensor parallelism, FSDP),
+    and build the optimizer.  ``dropout_seed`` seeds the dropout
+    generator on ``device`` (None: no generator, for models without
+    dropout)."""
     device = resolve_device(device)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     model.to(device)
+    if shard is not None:
+        model = shard(model)
     gen = None
     if dropout_seed is not None:
         gen = torch.Generator(device=device).manual_seed(dropout_seed)

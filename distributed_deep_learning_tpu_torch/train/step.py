@@ -46,16 +46,16 @@ from distributed_deep_learning_tpu_torch.train.state import TrainState
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def global_mean(loss, pred, y, loss_fn, world: int):
+def global_mean(loss, pred, y, loss_fn, world: int, group=None):
     """``(objective, metrics)`` of one rank's share of a global batch: one
-    all-reduce of ``[loss × sites, sites, correct, count]`` (f64), the
-    objective whose DDP-averaged gradient is the global mean's, and the
-    global metrics."""
+    all-reduce of ``[loss × sites, sites, correct, count]`` (f64) over
+    ``group`` (the batch axes' ranks; default all), the objective whose
+    averaged gradient is the global mean's, and the global metrics."""
     m = prediction_metrics(pred.detach(), y, loss)
     sites = loss_fn.sites(y)
     stats = torch.stack([loss.detach().double() * sites, sites.double(),
                          m["correct"].double(), m["count"].double()])
-    dist.all_reduce(stats)
+    dist.all_reduce(stats, group=group)
     total = stats[1].clamp_min(1.0)
     objective = loss * (sites * world / total).float()
     return objective, {"loss": (stats[0] / total).float(),
@@ -64,12 +64,15 @@ def global_mean(loss, pred, y, loss_fn, world: int):
 
 
 def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
-                  remat_policy: str = "nothing", accum_steps: int = 1):
+                  remat_policy: str = "nothing", accum_steps: int = 1,
+                  global_batch: bool = False, group=None):
     """``(train_step, eval_step)``: ``train_step(state, x, y) -> (state,
     metrics)`` updates ``state`` in place; ``eval_step(state, x, y) ->
     metrics``.  ``ddp`` (``DistributedDataParallel`` over ``state.model``)
     makes them ``-m data`` steps over this rank's rows, with the global
-    batch's loss and metrics.  ``remat`` recomputes each layer in the
+    batch's loss and metrics; so does ``global_batch`` for a model that
+    averages its gradients itself (FSDP).  ``group`` is the process group
+    of the ranks the batch is split over (default: all).  ``remat`` recomputes each layer in the
     backward, keeping what ``remat_policy`` names (one of
     ``utils.config.REMAT_POLICIES``); numerics do not change.
     ``accum_steps`` cuts the batch into that many microbatches before one
@@ -78,7 +81,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     kw = {"remat": remat_policy} if remat else {}
-    world = dist.get_world_size() if ddp is not None else 1
+    synced = ddp is not None or global_batch
+    world = dist.get_world_size(group) if synced else 1
 
     def train_step(state: TrainState, x, y):
         B = x.shape[0]
@@ -99,13 +103,13 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                 with collect_losses() as sown:
                     pred = net(mx, generator=state.generator, **kw)
                 loss = loss_fn(pred, my)
-                if ddp is None:
+                if not synced:
                     objective = loss
                     metrics.append(prediction_metrics(pred.detach(), my,
                                                       loss))
                 else:
                     objective, mm = global_mean(loss, pred, my, loss_fn,
-                                                world)
+                                                world, group)
                     metrics.append(mm)
                 if sown:
                     objective = objective + sum(sown)
@@ -122,8 +126,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
         state.model.eval()
         pred = state.model(x)
         loss = loss_fn(pred, y)
-        if ddp is None:
+        if not synced:
             return prediction_metrics(pred, y, loss)
-        return global_mean(loss, pred, y, loss_fn, world)[1]
+        return global_mean(loss, pred, y, loss_fn, world, group)[1]
 
     return train_step, eval_step

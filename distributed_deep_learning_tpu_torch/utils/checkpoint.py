@@ -34,7 +34,10 @@ import zlib
 import torch
 import torch.distributed as dist
 
+from distributed_deep_learning_tpu_torch.parallel.shards import (
+    is_dtensor, is_split, local, local_part, resharded, whole, whole_shape)
 from distributed_deep_learning_tpu_torch.train.state import TrainState
+from distributed_deep_learning_tpu_torch.utils.config import ROADMAP_ITEMS
 
 _CKPT = re.compile(r"ckpt-(\d+)\.pt")
 
@@ -88,15 +91,113 @@ def leaf_records(payload) -> dict:
     return records
 
 
-def state_payload(state: TrainState, generators=None) -> dict:
+def is_sharded(state: TrainState) -> bool:
+    """Whether ``state`` is split across ranks (saving it is collective)."""
+    return hasattr(state.optimizer, "consolidate_state_dict") or any(
+        is_split(p) for p in resharded(state.model).parameters())
+
+
+def whole_state_dict(model) -> dict:
+    """``model``'s state dict with every split parameter whole (every
+    rank calls it)."""
+    params = dict(resharded(model).named_parameters())
+    return {k: whole(params[k], v) if k in params and is_split(params[k])
+            else v for k, v in model.state_dict().items()}
+
+
+def _whole_optimizer(optimizer, writer: bool):
+    """The optimizer's state dict with every split moment whole (the
+    writer's; None elsewhere for ZeRO-1, whose state consolidates on its
+    group's first rank)."""
+    if hasattr(optimizer, "consolidate_state_dict"):
+        group = optimizer.process_group
+        optimizer.consolidate_state_dict(to=dist.get_global_rank(group, 0))
+        return optimizer.state_dict() if writer else None
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for i in sorted(sd["state"]):
+        p = params[i]
+        state[i] = {k: _whole_moment(p, v)
+                    for k, v in sd["state"][i].items()}
+    return {**sd, "state": state}
+
+
+def _whole_moment(p, v):
+    if not (isinstance(v, torch.Tensor) and is_split(p)):
+        return v
+    if is_dtensor(v):
+        return v.full_tensor()
+    if v.shape == local(p).shape and tuple(v.shape) != whole_shape(p):
+        return whole(p, v)
+    return v           # a statistic of the whole parameter already
+
+
+def state_payload(state: TrainState, generators=None, *,
+                  writer: bool = True) -> dict | None:
     """What a checkpoint holds, on the host.  ``generators``: every rank's
-    dropout generator state, in rank order (default: this process's)."""
+    dropout generator state, in rank order (default: this process's).
+    For sharded state every rank calls it (it gathers); the ``writer``
+    gets the payload, the others None."""
     if generators is None and state.generator is not None:
         generators = [state.generator.get_state()]
-    return _to_cpu({"step": int(state.step),
-                    "params": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "generator": generators})
+    if not is_sharded(state):
+        return _to_cpu({"step": int(state.step),
+                        "params": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict(),
+                        "generator": generators})
+    params = whole_state_dict(state.model)
+    optimizer = _whole_optimizer(state.optimizer, writer)
+    if not writer:
+        return None
+    return _to_cpu({"step": int(state.step), "params": params,
+                    "optimizer": optimizer, "generator": generators})
+
+
+def _load_params(model, sd: dict) -> None:
+    params = dict(resharded(model).named_parameters())
+    if not any(is_split(p) for p in params.values()):
+        model.load_state_dict(sd)
+        return
+    buffers = dict(model.named_buffers())
+    if set(sd) != set(params) | set(buffers):
+        raise ValueError(f"checkpoint parameters {sorted(set(sd))} do not "
+                         f"match the model's {sorted(params)}")
+    with torch.no_grad():
+        for k, p in params.items():
+            v = sd[k].to(local(p).device, local(p).dtype)
+            local(p).copy_(local_part(p, v) if is_split(p) else v)
+        for k, b in buffers.items():
+            b.copy_(sd[k])
+
+
+def _load_optimizer(optimizer, sd: dict) -> None:
+    """Load whole moments into this run's layout: a split parameter's
+    moment becomes its local part (a DTensor where the optimizer keeps
+    DTensor state, ``Adafactor``'s whole statistics as they are)."""
+    if hasattr(optimizer, "consolidate_state_dict"):
+        optimizer.load_state_dict(sd)
+        return
+    from torch.distributed.tensor import DTensor
+
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    keep_whole = getattr(optimizer, "whole_state", False)
+    local_state = getattr(optimizer, "local_state", False)
+    state = {}
+    for i, st in sd["state"].items():
+        p = params[int(i)]
+        state[i] = {}
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor) and is_split(p) and \
+                    not keep_whole and tuple(v.shape) == whole_shape(p):
+                part = local_part(p, v.to(local(p).device))
+                if is_dtensor(p) and not local_state:
+                    part = DTensor.from_local(part, p.device_mesh,
+                                              p.placements, shape=p.shape,
+                                              stride=p.stride())
+                v = part
+            state[i][k] = v
+    optimizer.load_state_dict({**sd, "state": state})
 
 
 def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
@@ -113,8 +214,8 @@ def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
         raise ValueError(f"checkpoint holds the dropout streams of "
                          f"{len(gens)} rank(s), this run has {world}: "
                          "resume at the world size that saved it")
-    state.model.load_state_dict(payload["params"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    _load_params(state.model, payload["params"])
+    _load_optimizer(state.optimizer, payload["optimizer"])
     state.step = int(payload["step"])
     if gens is not None:
         state.generator.set_state(gens[rank])
@@ -125,9 +226,10 @@ class Checkpointer:
     """Checkpoints of one run directory, the newest ``keep`` kept."""
 
     def __init__(self, directory: str | os.PathLike, *, keep: int = 3,
-                 shared: bool = True):
+                 shared: bool = True, topology: dict | None = None):
         self._dir = os.path.abspath(os.fspath(directory))
         self.keep = keep
+        self.topology = topology
         self._shared = shared and dist.is_initialized()
         self._rank, self._world = (
             (dist.get_rank(), dist.get_world_size()) if self._shared
@@ -169,16 +271,20 @@ class Checkpointer:
         if step in self.all_steps():
             self._barrier()
             return False
+        payload = None
+        if self._writer or is_sharded(state):
+            payload = state_payload(state, generators, writer=self._writer)
         if self._writer:
-            payload = state_payload(state, generators)
             if extra is not None:
                 self._write_json(self._path("extra", step), extra)
             records = leaf_records(payload)
-            self._write_json(self._path("manifest", step), {
-                "format": 1,
-                "all_finite": all(r.get("finite", True)
-                                  for r in records.values()),
-                "leaves": records})
+            manifest = {"format": 1,
+                        "all_finite": all(r.get("finite", True)
+                                          for r in records.values()),
+                        "leaves": records}
+            if self.topology is not None:
+                manifest["topology"] = self.topology
+            self._write_json(self._path("manifest", step), manifest)
             path = self._path("ckpt", step)
             tmp = f"{path}.tmp.{os.getpid()}"
             torch.save(payload, tmp)
@@ -253,9 +359,17 @@ class Checkpointer:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return self._into(state, self.load(step))
+        return self._into(state, self.load(step), step)
 
-    def _into(self, state: TrainState, payload: dict) -> TrainState:
+    def _into(self, state: TrainState, payload: dict,
+              step: int) -> TrainState:
+        saved = (self.read_manifest(step) or {}).get("topology")
+        if saved is not None and self.topology is not None and \
+                saved != self.topology:
+            raise ValueError(
+                f"checkpoint step {step} was saved under {saved}, this run "
+                f"is {self.topology}: restoring it into another layout is "
+                f"--reshard's, not ported yet: {ROADMAP_ITEMS[14]}")
         return load_payload(state, payload, rank=self._rank,
                             world=self._world)
 
@@ -302,7 +416,7 @@ class Checkpointer:
                     continue
                 # a step that verifies but does not fit the run (dropout,
                 # world size) is the run's fault, not the step's: it raises
-                return self._into(state, payload), s
+                return self._into(state, payload, s), s
             return None, None
         finally:
             self._barrier()

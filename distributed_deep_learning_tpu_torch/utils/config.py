@@ -2,7 +2,8 @@
 ``distributed_deep_learning_tpu/utils/config.py`` for the flags the port
 runs (``mlp``, ``cnn``, ``lstm``, ``mnist``, ``resnet``, ``transformer``,
 ``bert`` and ``gpt`` under ``-m sequential|model|pipeline|data`` with
-``--nstages``, ``--pipeline-schedule`` and ``--virtual-stages``, ``--dtype``,
+``--nstages``, ``--pipeline-schedule`` and ``--virtual-stages``, ``-m
+data`` with ``--mesh`` and ``--zero 1|fsdp``, ``--dtype``,
 ``--double-softmax``, ``--packed-cache``, ``--image-size``,
 ``--stem-s2d``, every ``--optimizer``, the step variants, checkpointing,
 and the post-train ``--generate`` and ``--serve [--paged]`` with
@@ -40,6 +41,11 @@ class Mode(str, enum.Enum):
 
     def __str__(self) -> str:
         return self.value
+
+
+#: the canonical mesh axes, outermost first (the JAX package's
+#: ``MESH_AXES``): ``--mesh`` names a size for any of them
+MESH_AXES = ("data", "fsdp", "stage", "model", "seq", "expert")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +86,8 @@ class Config:
     pipeline_schedule: str = "gpipe"    # gpipe | 1f1b | interleaved
     virtual_stages: int = 2             # chunks a stage (interleaved)
     sync_in_local_data_mode: bool = True  # False: --no-sync (quirk Q1)
+    mesh_shape: dict | None = None      # --mesh: axis -> size (-m data)
+    zero: str = "none"                  # --zero: none | 1 | fsdp
     remat: bool = False
     remat_policy: str = "nothing"
     grad_accum: int = 1
@@ -136,8 +144,7 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--mesh=": 11, "--zero=": 11, "--grad-compress=": 11, "--comm=": 11,
-    "--comm-overlap": 11,
+    "--grad-compress=": 11, "--comm=": 11, "--comm-overlap": 11,
     "--elastic": 12, "--sentinel=": 12, "--sentinel-window=": 12,
     "--sentinel-factor=": 12, "--heartbeat-dir=": 12,
     "--heartbeat-timeout=": 12,
@@ -222,6 +229,13 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    help="ranks of a -m data run: with --spawn, this many "
                         "local processes; without, a launcher's environment "
                         "must say so")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="-m data: explicit mesh over the ranks, e.g. "
+                        "'data=2,model=2' (axes data, fsdp, model, expert; "
+                        "their product is the world size)")
+    p.add_argument("--zero", choices=["none", "1", "fsdp"], default="none",
+                   help="shard optimizer state (ZeRO-1) or params+optimizer "
+                        "(fsdp) over the fsdp/data mesh axes")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
@@ -389,10 +403,23 @@ def parse_args(argv: Sequence[str] | None = None,
     err = serve_dtype_error(args.kv_dtype, args.weight_dtype, args.paged)
     if err:
         raise SystemExit(err)
+    # the JAX CLI's mesh checks (utils/config.py:964-968 there)
+    mesh_shape = parse_mesh_arg(args.mesh)
+    if mesh_shape and args.nstages and \
+            mesh_shape.get("stage", args.nstages) != args.nstages:
+        raise SystemExit(f"--mesh stage={mesh_shape['stage']} conflicts "
+                         f"with --nstages {args.nstages}; drop one (--mesh "
+                         "wins over the mode-derived stage count)")
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
                 f"{flag.rstrip('=')} is not ported yet: {ROADMAP_ITEMS[item]}")
+    if (mesh_shape or {}).get("seq", 1) != 1:
+        # the JAX runner builds a seq axis and leaves it idle under -m
+        # data; its users are ring attention and Ulysses
+        raise NotImplementedError(
+            "--mesh seq= (context parallelism: ring attention, Ulysses) is "
+            f"not ported yet: {ROADMAP_ITEMS[11]}")
     return Config(
         num_layers=args.nlayers, size=args.size, epochs=args.epochs,
         batch_size=args.batch,
@@ -409,6 +436,7 @@ def parse_args(argv: Sequence[str] | None = None,
         label_smoothing=args.label_smoothing, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, clip_norm=args.clip_norm,
         world_size=args.run, sync_in_local_data_mode=args.sync,
+        mesh_shape=mesh_shape, zero=args.zero,
         microbatch=args.pipeline, num_stages=args.nstages,
         pipeline_schedule=args.pipeline_schedule,
         virtual_stages=args.virtual_stages,
@@ -423,6 +451,40 @@ def parse_args(argv: Sequence[str] | None = None,
         spec_k=args.spec_k, slo_ttft_ms=args.slo_ttft_ms,
         slo_e2e_ms=args.slo_e2e_ms, kv_dtype=args.kv_dtype,
         weight_dtype=args.weight_dtype)
+
+
+def parse_mesh_arg(text: str | None,
+                   flag: str = "--mesh") -> dict[str, int] | None:
+    """``--mesh`` string -> shape dict, validated at parse time (a copy of
+    the JAX CLI's, with its messages).  The device count is checked later
+    by ``runtime.mesh.MeshSpec.resolve``, which knows the world size."""
+    if not text:
+        return None
+    shape: dict[str, int] = {}
+    for part in text.split(","):
+        axis, _, n = part.partition("=")
+        axis = axis.strip()
+        if not n:
+            raise SystemExit(f"{flag}: bad entry {part!r}; expected axis=N "
+                             f"with axis one of {', '.join(MESH_AXES)}")
+        if axis not in MESH_AXES:
+            raise SystemExit(f"{flag}: unknown axis {axis!r}; known axes: "
+                             f"{', '.join(MESH_AXES)}")
+        if axis in shape:
+            raise SystemExit(f"{flag}: axis {axis!r} given twice")
+        try:
+            size = int(n)
+        except ValueError:
+            raise SystemExit(f"{flag}: size for axis {axis!r} must be an "
+                             f"integer (-1 = fill remaining devices), got "
+                             f"{n.strip()!r}") from None
+        if size == 0 or size < -1:
+            raise SystemExit(f"{flag}: size for axis {axis!r} must be >= 1 "
+                             "(or -1 to fill with the remaining devices)")
+        shape[axis] = size
+    if sum(1 for v in shape.values() if v == -1) > 1:
+        raise SystemExit(f"{flag}: at most one axis may be -1")
+    return shape
 
 
 def parse_buckets_arg(text: str | None) -> tuple[int, ...] | None:

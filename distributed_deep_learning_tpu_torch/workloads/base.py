@@ -5,7 +5,9 @@
 mode           execution
 =============  ==========================================================
 sequential     one device, the whole model
-data           one process per rank, ``DistributedDataParallel``
+data           one process per rank, ``DistributedDataParallel``; with
+               ``--mesh``/``--zero`` the state sharded over a
+               ``DeviceMesh`` (:func:`derive_state_spec`)
 model          the workload's layer list split into stages
                (:class:`StagedTrainer`), stage ``i`` on device ``i mod
                n``, activations moved at stage boundaries
@@ -20,6 +22,19 @@ environment; :mod:`..runtime.bootstrap`), the model wrapped in
 ``DistributedDataParallel``; at world 1 it is one process on NCCL (gloo
 with ``-d cpu``).  ``--no-sync`` is the reference's quirk Q1: each rank
 trains its own 1/N shard with no gradient sync and rank 0's is logged.
+
+``--mesh`` lays the ranks out over the axes ``data``, ``fsdp``,
+``model`` and ``expert`` (:mod:`..runtime.mesh`).  A rank trains on the
+rows of its coordinate on the batch axes ``(data, fsdp)`` and draws its
+dropout masks from that coordinate's stream, so the ranks of one model or
+expert group see the same rows and masks.  The state is sharded as the
+JAX runner's ``derive_state_spec`` decides: tensor/expert parallelism
+(:mod:`..parallel.tensor_parallel`), ZeRO-1 or FSDP
+(:mod:`..parallel.zero`), or replicated.  Gradients are averaged over
+the batch axes only: by ``DistributedDataParallel`` on their group
+(tensor parallelism keeps every parameter a plain local tensor, which
+DDP takes; the model group's collectives run inside the forward and
+backward), or by FSDP itself.
 
 The optimizers follow optax, not torch's defaults: see
 :class:`..train.state.Optimizer`.
@@ -48,6 +63,8 @@ from distributed_deep_learning_tpu_torch.parallel.partition import \
     validate_assignment
 from distributed_deep_learning_tpu_torch.parallel.staging import StagedModel
 from distributed_deep_learning_tpu_torch.runtime import bootstrap
+from distributed_deep_learning_tpu_torch.runtime.mesh import (
+    MeshLayout, MeshSpec, build_mesh)
 from distributed_deep_learning_tpu_torch.train import schedules
 from distributed_deep_learning_tpu_torch.train.elastic import resume_point
 from distributed_deep_learning_tpu_torch.train.loop import EpochResult, fit
@@ -56,8 +73,10 @@ from distributed_deep_learning_tpu_torch.train.state import (
 from distributed_deep_learning_tpu_torch.train.objectives import \
     prediction_metrics
 from distributed_deep_learning_tpu_torch.train.step import make_step_fns
-from distributed_deep_learning_tpu_torch.utils.checkpoint import \
-    Checkpointer
+from distributed_deep_learning_tpu_torch.parallel.shards import (
+    is_split, resharded)
+from distributed_deep_learning_tpu_torch.utils.checkpoint import (
+    Checkpointer, whole_state_dict)
 from distributed_deep_learning_tpu_torch.utils.config import (
     REMAT_POLICIES, ROADMAP_ITEMS, Config, Mode)
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
@@ -77,7 +96,10 @@ class WorkloadSpec:
     dataset, n_stages)`` makes ``-m pipeline`` run the pipelined LM.
     ``decoder_options``: whether the model takes gpt's ``--pos rope``,
     ``--window`` and ``--kv-heads``; ``token_ce``: whether its loss takes
-    ``--label-smoothing`` (the JAX runner refuses each elsewhere)."""
+    ``--label-smoothing`` (the JAX runner refuses each elsewhere).
+    ``tp_rules(config)``: the tensor/expert-parallel rules
+    (``parallel.tensor_parallel``) that ``--mesh model|expert=K`` applies;
+    None refuses those axes."""
 
     name: str
     build_dataset: Callable[[Config], Any]
@@ -94,6 +116,7 @@ class WorkloadSpec:
     double_softmax: bool = False
     decoder_options: bool = False
     token_ce: bool = False
+    tp_rules: Optional[Callable[[Config], Any]] = None
 
 
 def config_dtype(config: Config) -> torch.dtype:
@@ -176,18 +199,21 @@ def resolve_lr(config: Config, epoch_steps: int, base_lr: float):
     raise ValueError(f"unknown --schedule {config.lr_schedule!r}")
 
 
-def _maybe_checkpointer(config: Config, rank: int, shared: bool):
+def _maybe_checkpointer(config: Config, rank: int, shared: bool,
+                        topology: dict | None = None):
     """``(checkpointer, ckpt_step, start_epoch, resume_batch,
     resume_totals)`` from ``--checkpoint-dir``/``--resume``; a directory
     that holds checkpoints without ``--resume`` is refused (this run's
     saves would be skipped in favour of the old run's steps).  ``shared``:
     the ranks train one model and save it together; otherwise (quirk Q1)
-    each rank keeps its own replica, rank r > 0 under ``rank-<r>/``."""
+    each rank keeps its own replica, rank r > 0 under ``rank-<r>/``.
+    ``topology``: the run's mesh and ``--zero``, recorded in and checked
+    against each checkpoint's manifest."""
     if not config.checkpoint_dir:
         return None, None, 1, 0, None
     directory = config.checkpoint_dir if shared or rank == 0 \
         else os.path.join(config.checkpoint_dir, f"rank-{rank}")
-    ckpt = Checkpointer(directory, shared=shared)
+    ckpt = Checkpointer(directory, shared=shared, topology=topology)
     if not config.resume:
         last = ckpt.latest_step()
         if last is not None:
@@ -238,6 +264,61 @@ def _data_parallel_env(config: Config):
         raise ValueError(f"-r {config.world_size} but the launcher started "
                          f"{env.world} ranks")
     return env, created
+
+
+def derive_state_spec(spec: WorkloadSpec, config: Config,
+                      sizes: dict) -> str | None:
+    """How ``-m data`` shards the state on a mesh of ``sizes`` (axis ->
+    size), in the JAX runner's order and words: ``"tp"`` (the workload's
+    ``tp_rules``) when there is a model or expert axis, else ``"zero1"``
+    or ``"fsdp"`` for ``--zero``, else None (replicated)."""
+    if sizes.get("model", 1) > 1 or sizes.get("expert", 1) > 1:
+        if spec.tp_rules is None:
+            raise ValueError(f"workload {spec.name!r} has no "
+                             "tensor-parallel sharding rules")
+        if config.zero != "none":
+            raise ValueError("--zero with a model axis is not supported "
+                             "yet; use fsdp_axis in the TP rules instead")
+        return "tp"
+    if config.zero != "none":
+        return "zero1" if config.zero == "1" else "fsdp"
+    return None
+
+
+def mesh_devices(shape: dict[str, int], devices):
+    """The device prefix an explicit mesh shape occupies (a copy of the
+    JAX runner's): the whole list under a -1 fill."""
+    n = 1
+    for s in shape.values():
+        if s == -1:
+            return devices
+        n *= s
+    return devices[:n] if n <= len(devices) else devices
+
+
+def _mesh_refusals(config: Config) -> None:
+    """What the JAX runner drops silently about ``--mesh``/``--zero``,
+    refused: they take ``-m data`` with gradient sync, and no stage axis
+    there (its ``-m pipeline`` over data x stage is not ported)."""
+    if not (config.mesh_shape or config.zero != "none"):
+        return
+    flags = " ".join(f for f, on in (("--mesh", config.mesh_shape),
+                                     ("--zero", config.zero != "none"))
+                     if on)
+    if config.mode in (Mode.MODEL, Mode.PIPELINE):
+        raise NotImplementedError(
+            f"{flags} under -m {config.mode.value} (a data x stage mesh) is "
+            f"not ported yet: {ROADMAP_ITEMS[11]}")
+    if config.mode is Mode.SEQUENTIAL:
+        raise ValueError(f"{flags} shards a -m data run; -m sequential "
+                         "runs one device (the JAX runner ignores it)")
+    if not config.sync_in_local_data_mode:
+        raise ValueError(f"{flags} with --no-sync: quirk Q1 trains "
+                         "independent replicas, which share no state")
+    if (config.mesh_shape or {}).get("stage", 1) != 1:
+        raise ValueError("--mesh stage= under -m data: the data-parallel "
+                         "step has no stages (the JAX runner leaves the "
+                         "axis idle); use -m pipeline --nstages")
 
 
 def run_workload(spec: WorkloadSpec, config: Config, *,
@@ -295,6 +376,7 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         # f32 means f32: cuDNN's convolutions and LSTM take TF32 unless told
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    _mesh_refusals(config)
     if config.mode in (Mode.MODEL, Mode.PIPELINE):
         world = bootstrap.env_topology()[1]
         if config.world_size > 1 or world > 1:
@@ -349,9 +431,42 @@ def _optimizer(spec, config, splits) -> Optimizer:
     return tx
 
 
-def _train(spec, config, env, init_state_dict):
+def _mesh_layout(config: Config, env) -> MeshLayout:
+    """This rank's :class:`..runtime.mesh.MeshLayout` of a synced ``-m
+    data`` run: the ``--mesh`` shape (default ``{"data": world}``) over
+    the launched ranks as a ``DeviceMesh`` when ``--mesh`` or ``--zero``
+    asks for one, else the plain data axis on the default group."""
+    if not (config.mesh_shape or config.zero != "none"):
+        return MeshLayout.plain(env.rank, env.world)
+    shape = config.mesh_shape or {"data": -1}
+    ranks = mesh_devices(shape, list(range(env.world)))
+    if len(ranks) < env.world:
+        raise ValueError(f"--mesh {shape} takes {len(ranks)} of the "
+                         f"{env.world} ranks: launch -r {len(ranks)}")
+    spec = MeshSpec.from_dict(shape).resolve(len(ranks))
+    return MeshLayout.of(build_mesh(spec, env.device.type, env.world))
+
+
+def _shard_fn(spec, config, sharding, layout):
+    """``create_train_state``'s ``shard`` for a sharding decision."""
+    if sharding == "tp":
+        from distributed_deep_learning_tpu_torch.parallel.tensor_parallel \
+            import apply_tensor_parallel
+
+        rules = spec.tp_rules(config)
+        return lambda model: apply_tensor_parallel(model, rules, layout)
+    if sharding == "fsdp":
+        from distributed_deep_learning_tpu_torch.parallel.zero import \
+            apply_fsdp
+
+        return lambda model: apply_fsdp(model, layout)
+    return None
+
+
+def train_setup(spec, config, env, init_state_dict, logger):
+    """``(state, train_step, eval_step, loaders, dataset, checkpointer
+    parts)`` of a sequential or ``-m data`` run (see :func:`_train`)."""
     device = env.device
-    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
     dataset, splits = _dataset_splits(spec, config)
     data_parallel = config.mode is Mode.DATA
     if data_parallel and not config.sync_in_local_data_mode:
@@ -364,37 +479,66 @@ def _train(spec, config, env, init_state_dict):
             name: shard_indices(getattr(splits, name), shards, env.rank)
             for name in ("train", "val", "test")})
         data_parallel = False
+    layout = _mesh_layout(config, env) if data_parallel \
+        else MeshLayout.plain()
+    sharding = derive_state_spec(spec, config, layout.sizes) \
+        if data_parallel else None
     tx = _optimizer(spec, config, splits)
-    world = env.world if data_parallel else 1
+    # the rows and the dropout stream of this rank's coordinate on the
+    # batch axes: the ranks of a model or expert group share both
     loaders = make_loaders(dataset, splits, config.batch_size, device,
-                           seed=config.seed,
-                           rank=env.rank if data_parallel else 0,
-                           world=world, accum=max(1, config.grad_accum))
-    # each rank draws its own dropout masks (seed + 1 at rank 0)
+                           seed=config.seed, rank=layout.batch_rank,
+                           world=layout.batch_world,
+                           accum=max(1, config.grad_accum))
+    stream = layout.batch_rank if data_parallel else env.rank
     state = create_train_state(
         spec.build_model(config, dataset), config.seed, tx, init_state_dict,
         device=device,
-        dropout_seed=config.seed + 1 + env.rank if config.dropout > 0
-        else None)
-    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
-        _maybe_checkpointer(config, env.rank, shared=data_parallel)
+        dropout_seed=config.seed + 1 + stream if config.dropout > 0
+        else None, shard=_shard_fn(spec, config, sharding, layout))
+    if sharding == "zero1":
+        from distributed_deep_learning_tpu_torch.parallel.zero import (
+            zero1_optimizer, zero_axis)
+
+        state.optimizer = zero1_optimizer(
+            tx, state.model, layout.mesh.get_group(zero_axis(layout.sizes)))
+    if layout.mesh is not None:
+        logger.info(f"mesh {layout.sizes}: state "
+                    f"{sharding or 'replicated'}, batch split "
+                    f"{layout.batch_world} ways")
+    topology = {"mesh": layout.sizes, "zero": config.zero} \
+        if data_parallel else None
+    ckpt_parts = _maybe_checkpointer(config, env.rank, shared=data_parallel,
+                                     topology=topology)
+    ddp, synced = None, data_parallel and layout.batch_world > 1
+    if data_parallel:
+        # BatchNorm statistics and MoE routing over the global batch, as
+        # JAX's jit takes them over the sharded batch (BatchNorm models
+        # have no model axis: their batch group is the world)
+        global_batch_statistics(state.model)
+        global_routing(state.model, layout.batch_rows)
+        if layout.mesh is None or (synced and sharding != "fsdp"):
+            ddp = DistributedDataParallel(
+                state.model, process_group=layout.batch_group,
+                device_ids=[device.index] if device.type == "cuda"
+                else None)
+    loss_fn = spec.build_loss(config)
+    train_step, eval_step = make_step_fns(
+        loss_fn, ddp=ddp, remat=config.remat,
+        remat_policy=config.remat_policy, accum_steps=config.grad_accum,
+        global_batch=synced, group=layout.batch_group)
+    return state, train_step, eval_step, loaders, dataset, ckpt_parts
+
+
+def _train(spec, config, env, init_state_dict):
+    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
+    state, train_step, eval_step, loaders, dataset, ckpt_parts = \
+        train_setup(spec, config, env, init_state_dict, logger)
+    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = ckpt_parts
     if ckpt is not None and ckpt_step is not None:
         state, start_epoch, resume_batch, resume_totals = _restore_resume(
             ckpt, state, ckpt_step, start_epoch, resume_batch, resume_totals,
             logger)
-    ddp = None
-    if data_parallel:
-        # BatchNorm statistics and MoE routing over the global batch, as
-        # JAX's jit takes them over the sharded batch
-        global_batch_statistics(state.model)
-        global_routing(state.model)
-        ddp = DistributedDataParallel(
-            state.model,
-            device_ids=[device.index] if device.type == "cuda" else None)
-    loss_fn = spec.build_loss(config)
-    train_step, eval_step = make_step_fns(
-        loss_fn, ddp=ddp, remat=config.remat,
-        remat_policy=config.remat_policy, accum_steps=config.grad_accum)
     state, history = fit(state, train_step, eval_step, *loaders,
                          epochs=config.epochs, logger=logger,
                          checkpointer=ckpt, start_epoch=start_epoch,
@@ -404,8 +548,22 @@ def _train(spec, config, env, init_state_dict):
     # every rank runs the hook, as in the JAX package; rank 0 logs
     if (config.generate_tokens or config.serve) and \
             spec.post_train is not None:
-        spec.post_train(config, state, logger, dataset)
+        spec.post_train(config, whole_state(spec, config, dataset, state),
+                        logger, dataset)
     return state, history
+
+
+def whole_state(spec, config, dataset, state: TrainState) -> TrainState:
+    """``state`` with a whole model when its parameters are split across
+    ranks (every rank gathers; serving runs on the whole copy), else
+    ``state`` itself."""
+    if not any(is_split(p) for p in resharded(state.model).parameters()):
+        return state
+    sd = whole_state_dict(state.model)
+    device = next(iter(sd.values())).device
+    model = spec.build_model(config, dataset)
+    model.load_state_dict(sd)
+    return dataclasses.replace(state, model=model.to(device))
 
 
 # ---------------------------------------------------------------------------

@@ -252,6 +252,23 @@ def _transformer_pipelined(config: Config, dataset, n_stages: int):
                       head_take=(src_len - 1, tgt_len))
 
 
+def _tp_rules(config: Config):
+    """The Megatron rules of the transformer family (``--mesh model=K``)."""
+    from distributed_deep_learning_tpu_torch.parallel.tensor_parallel \
+        import transformer_tp_rules
+
+    return transformer_tp_rules()
+
+
+def _moe_rules(config: Config):
+    """The experts over ``expert``; everything else replicated (the JAX
+    spec's choice: its dense blocks keep no Megatron rules)."""
+    from distributed_deep_learning_tpu_torch.models.moe import \
+        moe_param_rules
+
+    return moe_param_rules()
+
+
 def _transformer_layers(config: Config, dataset):
     _, _, _, src_len, tgt_len = _lm_geometry(config, dataset)
     return _lm_layers(config, dataset, "transformer", causal=True,
@@ -269,6 +286,7 @@ TRANSFORMER_SPEC = WorkloadSpec(
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
     token_ce=True,
+    tp_rules=_tp_rules,
 )
 
 
@@ -318,6 +336,7 @@ BERT_SPEC = WorkloadSpec(
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
     token_ce=True,
+    tp_rules=_tp_rules,
 )
 
 
@@ -347,6 +366,7 @@ MOE_SPEC = WorkloadSpec(
     build_optimizer=lambda c, steps: adamw(
         resolve_lr(c, steps, c.learning_rate)),
     token_ce=True,
+    tp_rules=_moe_rules,
 )
 
 
@@ -547,6 +567,7 @@ GPT_SPEC = WorkloadSpec(
     post_train=_gpt_post,
     decoder_options=True,
     token_ce=True,
+    tp_rules=_tp_rules,
 )
 
 SPECS = {"resnet": RESNET_SPEC, "transformer": TRANSFORMER_SPEC,

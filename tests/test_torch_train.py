@@ -33,6 +33,7 @@ from distributed_deep_learning_tpu_torch.train.state import (
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
+from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
 
 
 def _logits_targets(seed=0, V=11):
@@ -242,8 +243,8 @@ def test_cli_defaults_match_jax():
                                                 "item 13"),
     (["--publish-weights", "p"], "item 13"), (["--heartbeat-timeout", "5"],
                                               "item 12"),
-    (["--heartbeat-dir", "d"], "item 12"), (["--zero", "1"], "item 11"),
-    (["--mesh", "data=2"], "item 11"), (["--comm", "int8"], "item 11"),
+    (["--heartbeat-dir", "d"], "item 12"), (["--comm-overlap"], "item 11"),
+    (["--mesh", "data=2,seq=2"], "item 11"), (["--comm", "int8"], "item 11"),
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
     (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
     (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
@@ -255,6 +256,24 @@ def test_cli_defaults_match_jax():
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tconfig.parse_args(argv, "gpt")
+
+
+@pytest.mark.parametrize("workload,argv,match", [
+    ("mlp", ["--mesh", "model=2"],
+     "workload 'mlp' has no tensor-parallel sharding rules"),
+    ("gpt", ["--mesh", "model=2", "--zero", "1"],
+     "--zero with a model axis is not supported yet"),
+])
+def test_mesh_flags_raise_jax_value_errors(workload, argv, match):
+    """What ``--mesh``/``--zero`` took over from the refusals above: the
+    JAX runner's own ``ValueError`` s, on the resolved 2-rank mesh."""
+    from distributed_deep_learning_tpu_torch.runtime.mesh import MeshSpec
+
+    cfg = tconfig.parse_args(argv, workload)
+    sizes = dict(zip(MeshSpec.__dataclass_fields__, MeshSpec.from_dict(
+        cfg.mesh_shape).resolve(2).sizes()))
+    with pytest.raises(ValueError, match=match):
+        tbase.derive_state_spec(tget(workload), cfg, sizes)
 
 
 def test_phase_logger_lines_match():
