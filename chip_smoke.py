@@ -246,12 +246,14 @@ Phases, in order; any failure raises and exits non-zero:
     f32 and bf16: the flash kernels' launches exact, each sharded run's
     first loss within 1e-6 of the plain run's from the same weights, step
     time, peak memory and the optimizer state and parameter bytes a rank
-    holds beside the plain run's (and phase 11's, when it ran); then two
-    ranks on the one card over gloo (``DDL_BACKEND=gloo``: NCCL gives no
-    two ranks one card), once a probe of the collectives the modes need
-    on CUDA tensors passes (a failing op is printed and the legs are not
-    run): ``gpt --mesh model=2`` (f32, the same rows) and ``moe --mesh
-    expert=2`` (phase 30's MLM twin, 4 train steps), each rank's first
+    holds beside the plain run's (and phase 11's, when it ran); profiler
+    windows of 4 bf16 steps, plain and ``--zero fsdp`` (the card's busy
+    time against the wall clock); then two ranks on the one card in a
+    gloo group the smoke makes (NCCL gives no two ranks one card), after
+    a probe of the collectives the modes need on CUDA tensors (a failing
+    op fails the phase): ``gpt --mesh model=2`` (f32, the same rows) and
+    ``moe --mesh expert=2`` (phase 30's MLM twin, 4 train steps), each
+    rank's first
     loss within 1e-5 of the world-1 run's, every flash launch on ``H/2``
     heads for gpt (all ``H`` for moe, whose attention is replicated),
     launches exact, and the step time.
@@ -3536,9 +3538,10 @@ SHARD_ROWS, MOE_SHARD_ROWS = 24, 192
 #: values), and across two ranks the split products' sums
 SHARD_FIRST_LOSS_TOL, TWO_RANK_FIRST_LOSS_TOL = 1e-6, 1e-5
 
-#: one rank of the two-rank legs: a probe of the collectives the modes
-#: need on CUDA tensors over gloo, then each leg through the CLI, the
-#: flash kernels' launches and the head counts they saw recorded
+#: one rank of the two-rank legs: a gloo group of its own on card 0 (the
+#: CLI's bootstrap takes it up), a probe of the collectives the modes
+#: need on CUDA tensors, then each leg through the CLI, the flash
+#: kernels' launches and the head counts they saw recorded
 TWO_RANK = r"""
 import collections, json, os, statistics, sys, time
 import torch
@@ -3546,12 +3549,11 @@ import torch.distributed as dist
 from distributed_deep_learning_tpu_torch.__main__ import main as cli
 from distributed_deep_learning_tpu_torch.ops import attention as fa
 
-legs, ports = json.loads(sys.argv[1]), sys.argv[2].split(",")
+legs, port = json.loads(sys.argv[1]), sys.argv[2]
 rank = int(os.environ["RANK"])
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
-os.environ["MASTER_PORT"] = ports[0]
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ports[0]}",
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=2)
 probe = []
 for op, fn in (
@@ -3569,7 +3571,6 @@ for op, fn in (
         probe.append([op, None])
     except Exception as e:                      # report, do not run legs
         probe.append([op, f"{type(e).__name__}: {e}"[:300]])
-dist.destroy_process_group()
 out = {"probe": probe}
 if all(err is None for _, err in probe):
     heads, real = collections.Counter(), fa._launch
@@ -3580,8 +3581,7 @@ if all(err is None for _, err in probe):
 
     fa._launch = counting
     counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
-    for (label, leg), port in zip(legs.items(), ports[1:]):
-        os.environ["MASTER_PORT"] = port
+    for label, leg in legs.items():
         os.environ["DDL_DATA_LIMIT"] = str(leg["rows"])
         heads.clear()
         for c in counters:
@@ -3598,28 +3598,28 @@ if all(err is None for _, err in probe):
             "launches": {c.__name__: c.launches for c in counters},
             "heads": dict(heads),
             "peak": torch.cuda.max_memory_allocated()}
+dist.destroy_process_group()
 print("TWO_RANK " + json.dumps(out), flush=True)
 """
 
 
 def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
-    """Run :data:`TWO_RANK` as two ranks on card 0 (gloo, torchrun's
-    environment); returns each rank's record.  A rank that fails or is
-    still running at ``timeout`` fails the phase (every rank is
-    stopped)."""
+    """Run :data:`TWO_RANK` as two ranks on card 0 (torchrun's
+    environment, the one card each rank's ``LOCAL_RANK``); returns each
+    rank's record.  A rank that fails or is still running at ``timeout``
+    fails the phase (every rank is stopped)."""
     from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
         free_port
 
-    ports = ",".join(str(free_port()) for _ in range(len(legs) + 1))
+    port = str(free_port())
     procs = []
     try:
         for rank in range(2):
             env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                       DDL_BACKEND="gloo", OMP_NUM_THREADS="4",
+                       LOCAL_RANK="0", OMP_NUM_THREADS="4",
                        PYTHONPATH=str(ROOT))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", TWO_RANK, json.dumps(legs), ports],
+                [sys.executable, "-c", TWO_RANK, json.dumps(legs), port],
                 env=env, cwd=ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
@@ -3637,6 +3637,40 @@ def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
                                f"{p.returncode}:\n{o[-3000:]}")
         records.append(json.loads(found[0][len("TWO_RANK "):]))
     return records
+
+
+def sharded_busy_share(data_dir: Path, *flags, steps: int = 4,
+                       warmup: int = 2):
+    """``(busy ms, wall ms, top, flash ms)`` (:func:`profile_window`) a
+    step of phase 31's ``gpt -m data`` at world 1 under ``flags``, the
+    state and step made by the runner's ``train_setup`` (FSDP's hooks and
+    ZeRO's optimizer as the CLI makes them), and the seconds the set-up
+    and the window took."""
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.utils.logging import \
+        PhaseLogger
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        train_setup
+
+    config = parse_args(["-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768",
+                         "-b", str(TRAIN_BATCH), "--attention", "flash",
+                         "--data-dir", str(data_dir), *flags],
+                        workload="gpt")
+    gc.collect()
+    t0 = time.perf_counter()
+    env, created = bootstrap.initialize("cuda")
+    try:
+        state, step, _, (train, _, _), *_ = train_setup(
+            get_spec("gpt"), config, env, None, PhaseLogger(verbose=False))
+        train.set_epoch(1)
+        t1 = time.perf_counter()
+        got = profile_window(step, state, train, steps, warmup)
+        return got, (t1 - t0, time.perf_counter() - t1)
+    finally:
+        if created:
+            bootstrap.shutdown()
 
 
 def phase_sharded(data_dir: Path, data_perf=None) -> dict:
@@ -3680,6 +3714,23 @@ def phase_sharded(data_dir: Path, data_perf=None) -> dict:
                          f"{data_perf['peak'] / 2**30:.2f} GiB, optimizer "
                          f"state {data_perf['opt_state_bytes'] / 2**20:.1f}"
                          " MiB" if data_perf else ""))
+        # where FSDP's extra bf16 step time goes: the card's kernel time
+        # a step against the wall clock, plain and FSDP
+        for zero in ("none", "fsdp"):
+            label = "data bf16" + ("" if zero == "none" else " zero fsdp")
+            (busy, wall, top, _), secs = sharded_busy_share(
+                data_dir, "--dtype", "bfloat16", "--zero", zero)
+            if busy is None:
+                raise RuntimeError(f"sharded[{label}]: the profiler saw no "
+                                   "device time")
+            out[label].update(busy_ms=busy, wall_ms=wall,
+                              idle=1 - busy / wall)
+            print(f"sharded[{label}]: profiler window: the card busy "
+                  f"{busy:.3f} ms of {wall:.3f} ms a step (idle share "
+                  f"{1 - busy / wall:.3f}); set-up {secs[0]:.1f} s, window "
+                  f"{secs[1]:.1f} s; top kernels "
+                  + "; ".join(f"{k} {ms:.3f} ms x{n:g}"
+                              for k, ms, n in top))
         # the world-1 reference of the expert leg
         moe_argv = ("-m", "data", *MOE_BASE, "-b", "32")
         os.environ["DDL_DATA_LIMIT"] = str(MOE_SHARD_ROWS)
@@ -3701,11 +3752,12 @@ def phase_sharded(data_dir: Path, data_perf=None) -> dict:
     for op, err in records[0]["probe"]:
         print(f"two ranks on one card: gloo {op} of CUDA tensors: "
               + ("ok" if err is None else f"FAILED ({err})"))
-    if any(err is not None for r in records for _, err in r["probe"]):
-        print("two ranks on one card: a collective the modes need is "
-              "missing; the --mesh model|expert legs are verified on the "
-              "CPU only")
-        return out
+    failed = sorted({op for r in records for op, err in r["probe"]
+                     if err is not None})
+    if failed:
+        raise RuntimeError(f"two ranks on one card: gloo {failed} of CUDA "
+                           "tensors failed, so the --mesh model|expert legs "
+                           "did not run")
     refs = {"gpt model=2": (out["data f32"]["first_loss"], want, 12),
             "moe expert=2": (moe["first_loss"],
                              expected_launches(MOE_LAYERS, split_steps(

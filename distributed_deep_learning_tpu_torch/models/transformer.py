@@ -429,14 +429,14 @@ def _gelu(x):
 def tied_logits(tok: nn.Embedding, hidden):
     """The weight-tied output projection, f32 on both operands.  A table
     split over its vocabulary (``parallel.tensor_parallel``'s
-    ``VocabParallelEmbedding``: ``group``, ``vocab_start``,
-    ``vocab_total``) computes its rows' logits and gathers every rank's."""
+    ``VocabParallelEmbedding``: ``group``, ``vocab_start``) computes its
+    rows' logits and gathers every rank's."""
     group = getattr(tok, "group", None)
     h = copy_to(hidden.float(), group)
     logits = torch.einsum("...d,vd->...v", h, tok.weight.float())
     if group is None:
         return logits
-    return gather_last(logits, group, tok.vocab_start, tok.vocab_total)
+    return gather_last(logits, group, tok.vocab_start)
 
 
 class TransformerLayer(nn.Module):

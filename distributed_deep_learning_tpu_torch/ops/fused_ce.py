@@ -63,11 +63,13 @@ def _block_logits(h32, wb, width):
     return logits
 
 
-def _targets_in(targets, start, block):
-    """Each row's target column inside the block and whether it is there."""
+def _targets_in(targets, start, width):
+    """Each row's target column inside the block's ``width`` real rows and
+    whether it is there (a target past them, in a padded last block, is
+    another rank's row under tensor parallelism)."""
     local = targets - start
-    inside = (local >= 0) & (local < block)
-    return local.clamp(0, block - 1), inside
+    inside = (local >= 0) & (local < width)
+    return local.clamp(0, width - 1), inside
 
 
 class _FusedLinearCrossEntropy(torch.autograd.Function):
@@ -86,7 +88,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
                 logits - new_m[:, None]).sum(-1)
             m = new_m
             local, inside = _targets_in(targets, vocab_start + start,
-                                        wb.shape[0])
+                                        width)
             picked = logits.gather(1, local[:, None])[:, 0]
             tgt = torch.where(inside, picked, tgt)
         if group is not None:
@@ -120,7 +122,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             logits = _block_logits(h32, wb, width)
             delta = torch.exp(logits - logz[:, None])       # softmax block
             local, inside = _targets_in(targets, ctx.vocab_start + start,
-                                        wb.shape[0])
+                                        width)
             delta.scatter_add_(1, local[:, None], -inside.float()[:, None])
             delta *= scale[:, None]
             if want_h:

@@ -97,15 +97,7 @@ def whole(p, t: torch.Tensor) -> torch.Tensor:
     shard = getattr(p, "tp_shard", None)
     if shard is None:
         return t
-    # a zero-padded all-reduce, not an all-gather: gloo has no all-gather
-    # of CUDA tensors
-    shape = list(t.shape)
-    n = shape[shard.dim]
-    shape[shard.dim] = n * shard.parts
-    full = t.new_zeros(shape)
-    full.narrow(shard.dim, shard.index * n, n).copy_(t)
-    dist.all_reduce(full, group=shard.group)
-    return full
+    return _all_gather(t, shard.group, shard.dim)
 
 
 def local_part(p, full: torch.Tensor) -> torch.Tensor:
@@ -132,6 +124,15 @@ def whole_shape(p) -> tuple[int, ...]:
     if shard is not None:
         shape[shard.dim] *= shard.parts
     return tuple(shape)
+
+
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in rank
+    order (a tensor-parallel slice's index is its rank in the group)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim)
 
 
 # --- the collectives of a tensor-parallel forward ---------------------------
@@ -168,24 +169,19 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 class _GatherLast(torch.autograd.Function):
-    """This rank's columns ``[start, start + n)`` of a last dim of
-    ``total`` columns, gathered from every rank (a zero-padded all-reduce:
-    exact, and gloo takes it for CUDA tensors); the backward keeps this
-    rank's columns of the replicated gradient."""
+    """Every rank's columns of the last dim, in rank order (this rank's
+    are ``[start, start + n)``); the backward keeps this rank's columns of
+    the replicated gradient."""
 
     @staticmethod
-    def forward(ctx, x, group, start, total):
-        n = x.shape[-1]
-        ctx.cols = (start, n)
-        full = x.new_zeros(*x.shape[:-1], total)
-        full[..., start:start + n] = x
-        dist.all_reduce(full, group=group)
-        return full
+    def forward(ctx, x, group, start):
+        ctx.cols = (start, x.shape[-1])
+        return _all_gather(x, group, -1)
 
     @staticmethod
     def backward(ctx, g):
         start, n = ctx.cols
-        return g[..., start:start + n].contiguous(), None, None, None
+        return g[..., start:start + n].contiguous(), None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -199,8 +195,7 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFrom.apply(x, group)
 
 
-def gather_last(x: torch.Tensor, group, start: int, total: int
-                ) -> torch.Tensor:
+def gather_last(x: torch.Tensor, group, start: int) -> torch.Tensor:
     """Every rank's columns of the last dim, in order (see
     :class:`_GatherLast`)."""
-    return x if group is None else _GatherLast.apply(x, group, start, total)
+    return x if group is None else _GatherLast.apply(x, group, start)

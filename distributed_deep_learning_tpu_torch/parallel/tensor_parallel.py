@@ -182,12 +182,12 @@ class RowParallelDense(Dense):
 
 class VocabParallelEmbedding(nn.Embedding):
     """An embedding table holding rows ``[vocab_start, vocab_start + n)``
-    of ``vocab_total``: a token outside them looks up zeros, and the
+    of the whole vocabulary: a token outside them looks up zeros, and the
     ranks of ``group`` sum their rows (exactly one is not zero).
     ``models.transformer.tied_logits`` and ``CausalLM.loss`` read
-    ``group``, ``vocab_start`` and ``vocab_total`` for the tied head."""
+    ``group`` and ``vocab_start`` for the tied head."""
 
-    group, vocab_start, vocab_total = None, 0, 0
+    group, vocab_start = None, 0
 
     def forward(self, tokens):
         n = self.weight.shape[0]
@@ -240,7 +240,6 @@ def apply_tensor_parallel(model: nn.Module, rules: Rules, layout
         elif isinstance(mod, nn.Embedding):
             mod.__class__ = VocabParallelEmbedding
             mod.group, mod.vocab_start = group, index * mod.weight.shape[0]
-            mod.vocab_total = mod.weight.shape[0] * layout.sizes[axis]
         elif isinstance(mod, Dense):
             mod.__class__ = ColumnParallelDense if dim == 0 \
                 else RowParallelDense

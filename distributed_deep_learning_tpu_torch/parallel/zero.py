@@ -40,7 +40,9 @@ def leaf_shard_spec(leaf: Any, axis_size: int, axis: str = "fsdp",
     """The JAX package's per-leaf rule, as a tuple of axis names (None:
     not split; ``()`` replicated): the largest dim of ``leaf``'s shape
     divisible by ``axis_size`` is split over ``axis``, leaves below
-    ``min_leaf_size`` elements stay replicated."""
+    ``min_leaf_size`` elements stay replicated.  Not what the port's
+    ZeRO-1 applies (whole parameters a rank, see above): it states the
+    JAX layout, which the tests hold against the JAX package's."""
     shape = tuple(getattr(leaf, "shape", ()))
     if not shape or axis_size <= 1:
         return ()

@@ -10,10 +10,9 @@ is ``MASTER_ADDR``/``MASTER_PORT`` when the launcher gives them, else
 loopback on a free port.  The backend is ``nccl`` on ``cuda`` and ``gloo``
 on the CPU; each rank owns ``cuda:<local_rank>``, and ranks that outnumber
 the visible cards raise (NCCL cannot give two ranks one card, and nothing
-falls back to gloo or to the CPU).  ``DDL_BACKEND=gloo`` asks for gloo on
-``cuda`` as well (its collectives stage CUDA tensors through the host):
-then ranks may share a card, rank ``r`` on ``cuda:<local_rank mod
-cards>``.
+falls back to gloo or to the CPU).  A gloo default group that the caller
+made before serves ``cuda`` too (gloo stages CUDA tensors through the
+host): ranks that share a card that way each set ``LOCAL_RANK`` to it.
 """
 
 from __future__ import annotations
@@ -63,19 +62,16 @@ def initialize(device: str = "cuda") -> tuple[DistEnv, bool]:
     (``cuda`` or ``cpu``).  Returns ``(env, created)``: ``created`` is True
     when this call made the group, so the caller destroys it (see
     :func:`shutdown`).  Raises when ``cuda`` is asked for without a card
-    for this rank, or when an existing group uses the other backend."""
+    for this rank, or when an existing group's backend cannot serve
+    ``device`` (an NCCL group on the CPU)."""
     kind = torch.device(device).type
-    backend = "nccl" if kind == "cuda" else "gloo"
-    shared = kind == "cuda" and os.environ.get("DDL_BACKEND") == "gloo"
-    if shared:
-        backend = "gloo"
+    existing = dist.get_backend() if dist.is_initialized() else None
+    backend = "nccl" if kind == "cuda" and existing != "gloo" else "gloo"
     rank, world, local = env_topology()
     if kind == "cuda":
         resolve_device("cuda")
         cards = torch.cuda.device_count()
-        if shared:
-            local %= cards
-        elif local >= cards:
+        if local >= cards:
             raise RuntimeError(f"rank {rank} (local rank {local}) has no card"
                                f": {cards} visible; NCCL cannot give two "
                                "ranks one card (run at most one rank per "
@@ -84,10 +80,10 @@ def initialize(device: str = "cuda") -> tuple[DistEnv, bool]:
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
-    if dist.is_initialized():
-        if dist.get_backend() != backend:
-            raise RuntimeError(f"a {dist.get_backend()} process group exists;"
-                               f" -d {kind} needs {backend}")
+    if existing is not None:
+        if existing != backend:
+            raise RuntimeError(f"a {existing} process group exists; -d "
+                               f"{kind} needs {backend}")
         return DistEnv(dist.get_rank(), dist.get_world_size(), dev), False
     addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
     port = os.environ.get("MASTER_PORT")

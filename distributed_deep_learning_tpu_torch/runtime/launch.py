@@ -6,8 +6,7 @@
 processes with torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` on loopback and a
 free ``MASTER_PORT``), which :mod:`.bootstrap` reads.  On ``cuda`` each
-rank takes one card, so N beyond the visible cards is refused (unless
-``DDL_BACKEND=gloo`` lets ranks share a card).
+rank takes one card, so N beyond the visible cards is refused.
 """
 
 from __future__ import annotations
@@ -40,8 +39,7 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
     if n_processes < 2:
         raise ValueError(f"--spawn needs -r N with N >= 2, got "
                          f"{n_processes}")
-    if torch.device(device).type == "cuda" and \
-            os.environ.get("DDL_BACKEND") != "gloo":
+    if torch.device(device).type == "cuda":
         cards = torch.cuda.device_count()
         if n_processes > cards:
             raise RuntimeError(f"--spawn -r {n_processes} on cuda needs "

@@ -113,7 +113,9 @@ def mesh_for_mode(mode: "str | None", n_stages: int | None = None,
 
 
 def local_batch_size(global_batch: int, sizes: dict[str, int]) -> int:
-    """Rows of a global batch one rank holds (``sizes``: axis -> size)."""
+    """Rows of a global batch one rank holds (``sizes``: axis -> size):
+    the JAX package's helper (the loader's ``local_rows`` makes the same
+    check with the accumulation factor)."""
     n = sizes.get("data", 1) * sizes.get("fsdp", 1)
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "

@@ -64,7 +64,7 @@ from distributed_deep_learning_tpu_torch.parallel.partition import \
 from distributed_deep_learning_tpu_torch.parallel.staging import StagedModel
 from distributed_deep_learning_tpu_torch.runtime import bootstrap
 from distributed_deep_learning_tpu_torch.runtime.mesh import (
-    MeshLayout, MeshSpec, build_mesh)
+    MeshLayout, build_mesh, mesh_for_mode)
 from distributed_deep_learning_tpu_torch.train import schedules
 from distributed_deep_learning_tpu_torch.train.elastic import resume_point
 from distributed_deep_learning_tpu_torch.train.loop import EpochResult, fit
@@ -443,7 +443,8 @@ def _mesh_layout(config: Config, env) -> MeshLayout:
     if len(ranks) < env.world:
         raise ValueError(f"--mesh {shape} takes {len(ranks)} of the "
                          f"{env.world} ranks: launch -r {len(ranks)}")
-    spec = MeshSpec.from_dict(shape).resolve(len(ranks))
+    spec = mesh_for_mode("data", world=len(ranks),
+                         explicit=config.mesh_shape)
     return MeshLayout.of(build_mesh(spec, env.device.type, env.world))
 
 

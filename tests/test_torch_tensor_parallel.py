@@ -10,7 +10,8 @@ replicated model.
   (GQA, RoPE, the flash kernels' plain versions on the local heads),
   ``BertEncoder`` and the seq2seq model give the replicated model's
   logits, loss and gradients (gathered whole) within 1e-5, and so does
-  the vocab-parallel fused cross-entropy (``CausalLM.loss``).
+  the vocab-parallel fused cross-entropy (``CausalLM.loss``, and at a
+  block that leaves each rank's last block padded).
 """
 
 import os
@@ -33,6 +34,8 @@ from distributed_deep_learning_tpu_torch.models.moe import MoELM
 from distributed_deep_learning_tpu_torch.models.transformer import (
     BertEncoder, CausalLM, Seq2SeqAdapter, TransformerSeq2Seq,
     load_flax_params)
+from distributed_deep_learning_tpu_torch.ops.fused_ce import \
+    fused_linear_cross_entropy
 from distributed_deep_learning_tpu_torch.parallel import \
     tensor_parallel as ttp
 from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
@@ -135,6 +138,8 @@ RANK = r"""
 import sys
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.ops.fused_ce import \
+    fused_linear_cross_entropy
 from distributed_deep_learning_tpu_torch.parallel.shards import whole
 from distributed_deep_learning_tpu_torch.parallel.tensor_parallel import (
     apply_tensor_parallel, transformer_tp_rules)
@@ -162,6 +167,14 @@ for name, case in torch.load(blob, weights_only=False).items():
         h = model(case["x"])
         fused = model.loss(h[:, :-1], case["x"][:, 1:])
         res["fused"] = fused.detach()
+        loss = loss + fused
+    if "fused_block" in case:
+        block, t = case["fused_block"]
+        tok = model.tok
+        fused = fused_linear_cross_entropy(
+            h[:, :-1], tok.weight, t, -1, block, group=tok.group,
+            vocab_start=tok.vocab_start)
+        res["fused_block"] = fused.detach()
         loss = loss + fused
     loss.backward()
     res["grads"] = {k: whole(p, p.grad) for k, p in model.named_parameters()}
@@ -193,6 +206,9 @@ def _cases():
         cases[name] = {"model": model, "x": x, "y": y}
     cases["seq2seq"]["y"] = y[:, 6:]
     cases["gpt"]["fused"] = True
+    # 31 rows a rank in blocks of 8: each rank's last block is padded, and
+    # ids 9-52 hold targets on both sides of the ranks' boundary at 31
+    cases["gpt"]["fused_block"] = (8, (torch.arange(44) + 9).view(4, 11))
     return cases
 
 
@@ -234,6 +250,12 @@ def split_runs(tmp_path_factory):
                 fused = model.loss(h[:, :-1], case["x"][:, 1:])
                 res["fused"] = fused.detach()
                 loss = loss + fused
+            if "fused_block" in case:
+                block, t = case["fused_block"]
+                fused = fused_linear_cross_entropy(
+                    h[:, :-1], model.tok.weight, t, -1, block)
+                res["fused_block"] = fused.detach()
+                loss = loss + fused
             loss.backward()
             res["grads"] = {k: p.grad for k, p in model.named_parameters()}
             want[name] = res
@@ -261,6 +283,18 @@ def test_split_model_matches_replicated(name, split_runs):
     # the attention ran on this rank's heads: H/2, and GQA's Hkv/2
     heads = {"gpt": (2, 1), "bert": (1, 1), "seq2seq": (1, 1)}[name]
     assert set(ranks[0][name]["heads"]) == {heads}
+
+
+def test_vocab_parallel_ce_with_padded_blocks(split_runs):
+    """The vocab-parallel fused cross-entropy where a rank's rows are not
+    a multiple of the block: a target just past a rank's rows is not
+    picked from its padded last block."""
+    ranks, want = split_runs
+    ref = want["gpt"]["fused_block"]
+    assert torch.isfinite(ref) and float(ref) < 10
+    for r in ranks:
+        torch.testing.assert_close(r["gpt"]["fused_block"], ref, rtol=1e-5,
+                                   atol=0)
 
 
 def test_moe_rules_leave_the_router_replicated():
