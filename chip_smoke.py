@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,7,27,28,29  # model and pipeline modes
     python3 chip_smoke.py --phases 1,2,7,30  # moe
     python3 chip_smoke.py --phases 1,7,31  # sharded state
+    python3 chip_smoke.py --phases 1,6,7,32  # compressed collectives, ring
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -50,7 +51,10 @@ Phases, in order; any failure raises and exits non-zero:
 7. flash forward, dQ and dK/dV kernels against their plain versions at
    the training shape (B 4, H 12, T 2048, D 64, causal, key_valid given),
    f32 and bf16, plus padding with a fully padded row, GQA, a sliding
-   window, a ragged T, a non-causal cross shape and head dims 16, 32 and
+   window, a ragged T, a non-causal cross shape, a query offset (ring
+   attention's visiting blocks: 2048 under a window of 1024, and 512,
+   each in f32 and bf16; the rows the band leaves without a key are not
+   compared) and head dims 16, 32 and
    128 in both dtypes (B 1, H 2, T 512), and the shapes phases 25, 26 and
    30 drive, each timed against SDPA: the training shape non-causal in
    bf16, BERT-base's (B 8, H 12, T 512, non-causal, padded keys with a
@@ -256,7 +260,29 @@ Phases, in order; any failure raises and exits non-zero:
     rank's first
     loss within 1e-5 of the world-1 run's, every flash launch on ``H/2``
     heads for gpt (all ``H`` for moe, whose attention is replicated),
-    launches exact, and the step time.
+    launches exact, and the step time;
+32. compressed collectives and context parallelism: phase 31's ``gpt`` on
+    its 24 rows at world 1 under ``-m data --grad-compress bf16`` and
+    ``int8`` (each history within 1e-6 of plain ``-m data``'s: one rank
+    compresses nothing); a probe of the explicit collectives' seven ops
+    on CUDA tensors as the port calls them (values checked; the one that
+    crosses through host memory, send/recv, marked); two ranks on the one card over
+    gloo, ``--grad-compress int8``, ``--zero fsdp --comm int8
+    --comm-overlap`` and ``--zero fsdp --comm bf16``: each rank's first
+    loss within 1e-5 of world 1's under ``--grad-compress`` (it touches
+    only the gradients; ``--comm``'s first forward reads the parameters
+    through the quantized gather, so there the first loss is held as the
+    later ones), each later one within 5e-2 (JAX's int8 tolerance), the
+    int8 residual finite and nonzero, the flash
+    launches exact, the step time; then ring attention and Ulysses (the
+    flash kernels inside) over the two ranks at B 2, H 12, D 64, T 4096
+    (T 2048 a rank), causal f32 and bf16, causal with a window of 1024,
+    and non-causal with padded keys and a fully padded row: O and dQ,
+    dK, dV against single-rank ``flash_attention`` on the whole sequence
+    (phase 7's tolerances; the ring's fully padded row exactly 0), each
+    rank's launches equal to the hops it runs (``ring_hops``: causal,
+    rank 0 one and rank 1 two), and each scheme's forward+backward time
+    beside single-rank flash's.
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -264,11 +290,13 @@ loader unwrapped (the runner's default) and two batches deep, in turns,
 with the step time and the idle share while the loader forms the
 batches.
 
-Phases 8-12, 16, 17, 21, 22 and 24-31 print step time, throughput and
+Phases 8-12, 16, 17, 21, 22 and 24-32 print step time, throughput and
 peak memory; phases 21, 24-26, 28 and 30 a profiler window's kernel time
 and idle share, 24-26 and 30 also the flash kernels' time and the step's
 operations against the bf16 tensor-core rate (``step_operations``).  The
-line before the last is ``{"kernels": [...]}``; the last line is
+line before the last is ``{"kernels": [...]}`` (the flash entries with
+phase 32's launches: ``comm_launches`` a two-rank leg, ``seq_launches`` a
+context-parallel case and rank); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
 """
 
@@ -1058,6 +1086,12 @@ FLASH_CASES = [
     ("window_256", {"window": 256}),
     ("ragged_t2000", {"Tq": 2000, "Tk": 2000}),
     ("cross_non_causal", {"Tq": 256, "causal": False}),
+    # ring attention's visiting blocks (phase 32): a query offset, with
+    # and without a window; rows the band leaves empty are not compared
+    *((f"q_offset_window_{dt}", {"q_offset": 2048, "window": 1024,
+                                 "dtype": dt}) for dt in ("f32", "bf16")),
+    *((f"q_offset_{dt}", {"q_offset": 512, "dtype": dt})
+      for dt in ("f32", "bf16")),
     # every other head dim is a tile of its own: small shapes, both dtypes
     *((f"d{d}_{dt}", {"B": 1, "H": 2, "Hkv": 2, "Tq": 512, "Tk": 512,
                       "D": d, "dtype": dt})
@@ -1069,9 +1103,10 @@ FLASH_TOL = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 2e-2)}
 
 
 def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
-                dtype="f32", pad=False, seed=0):
+                dtype="f32", pad=False, seed=0, q_offset=0):
     """Seeded q, k, v, key_valid and dO on the card.  ``pad``: rows 1 and
-    2 lose their last ``pad`` keys (300 for True), row 3 all of them."""
+    2 lose their last ``pad`` keys (300 for True), row 3 all of them;
+    ``q_offset`` shifts the queries' positions (ring attention's hops)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -1085,17 +1120,18 @@ def _flash_case(*, B, H, Hkv, Tq, Tk, D, causal=True, window=None,
         valid[1:3, Tk - (300 if pad is True else pad):] = False
         valid[3] = False
     q, k, v, do = (x.to(dt).cuda() for x in (q, k, v, do))
-    return q, k, v, valid.cuda(), do, dict(causal=causal,
-                                            sm_scale=D ** -0.5,
-                                            window=window)
+    kw = dict(causal=causal, sm_scale=D ** -0.5, window=window)
+    if q_offset:
+        kw["q_offset"] = q_offset
+    return q, k, v, valid.cuda(), do, kw
 
 
-def _visible_pairs(q, k, valid, causal, window):
+def _visible_pairs(q, k, valid, causal, window, q_offset=0):
     """(query, key) pairs the mask leaves visible, over every head."""
     import torch
 
     Tq, H, Tk = q.shape[1], q.shape[2], k.shape[1]
-    qp = torch.arange(Tq, device=q.device)[:, None]
+    qp = torch.arange(Tq, device=q.device)[:, None] + q_offset
     kp = torch.arange(Tk, device=q.device)[None, :]
     band = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
     if causal:
@@ -1207,6 +1243,48 @@ def _flash_timings(q, k, v, valid, do, kw):
         "flash_backward_dkv": lib_bwd, "backward": lib_bwd}
 
 
+def flash_costs() -> dict:
+    """Each flash kernel's ms (:func:`_time_ms`) at the training shape, f32
+    and bf16, from whichever copy of the package is first on
+    ``sys.path``, so a parent commit's kernels are timed the same way::
+
+        python3 -c "import sys, chip_smoke; sys.path.insert(0,
+            'build/parent'); print(chip_smoke.flash_costs())"
+    """
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    out = {}
+    for name, spec in (("f32", {}), ("bf16", {"dtype": "bf16"})):
+        q, k, v, valid, do, kw = _flash_case(seed=len(name),
+                                             **{**TRAIN_SHAPE, **spec})
+        o, lse = fa.flash_forward(q, k, v, valid, **kw)
+        delta = fa._delta(o, do)
+        out[name] = {
+            "flash_forward": _time_ms(
+                lambda: fa.flash_forward(q, k, v, valid, **kw)),
+            "flash_backward_dq": _time_ms(lambda: fa.flash_backward_dq(
+                q, k, v, valid, do, lse, delta, **kw)),
+            "flash_backward_dkv": _time_ms(lambda: fa.flash_backward_dkv(
+                q, k, v, valid, do, lse, delta, **kw))}
+    return out
+
+
+def _seen_rows(q, k, valid, kw):
+    """``(B, Tq)``: the queries whose band holds a valid key."""
+    import torch
+
+    qp = torch.arange(q.shape[1], device=q.device)[:, None] \
+        + kw.get("q_offset", 0)
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    band = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                      device=q.device)
+    if kw["causal"]:
+        band = qp >= kp
+        if kw["window"] is not None:
+            band = band & (qp - kp < kw["window"])
+    return (band[None] & valid[:, None, :]).any(-1)
+
+
 def phase_flash_kernels():
     """Every case against the plain versions; timings of the f32 and bf16
     main cases.  Returns ``{dtype: {kernel: record}}``."""
@@ -1225,10 +1303,11 @@ def phase_flash_kernels():
                                                         key_valid=valid, **kw)
         ref = fa.flash_backward_reference(q, k, v, valid, out, lse, do, **kw)
         live = valid.any(1)              # rows with at least one key
+        seen = _seen_rows(q, k, valid, kw)   # (row, query) with a key
         if not bool(torch.isfinite(out.float()).all()):
             raise RuntimeError(f"flash case {name}: non-finite output")
-        err_o = float((out.float() - ref_out.float())[live].abs().max())
-        err_lse = float((lse - ref_lse)[live].abs().max())
+        err_o = float((out.float() - ref_out.float())[seen].abs().max())
+        err_lse = float((lse - ref_lse).transpose(1, 2)[seen].abs().max())
         errs = {}
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             diff = float((got.float() - want.float()).abs().max())
@@ -3571,6 +3650,60 @@ for op, fn in (
         probe.append([op, None])
     except Exception as e:                      # report, do not run legs
         probe.append([op, f"{type(e).__name__}: {e}"[:300]])
+# the explicit collectives' ops on CUDA tensors, as the port calls them
+# (a send/recv crosses through host memory: collectives.host_staged),
+# values checked
+from distributed_deep_learning_tpu_torch.parallel import collectives as coll
+i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+ar = torch.full((4,), rank + 1, dtype=torch.int32, device=dev)
+arb = torch.full((4,), rank + 1, dtype=torch.bfloat16, device=dev)
+agi = torch.full((4,), rank + 1, dtype=torch.int8, device=dev)
+rsf = torch.arange(4.0, device=dev) + 10 * rank
+
+
+def gathered(t):
+    out = t.new_empty(8)
+    dist.all_gather_into_tensor(out, t)
+    return out
+
+
+def scattered(t):
+    out = t.new_empty(2)
+    dist.reduce_scatter_tensor(out, t)
+    return out
+
+
+def exchanged(t):
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t)
+    return out
+
+
+for op, t, fn, want in (
+        ("all_reduce int32", ar, lambda t: dist.all_reduce(t) or t,
+         i32(3, 3, 3, 3)),
+        ("all_reduce bf16", arb, lambda t: dist.all_reduce(t) or t,
+         i32(3, 3, 3, 3)),
+        ("all_gather_into_tensor int8", agi, gathered,
+         i32(1, 1, 1, 1, 2, 2, 2, 2)),
+        ("reduce_scatter_tensor f32", rsf, scattered,
+         i32(10, 12) if rank == 0 else i32(14, 16)),
+        ("reduce_scatter_tensor int32", rsf.to(torch.int32), scattered,
+         i32(10, 12) if rank == 0 else i32(14, 16)),
+        ("all_to_all_single", rsf, exchanged,
+         i32(0, 1, 10, 11) if rank == 0 else i32(2, 3, 12, 13)),
+        ("batch_isend_irecv", rsf, lambda t: coll.Hop(t, None).wait(),
+         i32(10, 11, 12, 13) if rank == 0 else i32(0, 1, 2, 3))):
+    how = "host" if op == "batch_isend_irecv" and coll.host_staged(t, None) \
+        else "direct"
+    try:
+        got = fn(t)
+        torch.cuda.synchronize()
+        err = None if torch.equal(got.to(torch.int32).cpu(), want.cpu()) \
+            else f"wrong values {got.tolist()}, expected {want.tolist()}"
+    except Exception as e:
+        err = f"{type(e).__name__}: {e}"[:300]
+    probe.append([f"{op} ({how})", err])
 out = {"probe": probe}
 if all(err is None for _, err in probe):
     heads, real = collections.Counter(), fa._launch
@@ -3589,9 +3722,16 @@ if all(err is None for _, err in probe):
         torch.cuda.reset_peak_memory_stats()
         state, hist = cli(leg["argv"])
         torch.cuda.synchronize()
-        del state
+        res = state.comm_residual or {}
+        comm = type(state.comm).__name__
+        residual = (max((float(r.abs().max()) for r in res.values()),
+                        default=None),
+                    all(bool(torch.isfinite(r).all()) for r in res.values()))
+        del state, res
         train = hist[0]
         out[label] = {
+            "residual_max": residual[0], "residual_finite": residual[1],
+            "comm": comm,
             "first_loss": train.step_losses[0],
             "losses": train.step_losses,
             "step_s": statistics.median(train.step_seconds[1:]),
@@ -3604,14 +3744,21 @@ print("TWO_RANK " + json.dumps(out), flush=True)
 
 
 def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
-    """Run :data:`TWO_RANK` as two ranks on card 0 (torchrun's
-    environment, the one card each rank's ``LOCAL_RANK``); returns each
-    rank's record.  A rank that fails or is still running at ``timeout``
-    fails the phase (every rank is stopped)."""
+    """Run :data:`TWO_RANK` as two ranks on card 0; returns each rank's
+    record (:func:`_two_ranks`)."""
     from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
         free_port
 
-    port = str(free_port())
+    return _two_ranks(TWO_RANK, [json.dumps(legs), str(free_port())],
+                      "TWO_RANK ", timeout)
+
+
+def _two_ranks(script: str, args: list, tag: str,
+               timeout: float = 300.0) -> list[dict]:
+    """Run ``script`` as two ranks on card 0 (torchrun's environment, the
+    one card each rank's ``LOCAL_RANK``); returns the JSON each rank
+    printed after ``tag``.  A rank that fails or is still running at
+    ``timeout`` fails the phase (every rank is stopped)."""
     procs = []
     try:
         for rank in range(2):
@@ -3619,9 +3766,8 @@ def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
                        LOCAL_RANK="0", OMP_NUM_THREADS="4",
                        PYTHONPATH=str(ROOT))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", TWO_RANK, json.dumps(legs), port],
-                env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
+                [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
@@ -3630,12 +3776,11 @@ def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
                 p.wait()
     records = []
     for rank, (p, o) in enumerate(zip(procs, outs)):
-        found = [line for line in o.splitlines()
-                 if line.startswith("TWO_RANK ")]
+        found = [line for line in o.splitlines() if line.startswith(tag)]
         if p.returncode or len(found) != 1:
             raise RuntimeError(f"two ranks on one card: rank {rank} exited "
                                f"{p.returncode}:\n{o[-3000:]}")
-        records.append(json.loads(found[0][len("TWO_RANK "):]))
+        records.append(json.loads(found[0][len(tag):]))
     return records
 
 
@@ -3691,7 +3836,7 @@ def phase_sharded(data_dir: Path, data_perf=None) -> dict:
                     mode="data")
                 perf.pop("served")
                 perf.update(first_loss=hist[0].step_losses[0],
-                            launches=launches)
+                            losses=hist[0].step_losses, launches=launches)
                 runs[zero] = out[label] = perf
                 check_launches(f"sharded[{label}]", launches, want)
             plain = runs["none"]
@@ -3782,12 +3927,251 @@ def phase_sharded(data_dir: Path, data_perf=None) -> dict:
     return out
 
 
+# --- phase 32: compressed collectives and context parallelism -------------
+
+#: JAX's int8 tolerance (tests/test_compress.py): a compressed leg's later
+#: losses against world 1's; world 1 compresses nothing (1e-6)
+COMM_LOSS_TOL, COMM_WORLD1_TOL = 5e-2, 1e-6
+#: a --comm leg's first loss against world 1's: the first forward reads
+#: the parameters through the quantized gather, so bf16 holds the two-rank
+#: limit (read 2.7e-7 on the H100) and int8 about 25x its reading (4.05e-5)
+COMM_FIRST_LOSS_TOL = {"bf16": 1e-5, "int8": 1e-3}
+#: the context-parallel shape: each of two ranks holds T 2048, the training
+#: shape's sequence
+SEQ_SHAPE = dict(B=2, H=12, D=64, T=4096)
+#: (label, dtype, causal, window, padded): the last masks keys with a
+#: fully padded row
+SEQ_CASES = (("causal f32", "f32", True, None, False),
+             ("causal bf16", "bf16", True, None, False),
+             ("window 1024 f32", "f32", True, 1024, False),
+             ("padded non-causal f32", "f32", False, None, True))
+
+#: one rank of phase 32's attention: ring attention and Ulysses (the flash
+#: kernels inside) over the two ranks, each case's launches counted from
+#: zero around one forward and backward, then timed; rank 0 also runs
+#: single-rank flash_attention on the whole sequence and compares
+SEQ_RANK = r"""
+import json, os, sys, time
+import torch
+import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.ops import attention as fa
+from distributed_deep_learning_tpu_torch.parallel import (ring_attention,
+                                                          ulysses)
+
+spec, port = json.loads(sys.argv[1]), sys.argv[2]
+rank = int(os.environ["RANK"])
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+group = dist.group.WORLD
+B, H, D, T = (spec["shape"][x] for x in "BHDT")
+counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+
+
+def fwd_bwd(attn, q, k, v, do, kv, causal, window):
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attn(qq, kk, vv, key_valid=kv, causal=causal, window=window)
+    out.backward(do)
+    return out.detach(), qq.grad, kk.grad, vv.grad
+
+
+def timed(fn, reps=3, together=True):
+    fn()
+    if together:                 # both ranks start their reps at once
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+out = {}
+for label, dtype, causal, window, padded in spec["cases"]:
+    gen = torch.Generator().manual_seed(len(label))
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen).to(dt).to(dev)
+                   for _ in range(4))
+    kv = None
+    if padded:
+        kv = torch.rand(B, T, generator=gen) > 0.2
+        kv[1] = False
+        kv = kv.to(dev)
+    rec = {}
+    schemes = (("ring", ring_attention.make_attention_fn(group)),
+               ("ulysses", ulysses.make_attention_fn(
+                   group, inner=fa.make_attention_fn())))
+    for name, attn in schemes:
+        for c in counters:
+            c.launches = 0
+        got = fwd_bwd(attn, q, k, v, do, kv, causal, window)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        ms = timed(lambda: fwd_bwd(attn, q, k, v, do, kv, causal, window))
+        rec[name] = {"launches": launches, "ms": ms}
+        if rank == 0:
+            rec[name]["got"] = got
+    if rank == 0:
+        flash = lambda q, k, v, *, key_valid, causal, window: \
+            fa.flash_attention(q, k, v, key_valid=key_valid, causal=causal,
+                               window=window)
+        ref = fwd_bwd(flash, q, k, v, do, kv, causal, window)
+        rec["flash_ms"] = timed(lambda: fwd_bwd(flash, q, k, v, do, kv,
+                                                causal, window),
+                                together=False)
+        seen = torch.ones(B, T, dtype=torch.bool, device=dev) if kv is None \
+            else kv.any(1)[:, None].expand(B, T)
+        for name, _ in schemes:
+            got = rec[name].pop("got")
+            err = [float((got[0].float() - ref[0].float())[seen].abs().max())]
+            for g, r in zip(got[1:], ref[1:]):
+                err.append(float((g.float() - r.float()).abs().max())
+                           / max(float(r.float().abs().max()), 1e-30))
+            rec[name]["err"] = err
+            rec[name]["finite"] = all(bool(torch.isfinite(t).all())
+                                      for t in got)
+            rec[name]["padded_zero"] = None if kv is None else \
+                bool((got[0][~seen] == 0).all())
+    out[label] = rec
+dist.destroy_process_group()
+print("SEQ_RANK " + json.dumps(out), flush=True)
+"""
+
+
+def phase_comm(data_dir: Path, sharded: dict) -> dict:
+    """Phase 32; returns each leg's flash launches (``comm``) and each
+    attention case's (``seq``)."""
+    from distributed_deep_learning_tpu_torch.parallel.ring_attention import \
+        ring_hops
+
+    want = expected_launches(TRAIN_LAYERS, split_steps(SHARD_ROWS,
+                                                       TRAIN_BATCH))
+    out = {"comm": {}, "seq": {}}
+    os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+    try:
+        plain = sharded.get("data f32")
+        if plain is None:
+            hist, launches, plain = _train(data_dir, "flash",
+                                           label="data f32", mode="data")
+            plain["losses"] = hist[0].step_losses
+        for method in ("bf16", "int8"):
+            label = f"data f32 grad-compress {method}"
+            hist, launches, perf = _train(data_dir, "flash",
+                                          "--grad-compress", method,
+                                          label=label, mode="data")
+            check_launches(f"comm[{label}]", launches, want)
+            gap = max(_rel(a, b) for a, b in zip(hist[0].step_losses,
+                                                 plain["losses"]))
+            print(f"comm[{label}] at world 1: losses' largest rel diff "
+                  f"from plain -m data {gap:.2e} (tol {COMM_WORLD1_TOL:g}; "
+                  "one rank compresses nothing)")
+            if not gap <= COMM_WORLD1_TOL:
+                raise RuntimeError(f"comm[{label}]: world 1 moved the "
+                                   "losses")
+    finally:
+        os.environ.pop("DDL_DATA_LIMIT", None)
+    base = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768", "-e",
+            "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
+            "--data-dir", str(data_dir)]
+    legs = {label: {"argv": base + flags, "rows": SHARD_ROWS}
+            for label, flags in (
+                ("gpt grad-compress int8", ["--grad-compress", "int8"]),
+                ("gpt fsdp comm int8 overlap",
+                 ["--zero", "fsdp", "--comm", "int8", "--comm-overlap"]),
+                ("gpt fsdp comm bf16", ["--zero", "fsdp", "--comm", "bf16"]))}
+    t0 = time.perf_counter()
+    records = _two_rank_legs(legs)
+    print(f"comm: {time.perf_counter() - t0:.1f} s for the probe and three "
+          "two-rank legs (two processes on one card, gloo)")
+    for op, err in records[0]["probe"]:
+        if "(" in op:                    # the explicit collectives' ops
+            print(f"comm probe: {op} of CUDA tensors: "
+                  + ("ok" if err is None else f"FAILED ({err})"))
+    failed = sorted({op for r in records for op, err in r["probe"] if err})
+    if failed:
+        raise RuntimeError(f"comm probe: {failed} failed")
+    for label in legs:
+        # --grad-compress touches only the gradients, so the first loss is
+        # world 1's; --comm's first forward reads the parameters through
+        # the quantized gather, as JAX's does
+        method = "int8" if "int8" in label else "bf16"
+        first_tol = TWO_RANK_FIRST_LOSS_TOL if "grad-compress" in label \
+            else COMM_FIRST_LOSS_TOL[method]
+        for rank, rec in enumerate(records):
+            r = rec[label]
+            check_first_loss(f"comm[{label}] rank {rank} vs world 1",
+                             r["first_loss"], plain["losses"][0], first_tol)
+            gaps = [_rel(a, b) for a, b in zip(r["losses"][1:],
+                                               plain["losses"][1:])]
+            check_launches(f"comm[{label}] rank {rank}", r["launches"],
+                           want)
+            print(f"comm[{label}] rank {rank}: {r['step_s']:.4f} s/step "
+                  f"(gloo on one card), peak {r['peak'] / 2**30:.2f} GiB, "
+                  f"{r['comm']}; later losses' rel diff from world 1 "
+                  + " ".join(f"{g:.2e}" for g in gaps)
+                  + f" (tol {COMM_LOSS_TOL:g}); residual max "
+                  f"{r['residual_max']}, finite {r['residual_finite']}")
+            if not all(g <= COMM_LOSS_TOL for g in gaps):
+                raise RuntimeError(f"comm[{label}]: a loss left JAX's int8 "
+                                   "tolerance")
+            if "int8" in label and not (r["residual_finite"]
+                                        and (r["residual_max"] or 0) > 0):
+                raise RuntimeError(f"comm[{label}]: the residual is not "
+                                   "finite and nonzero")
+        out["comm"][label] = {"launches": records[0][label]["launches"],
+                              "step_s": records[0][label]["step_s"]}
+    # ring attention and Ulysses over the two ranks
+    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
+        free_port
+
+    port = str(free_port())
+    payload = json.dumps({"shape": SEQ_SHAPE, "cases": SEQ_CASES})
+    t0 = time.perf_counter()
+    records = _two_ranks(SEQ_RANK, [payload, port], "SEQ_RANK ")
+    print(f"seq: {time.perf_counter() - t0:.1f} s for ring attention and "
+          "Ulysses over two ranks (one card, gloo)")
+    Tl = SEQ_SHAPE["T"] // 2
+    for label, dtype, causal, window, padded in SEQ_CASES:
+        tol_o, tol_g = FLASH_TOL[dtype]
+        ref = records[0][label]
+        for name in ("ring", "ulysses"):
+            r = ref[name]
+            print(f"seq[{label}] {name}: O {r['err'][0]:.3e} (tol "
+                  f"{tol_o:g}), dq/dk/dv rel "
+                  + "/".join(f"{e:.2e}" for e in r["err"][1:])
+                  + f" (tol {tol_g:g}) against single-rank flash; forward+"
+                  f"backward {r['ms']:.3f} ms vs flash {ref['flash_ms']:.3f}"
+                  f" ms; padded row zero {r['padded_zero']}")
+            if not (r["finite"] and r["err"][0] <= tol_o
+                    and all(e <= tol_g for e in r["err"][1:])):
+                raise RuntimeError(f"seq[{label}] {name}: disagrees with "
+                                   "single-rank flash attention")
+            if name == "ring" and padded and not r["padded_zero"]:
+                raise RuntimeError(f"seq[{label}]: the ring's fully padded "
+                                   "row is not exactly 0")
+            for rank, rec in enumerate(records):
+                if name == "ring":
+                    hops = sum(m is not None for _, m in ring_hops(
+                        rank, 2, Tl, Tl, causal, window))
+                else:
+                    hops = 1
+                seq_want = {"flash_forward": hops, "flash_backward_dq": hops,
+                            "flash_backward_dkv": hops}
+                check_launches(f"seq[{label}] {name} rank {rank}",
+                               rec[label][name]["launches"], seq_want)
+                out["seq"][f"{label} {name} rank {rank}"] = {
+                    "launches": rec[label][name]["launches"]}
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 32)),
+                    default=",".join(str(i) for i in range(1, 33)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -3796,7 +4180,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 32)) and opts.waves is None
+    complete = phases == set(range(1, 33)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -3844,7 +4228,7 @@ def main(argv=None) -> int:
         lap("2-5, 13, 14, 18-20")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30, 31} | set(range(8, 18))):
+    if phases & ({7, 25, 26, 28, 29, 30, 31, 32} | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
     lap("6-7")
@@ -3916,6 +4300,10 @@ def main(argv=None) -> int:
     if 31 in phases:
         sharded = phase_sharded(_write_tokens(), data_perf)
         lap(31)
+    comm = {"comm": {}, "seq": {}}
+    if 32 in phases:
+        comm = phase_comm(_write_tokens(), sharded)
+        lap(32)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -3932,6 +4320,10 @@ def main(argv=None) -> int:
         entry["sharded_launches"] = {
             label: run["launches"][entry["name"]]
             for label, run in sharded.items()}
+        for part in ("comm", "seq"):
+            entry[f"{part}_launches"] = {
+                label: run["launches"][entry["name"]]
+                for label, run in comm[part].items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -12,7 +12,13 @@
 // scale with delta = rowsum(dO * O) computed by the caller. Together these give
 // a fully padded row exactly zero gradients. Causal masking is top-left (query
 // and key positions both count from 0, q_pos >= k_pos), a sliding window keeps
-// q_pos - k_pos < window, and key_valid masks keys per batch row; keys past
+// q_pos - k_pos < window, and key_valid masks keys per batch row. A query
+// offset shifts the query positions: q_pos + q_offset >= k_pos and
+// q_pos + q_offset - k_pos < window (ring attention's visiting blocks; 0
+// everywhere else, which is the TPU kernels' mask). The offset is moved into
+// the keys' positions once (a key tile's first key in the forward and dQ, a
+// thread's keys in dK/dV), so the per-element mask costs what it did
+// without it. Keys past
 // the end of a ragged tail get -inf, so they drop out even of a fully masked
 // row's average.
 //
@@ -98,9 +104,11 @@ struct Shape {
   int B, H, Hkv, Tq, Tk;
   float scale;
   int causal;
-  int window;  // <= 0: no sliding window
+  int window;    // <= 0: no sliding window
+  int q_offset;  // added to a query's position before the causal mask
 };
 
+// qi and kj in one frame: the caller has moved q_offset into one of them
 __device__ __forceinline__ bool in_band(const Shape& s, int qi, int kj) {
   if (!s.causal) return true;
   return qi >= kj && (s.window <= 0 || qi - kj < s.window);
@@ -431,9 +439,10 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 
   int lo = 0, hi = s.Tk;
-  if (s.causal) {
-    hi = min(hi, min(q0 + L::ROWS, s.Tq));  // stop at the diagonal
-    if (s.window > 0) lo = max(0, q0 - (s.window - 1));
+  if (s.causal) {  // stop at the diagonal
+    hi = min(hi, max(0, min(q0 + L::ROWS, s.Tq) + s.q_offset));
+    if (s.window > 0)
+      lo = max(0, q0 + s.q_offset - (s.window - 1));
   }
   const int first = lo / L::NS;
   const int n = max(0, (hi + L::NS - 1) / L::NS - first);
@@ -486,10 +495,11 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
         },
         ks, lane);
 
+    const int t0q = t0 - s.q_offset;  // the tile's first key, query frame
     bool plain = all_keys;  // warp-uniform
     if (s.causal) {
-      plain = plain && t0 + L::NS - 1 <= qw0;
-      if (s.window > 0) plain = plain && qw0 + 15 - t0 < s.window;
+      plain = plain && t0q + L::NS - 1 <= qw0;
+      if (s.window > 0) plain = plain && qw0 + 15 - t0q < s.window;
     }
     if (plain) {
 #pragma unroll
@@ -502,7 +512,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1), kj = t0 + c;
+          const int c = 8 * j + 2 * t + (e & 1), kj = t0q + c;
           const int qi = e < 2 ? r0 : r1;
           const int code = mk[c];
           sc[j][e] = code == 0 ? -INFINITY
@@ -634,9 +644,10 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const float dl1 = r1 < s.Tq ? delta[srow + r1] : 0.f;
 
   int lo = 0, hi = s.Tk;
-  if (s.causal) {
-    hi = min(hi, min(q0 + L::ROWS, s.Tq));  // stop at the diagonal
-    if (s.window > 0) lo = max(0, q0 - (s.window - 1));
+  if (s.causal) {  // stop at the diagonal
+    hi = min(hi, max(0, min(q0 + L::ROWS, s.Tq) + s.q_offset));
+    if (s.window > 0)
+      lo = max(0, q0 + s.q_offset - (s.window - 1));
   }
   const int first = lo / L::NS;
   const int n = max(0, (hi + L::NS - 1) / L::NS - first);
@@ -697,10 +708,11 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
         [&](int kk, uint32_t(&a)[4]) { frag_a<E>(a, dow, L::DP, kk, g, t); },
         ks + L::TILE, lane);
 
+    const int t0q = t0 - s.q_offset;  // the tile's first key, query frame
     bool plain = all_keys;  // warp-uniform
     if (s.causal) {
-      plain = plain && t0 + L::NS - 1 <= qw0;
-      if (s.window > 0) plain = plain && qw0 + 15 - t0 < s.window;
+      plain = plain && t0q + L::NS - 1 <= qw0;
+      if (s.window > 0) plain = plain && qw0 + 15 - t0q < s.window;
     }
     if (plain) {
 #pragma unroll
@@ -719,7 +731,7 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
           const int c = 8 * j + 2 * t + (e & 1);
           const int code = mk[c];
           const float x = code == 0 ? -INFINITY
-                          : code == 2 && in_band(s, e < 2 ? r0 : r1, t0 + c)
+                          : code == 2 && in_band(s, e < 2 ? r0 : r1, t0q + c)
                               ? sp[j][e] * s.scale
                               : kNegInf;
           const float p = exp2_approx(fmaf(x, kLog2e, e < 2 ? nl0 : nl1));
@@ -785,11 +797,17 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const bool ok1 = kj1 < s.Tk && (vrow == nullptr || vrow[kj1]);
   const int kw0 = k0 + warp * 16;  // this warp's first key
   const bool warp_keys = __all_sync(0xffffffffu, ok0 && ok1);
+  // the keys in the queries' frame (q_offset moved across)
+  const int kq0 = kj0 - s.q_offset, kq1 = kj1 - s.q_offset;
+  const int kwq = kw0 - s.q_offset;
 
   int lo = 0, hi = s.Tq;
   if (s.causal) {
-    lo = k0;  // queries above the diagonal never see these keys
-    if (s.window > 0) hi = min(hi, min(k0 + L::ROWS, s.Tk) - 1 + s.window);
+    // queries above the diagonal never see these keys
+    lo = max(0, k0 - s.q_offset);
+    if (s.window > 0)
+      hi = min(hi, max(0, min(k0 + L::ROWS, s.Tk) - 1 + s.window -
+                              s.q_offset));
   }
   const int first = lo / L::NS;
   const int per_head = max(0, (hi + L::NS - 1) / L::NS - first);
@@ -853,15 +871,15 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
     // plain: every (key, query) pair of this warp's tile is visible
     bool plain = warp_keys && i0 + L::NS <= s.Tq;  // warp-uniform
     if (s.causal) {
-      plain = plain && i0 >= kw0 + 15;
-      if (s.window > 0) plain = plain && i0 + L::NS - 1 - kw0 < s.window;
+      plain = plain && i0 >= kwq + 15;
+      if (s.window > 0) plain = plain && i0 + L::NS - 1 - kwq < s.window;
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + 2 * t + (e & 1), qi = i0 + c;
-        const int kj = e < 2 ? kj0 : kj1;
+        const int kj = e < 2 ? kq0 : kq1;
         float p = 0.f, ds = 0.f;
         if (plain || qi < s.Tq) {
           const float x =
@@ -943,8 +961,8 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* valid, void* out, void* lse,
                                 int B, int H, int Hkv, int Tq, int Tk, int D,
                                 float scale, int causal, int window,
-                                int dtype, void* stream) {
-  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window};
+                                int q_offset, int dtype, void* stream) {
+  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window, q_offset};
   if (bad_shape(s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, D, [&](auto e, auto d) {
@@ -967,9 +985,9 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* valid, const void* dout,
                                const void* lse, const void* delta, void* dq,
                                int B, int H, int Hkv, int Tq, int Tk, int D,
-                               float scale, int causal, int window, int dtype,
-                               void* stream) {
-  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window};
+                               float scale, int causal, int window,
+                               int q_offset, int dtype, void* stream) {
+  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window, q_offset};
   if (bad_shape(s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, D, [&](auto e, auto d) {
@@ -994,8 +1012,9 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 const void* lse, const void* delta, void* dk,
                                 void* dv, int B, int H, int Hkv, int Tq,
                                 int Tk, int D, float scale, int causal,
-                                int window, int dtype, void* stream) {
-  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window};
+                                int window, int q_offset, int dtype,
+                                void* stream) {
+  const Shape s{B, H, Hkv, Tq, Tk, scale, causal, window, q_offset};
   if (bad_shape(s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, D, [&](auto e, auto d) {

@@ -411,9 +411,15 @@ def reset_linear_norm_(model: nn.Module,
 def attend_qkv(attention: str, attn: MultiHeadAttention, q, k, v, *,
                causal: bool, key_valid=None, window: Optional[int] = None):
     """The full forward's attention of one ``MultiHeadAttention``: the
-    flash kernels (``attention="flash"``; GQA K/V unexpanded) or dense
-    attention, causal or not, with ``key_valid`` ``(B, Tk)`` masking keys
-    and an optional causal ``window``."""
+    flash kernels (``attention="flash"``; GQA K/V unexpanded), dense
+    attention (``"dense"``), or an adapter callable (JAX's
+    ``attention_fn``: ``parallel.ring_attention``'s and
+    ``parallel.ulysses``' ``make_attention_fn``, which also take the K/V
+    unexpanded), causal or not, with ``key_valid`` ``(B, Tk)`` masking
+    keys and an optional causal ``window``."""
+    if callable(attention):
+        return attention(q, k, v, key_valid=key_valid, causal=causal,
+                         window=window, dtype=q.dtype)
     if attention == "flash":
         return flash_attention(q, k, v, causal=causal, key_valid=key_valid,
                                window=window)
@@ -540,7 +546,7 @@ class CausalLM(nn.Module):
                              f"{DTYPES}")
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_embedding {pos_embedding!r}")
-        if attention not in ATTENTIONS:
+        if not callable(attention) and attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}; choose from "
                              f"{ATTENTIONS}")
         self.attention, self.dropout_rate = attention, dropout_rate
@@ -813,7 +819,7 @@ class _EncoderModel(nn.Module):
         if dtype not in DTYPES:
             raise ValueError(f"unknown compute dtype {dtype}; choose from "
                              f"{DTYPES}")
-        if attention not in ATTENTIONS:
+        if not callable(attention) and attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}; choose from "
                              f"{ATTENTIONS}")
         self.vocab_size, self.d_model, self.num_heads = vocab_size, \

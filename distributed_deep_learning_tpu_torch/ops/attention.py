@@ -12,7 +12,9 @@ The semantics are the TPU kernels': masked logits are ``NEG_INF``
 (-1e30), ``lse = max(m, -1e20) + log(max(l, 1e-30))`` and ``out = acc /
 max(l, 1e-30)``, so a fully padded row gets exactly zero gradients;
 causal masking is top-left (query and key positions both count from 0);
-a sliding ``window`` keeps ``q_pos - k_pos < window``; ``key_valid``
+a sliding ``window`` keeps ``q_pos - k_pos < window``; the low-level
+entries take a ``q_offset`` added to every query position first (ring
+attention's visiting blocks, :mod:`..parallel.ring_attention`); ``key_valid``
 masks keys per batch row; GQA k/v carry ``Hkv`` heads and query head
 ``h`` reads kv head ``h // (H // Hkv)``.  All three kernels run on the
 tensor cores (bf16 natively, f32 as 3xTF32, which keeps f32 accuracy);
@@ -45,16 +47,17 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 # --- plain versions ---------------------------------------------------------
 
-def _logits(q, k, key_valid, causal, window, sm_scale):
+def _logits(q, k, key_valid, causal, window, sm_scale, q_offset=0):
     """Masked f32 logits ``(B, H, Tq, Tk)`` with k expanded over the
-    group; masked entries hold ``NEG_INF``."""
+    group; masked entries hold ``NEG_INF``.  Query ``i`` sits at position
+    ``i + q_offset``."""
     B, Tq, H, _ = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     kx = k.float().repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * sm_scale
     ok = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
     if causal:
-        qp = torch.arange(Tq, device=q.device)[:, None]
+        qp = torch.arange(Tq, device=q.device)[:, None] + q_offset
         kp = torch.arange(Tk, device=q.device)[None, :]
         ok = qp >= kp
         if window is not None:
@@ -74,7 +77,7 @@ def _group_sum(x, Hkv):
 
 def flash_attention_reference(q, k, v, *, causal: bool = False,
                               key_valid=None, sm_scale: float | None = None,
-                              window: int | None = None):
+                              window: int | None = None, q_offset: int = 0):
     """The forward kernel's function in plain torch, in f32: returns
     ``out`` ``(B, Tq, H, D)`` in q's dtype and ``lse`` ``(B, H, Tq)`` f32.
     P is rounded to the input dtype before ``P.V`` (a no-op in f32), as
@@ -84,7 +87,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     Hkv = k.shape[2]
-    s = _logits(q, k, key_valid, causal, window, sm_scale)
+    s = _logits(q, k, key_valid, causal, window, sm_scale, q_offset)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -98,18 +101,26 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
 def flash_backward_reference(q, k, v, key_valid, out, lse, dout, *,
                              causal: bool = False,
                              sm_scale: float | None = None,
-                             window: int | None = None):
+                             window: int | None = None, q_offset: int = 0):
     """The dQ and dK/dV kernels' function in plain torch, in f32:
     ``p = exp(s - lse)``, ``ds = p * (dO.V^T - delta) * scale`` with
     ``delta = rowsum(dO * O)``; dK/dV summed over each GQA group.  P and
     dS are rounded to the input dtype before the products that take them
     (a no-op in f32), as the kernels do.  Returns ``(dq, dk, dv)`` in the
     inputs' dtypes."""
+    return _backward_plain(q, k, v, key_valid, dout, lse, _delta(out, dout),
+                           causal=causal, sm_scale=sm_scale, window=window,
+                           q_offset=q_offset)
+
+
+def _backward_plain(q, k, v, key_valid, dout, lse, delta, *, causal,
+                    sm_scale, window, q_offset=0):
+    """:func:`flash_backward_reference` from a given ``lse`` and ``delta``
+    (both ``(B, H, Tq)`` f32)."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     H, Hkv = q.shape[2], k.shape[2]
-    delta = _delta(out, dout)
-    s = _logits(q, k, key_valid, causal, window, sm_scale)
+    s = _logits(q, k, key_valid, causal, window, sm_scale, q_offset)
     p = torch.exp(s - lse[..., None])
     do = dout.float()
     vx = v.float().repeat_interleave(H // Hkv, dim=2)
@@ -138,42 +149,46 @@ def _delta(out, dout):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def flash_forward(q, k, v, key_valid, *, causal, sm_scale, window):
+def flash_forward(q, k, v, key_valid, *, causal, sm_scale, window,
+                  q_offset: int = 0):
     """``(out, lse)``: the plain version on CPU tensors, the forward kernel
     on CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          key_valid=key_valid,
-                                         sm_scale=sm_scale, window=window)
+                                         sm_scale=sm_scale, window=window,
+                                         q_offset=q_offset)
     _check_kernel_args(q, k, v, key_valid)
     B, Tq, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     _launch("flash_fwd_launch", q, k, v, key_valid, [out, lse],
-            causal=causal, sm_scale=sm_scale, window=window)
+            causal=causal, sm_scale=sm_scale, window=window,
+            q_offset=q_offset)
     flash_forward.launches += 1
     return out, lse
 
 
 def flash_backward_dq(q, k, v, key_valid, dout, lse, delta, *, causal,
-                      sm_scale, window):
+                      sm_scale, window, q_offset: int = 0):
     """dQ kernel (CUDA tensors only)."""
     _check_kernel_args(q, k, v, key_valid, dout, lse, delta)
     dq = torch.empty_like(q)
     _launch("flash_dq_launch", q, k, v, key_valid, [dout, lse, delta, dq],
-            causal=causal, sm_scale=sm_scale, window=window)
+            causal=causal, sm_scale=sm_scale, window=window,
+            q_offset=q_offset)
     flash_backward_dq.launches += 1
     return dq
 
 
 def flash_backward_dkv(q, k, v, key_valid, dout, lse, delta, *, causal,
-                       sm_scale, window):
+                       sm_scale, window, q_offset: int = 0):
     """dK/dV kernel (CUDA tensors only), summed over each GQA group."""
     _check_kernel_args(q, k, v, key_valid, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_dkv_launch", q, k, v, key_valid,
             [dout, lse, delta, dk, dv], causal=causal, sm_scale=sm_scale,
-            window=window)
+            window=window, q_offset=q_offset)
     flash_backward_dkv.launches += 1
     return dk, dv
 
@@ -184,22 +199,36 @@ flash_backward_dkv.launches = 0
 
 
 def flash_backward(q, k, v, key_valid, out, lse, dout, *, causal, sm_scale,
-                   window):
+                   window, q_offset: int = 0):
     """``(dq, dk, dv)``: the plain version on CPU tensors; on CUDA tensors
     ``delta`` in torch, then the dQ kernel, then the dK/dV kernel."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, key_valid, out, lse, dout,
                                         causal=causal, sm_scale=sm_scale,
-                                        window=window)
+                                        window=window, q_offset=q_offset)
     dout = dout.contiguous()
-    delta = _delta(out, dout)
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    return flash_backward_parts(q, k, v, key_valid, dout, lse,
+                                _delta(out, dout), causal=causal,
+                                sm_scale=sm_scale, window=window,
+                                q_offset=q_offset)
+
+
+def flash_backward_parts(q, k, v, key_valid, dout, lse, delta, *, causal,
+                         sm_scale, window, q_offset: int = 0):
+    """``(dq, dk, dv)`` from a given ``lse`` and ``delta`` (a ring hop's
+    share of the gradient under the global softmax): the plain version on
+    CPU tensors, the dQ then the dK/dV kernel on CUDA tensors."""
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, key_valid, dout, lse, delta, **kw)
     dq = flash_backward_dq(q, k, v, key_valid, dout, lse, delta, **kw)
     dk, dv = flash_backward_dkv(q, k, v, key_valid, dout, lse, delta, **kw)
     return dq, dk, dv
 
 
-def _launch(name, q, k, v, key_valid, tensors, *, causal, sm_scale, window):
+def _launch(name, q, k, v, key_valid, tensors, *, causal, sm_scale, window,
+            q_offset=0):
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     lib = _library()
@@ -209,7 +238,7 @@ def _launch(name, q, k, v, key_valid, tensors, *, causal, sm_scale, window):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_valid.data_ptr() if key_valid is not None else None,
             *(t.data_ptr() for t in tensors), B, H, Hkv, Tq, Tk, D,
-            float(sm_scale), int(causal), int(window or 0),
+            float(sm_scale), int(causal), int(window or 0), int(q_offset),
             _DTYPES[q.dtype], stream)
     if rc != 0:
         msg = lib.flash_error_string(rc).decode()
@@ -266,7 +295,7 @@ def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32] * 6 + [f32] + [i32] * 3 + [ptr]
+    tail = [i32] * 6 + [f32] + [i32] * 4 + [ptr]
     lib.flash_fwd_launch.argtypes = [ptr] * 6 + tail
     lib.flash_dq_launch.argtypes = [ptr] * 8 + tail
     lib.flash_dkv_launch.argtypes = [ptr] * 9 + tail
@@ -321,3 +350,25 @@ def flash_attention(q, k, v, *, causal: bool = False, key_valid=None,
             key_valid = key_valid.contiguous()
     return _FlashAttention.apply(q, k, v, key_valid, bool(causal),
                                  float(sm_scale), window)
+
+
+def make_attention_fn(causal: bool = False):
+    """Flash attention as a model's ``attention`` callable (JAX's
+    ``attention_pallas.make_attention_fn``): ``attn(q, k, v, *, mask=None,
+    key_valid=None, causal=False, window=None, dtype=None)``, GQA K/V
+    unexpanded; ``causal=True`` here forces it.  The JAX adapter answers a
+    dense ``mask`` with dense attention; this one refuses it (the kernels
+    never give way to another path)."""
+    forced_causal = causal
+
+    def attn(q, k, v, *, mask=None, key_valid=None, causal=False,
+             window=None, dtype=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "the flash kernels take key_valid padding masks and "
+                "causal=...; a dense (T, T) mask tensor is not supported")
+        out = flash_attention(q, k, v, causal=causal or forced_causal,
+                              key_valid=key_valid, window=window)
+        return out.to(dtype or q.dtype)
+
+    return attn

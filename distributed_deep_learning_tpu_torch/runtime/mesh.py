@@ -13,7 +13,10 @@ placement has no Hopper meaning).
 :class:`MeshLayout` reads what the runner needs from a mesh: this rank's
 coordinate, and the process groups of the batch axes ``(data, fsdp)``
 (the rows a rank trains on come from its coordinate there), of
-``model`` and of ``expert``.
+``model``, of ``expert`` and of ``seq``, and the two groups the explicit
+FSDP collectives (``--comm``) split the batch axes into: the comm axis
+(``fsdp`` when it has ranks, else ``data``, as JAX's runner picks it) and
+the other batch axes (JAX's ``other_axes``).
 """
 
 from __future__ import annotations
@@ -152,8 +155,10 @@ class MeshLayout:
     (axis -> index), ``batch_rank``/``batch_world`` (its index among and
     the number of the ranks its global batch is split over: the batch
     axes, data-major), and the process groups of the batch axes, of
-    ``model`` and of ``expert`` (None where the axis has one rank).
-    ``mesh`` is the ``DeviceMesh`` (None for :meth:`plain`)."""
+    ``model``, of ``expert``, of ``seq``, of the comm axis
+    (:meth:`comm_axis`) and of the other batch axes (None where the axes
+    have one rank).  ``mesh`` is the ``DeviceMesh`` (None for
+    :meth:`plain`)."""
 
     sizes: dict
     coord: dict
@@ -162,6 +167,15 @@ class MeshLayout:
     model_group: object = None
     expert_group: object = None
     batch_rows: list | None = None      # every batch group's ranks
+    seq_group: object = None
+    comm_group: object = None
+    other_group: object = None
+
+    @property
+    def comm_axis(self) -> str:
+        """The axis the explicit FSDP collectives run over: ``fsdp`` when
+        it has ranks, else ``data`` (JAX ``workloads/base.py:456``)."""
+        return "fsdp" if self.sizes["fsdp"] > 1 else "data"
 
     @property
     def batch_world(self) -> int:
@@ -187,8 +201,13 @@ class MeshLayout:
         sizes = dict(zip(AXES, ranks.shape))
         coord = dict(zip(AXES, (int(i) for i in
                                 np.argwhere(ranks == dist.get_rank())[0])))
+        comm = "fsdp" if sizes["fsdp"] > 1 else "data"
+        other = tuple(a for a in BATCH_AXES if a != comm)
         return cls(sizes=sizes, coord=coord, mesh=mesh,
                    batch_group=_subgroups(ranks, BATCH_AXES),
                    model_group=_subgroups(ranks, ("model",)),
                    expert_group=_subgroups(ranks, ("expert",)),
-                   batch_rows=_rows(ranks, BATCH_AXES))
+                   batch_rows=_rows(ranks, BATCH_AXES),
+                   seq_group=_subgroups(ranks, ("seq",)),
+                   comm_group=_subgroups(ranks, (comm,)),
+                   other_group=_subgroups(ranks, other))

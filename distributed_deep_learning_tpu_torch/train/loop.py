@@ -82,7 +82,10 @@ def _sum_totals(metrics, init_totals=None):
         stacked = {k: torch.stack([m[k] for m in metrics])
                    for k in metrics[0]}
         host = {k: v.cpu() for k, v in stacked.items()}
-        totals = {k: v.sum().item() for k, v in host.items()}
+        # in f64: a resumed phase adds its restored partial sum in f64,
+        # so the whole and the resumed phase sum alike
+        totals = {k: (v.double() if v.is_floating_point() else v).sum()
+                  .item() for k, v in host.items()}
     for k, v in (init_totals or {}).items():
         totals[k] = totals.get(k, 0) + v
     return totals, host

@@ -300,13 +300,20 @@ def reference_optimizer(workload: str, learning_rate: float | None = None,
 @dataclasses.dataclass
 class TrainState:
     """The module, its optimizer, the recipe it was built from, the number
-    of updates applied and the dropout generator (None without dropout)."""
+    of updates applied and the dropout generator (None without dropout).
+    ``comm_residual`` is this rank's int8 error-feedback buffer (a tensor
+    a parameter, by name; JAX's ``TrainState.comm_residual``), and
+    ``comm`` the party that synchronises the gradients when it is not
+    DDP's default all-reduce (``train.compress.GradCompression`` or
+    ``parallel.collectives.ExplicitFSDP``), else None."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     tx: Optimizer
     step: int = 0
     generator: torch.Generator | None = None
+    comm_residual: dict | None = None
+    comm: object = None
 
     def apply_gradients(self) -> None:
         """Clip, set the learning rate for this update's count, step."""

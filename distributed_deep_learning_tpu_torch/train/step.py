@@ -27,6 +27,14 @@ computes exactly the objective it did without the collection.  Under
 ``-m data`` every rank adds the same global term (``models.moe``'s
 routing sums it over the ranks differentiably), and DDP's average of the
 ranks' gradients is its gradient.
+
+``local_mean`` is what JAX's ``shard_map`` steps do (``--grad-compress``,
+``--comm``): each rank backpropagates its own shard's mean loss, takes
+BatchNorm statistics and routes on its own rows; the gradients are
+averaged by the synchronising party (the DDP communication hook of
+:mod:`.compress`, or :class:`..parallel.collectives.ExplicitFSDP`), the
+logged loss is the mean of the ranks' losses, and the floating buffers
+(running statistics) are averaged over the ranks after the update.
 """
 
 from __future__ import annotations
@@ -63,9 +71,33 @@ def global_mean(loss, pred, y, loss_fn, world: int, group=None):
                        "count": stats[3].to(torch.int32)}
 
 
+def local_metrics(loss, pred, y, world: int, group=None):
+    """A shard's metrics summed over ``group``: the mean of the ranks'
+    losses and the summed counts (JAX's ``psum(...)/n``)."""
+    m = prediction_metrics(pred.detach(), y, loss)
+    stats = torch.stack([loss.detach().double(), m["correct"].double(),
+                         m["count"].double()])
+    dist.all_reduce(stats, group=group)
+    return {"loss": (stats[0] / world).float(),
+            "correct": stats[1].to(torch.int32),
+            "count": stats[2].to(torch.int32)}
+
+
+@torch.no_grad()
+def average_buffers(model, world: int, group=None) -> None:
+    """Every floating buffer (BatchNorm's running statistics) averaged
+    over ``group`` in f32, as JAX averages ``model_state``."""
+    for b in model.buffers():
+        if b.is_floating_point():
+            t = b.float()
+            dist.all_reduce(t, group=group)
+            b.copy_(t / world)
+
+
 def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                   remat_policy: str = "nothing", accum_steps: int = 1,
-                  global_batch: bool = False, group=None):
+                  global_batch: bool = False, group=None,
+                  local_mean: bool = False, comm=None):
     """``(train_step, eval_step)``: ``train_step(state, x, y) -> (state,
     metrics)`` updates ``state`` in place; ``eval_step(state, x, y) ->
     metrics``.  ``ddp`` (``DistributedDataParallel`` over ``state.model``)
@@ -91,6 +123,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                              f"factor {accum_steps}")
         m = B // accum_steps
         net = ddp if ddp is not None else state.model
+        if comm is not None:
+            comm.gather()
         net.train()
         state.optimizer.zero_grad(set_to_none=True)
         metrics = []
@@ -107,6 +141,10 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                     objective = loss
                     metrics.append(prediction_metrics(pred.detach(), my,
                                                       loss))
+                elif local_mean:
+                    objective = loss
+                    metrics.append(local_metrics(loss, pred, my, world,
+                                                 group))
                 else:
                     objective, mm = global_mean(loss, pred, my, loss_fn,
                                                 world, group)
@@ -114,7 +152,11 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                 if sown:
                     objective = objective + sum(sown)
                 (objective / accum_steps).backward()   # exact at 1
+        if comm is not None:
+            comm.reduce_gradients(state.comm_residual)
         state.apply_gradients()
+        if synced and local_mean:
+            average_buffers(state.model, world, group)
         # JAX's accumulated metrics: mean loss, summed correct and count
         return state, {
             "loss": torch.stack([mm["loss"] for mm in metrics]).mean(),
@@ -123,6 +165,8 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
 
     @torch.no_grad()
     def eval_step(state: TrainState, x, y):
+        if comm is not None:
+            comm.gather(exact=True)
         state.model.eval()
         pred = state.model(x)
         loss = loss_fn(pred, y)

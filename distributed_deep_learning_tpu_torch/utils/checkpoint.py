@@ -92,9 +92,20 @@ def leaf_records(payload) -> dict:
 
 
 def is_sharded(state: TrainState) -> bool:
-    """Whether ``state`` is split across ranks (saving it is collective)."""
-    return hasattr(state.optimizer, "consolidate_state_dict") or any(
-        is_split(p) for p in resharded(state.model).parameters())
+    """Whether ``state`` is split across ranks or holds a rank's own
+    residual (saving it is collective)."""
+    return hasattr(state.optimizer, "consolidate_state_dict") or \
+        state.comm_residual is not None or _explicit(state) or any(
+            is_split(p) for p in resharded(state.model).parameters())
+
+
+def _explicit(state: TrainState) -> bool:
+    """Whether ``--comm``'s :class:`..parallel.collectives.ExplicitFSDP`
+    holds the state (its masters are this rank's shards)."""
+    from distributed_deep_learning_tpu_torch.parallel.collectives import \
+        ExplicitFSDP
+
+    return isinstance(state.comm, ExplicitFSDP)
 
 
 def whole_state_dict(model) -> dict:
@@ -146,12 +157,25 @@ def state_payload(state: TrainState, generators=None, *,
                         "params": state.model.state_dict(),
                         "optimizer": state.optimizer.state_dict(),
                         "generator": generators})
-    params = whole_state_dict(state.model)
-    optimizer = _whole_optimizer(state.optimizer, writer)
+    from distributed_deep_learning_tpu_torch.parallel.collectives import \
+        gather_residual
+
+    if _explicit(state):
+        state.comm.gather(exact=True)
+        params = state.model.state_dict()
+        optimizer = state.comm.whole_optimizer(state.optimizer, writer)
+    else:
+        params = whole_state_dict(state.model)
+        optimizer = _whole_optimizer(state.optimizer, writer)
+    residual = gather_residual(state)
     if not writer:
         return None
-    return _to_cpu({"step": int(state.step), "params": params,
-                    "optimizer": optimizer, "generator": generators})
+    payload = {"step": int(state.step), "params": params,
+               "optimizer": optimizer, "generator": generators}
+    if residual is not None:
+        # every batch rank's, on a leading axis (n, ...), as JAX holds it
+        payload["comm_residual"] = residual
+    return _to_cpu(payload)
 
 
 def _load_params(model, sd: dict) -> None:
@@ -214,8 +238,22 @@ def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
         raise ValueError(f"checkpoint holds the dropout streams of "
                          f"{len(gens)} rank(s), this run has {world}: "
                          "resume at the world size that saved it")
-    _load_params(state.model, payload["params"])
-    _load_optimizer(state.optimizer, payload["optimizer"])
+    if (payload.get("comm_residual") is None) != \
+            (state.comm_residual is None):
+        raise ValueError("checkpoint and run disagree on the int8 "
+                         "error-feedback residual (--comm int8 / "
+                         "--grad-compress int8 on more than one rank)")
+    if _explicit(state):
+        state.comm.load(payload["params"], state.optimizer,
+                        payload["optimizer"])
+    else:
+        _load_params(state.model, payload["params"])
+        _load_optimizer(state.optimizer, payload["optimizer"])
+    if state.comm_residual is not None:
+        from distributed_deep_learning_tpu_torch.parallel.collectives \
+            import load_residual
+
+        load_residual(state, payload["comm_residual"])
     state.step = int(payload["step"])
     if gens is not None:
         state.generator.set_state(gens[rank])

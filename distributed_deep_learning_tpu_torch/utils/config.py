@@ -88,6 +88,11 @@ class Config:
     sync_in_local_data_mode: bool = True  # False: --no-sync (quirk Q1)
     mesh_shape: dict | None = None      # --mesh: axis -> size (-m data)
     zero: str = "none"                  # --zero: none | 1 | fsdp
+    grad_compress: str = "none"         # -m data's gradient all-reduce
+                                        #   wire format: none|bf16|int8
+    comm: str = "none"                  # --zero fsdp's explicit
+                                        #   collectives: none|bf16|int8
+    comm_overlap: bool = False          # those collectives as rings
     remat: bool = False
     remat_policy: str = "nothing"
     grad_accum: int = 1
@@ -144,7 +149,6 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--grad-compress=": 11, "--comm=": 11, "--comm-overlap": 11,
     "--elastic": 12, "--sentinel=": 12, "--sentinel-window=": 12,
     "--sentinel-factor=": 12, "--heartbeat-dir=": 12,
     "--heartbeat-timeout=": 12,
@@ -236,6 +240,21 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
     p.add_argument("--zero", choices=["none", "1", "fsdp"], default="none",
                    help="shard optimizer state (ZeRO-1) or params+optimizer "
                         "(fsdp) over the fsdp/data mesh axes")
+    p.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
+                   default="none",
+                   help="compress the data-parallel gradient all-reduce: "
+                        "bf16 halves wire bytes; int8 is common-scale "
+                        "quantization with int32 reduction and an "
+                        "error-feedback residual")
+    p.add_argument("--comm", choices=["none", "bf16", "int8"],
+                   default="none",
+                   help="with --zero fsdp: the explicit param all-gather / "
+                        "grad reduce-scatter, quantized on the wire (int8: "
+                        "per-leaf scale, error-feedback residuals; "
+                        "parallel/collectives.py)")
+    p.add_argument("--comm-overlap", action="store_true",
+                   help="with --comm: run those collectives as "
+                        "double-buffered send/recv rings")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
@@ -410,16 +429,47 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit(f"--mesh stage={mesh_shape['stage']} conflicts "
                          f"with --nstages {args.nstages}; drop one (--mesh "
                          "wins over the mode-derived stage count)")
+    # the JAX CLI's --comm checks (utils/config.py:969-996 there)
+    if args.comm != "none":
+        if args.zero != "fsdp":
+            raise SystemExit("--comm quantizes the explicit FSDP param "
+                             "all-gather / grad reduce-scatter; it requires "
+                             "--zero fsdp (with no sharded params there is "
+                             "no such collective to compress)")
+        if args.grad_compress != "none":
+            raise SystemExit("--comm and --grad-compress are mutually "
+                             "exclusive: the FSDP dataflow has no pure "
+                             "gradient all-reduce for --grad-compress to "
+                             "act on")
+        if args.grad_accum > 1:
+            raise SystemExit("--comm does not compose with --grad-accum "
+                             "(the accumulation loop re-gathers params per "
+                             "microstep; quantizing those repeats is not "
+                             "implemented)")
+        bad = [a for a in ("model", "expert", "stage", "seq")
+               if (mesh_shape or {}).get(a, 0) > 1]
+        if bad:
+            raise SystemExit(f"--comm requires a data/fsdp-only mesh; got "
+                             f"{'/'.join(bad)} axes (the explicit FSDP "
+                             "step owns the whole dataflow and does not "
+                             "compose with model/expert/stage/seq "
+                             "sharding)")
+    if args.comm_overlap and args.comm == "none":
+        raise SystemExit("--comm-overlap requires --comm bf16|int8 (it "
+                         "selects the ring schedule for the explicit "
+                         "collectives --comm turns on)")
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
                 f"{flag.rstrip('=')} is not ported yet: {ROADMAP_ITEMS[item]}")
     if (mesh_shape or {}).get("seq", 1) != 1:
         # the JAX runner builds a seq axis and leaves it idle under -m
-        # data; its users are ring attention and Ulysses
+        # data; ring attention and Ulysses are library entry points
         raise NotImplementedError(
-            "--mesh seq= (context parallelism: ring attention, Ulysses) is "
-            f"not ported yet: {ROADMAP_ITEMS[11]}")
+            "--mesh seq=: no CLI path runs context parallelism (the JAX "
+            "runner builds the axis and leaves it idle under -m data); "
+            "ring attention and Ulysses are library entry points, "
+            "parallel.ring_attention and parallel.ulysses")
     return Config(
         num_layers=args.nlayers, size=args.size, epochs=args.epochs,
         batch_size=args.batch,
@@ -437,6 +487,8 @@ def parse_args(argv: Sequence[str] | None = None,
         warmup_steps=args.warmup_steps, clip_norm=args.clip_norm,
         world_size=args.run, sync_in_local_data_mode=args.sync,
         mesh_shape=mesh_shape, zero=args.zero,
+        grad_compress=args.grad_compress, comm=args.comm,
+        comm_overlap=args.comm_overlap,
         microbatch=args.pipeline, num_stages=args.nstages,
         pipeline_schedule=args.pipeline_schedule,
         virtual_stages=args.virtual_stages,

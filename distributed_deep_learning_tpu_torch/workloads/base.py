@@ -34,7 +34,11 @@ JAX runner's ``derive_state_spec`` decides: tensor/expert parallelism
 the batch axes only: by ``DistributedDataParallel`` on their group
 (tensor parallelism keeps every parameter a plain local tensor, which
 DDP takes; the model group's collectives run inside the forward and
-backward), or by FSDP itself.
+backward), or by FSDP itself.  ``--grad-compress`` hangs a
+communication hook on that DDP (:mod:`..train.compress`); ``--zero fsdp
+--comm`` replaces FSDP2 by the explicit collectives of
+:class:`..parallel.collectives.ExplicitFSDP`.  Both take each rank's own
+means, as JAX's ``shard_map`` steps do (:mod:`..train.step`).
 
 The optimizers follow optax, not torch's defaults: see
 :class:`..train.state.Optimizer`.
@@ -285,6 +289,44 @@ def derive_state_spec(spec: WorkloadSpec, config: Config,
     return None
 
 
+def check_step_flags(config: Config, sizes: dict) -> None:
+    """The JAX runner's ``make_train_eval_steps`` refusals of ``--comm`` and
+    ``--grad-compress``, in its order and words (``sizes``: the mesh)."""
+    tp = sizes.get("model", 1) > 1 or sizes.get("expert", 1) > 1
+    if config.comm != "none":
+        if config.zero != "fsdp" or config.grad_accum > 1 \
+                or config.grad_compress != "none" or tp:
+            raise ValueError(
+                "--comm quantizes the explicit FSDP collectives "
+                "(parallel/collectives.py); it requires --zero fsdp and "
+                "does not compose with --grad-accum/--grad-compress/"
+                "--mesh model/expert axes")
+    elif config.grad_compress != "none":
+        if config.zero != "none" or config.grad_accum > 1 or tp:
+            raise ValueError(
+                "--grad-compress applies to the pure data-parallel "
+                "gradient all-reduce; it does not compose with "
+                "--zero/--grad-accum/--mesh model/expert axes (for "
+                "compressed ZeRO/FSDP collectives use --comm bf16|int8, "
+                "parallel/collectives.py)")
+
+
+def attach_comm_residual(config: Config, state: TrainState,
+                         named_params, batch_world: int) -> dict | None:
+    """Zero-init the error-feedback residual on ``state`` when an int8
+    path is active (``--comm int8``, ``--grad-compress int8``) and more
+    than one batch rank exchanges gradients (JAX: one shard sends
+    nothing)."""
+    if config.comm != "int8" and config.grad_compress != "int8":
+        return None
+    if batch_world <= 1:
+        return None
+    from distributed_deep_learning_tpu_torch.parallel.collectives import \
+        attach_residual
+
+    return attach_residual(state, named_params)
+
+
 def mesh_devices(shape: dict[str, int], devices):
     """The device prefix an explicit mesh shape occupies (a copy of the
     JAX runner's): the whole list under a -1 fill."""
@@ -484,6 +526,11 @@ def train_setup(spec, config, env, init_state_dict, logger):
         else MeshLayout.plain()
     sharding = derive_state_spec(spec, config, layout.sizes) \
         if data_parallel else None
+    check_step_flags(config, layout.sizes)
+    # JAX's shard_map steps: each rank's own means (train.step)
+    local_mean = data_parallel and layout.batch_world > 1 and (
+        config.grad_compress != "none" or config.comm != "none")
+    explicit = data_parallel and config.comm != "none"
     tx = _optimizer(spec, config, splits)
     # the rows and the dropout stream of this rank's coordinate on the
     # batch axes: the ranks of a model or expert group share both
@@ -496,7 +543,8 @@ def train_setup(spec, config, env, init_state_dict, logger):
         spec.build_model(config, dataset), config.seed, tx, init_state_dict,
         device=device,
         dropout_seed=config.seed + 1 + stream if config.dropout > 0
-        else None, shard=_shard_fn(spec, config, sharding, layout))
+        else None, shard=None if explicit
+        else _shard_fn(spec, config, sharding, layout))
     if sharding == "zero1":
         from distributed_deep_learning_tpu_torch.parallel.zero import (
             zero1_optimizer, zero_axis)
@@ -512,23 +560,57 @@ def train_setup(spec, config, env, init_state_dict, logger):
     ckpt_parts = _maybe_checkpointer(config, env.rank, shared=data_parallel,
                                      topology=topology)
     ddp, synced = None, data_parallel and layout.batch_world > 1
-    if data_parallel:
+    loss_fn = spec.build_loss(config)
+    if data_parallel and not local_mean:
         # BatchNorm statistics and MoE routing over the global batch, as
         # JAX's jit takes them over the sharded batch (BatchNorm models
         # have no model axis: their batch group is the world)
         global_batch_statistics(state.model)
         global_routing(state.model, layout.batch_rows)
-        if layout.mesh is None or (synced and sharding != "fsdp"):
-            ddp = DistributedDataParallel(
-                state.model, process_group=layout.batch_group,
-                device_ids=[device.index] if device.type == "cuda"
-                else None)
-    loss_fn = spec.build_loss(config)
+    if explicit:
+        return (*_explicit_fsdp(config, state, layout, tx, loss_fn), loaders,
+                dataset, ckpt_parts)
+    if data_parallel and (layout.mesh is None
+                          or (synced and sharding != "fsdp")):
+        ddp = DistributedDataParallel(
+            state.model, process_group=layout.batch_group,
+            device_ids=[device.index] if device.type == "cuda" else None)
+        if config.grad_compress != "none" and synced:
+            from distributed_deep_learning_tpu_torch.train.compress import (
+                GradCompression, compress_hook)
+
+            residual = attach_comm_residual(
+                config, state, state.model.named_parameters(),
+                layout.batch_world)
+            state.comm = GradCompression(
+                config.grad_compress, state.model, layout.batch_group,
+                layout.batch_rank, layout.batch_world, residual)
+            ddp.register_comm_hook(state.comm, compress_hook)
     train_step, eval_step = make_step_fns(
         loss_fn, ddp=ddp, remat=config.remat,
         remat_policy=config.remat_policy, accum_steps=config.grad_accum,
-        global_batch=synced, group=layout.batch_group)
+        global_batch=synced, group=layout.batch_group, local_mean=local_mean)
     return state, train_step, eval_step, loaders, dataset, ckpt_parts
+
+
+def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn):
+    """``(state, train_step, eval_step)`` of ``--zero fsdp --comm``: the
+    state's optimizer rebuilt over the :class:`..parallel.collectives.
+    ExplicitFSDP` masters (each split leaf's shard), the residual
+    attached for int8."""
+    from distributed_deep_learning_tpu_torch.parallel.collectives import (
+        ExplicitFSDP, make_fsdp_step_fns)
+
+    comm = ExplicitFSDP(state.model, layout, config.comm,
+                        config.comm_overlap)
+    state.comm = comm
+    state.optimizer = tx.build(comm.masters.items(), layout=comm.layout(
+        getattr(state.model, "flax_layout", None)))
+    attach_comm_residual(config, state, state.model.named_parameters(),
+                         layout.batch_world)
+    train_step, eval_step = make_fsdp_step_fns(
+        loss_fn, comm, remat=config.remat, remat_policy=config.remat_policy)
+    return state, train_step, eval_step
 
 
 def _train(spec, config, env, init_state_dict):
@@ -558,6 +640,12 @@ def whole_state(spec, config, dataset, state: TrainState) -> TrainState:
     """``state`` with a whole model when its parameters are split across
     ranks (every rank gathers; serving runs on the whole copy), else
     ``state`` itself."""
+    from distributed_deep_learning_tpu_torch.parallel.collectives import \
+        ExplicitFSDP
+
+    if isinstance(state.comm, ExplicitFSDP):   # its model is whole
+        state.comm.gather(exact=True)
+        return state
     if not any(is_split(p) for p in resharded(state.model).parameters()):
         return state
     sd = whole_state_dict(state.model)
@@ -667,7 +755,8 @@ def _mpmd_refusals(config: Config) -> list[str]:
         (config.resume, "--resume"),
         (config.grad_accum > 1, "--grad-accum"),
         (config.remat, "--remat"),
-        (config.dropout > 0, "--dropout")) if cond]
+        (config.dropout > 0, "--dropout"),
+        (config.grad_compress != "none", "--grad-compress")) if cond]
 
 
 def staged_setup(spec: WorkloadSpec, config: Config, logger,
@@ -800,6 +889,10 @@ def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
                          f"--virtual-stages >= 2 (got "
                          f"{config.virtual_stages}); with one chunk per "
                          "device use --pipeline-schedule 1f1b")
+    if config.grad_compress != "none":
+        raise ValueError("--grad-compress targets the pure data-parallel "
+                         "gradient all-reduce; the SPMD pipeline's gradient "
+                         "dataflow is stage-sharded (use -m data)")
     hand_scheduled = config.pipeline_schedule in ("1f1b", "interleaved")
     if config.remat_policy != "nothing" and hand_scheduled:
         raise ValueError("--remat-policy has no effect under "

@@ -189,7 +189,7 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               23: "phase_workload_checkpoint", 24: "phase_resnet",
               25: "phase_zoo_lm", 26: "phase_zoo_lm", 27: "phase_staged",
               28: "phase_pipeline", 29: "phase_pipeline_zoo",
-              30: "phase_moe", 31: "phase_sharded"}
+              30: "phase_moe", 31: "phase_sharded", 32: "phase_comm"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -225,11 +225,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_zoo_lm", {"flash": {"launches": {}}}),
             ("phase_staged", {}), ("phase_pipeline", ({}, {})),
             ("phase_pipeline_zoo", {}), ("phase_moe", {}),
-            ("phase_sharded", {})):
+            ("phase_sharded", {}),
+            ("phase_comm", {"comm": {}, "seq": {}})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 32)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 33)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():

@@ -226,3 +226,47 @@ def test_3xtf32_split_keeps_f32_accuracy():
     err1 = np.abs(one - ref).max() / scale
     assert err3 <= 1e-6, err3
     assert 1e-4 <= err1 <= 1e-3, err1
+
+
+@pytest.mark.parametrize("q_offset,window", [(0, None), (16, None),
+                                             (-8, None), (24, 12),
+                                             (-4, 6), (40, 8)])
+def test_q_offset_plain_versions_equal_a_dense_band(q_offset, window):
+    """Query ``i`` at position ``i + q_offset``: the forward's output and
+    LSE, and the backward's gradients (from the global LSE and delta), on
+    the rows that see a key, equal plain softmax attention under the band
+    ``0 <= i + q_offset - j < window``; a row that sees none gets zero
+    gradients."""
+    rng = np.random.default_rng(11)
+    B, Tq, Tk, H, Hkv, D = 2, 24, 32, 4, 2, 16
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, Tq, H, D), (B, Tk, Hkv, D),
+                               (B, Tk, Hkv, D), (B, Tq, H, D)))
+    qp = torch.arange(Tq)[:, None] + q_offset
+    kp = torch.arange(Tk)[None, :]
+    band = (qp >= kp) & ((qp - kp < window) if window else True)
+    seen = band.any(1)
+    kw = dict(causal=True, sm_scale=D ** -0.5, window=window,
+              q_offset=q_offset)
+    out, lse = tat.flash_forward(q, k, v, None, **kw)
+
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qq,
+                     kk.repeat_interleave(H // Hkv, 2)) * D ** -0.5
+    s = s.masked_fill(~band, float("-inf"))
+    p = torch.softmax(s, -1).nan_to_num(0.0)
+    ref = torch.einsum("bhqk,bkhd->bqhd", p,
+                       vv.repeat_interleave(H // Hkv, 2))
+    (ref * do).sum().backward()
+    rows = seen.nonzero()[:, 0]
+    torch.testing.assert_close(out[:, rows], ref.detach()[:, rows],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        lse[:, :, rows], torch.logsumexp(s.detach(), -1)[:, :, rows],
+        rtol=1e-5, atol=1e-5)
+    out = torch.where(seen[None, :, None, None], out, 0.0)
+    dq, dk, dv = tat.flash_backward_parts(q, k, v, None, do, lse,
+                                          tat._delta(out, do), **kw)
+    for got, want in ((dq, qq.grad), (dk, kk.grad), (dv, vv.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert (dq[:, ~seen] == 0).all()

@@ -243,10 +243,9 @@ def test_cli_defaults_match_jax():
                                                 "item 13"),
     (["--publish-weights", "p"], "item 13"), (["--heartbeat-timeout", "5"],
                                               "item 12"),
-    (["--heartbeat-dir", "d"], "item 12"), (["--comm-overlap"], "item 11"),
-    (["--mesh", "data=2,seq=2"], "item 11"), (["--comm", "int8"], "item 11"),
+    (["--heartbeat-dir", "d"], "item 12"),
     (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
-    (["--grad-compress", "bf16"], "item 11"), (["--autotune"], "item 14"),
+    (["--autotune"], "item 14"),
     (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
     (["--plan", "p.json"], "item 14"), (["--obs-file", "f"], "item 14"),
     (["--reload-watch", "d"], "item 13"), (["--sentinel-window", "5"],
@@ -256,6 +255,29 @@ def test_cli_defaults_match_jax():
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tconfig.parse_args(argv, "gpt")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--comm", "int8"],
+    ["--zero", "fsdp", "--comm", "bf16", "--grad-compress", "int8"],
+    ["--comm-overlap"],
+    ["--zero", "fsdp", "--comm", "int8", "--mesh", "data=2,model=2"],
+])
+def test_comm_flags_raise_jax_parse_messages(argv):
+    """The flags that item 11 ported are refused where JAX's parser
+    refuses them, with its message."""
+    with pytest.raises(SystemExit) as theirs:
+        jconfig.parse_args(argv, "gpt")
+    with pytest.raises(SystemExit) as mine:
+        tconfig.parse_args(argv, "gpt")
+    assert str(mine.value) == str(theirs.value)
+
+
+def test_mesh_seq_is_refused_as_a_library_path():
+    """No CLI path of either package runs the seq axis: ring attention
+    and Ulysses are library entry points."""
+    with pytest.raises(NotImplementedError, match="library entry points"):
+        tconfig.parse_args(["--mesh", "data=2,seq=2"], "gpt")
 
 
 @pytest.mark.parametrize("workload,argv,match", [

@@ -85,7 +85,9 @@ for name, case in torch.load(blob).items():
         "param_bytes": param_bytes(state.model),
         "params": whole_state_dict(state.model),
         "local": {k: local(v).detach().clone()
-                  for k, v in state.model.state_dict().items()}}
+                  for k, v in state.model.state_dict().items()},
+        "residual": {k: v.detach().clone() for k, v in
+                     (state.comm_residual or {}).items()}}
 torch.save(out, f"{blob}.{rank}")
 dist.destroy_process_group()
 """
