@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,2,7,30  # moe
     python3 chip_smoke.py --phases 1,7,31  # sharded state
     python3 chip_smoke.py --phases 1,6,7,32  # compressed collectives, ring
+    python3 chip_smoke.py --phases 1,7,33,34  # pipeline grid, resilience
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -282,7 +283,40 @@ Phases, in order; any failure raises and exits non-zero:
     (phase 7's tolerances; the ring's fully padded row exactly 0), each
     rank's launches equal to the hops it runs (``ring_hops``: causal,
     rank 0 one and rank 1 two), and each scheme's forward+backward time
-    beside single-rank flash's.
+    beside single-rank flash's;
+33. ``-m pipeline`` over a data x stage grid of ranks, one rank a stage:
+    phase 28's ``gpt`` (12 x 768, T 2048) on phase 8's rows, ``-b 8 -p
+    2`` over 2 stages (M 4), the ranks sharing the card over gloo as in
+    phase 31 (boundary tensors staged through pinned host memory): 2
+    ranks under 1F1B, interleaved (V 2) and GPipe in f32 and 1F1B in
+    bf16, 4 ranks (data 2 x stage 2) under 1F1B in f32, each as the CLI
+    builds it; against one process walking every stage from the same
+    weights (phase 28's tolerances: the first loss of every rank within
+    1e-5, or 2e-2 in bf16; the trunk gradients, gathered from the stage
+    ranks, within 1e-3 of max|g|, or 5e-2 in bf16), each rank's flash
+    launches exact for its stage (``grid_launches``) and data coordinate
+    0's stages summing to one process's; a step's time (the slowest
+    rank's), the peak a rank and the bytes a rank sends a step;
+34. training resilience on phase 31's bf16 ``gpt`` (24 rows, 4 train
+    steps) under ``-m data`` at world 1: ``check_step_determinism`` (one
+    step twice from one state, bit-identical), then ``--sentinel skip``
+    with NaN activations on step 3 (the one NONFINITE verdict; the final
+    state bit-identical to the run that skips the step), the logits
+    scaled 1e3 on step 3 (GRAD_SPIKE), ``--sentinel halt`` (raises within
+    one step), the sentinel's step time against none, asynchronous saves
+    of the whole state, the first and a warm one, each with train steps
+    at once (the file equal to the state at the save; training stopped,
+    ``save()``'s return plus the next steps' time over plain steps,
+    against ``wait=True``), the planted race (the save's copy held back
+    on its stream: the file equal to the state at the save with the
+    fence, differing without it),
+    ``--sentinel rollback`` under the elastic loop (bit-identical to the
+    replay), ``--elastic --checkpoint-every 2`` through the CLI with
+    ``DDL_INJECT_STEP_FAILURE=0:3`` (one restart, the final state
+    bit-identical to an uninterrupted run's, the launches the
+    uninterrupted run's plus the replayed step's, the time from the
+    failure to completion) and its latest save truncated (quarantined,
+    the older step restored).
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -290,7 +324,7 @@ loader unwrapped (the runner's default) and two batches deep, in turns,
 with the step time and the idle share while the loader forms the
 batches.
 
-Phases 8-12, 16, 17, 21, 22 and 24-32 print step time, throughput and
+Phases 8-12, 16, 17, 21, 22 and 24-33 print step time, throughput and
 peak memory; phases 21, 24-26, 28 and 30 a profiler window's kernel time
 and idle share, 24-26 and 30 also the flash kernels' time and the step's
 operations against the bf16 tensor-core rate (``step_operations``).  The
@@ -2571,7 +2605,10 @@ def profile_window(step, state, train, steps: int, warmup: int,
     """:func:`device_busy_share`'s window over ``step`` and ``state``:
     ``warmup`` steps, then ``steps`` under ``torch.profiler`` (the
     loader's batches in turn, from its start again when they run out),
-    the batches formed before the window, or inside it when ``live``."""
+    the batches formed before the window, or inside it when ``live``.
+    Only the card's activity is recorded: the host's op records took
+    ~10 s a window to process (33 windows, a third of a full run), and
+    the window reads device time only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2581,8 +2618,7 @@ def profile_window(step, state, train, steps: int, warmup: int,
     window = (next(batches) for _ in range(steps)) if live else \
         [next(batches) for _ in range(steps)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x, y in window:
             step(state, x, y)
@@ -3755,33 +3791,8 @@ def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
 
 def _two_ranks(script: str, args: list, tag: str,
                timeout: float = 300.0) -> list[dict]:
-    """Run ``script`` as two ranks on card 0 (torchrun's environment, the
-    one card each rank's ``LOCAL_RANK``); returns the JSON each rank
-    printed after ``tag``.  A rank that fails or is still running at
-    ``timeout`` fails the phase (every rank is stopped)."""
-    procs = []
-    try:
-        for rank in range(2):
-            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                       LOCAL_RANK="0", OMP_NUM_THREADS="4",
-                       PYTHONPATH=str(ROOT))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    records = []
-    for rank, (p, o) in enumerate(zip(procs, outs)):
-        found = [line for line in o.splitlines() if line.startswith(tag)]
-        if p.returncode or len(found) != 1:
-            raise RuntimeError(f"two ranks on one card: rank {rank} exited "
-                               f"{p.returncode}:\n{o[-3000:]}")
-        records.append(json.loads(found[0][len(tag):]))
-    return records
+    """Run ``script`` as two ranks on card 0 (:func:`_n_ranks`)."""
+    return _n_ranks(script, args, tag, 2, timeout)
 
 
 def sharded_busy_share(data_dir: Path, *flags, steps: int = 4,
@@ -4166,12 +4177,601 @@ def phase_comm(data_dir: Path, sharded: dict) -> dict:
     return out
 
 
+# --- phase 33: -m pipeline over a data x stage grid of ranks ----------------
+
+#: phase 33: gpt at phase 28's width on phase 8's rows, 2 stages of 2-row
+#: microbatches (M 4 of the 8-row batch); ranks share card 0 over gloo
+GRID_FLAGS = ("-l", "12", "-s", "768", "-e", "1", "-b", "8", "-p", "2",
+              "--nstages", "2", "--attention", "flash")
+GRID_M, GRID_S = 4, 2
+#: case -> (ranks, schedule, extra flags)
+GRID_CASES = {
+    "1f1b f32 2 ranks": (2, "1f1b", ()),
+    "interleaved f32 2 ranks": (2, "interleaved", ("--virtual-stages",
+                                                   "2")),
+    "gpipe f32 2 ranks": (2, "gpipe", ()),
+    "1f1b bf16 2 ranks": (2, "1f1b", ("--dtype", "bfloat16")),
+    "1f1b f32 4 ranks": (4, "1f1b", ()),
+}
+
+#: one rank of phase 33: a gloo group of its own on card 0, then each
+#: case as the CLI builds it (``pipelined_setup`` over the grid), one
+#: train step with its loss, launches, peak and boundary bytes and this
+#: rank's trunk gradients (a file a case), then a second step timed
+GRID_RANK = r"""
+import gc, json, os, sys, time
+import torch
+import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.ops import attention as fa
+from distributed_deep_learning_tpu_torch.parallel import spmd_pipeline as sp
+from distributed_deep_learning_tpu_torch.utils.config import parse_args
+from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
+from distributed_deep_learning_tpu_torch.workloads import base as tbase
+from distributed_deep_learning_tpu_torch.workloads import get_spec
+
+cases, port, out_dir = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+out = {}
+for label, argv in cases.items():
+    cfg = parse_args(["-m", "pipeline", *argv], workload="gpt")
+    grid, _ = tbase._pipeline_grid(cfg, tbase.pipeline_stages(cfg, world))
+    cfg, state, step, _, _, (train, _, _) = tbase.pipelined_setup(
+        get_spec("gpt"), cfg, PhaseLogger(verbose=False), grid=grid)
+    train.set_epoch(1)
+    batches = train.iter_batches()
+    x, y = next(batches)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sp.sent_bytes = 0
+    loss = step(state, x, y)[1]["loss"].item()
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    sent = sp.sent_bytes
+    peak = torch.cuda.max_memory_allocated()
+    trunk = state.model.trunk
+    k, S = len(trunk.stage.blocks), grid.stages
+    grads = {}
+    for v in range(S * trunk.n_chunks):
+        if v % S != grid.stage:
+            continue
+        idx = 0 if trunk.n_chunks == 1 else (v // S, 0)
+        for i in range(k):
+            pre = f"blocks.{i}."
+            grads[v * k + i] = {
+                n[len(pre):]: p.grad[idx].detach().float().cpu().clone()
+                for n, p in trunk.stacked().items() if n.startswith(pre)}
+    if grid.data == 0:
+        torch.save(grads, os.path.join(out_dir, f"{label}-{rank}.pt"))
+    x, y = next(batches)
+    t0 = time.perf_counter()
+    step(state, x, y)[1]["loss"].item()
+    torch.cuda.synchronize()
+    out[label] = {"loss": loss, "launches": launches, "sent": sent,
+                  "peak": peak, "step_s": time.perf_counter() - t0,
+                  "coord": [grid.data, grid.stage]}
+    del state, step, train, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+print("GRID " + json.dumps(out), flush=True)
+"""
+
+
+def grid_launches(schedule: str, stage: int, stages: int, chunks: int,
+                  layers: int, microbatches: int) -> dict:
+    """The flash launches one train step gives rank ``stage`` of a grid:
+    each of its layers' forward once a microbatch under GPipe, twice under
+    1F1B and interleaved (the recompute) but for the last virtual stage's
+    (its forward runs once, with the head); dQ and dK/dV once."""
+    per_v = layers // (stages * chunks)
+    mine = [v for v in range(stages * chunks) if v % stages == stage]
+    last = stages * chunks - 1
+    fwd = sum(per_v * microbatches * (1 if schedule == "gpipe" or v == last
+                                      else 2) for v in mine)
+    back = per_v * len(mine) * microbatches
+    return {"flash_forward": fwd, "flash_backward_dq": back,
+            "flash_backward_dkv": back}
+
+
+def _n_ranks(script: str, args: list, tag: str, n: int,
+             timeout: float = 300.0) -> list[dict]:
+    """Run ``script`` as ``n`` ranks on card 0 (torchrun's environment,
+    the one card each rank's ``LOCAL_RANK``); returns the JSON each rank
+    printed after ``tag``.  A rank that fails or is still running at
+    ``timeout`` fails the phase (every rank is stopped)."""
+    procs = []
+    try:
+        for rank in range(n):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                       LOCAL_RANK="0", OMP_NUM_THREADS="4",
+                       PYTHONPATH=str(ROOT))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        found = [line for line in o.splitlines() if line.startswith(tag)]
+        if p.returncode or len(found) != 1:
+            raise RuntimeError(f"{n} ranks on one card: rank {rank} exited "
+                               f"{p.returncode}:\n{o[-3000:]}")
+        records.append(json.loads(found[0][len(tag):]))
+    return records
+
+
+def phase_grid(data_dir: Path) -> dict:
+    """Phase 33; returns each case's launches summed over its ranks."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
+        free_port
+
+    out_dir = ROOT / "build" / "chip_smoke_grid"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    refs = {}
+    for label, (_, schedule, extra) in GRID_CASES.items():
+        key = (schedule, extra)
+        if key not in refs:
+            refs[key] = pipeline_step(data_dir, schedule, "--nstages",
+                                      str(GRID_S), "-p", "2", *extra)
+            gc.collect()
+            torch.cuda.empty_cache()
+    by_world: dict = {}
+    for label, (world, schedule, extra) in GRID_CASES.items():
+        by_world.setdefault(world, {})[label] = [
+            *GRID_FLAGS, *SCHEDULES[schedule][:2], *extra, "--data-dir",
+            str(data_dir), "-d", "cuda"]
+    ranks = {}
+    for world, cases in by_world.items():
+        ranks[world] = _n_ranks(GRID_RANK, [json.dumps(cases),
+                                            str(free_port()), str(out_dir)],
+                                "GRID ", world)
+    summed = {}
+    for label, (world, schedule, extra) in GRID_CASES.items():
+        ref = refs[(schedule, extra)]
+        recs = [r[label] for r in ranks[world]]
+        bf16 = "bf16" in label
+        chunks = 2 if schedule == "interleaved" else 1
+        loss_tol = PIPE_BF16_TOL if bf16 else PIPE_LOSS_TOL
+        grads = {}
+        for rank in range(GRID_S):
+            grads.update(torch.load(out_dir / f"{label}-{rank}.pt"))
+        got = [grads[i] for i in range(len(grads))]
+        gap = _max_gap(got, ref["grads"])
+        grad_tol = PIPE_BF16_GRAD_TOL if bf16 else PIPE_GRAD_TOL
+        for rec in recs:
+            d, s = rec["coord"]
+            check_first_loss(f"grid[{label}] rank ({d}, {s}) vs one process",
+                             rec["loss"], ref["loss"], loss_tol)
+            check_launches(f"grid[{label}] rank ({d}, {s}) one train step",
+                           rec["launches"],
+                           grid_launches(schedule, s, GRID_S, chunks,
+                                         PIPE_LAYERS, GRID_M))
+        share = {k: sum(rec["launches"][k] for rec in recs[:GRID_S])
+                 for k in recs[0]["launches"]}
+        check_launches(f"grid[{label}] data coordinate 0's stages against "
+                       "one process", share,
+                       {k: int(ref["launches"][k]) for k in share})
+        print(f"grid[{label}]: trunk gradients {gap:.2e} of max|g| from "
+              f"one process's (tol {grad_tol:g}); a step "
+              f"{max(r['step_s'] for r in recs):.3f} s (slowest rank; one "
+              f"process {ref['loss']:.6f} loss), peak a rank "
+              + "/".join(f"{r['peak'] / 2**30:.2f}" for r in recs)
+              + " GiB, sent a step "
+              + "/".join(f"{r['sent'] / 2**20:.1f}" for r in recs)
+              + " MiB by rank; launches by rank "
+              + "; ".join(str(r["launches"]) for r in recs))
+        if not gap <= grad_tol:
+            raise RuntimeError(f"grid[{label}]: trunk gradients off one "
+                               "process's")
+        summed[label] = {"launches": {k: sum(r["launches"][k] for r in recs)
+                                      for k in recs[0]["launches"]},
+                         "step_s": max(r["step_s"] for r in recs)}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return summed
+
+
+# --- phase 34: training resilience -------------------------------------------
+
+#: phase 34: phase 31's gpt on its 24 rows in bf16 (4 train steps of 4
+#: rows and a test step), -m data at world 1; the anomaly lands on step 3
+#: (the sentinel's warm-up is 2 steps)
+RESILIENCE_FLAGS = ("-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768",
+                    "-e", "1", "-b", str(TRAIN_BATCH), "--attention",
+                    "flash", "--dtype", "bfloat16")
+RESILIENCE_STEP = 3
+#: logits scaled this much on the spiked step: a gradient-norm spike
+SPIKE_SCALE = 1e3
+SENTINEL_AB = ("off", "skip", "skip", "off")
+#: train steps timed after an asynchronous save (against plain steps)
+ASYNC_AFTER = 2
+#: GPU clock cycles the planted race holds a save's copy back (~1 s at
+#: the H100's clocks, several train steps)
+RACE_CYCLES = 2_000_000_000
+
+
+@contextlib.contextmanager
+def one_shot_hook(module, step_of, step: int, fn):
+    """A forward hook on ``module`` that replaces its output by
+    ``fn(output)`` during global train step ``step`` only (``step_of()``
+    reads the step being run), once."""
+    fired = []
+
+    def hook(_, __, output):
+        if step_of() == step and not fired:
+            fired.append(step)
+            return fn(output)
+        return output
+    handle = module.register_forward_hook(hook)
+    try:
+        yield fired
+    finally:
+        handle.remove()
+
+
+def _counting(step):
+    """``step`` wrapped to count its calls (the global step it runs is
+    ``calls["n"]`` while it runs)."""
+    calls = {"n": 0}
+
+    def run(state, x, y):
+        calls["n"] += 1
+        return step(state, x, y)
+    return run, calls
+
+
+def _resilience_setup(data_dir: Path, *flags):
+    """``(config, state, train_step, eval_step, loaders, checkpointer
+    parts)`` of phase 34's run as the CLI builds it at world 1, the
+    sentinel's warm-up cut to 2 steps (a run has 4)."""
+    import dataclasses
+
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+    from distributed_deep_learning_tpu_torch.workloads import base
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.utils.logging import \
+        PhaseLogger
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        train_setup
+
+    config = parse_args([*RESILIENCE_FLAGS, "--data-dir", str(data_dir),
+                         *flags], workload="gpt")
+    env, _ = bootstrap.initialize("cuda")
+    real = base._sentinel_config
+
+    def warm_in_two(cfg):
+        sentinel = real(cfg)
+        return None if sentinel is None else \
+            dataclasses.replace(sentinel, warmup_steps=2)
+    base._sentinel_config = warm_in_two
+    try:
+        state, step, ev, loaders, _, ckpt, _ = train_setup(
+            get_spec("gpt"), config, env, None, PhaseLogger(verbose=False))
+    finally:
+        base._sentinel_config = real
+    return config, state, step, ev, loaders, ckpt
+
+
+def _same_state(a, b, label: str) -> None:
+    from distributed_deep_learning_tpu_torch.utils.determinism import \
+        diff_trees
+
+    bad = diff_trees(a, b)
+    print(f"resilience[{label}]: {len(bad)} differing leaves")
+    if bad:
+        raise RuntimeError(f"resilience[{label}]: not bit-identical at "
+                           f"{bad[:5]}")
+
+
+def phase_resilience(data_dir: Path) -> dict:
+    """Phase 34; returns the launches of its main path (the elastic CLI
+    run with the injected failure)."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.__main__ import main as cli
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+    from distributed_deep_learning_tpu_torch.train import loop
+    from distributed_deep_learning_tpu_torch.train import sentinel as sen
+    from distributed_deep_learning_tpu_torch.train.elastic import \
+        fit_with_recovery
+    from distributed_deep_learning_tpu_torch.utils import checkpoint as ck
+    from distributed_deep_learning_tpu_torch.utils import failures
+    from distributed_deep_learning_tpu_torch.utils.chaos import ChaosPlan
+    from distributed_deep_learning_tpu_torch.train.state import TrainState
+    from distributed_deep_learning_tpu_torch.utils.determinism import (
+        check_step_determinism, diff_trees, load_tree, state_tree)
+    from distributed_deep_learning_tpu_torch.workloads.base import \
+        _reset_fn
+
+    os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+    base = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(base, ignore_errors=True)
+    cfg_kw = dict(warmup_steps=2)
+    try:
+        # the precondition: one step twice from one state, bit-identical
+        # (this plain run is also the sentinel's cost's baseline and the
+        # asynchronous save's state)
+        _, off_state, off_step, _, off_loaders, _ = _resilience_setup(
+            data_dir)
+        off_loaders[0].set_epoch(1)
+        x, y = next(off_loaders[0].iter_batches())
+        check_step_determinism(off_step, off_state, x, y)
+        print("resilience[determinism]: two train steps from one state "
+              "bit-identical (parameters, AdamW moments, step, generator)")
+
+        # --sentinel skip: NaN activations on step 3 vs the skip-set run
+        _, state, step, ev, loaders, _ = _resilience_setup(
+            data_dir, "--sentinel", "skip")
+        cfg = sen.SentinelConfig(policy="skip", **cfg_kw)
+        init = state_tree(state)
+        counted, calls = _counting(step)
+        codes = []
+
+        def recording(st, x, y):
+            st, m = counted(st, x, y)
+            codes.append(int(float(m["anomaly_code"])))
+            return st, m
+        with one_shot_hook(state.model.tok, lambda: calls["n"],
+                           RESILIENCE_STEP, lambda o: o * float("nan")):
+            state, _ = loop.fit(state, recording, ev, *loaders, epochs=1,
+                                sentinel=cfg)
+        poisoned = state_tree(state)
+        load_tree(state, init)
+        state.sentinel = sen.SentinelState()
+        state, _ = loop.fit(state, step, ev, *loaders, epochs=1,
+                            sentinel=cfg, skip_steps={RESILIENCE_STEP})
+        print(f"resilience[sentinel skip]: codes by step {codes}")
+        if codes[RESILIENCE_STEP - 1] != sen.NONFINITE or \
+                sum(c != sen.OK for c in codes) != 1:
+            raise RuntimeError("resilience[sentinel skip]: the NaN step was "
+                               "not the one NONFINITE verdict")
+        _same_state(poisoned, state_tree(state), "sentinel skip vs the "
+                    "skip-set run")
+
+        # a gradient-norm spike: the logits scaled on step 3
+        load_tree(state, init)
+        state.sentinel = sen.SentinelState()
+        counted, calls = _counting(step)
+        codes.clear()
+        with one_shot_hook(state.model, lambda: calls["n"], RESILIENCE_STEP,
+                           lambda o: o * SPIKE_SCALE):
+            state, _ = loop.fit(state, recording, ev, *loaders, epochs=1,
+                                sentinel=cfg)
+        print(f"resilience[grad spike x{SPIKE_SCALE:g}]: codes by step "
+              f"{codes}")
+        if codes[RESILIENCE_STEP - 1] != sen.GRAD_SPIKE:
+            raise RuntimeError("resilience[grad spike]: not GRAD_SPIKE")
+
+        # --sentinel halt: raises within one step, naming step 3
+        load_tree(state, init)
+        state.sentinel = sen.SentinelState()
+        counted, calls = _counting(step)
+        halt = sen.SentinelConfig(policy="halt", **cfg_kw)
+        try:
+            with one_shot_hook(state.model.tok, lambda: calls["n"],
+                               RESILIENCE_STEP, lambda o: o * float("nan")):
+                loop.fit(state, counted, ev, *loaders, epochs=1,
+                         sentinel=halt)
+            raise RuntimeError("resilience[sentinel halt]: did not raise")
+        except sen.AnomalyError as e:
+            print(f"resilience[sentinel halt]: {e}; {calls['n']} steps "
+                  "run")
+            if e.global_step != RESILIENCE_STEP or \
+                    calls["n"] > RESILIENCE_STEP + 1:
+                raise RuntimeError("resilience[sentinel halt]: not within "
+                                   "one step") from e
+
+        # the sentinel's cost: skip against off, in turns
+        times = {"off": [], "skip": []}
+        for kind in SENTINEL_AB:
+            st, fn = (off_state, off_step) if kind == "off" else \
+                (state, step)
+            fn(st, x, y)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                fn(st, x, y)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / 4)
+        off_s, skip_s = (statistics.median(times[k]) for k in ("off",
+                                                                "skip"))
+        print(f"resilience[sentinel overhead]: {skip_s * 1e3:.2f} ms a step "
+              f"with --sentinel skip against {off_s * 1e3:.2f} ms off "
+              f"({skip_s / off_s - 1:+.1%}; {SENTINEL_AB} in turns, 4 steps "
+              "each)")
+
+        # an asynchronous save of the full state: the training it stops,
+        # save()'s return plus what the steps after it take beyond plain
+        # steps (the fence wait, the copy's share of the card and PCIe,
+        # the writer thread's share of the host); the first save in a
+        # process also allocates the pinned buffers
+        ckpt = ck.Checkpointer(base / "async", shared=False)
+
+        def step_s():
+            t0 = time.perf_counter()
+            off_step(off_state, x, y)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        plain = statistics.median(step_s() for _ in range(ASYNC_AFTER))
+        stops = {}
+        for n, kind in enumerate(("first", "warm"), start=1):
+            want = ck.state_payload(off_state)
+            t0 = time.perf_counter()
+            ckpt.save(n, off_state, wait=False)
+            ret = time.perf_counter() - t0
+            extra = sum(step_s() for _ in range(ASYNC_AFTER)) \
+                - ASYNC_AFTER * plain
+            ckpt.wait_until_finished()
+            written = time.perf_counter() - t0
+            got = torch.load(base / "async" / f"ckpt-{n}.pt",
+                             weights_only=True)
+            _same_state(got, want, f"{kind} async save vs the state at "
+                        "the save")
+            stops[kind] = (ret, extra, written)
+            del want, got
+        t0 = time.perf_counter()
+        ckpt.save(3, off_state, wait=True)
+        sync_s = time.perf_counter() - t0
+        size = os.path.getsize(base / "async" / "ckpt-1.pt")
+        for kind, (ret, extra, written) in stops.items():
+            print(f"resilience[async save, {kind}]: {size / 2**30:.2f} "
+                  f"GiB; training stopped {ret + extra:.3f} s (save() "
+                  f"{ret:.3f} s + the next {ASYNC_AFTER} steps "
+                  f"{extra:+.3f} s over plain {plain * 1e3:.2f} ms "
+                  f"steps; on disk {written:.3f} s after the save) against "
+                  f"{sync_s:.3f} s (wait=True)")
+
+        # the planted race on the card: the side stream held back
+        # RACE_CYCLES before its copies, a train step at once; with the
+        # fence the file is the state at the save, without it (a fence
+        # wait that does nothing) the update reaches the file
+        real_stream, real_wait = ck._side_stream, TrainState.wait_fence
+
+        def held_back(device):
+            side = real_stream(device)
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(RACE_CYCLES)
+            return side
+        ck._side_stream = held_back
+        try:
+            for n, fenced in ((4, True), (5, False)):
+                if not fenced:
+                    TrainState.wait_fence = lambda self: None
+                want = ck.state_payload(off_state)
+                ckpt.save(n, off_state, wait=False)
+                off_step(off_state, x, y)
+                torch.cuda.synchronize()
+                ckpt.wait_until_finished()
+                TrainState.wait_fence = real_wait
+                off_state.fence = None
+                got = torch.load(base / "async" / f"ckpt-{n}.pt",
+                                 weights_only=True)
+                bad = diff_trees(got, want)
+                print(f"resilience[async fence]: copy held "
+                      f"{RACE_CYCLES:.0e} cycles, "
+                      f"{'fenced' if fenced else 'planted unfenced'}: "
+                      f"{len(bad)} differing leaves")
+                if fenced and bad:
+                    raise RuntimeError(f"resilience[async fence]: the "
+                                       f"fenced save differs at {bad[:5]}")
+                if not fenced and not any(b.startswith("/params/")
+                                          for b in bad):
+                    raise RuntimeError("resilience[async fence]: the "
+                                       "planted race was not caught")
+                del want, got
+        finally:
+            ck._side_stream, TrainState.wait_fence = real_stream, real_wait
+        del off_state, off_step, ckpt
+
+        # --sentinel rollback --elastic vs the replay
+        load_tree(state, init)
+        state.sentinel = sen.SentinelState()
+        rollback = sen.SentinelConfig(policy="rollback", **cfg_kw)
+        counted, calls = _counting(step)
+        make_state = _reset_fn(state)
+        with ck.Checkpointer(base / "rollback", shared=False) as c, \
+                one_shot_hook(state.model.tok, lambda: calls["n"],
+                              RESILIENCE_STEP, lambda o: o * float("nan")):
+            state, _ = fit_with_recovery(
+                make_state, counted, ev, loaders, epochs=1, checkpointer=c,
+                checkpoint_every=2, sentinel=rollback, max_restarts=2)
+        rolled = state_tree(state)
+        load_tree(state, init)
+        state.sentinel = sen.SentinelState()
+        state, _ = loop.fit(state, step, ev, *loaders, epochs=1,
+                            sentinel=rollback,
+                            skip_steps={RESILIENCE_STEP})
+        _same_state(rolled, state_tree(state), "rollback vs the replay")
+        del state, step, init, rolled, poisoned
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        bootstrap.shutdown()
+
+    # --elastic through the CLI: a failure after step 3, one restart
+    argv = ["gpt", *RESILIENCE_FLAGS, "--data-dir", str(data_dir),
+            "--elastic", "--checkpoint-every", "2"]
+    for c in _kernel_counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    clean, _ = cli(argv + ["--checkpoint-dir", str(base / "clean")])
+    clean_s = time.perf_counter() - t0
+    clean_launches = {c.__name__: c.launches for c in _kernel_counters()}
+    clean_tree = state_tree(clean)
+    del clean
+    for c in _kernel_counters():
+        c.launches = 0
+    failed_at = []
+    real = loop.maybe_inject_step_failure
+
+    def timed(gstep):
+        try:
+            real(gstep)
+        except RuntimeError:
+            failed_at.append(time.perf_counter())
+            raise
+    os.environ["DDL_INJECT_STEP_FAILURE"] = f"0:{RESILIENCE_STEP}"
+    failures._step_injected = False
+    loop.maybe_inject_step_failure = timed
+    try:
+        t0 = time.perf_counter()
+        hurt, _ = cli(argv + ["--checkpoint-dir", str(base / "hurt")])
+        done = time.perf_counter()
+    finally:
+        loop.maybe_inject_step_failure = real
+        del os.environ["DDL_INJECT_STEP_FAILURE"]
+    launches = {c.__name__: c.launches for c in _kernel_counters()}
+    if len(failed_at) != 1:
+        raise RuntimeError("resilience[elastic]: the failure did not fire "
+                           "once")
+    _same_state(clean_tree, state_tree(hurt), "elastic vs uninterrupted")
+    print(f"resilience[elastic]: one restart; {done - failed_at[0]:.3f} s "
+          f"from the failure to completion, {done - t0:.3f} s in all "
+          f"against {clean_s:.3f} s uninterrupted; launches {launches} "
+          f"against {clean_launches}")
+    replayed = RESILIENCE_STEP - 2       # restored from step 2
+    check_launches("resilience[elastic] launches", launches, {
+        k: clean_launches[k] + replayed * TRAIN_LAYERS
+        for k in clean_launches if k != "paged_flash_decode"}
+        | {"paged_flash_decode": 0})
+
+    # a truncated latest save: quarantined, the older step restored
+    c = ck.Checkpointer(base / "hurt", shared=False)
+    steps = c.all_steps()
+    ChaosPlan.truncate_checkpoint(str(base / "hurt"), steps[-1])
+    restored, used = c.restore_verified(hurt)
+    quarantined = sorted(os.listdir(base / "hurt" / "quarantine"))
+    print(f"resilience[truncated save]: steps {steps}, step {steps[-1]} "
+          f"cut in half; restored step {used}; quarantine {quarantined}")
+    if used != steps[-2] or not quarantined:
+        raise RuntimeError("resilience[truncated save]: no fallback to the "
+                           "older step")
+    del hurt, restored, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 33)),
+                    default=",".join(str(i) for i in range(1, 35)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -4180,7 +4780,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 33)) and opts.waves is None
+    complete = phases == set(range(1, 35)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -4228,7 +4828,8 @@ def main(argv=None) -> int:
         lap("2-5, 13, 14, 18-20")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30, 31, 32} | set(range(8, 18))):
+    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34}
+                 | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
     lap("6-7")
@@ -4304,6 +4905,12 @@ def main(argv=None) -> int:
     if 32 in phases:
         comm = phase_comm(_write_tokens(), sharded)
         lap(32)
+    grid = phase_grid(_write_tokens()) if 33 in phases else {}
+    if grid:
+        lap(33)
+    resilience = phase_resilience(_write_tokens()) if 34 in phases else {}
+    if resilience:
+        lap(34)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -4324,6 +4931,10 @@ def main(argv=None) -> int:
             entry[f"{part}_launches"] = {
                 label: run["launches"][entry["name"]]
                 for label, run in comm[part].items()}
+        entry["grid_launches"] = {label: run["launches"][entry["name"]]
+                                  for label, run in grid.items()}
+        entry["resilience_launches"] = \
+            resilience.get("launches", {}).get(entry["name"])
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -159,3 +159,18 @@ class PipelinedLM(nn.Module):
     def apply_sequential(self, tokens):
         """Same weights without the pipeline (no dropout)."""
         return self.head(self.trunk.apply_sequential(self.embed(tokens)))
+
+
+def stage_state_dict(state_dict: dict, stage: int, n_chunks: int = 1
+                     ) -> dict:
+    """Rank ``(d, stage)``'s state dict on a data x stage grid from a
+    whole ``PipelinedLM`` state dict (``load_flax_params`` of JAX's
+    params, or a one-process checkpoint's): slice ``stage`` of every
+    stacked trunk leaf, ``[stage]`` kept as ``(1, ...)`` or ``[:, stage]``
+    as ``(V, 1, ...)`` under ``n_chunks`` chunks, what
+    :meth:`..parallel.pipeline_transformer.PipelinedTrunk.keep_stage`
+    leaves a rank; the embedding and the head whole."""
+    dim = 0 if n_chunks == 1 else 1
+    return {k: v.narrow(dim, stage, 1).clone() if k.startswith("trunk.")
+            else v for k, v in state_dict.items()}
+

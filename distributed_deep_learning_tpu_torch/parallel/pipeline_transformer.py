@@ -13,6 +13,14 @@ Adafactor factors the stacked flax shape (:meth:`PipelinedTrunk.flax_layout`).
 A stage is one :class:`TrunkStage` called through
 ``torch.func.functional_call`` on the slices of its stage.
 
+On a data x stage grid of ranks (:class:`..runtime.mesh.PipelineGrid`)
+:meth:`PipelinedTrunk.keep_stage` leaves a rank only its stage's slice of
+each stacked parameter, ``(1, ...)`` or ``(V, 1, ...)``, marked as a
+:class:`..parallel.shards.TensorShard` over the stage group: the clip's
+global norm, LAMB's trust ratios and Adafactor's factors then take the
+whole stacked leaf, as JAX's optimizers see it, and a checkpoint gathers
+the whole leaf.
+
 The trunk threads no padding mask (``key_valid`` is None), as the JAX
 trunk does: pads are attended, so the flash kernels take no key mask.
 """
@@ -29,6 +37,7 @@ from torch.func import functional_call
 from distributed_deep_learning_tpu_torch.models.transformer import (
     TransformerLayer, attend_qkv, dropout, flax_layout, layer_flax_state,
     reset_linear_norm_)
+from distributed_deep_learning_tpu_torch.parallel.shards import TensorShard
 from distributed_deep_learning_tpu_torch.parallel.spmd_pipeline import \
     spmd_pipeline
 
@@ -168,6 +177,24 @@ class PipelinedTrunk(nn.Module):
     def _index(self, v: int):
         return v if self.n_chunks == 1 else (v // self.n_stages,
                                              v % self.n_stages)
+
+    def keep_stage(self, grid) -> "PipelinedTrunk":
+        """Keep only ``grid.stage``'s slice of every stacked parameter
+        (the stage axis is dim 0, or dim 1 under ``(V, S, ...)``), each a
+        :class:`TensorShard` over ``grid.stage_group`` when the grid has
+        more than one stage."""
+        dim = len(self.lead) - 1
+        s = grid.stage
+        for name, p in list(self.stack.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            part = nn.Parameter(p.detach().narrow(dim, s, 1).clone())
+            if grid.stages > 1:
+                part.tp_shard = TensorShard(dim=dim, index=s,
+                                            parts=grid.stages,
+                                            group=grid.stage_group,
+                                            axis="stage")
+            setattr(self.stack.get_submodule(mod_name), leaf, part)
+        return self
 
     def flax_layout(self, name: str):
         """``(to_flax, from_flax)`` of a stacked parameter: one block's

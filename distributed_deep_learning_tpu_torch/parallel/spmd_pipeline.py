@@ -38,11 +38,16 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_deep_learning_tpu_torch.models.transformer import \
     remat_call
 
 StageFn = Callable[..., torch.Tensor]
+
+#: the metrics a grid pass sums over the ranks (``prediction_metrics``'s
+#: counts; the loss is always summed)
+AUX_KEYS = ("correct", "count")
 
 
 def stack_stage_params(params_list: list[dict]) -> dict:
@@ -71,12 +76,14 @@ def _split_microbatches(x, targets, microbatch_size, n_stages):
     return xs, ts, M, mb
 
 
-def mb_generator(seed: int, stage: int, microbatch: int, device
-                 ) -> torch.Generator:
+def mb_generator(seed: int, stage: int, microbatch: int, device,
+                 data: Optional[int] = None) -> torch.Generator:
     """The dropout generator of one (virtual stage, microbatch): seeded
-    from ``(seed, stage, microbatch)``, the same each time it is made."""
-    state = np.random.SeedSequence([seed, stage, microbatch]).generate_state(
-        2, np.uint32)
+    from ``(seed, stage, microbatch)``, and the data coordinate ``data``
+    on a grid with a data axis (JAX folds its index into the key when
+    that axis has more than one rank), the same each time it is made."""
+    entropy = [seed, stage, microbatch] + ([] if data is None else [data])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         int(state[0]) << 31 ^ int(state[1]))
 
@@ -247,79 +254,268 @@ def residency_bound(M: int, S: int, V: int = 1) -> int:
     return depth
 
 
+class _Walk:
+    """One train pass's stage work and its accumulators: the forwards
+    and recompute-and-backwards of the virtual stages it is asked to run
+    (all of them on one controller, a rank's own on the grid).  ``data``
+    (the grid's data coordinate, None at ``dp = 1``) joins each dropout
+    generator's seed."""
+
+    def __init__(self, n_virtual, stage_fn, head_loss_fn, stacked,
+                 index_of, head_params, xs, ts, has_aux, seed, data=None):
+        self.L, self.M = n_virtual, xs.shape[0]
+        self.stage_fn, self.head_loss_fn = stage_fn, head_loss_fn
+        self.index_of, self.head_params = index_of, head_params
+        self.xs, self.ts, self.has_aux = xs, ts, has_aux
+        self.seed, self.data = seed, data
+        self.fwd_in, self.bwd_ct, self.resid = {}, {}, {}
+        self.live, self.peak = [0] * n_virtual, [0] * n_virtual
+        self.tg = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for k, p in stacked.items()}
+        self.hg = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for k, p in head_params.items()}
+        self.loss = torch.zeros((), dtype=torch.float32, device=xs.device)
+        self.aux, self.dxs = None, [None] * self.M
+        self.detached = {k: p.detach() for k, p in stacked.items()}
+
+    def _gen(self, v, m):
+        return None if self.seed is None else \
+            mb_generator(self.seed, v, m, self.xs.device, self.data)
+
+    def forward(self, v: int, m: int):
+        """Stage ``v``'s forward of microbatch ``m``: its input kept, its
+        output returned (None for the last virtual stage, whose backward
+        runs it with the head)."""
+        inp = self.xs[m] if v == 0 else self.fwd_in.pop((v, m))
+        self.resid[(v, m)] = inp
+        self.live[v] += 1
+        self.peak[v] = max(self.peak[v], self.live[v])
+        if v == self.L - 1:
+            return None
+        with torch.no_grad():
+            return self.stage_fn(_slice(self.detached, self.index_of(v)),
+                                 inp, self._gen(v, m))
+
+    def backward(self, v: int, m: int):
+        """Stage ``v``'s recompute and vector-Jacobian product for
+        microbatch ``m`` (the head and the loss too on the last one);
+        returns the input's cotangent."""
+        rin = self.resid.pop((v, m)).detach().requires_grad_()
+        self.live[v] -= 1
+        params = {k: p.requires_grad_() for k, p in
+                  _slice(self.detached, self.index_of(v)).items()}
+        with torch.enable_grad():
+            y = self.stage_fn(params, rin, self._gen(v, m))
+            names = list(params)
+            inputs = [params[k] for k in names] + [rin]
+            if v == self.L - 1:
+                hp = {k: p.detach().requires_grad_()
+                      for k, p in self.head_params.items()}
+                lval = self.head_loss_fn(hp, y, self.ts[m])
+                if self.has_aux:
+                    lval, aux_mb = lval
+                    self.aux = aux_mb if self.aux is None else \
+                        {k: self.aux[k] + aux_mb[k] for k in self.aux}
+                self.loss = self.loss + lval.detach().float()
+                grads = torch.autograd.grad(lval,
+                                            inputs + list(hp.values()))
+                for k, g in zip(hp, grads[len(inputs):]):
+                    self.hg[k] += g.float()
+            else:
+                grads = torch.autograd.grad(
+                    y, inputs, grad_outputs=self.bwd_ct.pop((v, m)))
+        index = self.index_of(v)
+        for k, g in zip(names, grads):
+            self.tg[k][index] += g.float()
+        dinp = grads[len(names)]
+        if v == 0:
+            self.dxs[m] = dinp
+        return dinp
+
+
 def _execute(ops, n_virtual, stage_fn, head_loss_fn, stacked, index_of,
              head_params, xs, ts, has_aux, seed, stats):
     """Walk ``ops`` (``(tick, virtual stage, 'F'|'B', microbatch)``, in
     tick order) on one controller; see the module docstring."""
-    M, L = xs.shape[0], n_virtual
-    device = xs.device
-    fwd_in, bwd_ct, resid = {}, {}, {}
-    live, peak = [0] * L, [0] * L
-    tg = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-          for k, p in stacked.items()}
-    hg = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-          for k, p in head_params.items()}
-    loss = torch.zeros((), dtype=torch.float32, device=device)
-    aux, dxs = None, [None] * M
-    detached = {k: p.detach() for k, p in stacked.items()}
+    w = _Walk(n_virtual, stage_fn, head_loss_fn, stacked, index_of,
+              head_params, xs, ts, has_aux, seed)
     for _, v, kind, m in ops:
-        gen = None if seed is None else mb_generator(seed, v, m, device)
         if kind == "F":
-            inp = xs[m] if v == 0 else fwd_in.pop((v, m))
-            resid[(v, m)] = inp
-            live[v] += 1
-            peak[v] = max(peak[v], live[v])
-            if v < L - 1:       # the last one's B computes it with the head
-                with torch.no_grad():
-                    fwd_in[(v + 1, m)] = stage_fn(
-                        _slice(detached, index_of(v)), inp, gen)
-            continue
-        rin = resid.pop((v, m)).detach().requires_grad_()
-        live[v] -= 1
-        params = {k: p.requires_grad_() for k, p in
-                  _slice(detached, index_of(v)).items()}
-        with torch.enable_grad():
-            y = stage_fn(params, rin, gen)
-            names = list(params)
-            inputs = [params[k] for k in names] + [rin]
-            if v == L - 1:
-                hp = {k: p.detach().requires_grad_()
-                      for k, p in head_params.items()}
-                lval = head_loss_fn(hp, y, ts[m])
-                if has_aux:
-                    lval, aux_mb = lval
-                    aux = aux_mb if aux is None else \
-                        {k: aux[k] + aux_mb[k] for k in aux}
-                loss = loss + lval.detach().float()
-                grads = torch.autograd.grad(lval, inputs + list(hp.values()))
-                for k, g in zip(hp, grads[len(inputs):]):
-                    hg[k] += g.float()
-            else:
-                grads = torch.autograd.grad(y, inputs,
-                                            grad_outputs=bwd_ct.pop((v, m)))
-        index = index_of(v)
-        for k, g in zip(names, grads):
-            tg[k][index] += g.float()
-        dinp = grads[len(names)]
-        if v > 0:
-            bwd_ct[(v - 1, m)] = dinp
+            out = w.forward(v, m)
+            if out is not None:
+                w.fwd_in[(v + 1, m)] = out
         else:
-            dxs[m] = dinp
+            dinp = w.backward(v, m)
+            if v > 0:
+                w.bwd_ct[(v - 1, m)] = dinp
     if stats is not None:
-        stats["peak_live"] = peak
-    scale = 1.0 / M
-    dx = torch.stack(dxs) * scale
-    out = (loss * scale, {k: g * scale for k, g in tg.items()},
-           {k: g * scale for k, g in hg.items()},
+        stats["peak_live"] = w.peak
+    scale = 1.0 / w.M
+    dx = torch.stack(w.dxs) * scale
+    out = (w.loss * scale, {k: g * scale for k, g in w.tg.items()},
+           {k: g * scale for k, g in w.hg.items()},
            dx.reshape(-1, *dx.shape[2:]))
+    return (*out, w.aux) if has_aux else out
+
+
+# ---------------------------------------------------------------------------
+# the data x stage grid: one rank a stage, send/recv at the boundaries
+# ---------------------------------------------------------------------------
+
+#: the tags of a boundary's two directions (two neighbours may be one
+#: rank: two stages, or the interleaved wrap S-1 -> 0)
+TAG_ACTIVATION, TAG_COTANGENT = 0, 1
+
+#: bytes this process has sent across stage boundaries (activations and
+#: their gradients), a counter for measurements to read and reset
+sent_bytes = 0
+
+
+def _exchange(grid, recvs: list, sends: list, like: torch.Tensor) -> dict:
+    """One tick's boundary traffic of this rank: ``recvs`` ``(stage, tag,
+    key)`` and ``sends`` ``(stage, tag, tensor)`` with this data
+    coordinate's stage ranks, every message shaped as ``like``.  The
+    receives are posted before the sends, each list in ``(stage, tag)``
+    order, so both neighbours post one tick's operations in one order.
+    On a gloo group a tensor on a card crosses through pinned host memory
+    (:func:`.collectives.host_staged`).  Returns ``{key: tensor}``."""
+    from distributed_deep_learning_tpu_torch.parallel.collectives import (
+        _pinned, host_staged)
+
+    global sent_bytes
+    if not recvs and not sends:
+        return {}
+    staged = host_staged(like, None)
+    ops, bufs, keep = [], {}, []
+    for stage, tag, key in sorted(recvs, key=lambda r: r[:2]):
+        buf = _pinned(like) if staged else torch.empty_like(like)
+        bufs[key] = buf
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              grid.rank_of(grid.data, stage), tag=tag))
+    for stage, tag, t in sorted(sends, key=lambda r: r[:2]):
+        t = t.detach().contiguous()
+        if staged:
+            t = _pinned(t).copy_(t)
+        keep.append(t)                  # alive until the transfer ends
+        sent_bytes += t.numel() * t.element_size()
+        ops.append(dist.P2POp(dist.isend, t,
+                              grid.rank_of(grid.data, stage), tag=tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return {k: b.to(like.device) if staged else b for k, b in bufs.items()}
+
+
+def _by_tick(ops) -> list[list]:
+    """``ops`` (``(tick, ...)``, in tick order) grouped by tick."""
+    ticks: dict = {}
+    for op in ops:
+        ticks.setdefault(op[0], []).append(op[1:])
+    return [ticks[t] for t in sorted(ticks)]
+
+
+def _grid_execute(ops, n_virtual, stage_fn, head_loss_fn, stacked,
+                  index_of, head_params, xs, ts, has_aux, seed, stats,
+                  grid):
+    """Walk ``ops`` (as :func:`_execute`) as rank ``(d, s)`` of ``grid``:
+    at each tick run this rank's own ops (virtual stage ``v`` lives on
+    stage ``v mod S``), then exchange the boundary tensors: a forward's
+    output to the next virtual stage's rank (the interleaved schedule
+    wraps ``S-1 -> 0``), a backward's input cotangent to the previous
+    one's.  Then JAX's sums: the loss and ``aux`` over every rank, the
+    trunk gradients over the data group, the head's over every rank, all
+    scaled by ``1 / (M·dp)``; ``dx`` is stage 0's, None elsewhere."""
+    S, me = grid.stages, grid.stage
+    w = _Walk(n_virtual, stage_fn, head_loss_fn, stacked, index_of,
+              head_params, xs, ts, has_aux, seed,
+              data=grid.data if grid.dp > 1 else None)
+    L = n_virtual
+    for tick in _by_tick(ops):
+        recvs, sends = [], []
+        for v, kind, m in tick:
+            if kind == "F":
+                if v % S == me:
+                    out = w.forward(v, m)
+                    if out is not None:
+                        if (v + 1) % S == me:
+                            w.fwd_in[(v + 1, m)] = out
+                        else:
+                            sends.append(((v + 1) % S, TAG_ACTIVATION, out))
+                elif v < L - 1 and (v + 1) % S == me:
+                    recvs.append((v % S, TAG_ACTIVATION, ("F", v + 1, m)))
+            else:
+                if v % S == me:
+                    dinp = w.backward(v, m)
+                    if v > 0:
+                        if (v - 1) % S == me:
+                            w.bwd_ct[(v - 1, m)] = dinp
+                        else:
+                            sends.append(((v - 1) % S, TAG_COTANGENT, dinp))
+                elif v > 0 and (v - 1) % S == me:
+                    recvs.append((v % S, TAG_COTANGENT, ("B", v - 1, m)))
+        for (kind, v, m), t in _exchange(grid, recvs, sends,
+                                         xs[0]).items():
+            (w.fwd_in if kind == "F" else w.bwd_ct)[(v, m)] = t
+    if stats is not None:
+        stats["peak_live"] = w.peak
+    scale = 1.0 / (w.M * grid.dp)
+    loss, aux = _grid_sums(w.loss, w.aux or {}, AUX_KEYS if has_aux else (),
+                           xs.device)
+    tg = _data_summed(w.tg, grid)
+    hg = _all_reduced(w.hg)
+    for g in (*tg.values(), *hg.values()):
+        g.mul_(scale)
+    dx = None
+    if grid.first:
+        dx = torch.stack(w.dxs) * scale
+        dx = dx.reshape(-1, *dx.shape[2:])
+    out = ((loss * scale).float(), tg, hg, dx)
     return (*out, aux) if has_aux else out
+
+
+def _grid_sums(loss, aux: dict, keys, device):
+    """``(loss, {key: count})`` summed over every rank of the grid (the
+    last stage's ranks hold them; the others add zeros), in one f64
+    all-reduce; the counts as int32."""
+    sums = torch.stack([loss.double()] + [
+        aux[k].double() if k in aux else
+        torch.zeros((), dtype=torch.float64, device=device) for k in keys])
+    dist.all_reduce(sums)
+    return sums[0], {k: sums[i + 1].to(torch.int32)
+                     for i, k in enumerate(keys)}
+
+
+def _data_summed(tg: dict, grid) -> dict:
+    """The trunk gradients summed over this stage's data group (in
+    place)."""
+    if grid.data_group is not None:
+        for g in tg.values():
+            dist.all_reduce(g, group=grid.data_group)
+    return tg
+
+
+def _all_reduced(tensors: dict) -> dict:
+    """``tensors`` summed over every rank, in one all-reduce of their
+    flat concatenation (per dtype)."""
+    if not tensors:
+        return {}
+    names = list(tensors)
+    flat = torch.cat([tensors[k].reshape(-1) for k in names])
+    dist.all_reduce(flat)
+    out, i = {}, 0
+    for k in names:
+        n = tensors[k].numel()
+        out[k] = flat[i:i + n].view_as(tensors[k])
+        i += n
+    return out
 
 
 def spmd_pipeline_1f1b(stage_fn: StageFn, head_loss_fn, stacked_params: dict,
                        head_params: dict, x, targets, *,
                        microbatch_size: Optional[int] = None,
                        has_aux: bool = False, seed: Optional[int] = None,
-                       stats: Optional[dict] = None):
+                       stats: Optional[dict] = None, grid=None):
     """One-forward-one-backward pipelined train pass over ``S`` stages
     (the stacked parameters' leading size).
 
@@ -329,10 +525,23 @@ def spmd_pipeline_1f1b(stage_fn: StageFn, head_loss_fn, stacked_params: dict,
     trunk_grads, head_grads, dx[, aux])``; ``dx`` is the loss's
     cotangent with respect to ``x`` (for the embedding's backward).
     ``stats``, when given, receives each stage's peak of live inputs
-    (``peak_live``)."""
-    S = next(iter(stacked_params.values())).shape[0]
+    (``peak_live``).
+
+    ``grid`` (:class:`..runtime.mesh.PipelineGrid`) runs it as rank
+    ``(d, s)`` of a data x stage grid: ``stacked_params`` is then this
+    rank's slice ``(1, ...)``, ``x``/``targets`` its data coordinate's
+    rows (``microbatch_size`` of them a microbatch), and the results are
+    JAX's: the loss and ``aux`` (``AUX_KEYS``) over the whole grid, the
+    gradients summed over the data axis, ``dx`` on stage 0 only (see
+    :func:`_grid_execute`)."""
+    S = grid.stages if grid is not None else \
+        next(iter(stacked_params.values())).shape[0]
     xs, ts, M, _ = _split_microbatches(x, targets, microbatch_size, S)
     ops = [(t, s, kind, m) for t, s, kind, m in one_f_one_b_schedule(M, S)]
+    if grid is not None:
+        return _grid_execute(ops, S, stage_fn, head_loss_fn, stacked_params,
+                             lambda v: 0, head_params, xs, ts, has_aux,
+                             seed, stats, grid)
     return _execute(ops, S, stage_fn, head_loss_fn, stacked_params,
                     lambda v: v, head_params, xs, ts, has_aux, seed, stats)
 
@@ -343,17 +552,145 @@ def spmd_pipeline_interleaved(stage_fn: StageFn, head_loss_fn,
                               microbatch_size: Optional[int] = None,
                               has_aux: bool = False,
                               seed: Optional[int] = None,
-                              stats: Optional[dict] = None):
+                              stats: Optional[dict] = None, grid=None):
     """Interleaved-1F1B pipelined train pass: the stacked parameters lead
     with ``(V, S, ...)``, chunk ``c`` of device ``s`` being virtual stage
     ``c·S + s``, driven by :func:`interleaved_1f1b_schedule`; the contract
     is :func:`spmd_pipeline_1f1b`'s, with the gradients in the ``(V, S,
-    ...)`` layout and each virtual stage's dropout generator its own."""
-    V, S = next(iter(stacked_params.values())).shape[:2]
+    ...)`` layout and each virtual stage's dropout generator its own.  On
+    a ``grid`` a rank holds ``(V, 1, ...)``: its stage's chunks."""
+    V = next(iter(stacked_params.values())).shape[0]
+    S = grid.stages if grid is not None else \
+        next(iter(stacked_params.values())).shape[1]
     xs, ts, M, _ = _split_microbatches(x, targets, microbatch_size, S)
     sched, _ = interleaved_1f1b_schedule(M, S, V)
     ops = [(t, c * S + s, kind, m) for t, s, kind, c, m in sched]
     ops.sort(key=lambda o: o[0])            # stable: in-tick order kept
+    if grid is not None:
+        return _grid_execute(ops, V * S, stage_fn, head_loss_fn,
+                             stacked_params, lambda v: (v // S, 0),
+                             head_params, xs, ts, has_aux, seed, stats,
+                             grid)
     return _execute(ops, V * S, stage_fn, head_loss_fn, stacked_params,
                     lambda v: (v // S, v % S), head_params, xs, ts,
                     has_aux, seed, stats)
+
+
+def _grid_forward(stage_fn, params: dict, xs, grid, seed, remat=None,
+                  keep_inputs: bool = False):
+    """GPipe's forward as rank ``(d, s)`` of ``grid``: at tick ``t`` stage
+    ``s`` runs microbatch ``t - s`` and sends its output to ``s + 1``.
+    ``params`` is this stage's slice; returns ``(inputs, outputs)`` per
+    microbatch (the inputs marked for their gradient when
+    ``keep_inputs``: the train pass's backward reads them)."""
+    S, me, M = grid.stages, grid.stage, xs.shape[0]
+    data = grid.data if grid.dp > 1 else None
+    ins, outs, recv = [None] * M, [None] * M, {}
+    for t in range(M + S - 1):
+        m, sends, recvs = t - me, [], []
+        if 0 <= m < M:
+            inp = xs[m] if me == 0 else recv.pop(m)
+            if keep_inputs:
+                inp = inp.detach().requires_grad_()
+            gen = None if seed is None else \
+                mb_generator(seed, me, m, xs.device, data)
+
+            def fn(a, gen=gen):
+                return stage_fn(params, a, gen)
+            out = fn(inp) if remat is None else remat_call(fn, inp, remat,
+                                                           gen)
+            ins[m], outs[m] = inp, out
+            if me < S - 1:
+                sends.append((me + 1, TAG_ACTIVATION, out))
+        if me > 0 and 0 <= t - (me - 1) < M:
+            recvs.append((me - 1, TAG_ACTIVATION, t - (me - 1)))
+        recv.update(_exchange(grid, recvs, sends, xs[0]))
+    return ins, outs
+
+
+def spmd_pipeline_gpipe(stage_fn: StageFn, head_loss_fn, stacked_params: dict,
+                        head_params: dict, x, targets, *, grid,
+                        microbatch_size: Optional[int] = None,
+                        has_aux: bool = False, seed: Optional[int] = None,
+                        remat: Optional[str] = None):
+    """GPipe's train pass as rank ``(d, s)`` of ``grid``: the forward of
+    :func:`_grid_forward`, every stage keeping its microbatches' graphs
+    (O(M) activations); the last stage runs ``head_loss_fn(head_params,
+    y, targets)`` once on its rows' outputs (``y`` the microbatches in
+    order), then the backward walks the stages in reverse, each stage
+    backpropagating a microbatch's kept output when its cotangent
+    arrives.  ``head_loss_fn`` returns this data coordinate's share of
+    the objective (the shares sum to it over the data axis; ``(loss,
+    aux)`` with ``has_aux``).  Returns :func:`spmd_pipeline_1f1b`'s
+    ``(loss, trunk_grads, head_grads, dx[, aux])``, the sums taken over
+    the grid (no microbatch scale: the head ran once)."""
+    S, me = grid.stages, grid.stage
+    xs, ts, M, _ = _split_microbatches(x, targets, microbatch_size, S)
+    params = {k: p.detach().requires_grad_()
+              for k, p in _slice(stacked_params, 0).items()}
+    with torch.enable_grad():
+        ins, outs = _grid_forward(stage_fn, params, xs, grid, seed, remat,
+                                  keep_inputs=True)
+        loss = torch.zeros((), dtype=torch.float64, device=xs.device)
+        aux = {}
+        hp = {k: p.detach().requires_grad_() for k, p in head_params.items()}
+        if grid.last:
+            y = torch.cat(outs)
+            lval = head_loss_fn(hp, y, ts.reshape(-1, *ts.shape[2:]))
+            if has_aux:
+                lval, aux = lval
+            loss = lval.detach().double()
+            lval.backward()
+    recv = {}
+    for t in range(M + S - 1):          # the backward, last stage first
+        m, sends, recvs = M - 1 - (t - (S - 1 - me)), [], []
+        if 0 <= m < M:
+            if not grid.last:
+                torch.autograd.backward(outs[m], grad_tensors=recv.pop(m))
+            outs[m] = None
+            if me > 0:
+                sends.append((me - 1, TAG_COTANGENT, ins[m].grad))
+        nxt = M - 1 - (t - (S - 2 - me))
+        if me < S - 1 and 0 <= nxt < M:
+            recvs.append((me + 1, TAG_COTANGENT, nxt))
+        recv.update(_exchange(grid, recvs, sends, xs[0]))
+    loss, aux = _grid_sums(loss, aux, AUX_KEYS if has_aux else (),
+                           xs.device)
+    tg = _data_summed({k: (p.grad.float() if p.grad is not None
+                           else torch.zeros(p.shape, device=p.device))
+                       .unsqueeze(0) for k, p in params.items()}, grid)
+    hg = _all_reduced({k: p.grad.float() if p.grad is not None
+                       else torch.zeros(p.shape, device=p.device)
+                       for k, p in hp.items()})
+    dx = torch.cat([i.grad for i in ins]) if grid.first else None
+    out = (loss.float(), tg, hg, dx)
+    return (*out, aux) if has_aux else out
+
+
+@torch.no_grad()
+def spmd_pipeline_forward(stage_fn: StageFn, stacked_params: dict, x, *,
+                          grid, microbatch_size: Optional[int] = None,
+                          n_chunks: int = 1):
+    """GPipe's forward without gradients (evaluation) as rank ``(d, s)``
+    of ``grid``: the last stage's outputs of its rows, in order; None on
+    the other stages.  With ``n_chunks`` chunks a stage (the ``(V, 1,
+    ...)`` slices) the forward laps the stages ``V`` times, as
+    :meth:`..pipeline_transformer.PipelinedTrunk.apply` does, the last
+    stage handing each lap's outputs to stage 0."""
+    S = grid.stages
+    xs, _, _, _ = _split_microbatches(x, None, microbatch_size, S)
+    for c in range(n_chunks):
+        params = _slice(stacked_params, 0 if n_chunks == 1 else (c, 0))
+        _, outs = _grid_forward(stage_fn, params, xs, grid, None)
+        if c == n_chunks - 1:
+            break
+        if S == 1:
+            xs = torch.stack(outs)
+            continue
+        got = _exchange(grid,
+                        [(S - 1, TAG_ACTIVATION, "x")] if grid.first else [],
+                        [(0, TAG_ACTIVATION, torch.stack(outs))]
+                        if grid.last else [], xs)
+        if grid.first:
+            xs = got["x"]
+    return torch.cat(outs) if grid.last else None

@@ -211,3 +211,56 @@ class MeshLayout:
                    seq_group=_subgroups(ranks, ("seq",)),
                    comm_group=_subgroups(ranks, (comm,)),
                    other_group=_subgroups(ranks, other))
+
+
+@dataclasses.dataclass
+class PipelineGrid:
+    """A rank's place in ``-m pipeline``'s ``{"data": dp, "stage": S}``
+    grid of ``dp·S`` ranks: rank ``r`` is ``(data r // S, stage r % S)``,
+    the row-major order of JAX's ``build_mesh({"data": dp, "stage": S})``.
+    ``stage_group`` holds this data coordinate's stages, in stage order
+    (the pipeline's neighbours, and the sums JAX takes over ``stage``);
+    ``data_group`` this stage's data coordinates (the trunk gradients'
+    all-reduce).  Either is None where its axis has one rank."""
+
+    dp: int
+    stages: int
+    data: int
+    stage: int
+    stage_group: object = None
+    data_group: object = None
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.stages - 1
+
+    def rank_of(self, data: int, stage: int) -> int:
+        return data * self.stages + stage
+
+    @classmethod
+    def build(cls, dp: int, stages: int) -> "PipelineGrid":
+        """This rank's grid over the default group's ``dp·stages`` ranks
+        (every rank makes every group, in one order)."""
+        world, me = dist.get_world_size(), dist.get_rank()
+        if world != dp * stages:
+            raise ValueError(f"a {dp} x {stages} data x stage grid needs "
+                             f"{dp * stages} ranks, the group has {world}")
+        ranks = np.arange(world).reshape(dp, stages)
+        stage_group = data_group = None
+        if stages > 1:
+            for row in ranks.tolist():
+                g = dist.new_group(row)
+                if me in row:
+                    stage_group = g
+        if dp > 1:
+            for col in ranks.T.tolist():
+                g = dist.new_group(col)
+                if me in col:
+                    data_group = g
+        return cls(dp=dp, stages=stages, data=me // stages,
+                   stage=me % stages, stage_group=stage_group,
+                   data_group=data_group)

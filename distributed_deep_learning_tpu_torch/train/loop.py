@@ -1,6 +1,7 @@
 """Epoch loop with the reference's phase/metric semantics: the port of
-``distributed_deep_learning_tpu/train/loop.py`` with its checkpointing and
-resume (without chaos, sentinel or telemetry, which later slices port).
+``distributed_deep_learning_tpu/train/loop.py`` with its checkpointing,
+resume, failure monitor, anomaly sentinel and chaos hooks (telemetry is
+``ROADMAP.md`` item 14).
 
 Per epoch a train phase and a validation phase, then one final test
 phase; accuracy = argmax matches × 100 / sites, and the logged loss keeps
@@ -16,7 +17,20 @@ and the phase's running totals in the sidecar; ids are global step
 numbers then, epoch numbers otherwise.  Resuming mid-epoch, the seeded
 loader replays the epoch's batch order and skips the first
 ``resume_batch`` batches without gathering them, so the continuation is
-the uninterrupted run's.
+the uninterrupted run's.  Saves are asynchronous (``wait=False``); the
+loop waits for the last before the test phase, where JAX's waits.
+
+A ``monitor`` (:class:`..utils.failures.FailureMonitor`) is polled before
+every step, so a dead peer raises promptly.  Under the anomaly sentinel
+(:mod:`.sentinel`) the loop reads each step's verdict one step late (the
+next step is already queued) and raises :class:`.sentinel.AnomalyError`
+under ``rollback``/``halt``; ``skip`` counts the contained steps and
+logs them at the phase's end.  A ``chaos`` plan
+(:class:`..utils.chaos.ChaosPlan`) rewrites or fails planned batches, and
+``skip_steps`` (global step ids) are consumed without training (the
+rollback replay's poisoned window).  The ``DDL_INJECT_FAILURE`` and
+``DDL_INJECT_STEP_FAILURE`` hooks (:mod:`..utils.failures`) fire at the
+start of an epoch and after a step.
 """
 
 from __future__ import annotations
@@ -27,6 +41,8 @@ import time
 import torch
 
 from distributed_deep_learning_tpu_torch.train.state import TrainState
+from distributed_deep_learning_tpu_torch.utils.failures import (
+    maybe_inject_failure, maybe_inject_step_failure)
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 
 
@@ -86,21 +102,35 @@ def _sum_totals(metrics, init_totals=None):
         # so the whole and the resumed phase sum alike
         totals = {k: (v.double() if v.is_floating_point() else v).sum()
                   .item() for k, v in host.items()}
+    # the union of keys: a sidecar saved before a metric existed (the
+    # sentinel's ``anomaly``) must not erase it from the totals
     for k, v in (init_totals or {}).items():
         totals[k] = totals.get(k, 0) + v
     return totals, host
 
 
 def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
-               init_totals=None, on_step=None):
+               init_totals=None, on_step=None, monitor=None,
+               batch_hook=None, skip_pred=None, check_anomaly=None):
     """Drive one phase; returns ``(state, totals, step_losses,
     step_seconds)`` with one host sync at the end.  The first ``skip``
     batches are skipped (mid-epoch resume; ``init_totals`` holds what
     they added).  ``on_step(batch_number, state, totals_fn)`` runs after
-    each train step; ``totals_fn()`` syncs only when called."""
-    metrics, clock = [], None
+    each train step; ``totals_fn()`` syncs only when called.
+    ``monitor.raise_if_failed()`` runs before every batch;
+    ``batch_hook(b, x, y) -> (x, y)`` may replace or fail a train batch,
+    ``skip_pred(b)`` consumes one untrained, and ``check_anomaly(b,
+    metrics)`` reads step ``b``'s metrics after step ``b + 1`` is
+    queued (and the last step's at the end)."""
+    metrics, clock, pending = [], None, None
     for i, (x, y) in enumerate(loader.iter_batches(skip), start=skip + 1):
+        if monitor is not None:
+            monitor.raise_if_failed()
         if train:
+            if skip_pred is not None and skip_pred(i):
+                continue
+            if batch_hook is not None:
+                x, y = batch_hook(i, x, y)
             if clock is None:
                 clock = _StepClock(x.device)
             state, m = step_fn(state, x, y)
@@ -108,9 +138,15 @@ def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
         else:
             m = step_fn(state, x, y)
         metrics.append(m)
+        if check_anomaly is not None:
+            if pending is not None:
+                check_anomaly(*pending)
+            pending = (i, m)
         if on_step is not None:
             on_step(i, state,
                     lambda: _sum_totals(metrics, init_totals)[0])
+    if pending is not None:
+        check_anomaly(*pending)
     totals, host = _sum_totals(metrics, init_totals)
     losses = host["loss"].tolist() if train and host else []
     return state, totals, losses, clock.seconds() if clock else []
@@ -131,18 +167,26 @@ def _result(phase: str, epoch: int | None, totals, t0: float, t1: float,
 
 def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
         test_loader, epochs: int, logger: PhaseLogger | None = None, *,
-        checkpointer=None, start_epoch: int = 1,
+        checkpointer=None, start_epoch: int = 1, monitor=None,
         checkpoint_every: int | None = None, resume_batch: int = 0,
-        resume_totals: dict | None = None
-        ) -> tuple[TrainState, list[EpochResult]]:
+        resume_totals: dict | None = None,
+        history_sink: list | None = None, sentinel=None, chaos=None,
+        skip_steps=None) -> tuple[TrainState, list[EpochResult]]:
     """Drive the epoch loop from ``start_epoch``; returns the final state
     and every phase's :class:`EpochResult` in order (train, validation
     per epoch, then test).  The log lines follow the reference's grammar.
     ``checkpointer`` (:class:`..utils.checkpoint.Checkpointer`) saves as
     the module docstring says; ``resume_batch``/``resume_totals`` (from
-    :func:`..elastic.resume_point`) resume inside ``start_epoch``."""
+    :func:`..elastic.resume_point`) resume inside ``start_epoch``.
+    ``history_sink`` (a list) receives every result as it is made, so a
+    caller that catches a failure keeps the finished phases
+    (:func:`..elastic.fit_with_recovery`).  ``sentinel``
+    (:class:`.sentinel.SentinelConfig`, the one ``train_step`` was built
+    with) selects the policy; ``monitor``, ``chaos`` and ``skip_steps``
+    are the module docstring's."""
     logger = logger or PhaseLogger(verbose=False)
-    history: list[EpochResult] = []
+    history: list[EpochResult] = [] if history_sink is None \
+        else history_sink
     spe = len(train_loader)                  # steps per epoch
     if start_epoch > epochs + 1:
         logger.info(
@@ -160,26 +204,54 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
                 "directory was written with a different --checkpoint-every "
                 "or batch size) — use a fresh --checkpoint-dir or the "
                 "original flags")
+    enforce = sentinel is not None and sentinel.policy in ("rollback",
+                                                           "halt")
     for epoch in range(start_epoch, epochs + 1):   # the reference counts
-        train_loader.set_epoch(epoch)              # from 1
+        maybe_inject_failure(epoch)                # from 1
+        train_loader.set_epoch(epoch)
         skip = resume_batch if epoch == start_epoch else 0
         init_totals = resume_totals if epoch == start_epoch else None
 
         def on_step(b, st, totals_fn, _epoch=epoch):
+            gstep = (_epoch - 1) * spe + b
+            maybe_inject_step_failure(gstep)
             if checkpointer is not None and checkpoint_every \
                     and b % checkpoint_every == 0 and b < spe:
                 checkpointer.save(
-                    (_epoch - 1) * spe + b, st,
+                    gstep, st, wait=False,
                     extra={"epoch": _epoch, "batch": b,
                            "epoch_complete": False,
                            "totals": {k: float(v)
                                       for k, v in totals_fn().items()}})
 
+        batch_hook = skip_pred = check_anomaly = None
+        if chaos is not None:
+            def batch_hook(b, x, y, _epoch=epoch):
+                return chaos.batch_hook((_epoch - 1) * spe + b, x, y)
+        if skip_steps:
+            def skip_pred(b, _epoch=epoch):
+                return (_epoch - 1) * spe + b in skip_steps
+        if enforce:
+            def check_anomaly(b, m, _epoch=epoch):
+                if float(m["anomaly"]):
+                    from distributed_deep_learning_tpu_torch.train.sentinel \
+                        import AnomalyError
+
+                    raise AnomalyError((_epoch - 1) * spe + b,
+                                       sentinel.policy,
+                                       int(float(m["anomaly_code"])))
+
         t0 = logger.phase_begin("train", epoch)
         state, totals, losses, secs = _run_phase(
             train_step, state, train_loader, train=True, skip=skip,
-            init_totals=init_totals, on_step=on_step)
+            init_totals=init_totals, on_step=on_step, monitor=monitor,
+            batch_hook=batch_hook, skip_pred=skip_pred,
+            check_anomaly=check_anomaly)
         t1 = logger.clock()
+        if sentinel is not None and totals.get("anomaly"):
+            logger.info(f"sentinel: contained {int(totals['anomaly'])} "
+                        f"anomalous step(s) in epoch {epoch} "
+                        f"(policy={sentinel.policy})")
         res = _result("train", epoch, totals, t0, t1, losses, secs)
         logger.phase_end("train", epoch, accuracy=res.accuracy, loss=res.loss)
         logger.metrics(phase="train", epoch=epoch,
@@ -189,7 +261,7 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
 
         t0 = logger.clock()
         _, totals, _, _ = _run_phase(eval_step, state, val_loader,
-                                     train=False)
+                                     train=False, monitor=monitor)
         t1 = logger.clock()
         res = _result("validation", epoch, totals, t0, t1)
         # the reference prints only the validation end line
@@ -198,9 +270,12 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
         history.append(res)
         if checkpointer is not None:
             checkpointer.save(epoch * spe if checkpoint_every else epoch,
-                              state, extra={"epoch": epoch, "batch": spe,
-                                            "epoch_complete": True})
+                              state, wait=False,
+                              extra={"epoch": epoch, "batch": spe,
+                                     "epoch_complete": True})
 
+    if checkpointer is not None:
+        checkpointer.wait_until_finished()
     t0 = logger.clock()
     _, totals, _, _ = _run_phase(eval_step, state, test_loader, train=False)
     t1 = logger.clock()

@@ -53,32 +53,37 @@ ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY_RATE, ADAFACTOR_EPS = 128, 0.8, 1e-30
 ADAFACTOR_CLIP, ADAFACTOR_MIN_SCALE = 1.0, 1e-3
 
 
+def global_norm(grads: list, params: list | None = None) -> torch.Tensor:
+    """``optax.global_norm`` of ``grads`` (an f32 device scalar, no host
+    sync).  ``params`` (the gradients' parameters) makes it the norm of
+    the whole parameters when some are split across ranks: each group's
+    squared sums are summed over it once."""
+    if params is None or not any(shard_groups(p) for p in params):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(local(g).float()) for g in grads]))
+    by_groups: dict = {}
+    for p, g in zip(params, grads):
+        key = tuple(shard_groups(p))
+        sq = local(g).float().pow(2).sum()
+        by_groups[key] = by_groups.get(key, 0) + sq
+    total = 0
+    for key, sq in by_groups.items():
+        for group in key:
+            torch.distributed.all_reduce(sq, group=group)
+        total = total + sq
+    return torch.sqrt(total)
+
+
 def clip_by_global_norm(grads: list, max_norm: float,
                         params: list | None = None) -> None:
     """``optax.clip_by_global_norm`` in place: every gradient becomes
-    ``g / norm * max_norm`` when the global norm reaches ``max_norm``, and
-    stays as it is below it (``clip_grad_norm_`` would add 1e-6 to the
-    norm and scale below it too).  No host sync.  ``params`` (the
-    gradients' parameters) makes the norm that of the whole parameters
-    when some are split across ranks: each group's squared sums are
-    summed over it once."""
+    ``g / norm * max_norm`` when the global norm (:func:`global_norm`)
+    reaches ``max_norm``, and stays as it is below it
+    (``clip_grad_norm_`` would add 1e-6 to the norm and scale below it
+    too).  No host sync."""
     if not grads:
         return
-    if params is None or not any(shard_groups(p) for p in params):
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
-    else:
-        by_groups: dict = {}
-        for p, g in zip(params, grads):
-            key = tuple(shard_groups(p))
-            sq = local(g).float().pow(2).sum()
-            by_groups[key] = by_groups.get(key, 0) + sq
-        total = 0
-        for key, sq in by_groups.items():
-            for group in key:
-                torch.distributed.all_reduce(sq, group=group)
-            total = total + sq
-        norm = torch.sqrt(total)
+    norm = global_norm(grads, params)
     keep = norm < max_norm
     for g in grads:
         g = local(g)
@@ -305,7 +310,11 @@ class TrainState:
     a parameter, by name; JAX's ``TrainState.comm_residual``), and
     ``comm`` the party that synchronises the gradients when it is not
     DDP's default all-reduce (``train.compress.GradCompression`` or
-    ``parallel.collectives.ExplicitFSDP``), else None."""
+    ``parallel.collectives.ExplicitFSDP``), else None.  ``sentinel`` is
+    the anomaly sentinel's :class:`..train.sentinel.SentinelState` (None
+    without ``--sentinel``); ``fence`` is the CUDA event of an
+    asynchronous checkpoint's copy that the next update waits for
+    (:class:`..utils.checkpoint.Checkpointer`)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -314,12 +323,30 @@ class TrainState:
     generator: torch.Generator | None = None
     comm_residual: dict | None = None
     comm: object = None
+    sentinel: object = None
+    fence: object = None
+
+    def grad_params(self) -> list:
+        """The optimizer's parameters that hold a gradient."""
+        return [p for g in self.optimizer.param_groups for p in g["params"]
+                if p.grad is not None]
+
+    def wait_fence(self) -> None:
+        """Make the card wait for a pending ``fence`` (a CUDA event an
+        asynchronous checkpoint's copy of this state recorded; its
+        ``wait()`` holds the current stream) before anything writes the
+        saved tensors in place."""
+        if self.fence is not None:
+            self.fence.wait()
+            self.fence = None
 
     def apply_gradients(self) -> None:
-        """Clip, set the learning rate for this update's count, step."""
+        """Clip, set the learning rate for this update's count, step,
+        after :meth:`wait_fence`: the in-place update cannot reach the
+        bytes an asynchronous save is copying."""
+        self.wait_fence()
         if self.tx.clip_norm is not None:
-            params = [p for g in self.optimizer.param_groups
-                      for p in g["params"] if p.grad is not None]
+            params = self.grad_params()
             clip_by_global_norm([p.grad for p in params], self.tx.clip_norm,
                                 params)
         lr = self.tx.lr_at(self.step)

@@ -35,6 +35,12 @@ averaged by the synchronising party (the DDP communication hook of
 :mod:`.compress`, or :class:`..parallel.collectives.ExplicitFSDP`), the
 logged loss is the mean of the ranks' losses, and the floating buffers
 (running statistics) are averaged over the ranks after the update.
+
+``sentinel`` (:class:`.sentinel.SentinelConfig`) puts the anomaly
+sentinel between the backward and the update
+(:func:`.sentinel.guarded_update`): the global gradient norm of the whole
+parameters and the loss decide whether the update is applied or
+contained.
 """
 
 from __future__ import annotations
@@ -97,7 +103,7 @@ def average_buffers(model, world: int, group=None) -> None:
 def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                   remat_policy: str = "nothing", accum_steps: int = 1,
                   global_batch: bool = False, group=None,
-                  local_mean: bool = False, comm=None):
+                  local_mean: bool = False, comm=None, sentinel=None):
     """``(train_step, eval_step)``: ``train_step(state, x, y) -> (state,
     metrics)`` updates ``state`` in place; ``eval_step(state, x, y) ->
     metrics``.  ``ddp`` (``DistributedDataParallel`` over ``state.model``)
@@ -123,7 +129,14 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                              f"factor {accum_steps}")
         m = B // accum_steps
         net = ddp if ddp is not None else state.model
+        snapshot = None
+        if sentinel is not None:
+            from distributed_deep_learning_tpu_torch.train.sentinel import \
+                StepSnapshot
+
+            snapshot = StepSnapshot(state)
         if comm is not None:
+            state.wait_fence()      # the gather writes the saved params
             comm.gather()
         net.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -154,18 +167,24 @@ def make_step_fns(loss_fn: LossFn, *, ddp=None, remat: bool = False,
                 (objective / accum_steps).backward()   # exact at 1
         if comm is not None:
             comm.reduce_gradients(state.comm_residual)
+        # JAX's accumulated metrics: mean loss, summed correct and count
+        out = {"loss": torch.stack([mm["loss"] for mm in metrics]).mean(),
+               "correct": sum(mm["correct"] for mm in metrics),
+               "count": sum(mm["count"] for mm in metrics)}
+        if sentinel is not None:
+            from distributed_deep_learning_tpu_torch.train.sentinel import \
+                guarded_update
+
+            return guarded_update(state, out, sentinel, snapshot)
         state.apply_gradients()
         if synced and local_mean:
             average_buffers(state.model, world, group)
-        # JAX's accumulated metrics: mean loss, summed correct and count
-        return state, {
-            "loss": torch.stack([mm["loss"] for mm in metrics]).mean(),
-            "correct": sum(mm["correct"] for mm in metrics),
-            "count": sum(mm["count"] for mm in metrics)}
+        return state, out
 
     @torch.no_grad()
     def eval_step(state: TrainState, x, y):
         if comm is not None:
+            state.wait_fence()
             comm.gather(exact=True)
         state.model.eval()
         pred = state.model(x)

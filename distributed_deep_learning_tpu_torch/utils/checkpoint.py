@@ -12,6 +12,16 @@ not at all.  Beside it, written before it:
 * ``extra-<s>.json`` (optional): the loader position and partial-phase
   totals of a mid-epoch save (:meth:`Checkpointer.read_extra`).
 
+A save with ``wait=False`` is asynchronous, as the JAX package's orbax
+save is by default (the training loop saves so; a direct call waits
+unless told not to): :meth:`Checkpointer.save` takes a snapshot of the
+state (on the card, a copy into pinned host memory on a side stream,
+whose event the next in-place optimizer update waits for:
+``TrainState.fence``), and a thread writes the sidecars, then the file,
+from the snapshot.  :meth:`Checkpointer.wait_until_finished`
+(every rank calls it) waits for the save in flight and re-raises its
+error.  One save is in flight at a time: the next waits for it first.
+
 :meth:`Checkpointer.restore_verified` falls back to the newest step that
 verifies, quarantining (renaming under ``quarantine/``, never deleting) a
 torn, bit-flipped or non-finite one.  A checkpointer ``shared`` by the
@@ -29,6 +39,7 @@ import json
 import os
 import re
 import sys
+import threading
 import zlib
 
 import torch
@@ -59,6 +70,64 @@ def _to_cpu(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
     return obj
+
+
+class _OnCard:
+    """A placeholder for the ``index``-th card tensor of a snapshot."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    """The stream a snapshot copies on (a new one a save)."""
+    return torch.cuda.Stream(device=device)
+
+
+def _snapshot(obj):
+    """``(host copy of obj, event)``: tensors on a card are copied into
+    pinned host memory on a side stream that first waits for the current
+    one, the event recorded after the last copy (None when nothing was on
+    a card); the rest are copied on the host."""
+    cuda = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            if o.device.type == "cuda":
+                cuda.append(o)
+                return _OnCard(len(cuda) - 1)
+            return o.detach().to("cpu", copy=True)
+        if isinstance(o, dict):
+            return {k: walk(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(walk(v) for v in o)
+        return o
+
+    tree = walk(obj)
+    if not cuda:
+        return tree, None
+    side = _side_stream(cuda[0].device)
+    side.wait_stream(torch.cuda.current_stream(cuda[0].device))
+    hosts = []
+    with torch.cuda.stream(side):
+        for t in cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t.detach(), non_blocking=True)
+            t.record_stream(side)
+            hosts.append(h)
+        event = torch.cuda.Event()
+        event.record(side)
+
+    def fill(o):
+        if isinstance(o, _OnCard):
+            return hosts[o.index]
+        if isinstance(o, dict):
+            return {k: fill(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(fill(v) for v in o)
+        return o
+
+    return fill(tree), event
 
 
 def _leaves(obj, prefix=""):
@@ -145,18 +214,23 @@ def _whole_moment(p, v):
 
 
 def state_payload(state: TrainState, generators=None, *,
-                  writer: bool = True) -> dict | None:
-    """What a checkpoint holds, on the host.  ``generators``: every rank's
-    dropout generator state, in rank order (default: this process's).
-    For sharded state every rank calls it (it gathers); the ``writer``
-    gets the payload, the others None."""
+                  writer: bool = True, host: bool = True) -> dict | None:
+    """What a checkpoint holds, on the host (``host=False``: where it
+    lies, the buffers copied so that the next forward cannot change
+    them).  ``generators``: every rank's dropout generator state,
+    in rank order (default: this process's).  For sharded state every
+    rank calls it (it gathers); the ``writer`` gets the payload, the
+    others None."""
     if generators is None and state.generator is not None:
         generators = [state.generator.get_state()]
+    finish = _to_cpu if host else (lambda p: p)
     if not is_sharded(state):
-        return _to_cpu({"step": int(state.step),
-                        "params": state.model.state_dict(),
-                        "optimizer": state.optimizer.state_dict(),
-                        "generator": generators})
+        return finish(_with_sentinel(state, {
+            "step": int(state.step),
+            "params": _buffers_copied(state.model,
+                                      state.model.state_dict()),
+            "optimizer": state.optimizer.state_dict(),
+            "generator": generators}))
     from distributed_deep_learning_tpu_torch.parallel.collectives import \
         gather_residual
 
@@ -170,12 +244,28 @@ def state_payload(state: TrainState, generators=None, *,
     residual = gather_residual(state)
     if not writer:
         return None
-    payload = {"step": int(state.step), "params": params,
+    payload = {"step": int(state.step),
+               "params": _buffers_copied(state.model, params),
                "optimizer": optimizer, "generator": generators}
     if residual is not None:
         # every batch rank's, on a leading axis (n, ...), as JAX holds it
         payload["comm_residual"] = residual
-    return _to_cpu(payload)
+    return finish(_with_sentinel(state, payload))
+
+
+def _buffers_copied(model, params: dict) -> dict:
+    """``params`` (a state dict) with the model's buffers copied: a
+    forward updates them in place (BatchNorm)."""
+    names = {n for n, _ in model.named_buffers()}
+    return {k: v.clone() if k in names else v for k, v in params.items()}
+
+
+def _with_sentinel(state: TrainState, payload: dict) -> dict:
+    """``payload`` with the anomaly sentinel's four scalars, when the
+    state has a sentinel."""
+    if state.sentinel is not None:
+        payload["sentinel"] = state.sentinel.to_dict()
+    return payload
 
 
 def _load_params(model, sd: dict) -> None:
@@ -257,17 +347,29 @@ def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
     state.step = int(payload["step"])
     if gens is not None:
         state.generator.set_state(gens[rank])
+    if state.sentinel is not None and "sentinel" in payload:
+        from distributed_deep_learning_tpu_torch.train.sentinel import \
+            SentinelState
+
+        state.sentinel = SentinelState.from_dict(payload["sentinel"])
     return state
 
 
 class Checkpointer:
-    """Checkpoints of one run directory, the newest ``keep`` kept."""
+    """Checkpoints of one run directory, the newest ``keep`` kept.
+    ``replicated_generator``: the ranks share one dropout stream (the
+    pipeline grid's, whose ranks draw the same step seed), so a
+    checkpoint holds it once and restores at any world size."""
 
     def __init__(self, directory: str | os.PathLike, *, keep: int = 3,
-                 shared: bool = True, topology: dict | None = None):
+                 shared: bool = True, topology: dict | None = None,
+                 replicated_generator: bool = False):
         self._dir = os.path.abspath(os.fspath(directory))
         self.keep = keep
         self.topology = topology
+        self.replicated_generator = replicated_generator
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
         self._shared = shared and dist.is_initialized()
         self._rank, self._world = (
             (dist.get_rank(), dist.get_world_size()) if self._shared
@@ -287,7 +389,7 @@ class Checkpointer:
         if state.generator is None:
             return None
         mine = state.generator.get_state()
-        if not self._shared:
+        if not self._shared or self.replicated_generator:
             return [mine]
         states = [None] * self._world
         dist.all_gather_object(states, mine)
@@ -299,20 +401,41 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: TrainState, *,
-             extra: dict | None = None) -> bool:
-        """Persist ``state`` under ``step`` (synchronously).  A step that
-        exists is skipped, not rewritten (a run never reuses a dirty
-        directory without ``--resume``, so a replayed id holds identical
-        state).  ``extra`` is the small JSON sidecar.  Returns whether it
-        wrote."""
+             extra: dict | None = None, wait: bool = True) -> bool:
+        """Persist ``state`` under ``step``; with ``wait=False``
+        asynchronously: the collective part (gathers) and the snapshot run
+        here, the writing on a thread (see the module docstring).  A step
+        that exists is skipped, not rewritten (a run never reuses a dirty
+        directory without ``--resume`` or ``--elastic``, so a replayed id
+        holds identical state).  ``extra`` is the small JSON sidecar.
+        Returns whether it saved."""
+        self.wait_until_finished()
         generators = self._generator_states(state)
         if step in self.all_steps():
             self._barrier()
             return False
         payload = None
         if self._writer or is_sharded(state):
-            payload = state_payload(state, generators, writer=self._writer)
+            payload = state_payload(state, generators, writer=self._writer,
+                                    host=False)
         if self._writer:
+            payload, event = _snapshot(payload)
+            if event is not None:
+                state.fence = event
+            self._thread = threading.Thread(
+                target=self._write, args=(step, payload, event, extra),
+                name=f"checkpoint-{step}", daemon=True)
+            self._thread.start()
+        if wait:
+            self.wait_until_finished()
+        return True
+
+    def _write(self, step: int, payload: dict, event, extra) -> None:
+        """The writer thread: the sidecars, then the file under a
+        temporary name renamed into place."""
+        try:
+            if event is not None:
+                event.synchronize()
             if extra is not None:
                 self._write_json(self._path("extra", step), extra)
             records = leaf_records(payload)
@@ -328,8 +451,28 @@ class Checkpointer:
             torch.save(payload, tmp)
             os.replace(tmp, path)                 # atomic on POSIX
             self._collect(newest=step)
+        except BaseException as e:  # noqa: BLE001 - re-raised on wait
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Wait for the save in flight (every rank calls it: the ranks
+        then see the same steps) and re-raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
         self._barrier()
-        return True
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self) -> None:
+        self.wait_until_finished()
+
+    def __enter__(self) -> "Checkpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     @staticmethod
     def _write_json(path: str, payload: dict) -> None:
@@ -408,6 +551,8 @@ class Checkpointer:
                 f"checkpoint step {step} was saved under {saved}, this run "
                 f"is {self.topology}: restoring it into another layout is "
                 f"--reshard's, not ported yet: {ROADMAP_ITEMS[14]}")
+        if self.replicated_generator:
+            return load_payload(state, payload)
         return load_payload(state, payload, rank=self._rank,
                             world=self._world)
 
@@ -437,7 +582,9 @@ class Checkpointer:
         """Restore the newest step at or below ``step`` that verifies.  A
         step that fails to load or to verify is quarantined and the next
         older one tried.  Returns ``(state, step)``, or ``(None, None)``
-        when none survives.  Every rank calls it."""
+        when none survives.  Every rank calls it; a save in flight is
+        finished first."""
+        self.wait_until_finished()
         candidates = sorted((s for s in self.all_steps()
                              if step is None or s <= step), reverse=True)
         try:

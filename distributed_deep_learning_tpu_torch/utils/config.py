@@ -6,6 +6,7 @@ runs (``mlp``, ``cnn``, ``lstm``, ``mnist``, ``resnet``, ``transformer``,
 data`` with ``--mesh`` and ``--zero 1|fsdp``, ``--dtype``,
 ``--double-softmax``, ``--packed-cache``, ``--image-size``,
 ``--stem-s2d``, every ``--optimizer``, the step variants, checkpointing,
+the resilience flags (``--sentinel*``, ``--elastic``, ``--heartbeat-*``),
 and the post-train ``--generate`` and ``--serve [--paged]`` with
 speculation (``--draft``, ``--spec-k``) and quantized serving
 (``--kv-dtype``, ``--weight-dtype``)).
@@ -115,6 +116,13 @@ class Config:
     slo_e2e_ms: float | None = None     # serving: per-request e2e SLO
     kv_dtype: str | None = None         # serving: KV storage, bf16 or int8
                                         #   (int8: the paged engine only)
+    sentinel: str = "off"               # anomaly sentinel policy:
+                                        #   off|skip|rollback|halt
+    sentinel_window: int = 32           # its running means' horizon
+    sentinel_factor: float = 10.0       # its spike threshold (x the mean)
+    elastic: bool = False               # checkpointed restart on failure
+    heartbeat_dir: str | None = None    # shared dir for liveness beats
+    heartbeat_timeout: float = 30.0     # seconds before a peer is dead
     weight_dtype: str | None = None     # serving: weight storage, bf16 or
                                         #   int8 (per-channel scales)
 
@@ -137,8 +145,6 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    11: "ROADMAP.md queue 1 item 11 (sharded parallelism)",
-    12: "ROADMAP.md queue 1 item 12 (training resilience)",
     13: "ROADMAP.md queue 1 item 13 (serving resilience and fleet)",
     14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
     16: "ROADMAP.md queue 1 item 16 (--remat-policy dots on the conv and "
@@ -149,9 +155,6 @@ ROADMAP_ITEMS = {
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
     "--publish-weights=": 13,
-    "--elastic": 12, "--sentinel=": 12, "--sentinel-window=": 12,
-    "--sentinel-factor=": 12, "--heartbeat-dir=": 12,
-    "--heartbeat-timeout=": 12,
     "--serve-deadline-ms=": 13, "--serve-retries=": 13,
     "--reload-watch=": 13, "--canary-slots=": 13, "--admission=": 13,
     "--replicas=": 13, "--priority-classes=": 13, "--spill-dir=": 13,
@@ -324,6 +327,32 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                         "epoch only); resume replays the loader to the "
                         "exact batch")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--sentinel", choices=["off", "skip", "rollback", "halt"],
+                   default="off",
+                   help="anomaly sentinel: detect non-finite loss/grads "
+                        "and grad-norm/loss spikes in the train step and "
+                        "contain the update before it reaches the "
+                        "parameters: 'skip' drops the bad batch and "
+                        "continues, 'rollback' restores the last "
+                        "checkpoint with the bad step skipped (needs "
+                        "--elastic), 'halt' stops the run with clean state")
+    p.add_argument("--sentinel-window", type=int, default=32, metavar="N",
+                   help="sentinel horizon in steps for the running "
+                        "grad-norm/loss means spike detection compares "
+                        "against")
+    p.add_argument("--sentinel-factor", type=float, default=10.0,
+                   metavar="X",
+                   help="sentinel spike threshold: a step whose grad norm "
+                        "or loss exceeds X times its running mean is "
+                        "anomalous")
+    p.add_argument("--elastic", action="store_true",
+                   help="restart from the last checkpoint on worker failure "
+                        "or runtime error (requires --checkpoint-dir)")
+    p.add_argument("--heartbeat-dir", type=str, default=None,
+                   help="shared directory for liveness heartbeats; with "
+                        "--elastic, dead peers abort the step promptly "
+                        "instead of hanging the collective")
+    p.add_argument("--heartbeat-timeout", type=float, default=30.0)
     p.add_argument("--generate", dest="generate_tokens", type=int,
                    default=0, metavar="N",
                    help="gpt: after training, print N-token greedy "
@@ -397,6 +426,17 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit("--remat-policy requires --remat (a policy "
                          "without rematerialisation would be a silent "
                          "no-op)")
+    # the JAX CLI's resilience checks (utils/config.py:943-951 there),
+    # after its --remat-policy check
+    if args.sentinel == "rollback" and not args.elastic:
+        raise SystemExit("--sentinel rollback requires --elastic (rollback "
+                         "restores the last checkpoint and replays with "
+                         "the bad step skipped — that machinery IS the "
+                         "elastic restart loop)")
+    if args.sentinel != "off" and (args.sentinel_window < 1
+                                   or args.sentinel_factor <= 1.0):
+        raise SystemExit("--sentinel-window must be >= 1 and "
+                         "--sentinel-factor > 1")
     # the JAX CLI's serving checks (utils/config.py:1012-1020, 1029-1033)
     if args.max_slots <= 0:
         raise SystemExit(f"--max-slots {args.max_slots}: must be >= 1 "
@@ -502,7 +542,11 @@ def parse_args(argv: Sequence[str] | None = None,
         prefill_chunk=args.prefill_chunk, draft=args.draft,
         spec_k=args.spec_k, slo_ttft_ms=args.slo_ttft_ms,
         slo_e2e_ms=args.slo_e2e_ms, kv_dtype=args.kv_dtype,
-        weight_dtype=args.weight_dtype)
+        weight_dtype=args.weight_dtype, sentinel=args.sentinel,
+        sentinel_window=args.sentinel_window,
+        sentinel_factor=args.sentinel_factor, elastic=args.elastic,
+        heartbeat_dir=args.heartbeat_dir,
+        heartbeat_timeout=args.heartbeat_timeout)
 
 
 def parse_mesh_arg(text: str | None,

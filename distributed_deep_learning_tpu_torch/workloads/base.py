@@ -14,8 +14,16 @@ model          the workload's layer list split into stages
 pipeline       the same, in ``-p``-sized chunks; for ``transformer``,
                ``bert`` and ``gpt`` the pipelined LM instead
                (:func:`_run_spmd_pipelined`: a stacked trunk under the
-               GPipe, 1F1B or interleaved schedule)
+               GPipe, 1F1B or interleaved schedule; one process walks
+               every stage, or a launch of ``dp·S`` ranks runs a data x
+               stage grid, one rank a stage, activations and their
+               gradients sent at the stage boundaries)
 =============  ==========================================================
+
+``--elastic`` restarts a ``-m sequential|data|pipeline`` run from its last
+verified checkpoint on a failure (:func:`_fit_elastic`), with heartbeats
+under ``--heartbeat-dir``; ``--sentinel`` puts the anomaly sentinel into
+the ``-m sequential|data`` step (:mod:`..train.sentinel`).
 
 ``-m data`` runs one process per rank (``--spawn``, or a launcher's
 environment; :mod:`..runtime.bootstrap`), the model wrapped in
@@ -68,7 +76,7 @@ from distributed_deep_learning_tpu_torch.parallel.partition import \
 from distributed_deep_learning_tpu_torch.parallel.staging import StagedModel
 from distributed_deep_learning_tpu_torch.runtime import bootstrap
 from distributed_deep_learning_tpu_torch.runtime.mesh import (
-    MeshLayout, build_mesh, mesh_for_mode)
+    MeshLayout, PipelineGrid, build_mesh, mesh_for_mode)
 from distributed_deep_learning_tpu_torch.train import schedules
 from distributed_deep_learning_tpu_torch.train.elastic import resume_point
 from distributed_deep_learning_tpu_torch.train.loop import EpochResult, fit
@@ -78,9 +86,9 @@ from distributed_deep_learning_tpu_torch.train.objectives import \
     prediction_metrics
 from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.parallel.shards import (
-    is_split, resharded)
+    is_split, local, resharded)
 from distributed_deep_learning_tpu_torch.utils.checkpoint import (
-    Checkpointer, whole_state_dict)
+    Checkpointer, load_payload, state_payload, whole_state_dict)
 from distributed_deep_learning_tpu_torch.utils.config import (
     REMAT_POLICIES, ROADMAP_ITEMS, Config, Mode)
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
@@ -204,7 +212,8 @@ def resolve_lr(config: Config, epoch_steps: int, base_lr: float):
 
 
 def _maybe_checkpointer(config: Config, rank: int, shared: bool,
-                        topology: dict | None = None):
+                        topology: dict | None = None,
+                        replicated_generator: bool = False):
     """``(checkpointer, ckpt_step, start_epoch, resume_batch,
     resume_totals)`` from ``--checkpoint-dir``/``--resume``; a directory
     that holds checkpoints without ``--resume`` is refused (this run's
@@ -212,15 +221,18 @@ def _maybe_checkpointer(config: Config, rank: int, shared: bool,
     the ranks train one model and save it together; otherwise (quirk Q1)
     each rank keeps its own replica, rank r > 0 under ``rank-<r>/``.
     ``topology``: the run's mesh and ``--zero``, recorded in and checked
-    against each checkpoint's manifest."""
+    against each checkpoint's manifest.  ``--elastic`` is exempt from the
+    dirty-directory refusal: resuming on a restart is its contract (it
+    logs what it restored)."""
     if not config.checkpoint_dir:
         return None, None, 1, 0, None
     directory = config.checkpoint_dir if shared or rank == 0 \
         else os.path.join(config.checkpoint_dir, f"rank-{rank}")
-    ckpt = Checkpointer(directory, shared=shared, topology=topology)
+    ckpt = Checkpointer(directory, shared=shared, topology=topology,
+                        replicated_generator=replicated_generator)
     if not config.resume:
         last = ckpt.latest_step()
-        if last is not None:
+        if not config.elastic and last is not None:
             raise ValueError(
                 f"--checkpoint-dir {config.checkpoint_dir} already holds "
                 f"checkpoints (latest step {last}): pass --resume to "
@@ -338,19 +350,31 @@ def mesh_devices(shape: dict[str, int], devices):
     return devices[:n] if n <= len(devices) else devices
 
 
-def _mesh_refusals(config: Config) -> None:
+def _mesh_refusals(config: Config, spmd_pipeline: bool = False) -> None:
     """What the JAX runner drops silently about ``--mesh``/``--zero``,
     refused: they take ``-m data`` with gradient sync, and no stage axis
-    there (its ``-m pipeline`` over data x stage is not ported)."""
+    there.  ``spmd_pipeline``: the run is ``-m pipeline`` of a pipelined
+    LM; under the staged MPMD path ``--zero`` alone is left to
+    :func:`_mpmd_refusals`, which raises JAX's own message."""
     if not (config.mesh_shape or config.zero != "none"):
         return
     flags = " ".join(f for f, on in (("--mesh", config.mesh_shape),
                                      ("--zero", config.zero != "none"))
                      if on)
     if config.mode in (Mode.MODEL, Mode.PIPELINE):
-        raise NotImplementedError(
-            f"{flags} under -m {config.mode.value} (a data x stage mesh) is "
-            f"not ported yet: {ROADMAP_ITEMS[11]}")
+        if spmd_pipeline:
+            raise ValueError(
+                f"{flags} under -m pipeline: the SPMD pipeline lays its "
+                "ranks out as its own data x stage grid (--nstages and the "
+                "rank count) and shards only the trunk's stage slices; the "
+                f"JAX runner ignores {flags} there (use -m data to shard "
+                "the state)")
+        if config.mesh_shape:
+            raise ValueError(
+                f"--mesh under -m {config.mode.value}: the staged MPMD path "
+                "places stage i on device i mod n and shards nothing; the "
+                "JAX runner ignores --mesh there")
+        return
     if config.mode is Mode.SEQUENTIAL:
         raise ValueError(f"{flags} shards a -m data run; -m sequential "
                          "runs one device (the JAX runner ignores it)")
@@ -361,6 +385,104 @@ def _mesh_refusals(config: Config) -> None:
         raise ValueError("--mesh stage= under -m data: the data-parallel "
                          "step has no stages (the JAX runner leaves the "
                          "axis idle); use -m pipeline --nstages")
+
+
+def _sentinel_config(config: Config):
+    """``--sentinel`` -> a :class:`..train.sentinel.SentinelConfig` (or
+    None), refused with the flags whose steps have no sentinel (JAX's
+    message)."""
+    if config.sentinel == "off":
+        return None
+    from distributed_deep_learning_tpu_torch.train.sentinel import \
+        SentinelConfig
+
+    unsupported = [(config.grad_accum > 1, "--grad-accum"),
+                   (config.grad_compress != "none", "--grad-compress"),
+                   (config.comm != "none", "--comm")]
+    bad = [flag for cond, flag in unsupported if cond]
+    if bad:
+        raise ValueError(f"--sentinel does not compose with "
+                         f"{', '.join(bad)} (those flags build their own "
+                         "train step without the sentinel's in-step "
+                         "containment)")
+    return SentinelConfig(policy=config.sentinel,
+                          window=config.sentinel_window,
+                          spike_factor=config.sentinel_factor,
+                          loss_spike_factor=config.sentinel_factor)
+
+
+def _reset_fn(state: TrainState) -> Callable[[], TrainState]:
+    """``--elastic``'s ``make_state``: a function that puts ``state``'s
+    present (initial) values back into it, since the port's state is
+    updated in place (JAX builds a fresh one): this rank's parameters and
+    buffers, ``--comm``'s master shards, the generator, a fresh sentinel,
+    a zero residual and an empty optimizer state (torch's optimizers make
+    theirs at the first update).  The values wait in host memory (a
+    restore is rare and off the step's path); a restore then overwrites
+    them."""
+    live = [*state.model.state_dict().values(),
+            *getattr(state.comm, "masters", {}).values()]
+    kept = [(t, local(t).detach().to("cpu", copy=True)) for t in live]
+    gen = None if state.generator is None else state.generator.get_state()
+    fresh_sentinel = state.sentinel is not None
+
+    def make_state() -> TrainState:
+        with torch.no_grad():
+            for t, host in kept:
+                local(t).copy_(host)
+            for r in (state.comm_residual or {}).values():
+                r.zero_()
+        getattr(state.optimizer, "optim", state.optimizer).state.clear()
+        state.step, state.fence = 0, None
+        if gen is not None:
+            state.generator.set_state(gen)
+        if fresh_sentinel:
+            from distributed_deep_learning_tpu_torch.train.sentinel import \
+                attach_sentinel
+
+            attach_sentinel(state)
+        return state
+
+    return make_state
+
+
+def _fit_elastic(config: Config, logger, make_state, train_step, eval_step,
+                 loaders, ckpt, sentinel=None):
+    """``--elastic``: checkpointed restart on a failure
+    (:func:`..train.elastic.fit_with_recovery`), with heartbeats and a
+    failure monitor under ``--heartbeat-dir``, stopped in ``finally``."""
+    from distributed_deep_learning_tpu_torch.train.elastic import \
+        fit_with_recovery
+
+    if ckpt is None:
+        raise ValueError("--elastic requires --checkpoint-dir (recovery "
+                         "restores from the epoch checkpoints)")
+    hb = monitor = None
+    if config.heartbeat_dir:
+        import torch.distributed as dist
+
+        from distributed_deep_learning_tpu_torch.utils.failures import (
+            FailureMonitor, Heartbeat)
+
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        hb = Heartbeat(config.heartbeat_dir, rank).start()
+        monitor = FailureMonitor(
+            config.heartbeat_dir, world,
+            timeout=config.heartbeat_timeout, self_rank=rank).start()
+    try:
+        return fit_with_recovery(make_state, train_step, eval_step,
+                                 loaders, epochs=config.epochs,
+                                 checkpointer=ckpt, logger=logger,
+                                 monitor=monitor,
+                                 checkpoint_every=config.checkpoint_every,
+                                 sentinel=sentinel)
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        if hb is not None:
+            hb.stop()
+        ckpt.close()
 
 
 def run_workload(spec: WorkloadSpec, config: Config, *,
@@ -418,16 +540,19 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         # f32 means f32: cuDNN's convolutions and LSTM take TF32 unless told
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    _mesh_refusals(config)
+    spmd = config.mode is Mode.PIPELINE and spec.build_pipelined is not None
+    _mesh_refusals(config, spmd_pipeline=spmd)
     if config.mode in (Mode.MODEL, Mode.PIPELINE):
-        world = bootstrap.env_topology()[1]
-        if config.world_size > 1 or world > 1:
-            raise NotImplementedError(
-                f"-m {config.mode.value} runs its stages from one process "
-                f"(no data axis); a multi-rank launch needs the mesh: "
-                f"{ROADMAP_ITEMS[11]}")
-        if config.mode is Mode.PIPELINE and spec.build_pipelined is not None:
+        if spmd:
             return _run_spmd_pipelined(spec, config, init_state_dict)
+        if config.world_size > 1 or bootstrap.env_topology()[1] > 1:
+            raise ValueError(
+                f"-m {config.mode.value} of {spec.name!r} is the staged MPMD "
+                "path: one process places stage i on device i mod n, with "
+                "no data axis (the JAX runner leaves the other processes' "
+                "devices out of it); launch one process, or use -m "
+                "pipeline with transformer/bert/gpt for a data x stage "
+                "grid of ranks")
         return _run_staged(spec, config, init_state_dict)
     if config.mode is Mode.SEQUENTIAL:
         return _train(spec, config, bootstrap.DistEnv(
@@ -508,9 +633,11 @@ def _shard_fn(spec, config, sharding, layout):
 
 def train_setup(spec, config, env, init_state_dict, logger):
     """``(state, train_step, eval_step, loaders, dataset, checkpointer
-    parts)`` of a sequential or ``-m data`` run (see :func:`_train`)."""
+    parts, sentinel config)`` of a sequential or ``-m data`` run (see
+    :func:`_train`)."""
     device = env.device
     dataset, splits = _dataset_splits(spec, config)
+    sentinel = _sentinel_config(config)
     data_parallel = config.mode is Mode.DATA
     if data_parallel and not config.sync_in_local_data_mode:
         # reference quirk Q1: the ranks train independent replicas, each
@@ -545,6 +672,11 @@ def train_setup(spec, config, env, init_state_dict, logger):
         dropout_seed=config.seed + 1 + stream if config.dropout > 0
         else None, shard=None if explicit
         else _shard_fn(spec, config, sharding, layout))
+    if sentinel is not None:
+        from distributed_deep_learning_tpu_torch.train.sentinel import \
+            attach_sentinel
+
+        attach_sentinel(state)
     if sharding == "zero1":
         from distributed_deep_learning_tpu_torch.parallel.zero import (
             zero1_optimizer, zero_axis)
@@ -569,7 +701,7 @@ def train_setup(spec, config, env, init_state_dict, logger):
         global_routing(state.model, layout.batch_rows)
     if explicit:
         return (*_explicit_fsdp(config, state, layout, tx, loss_fn), loaders,
-                dataset, ckpt_parts)
+                dataset, ckpt_parts, sentinel)
     if data_parallel and (layout.mesh is None
                           or (synced and sharding != "fsdp")):
         ddp = DistributedDataParallel(
@@ -589,8 +721,10 @@ def train_setup(spec, config, env, init_state_dict, logger):
     train_step, eval_step = make_step_fns(
         loss_fn, ddp=ddp, remat=config.remat,
         remat_policy=config.remat_policy, accum_steps=config.grad_accum,
-        global_batch=synced, group=layout.batch_group, local_mean=local_mean)
-    return state, train_step, eval_step, loaders, dataset, ckpt_parts
+        global_batch=synced, group=layout.batch_group, local_mean=local_mean,
+        sentinel=sentinel)
+    return (state, train_step, eval_step, loaders, dataset, ckpt_parts,
+            sentinel)
 
 
 def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn):
@@ -615,19 +749,24 @@ def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn):
 
 def _train(spec, config, env, init_state_dict):
     logger = PhaseLogger(verbose=bootstrap.is_coordinator())
-    state, train_step, eval_step, loaders, dataset, ckpt_parts = \
+    state, train_step, eval_step, loaders, dataset, ckpt_parts, sentinel = \
         train_setup(spec, config, env, init_state_dict, logger)
     ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = ckpt_parts
-    if ckpt is not None and ckpt_step is not None:
-        state, start_epoch, resume_batch, resume_totals = _restore_resume(
-            ckpt, state, ckpt_step, start_epoch, resume_batch, resume_totals,
-            logger)
-    state, history = fit(state, train_step, eval_step, *loaders,
-                         epochs=config.epochs, logger=logger,
-                         checkpointer=ckpt, start_epoch=start_epoch,
-                         checkpoint_every=config.checkpoint_every,
-                         resume_batch=resume_batch,
-                         resume_totals=resume_totals)
+    if config.elastic:
+        state, history = _fit_elastic(config, logger, _reset_fn(state),
+                                      train_step, eval_step, loaders, ckpt,
+                                      sentinel=sentinel)
+    else:
+        if ckpt is not None and ckpt_step is not None:
+            state, start_epoch, resume_batch, resume_totals = \
+                _restore_resume(ckpt, state, ckpt_step, start_epoch,
+                                resume_batch, resume_totals, logger)
+        state, history = fit(state, train_step, eval_step, *loaders,
+                             epochs=config.epochs, logger=logger,
+                             checkpointer=ckpt, start_epoch=start_epoch,
+                             checkpoint_every=config.checkpoint_every,
+                             resume_batch=resume_batch,
+                             resume_totals=resume_totals, sentinel=sentinel)
     # every rank runs the hook, as in the JAX package; rank 0 logs
     if (config.generate_tokens or config.serve) and \
             spec.post_train is not None:
@@ -755,8 +894,12 @@ def _mpmd_refusals(config: Config) -> list[str]:
         (config.resume, "--resume"),
         (config.grad_accum > 1, "--grad-accum"),
         (config.remat, "--remat"),
+        (config.zero != "none", "--zero"),
         (config.dropout > 0, "--dropout"),
-        (config.grad_compress != "none", "--grad-compress")) if cond]
+        (config.elastic, "--elastic"),
+        (config.heartbeat_dir, "--heartbeat-dir"),
+        (config.grad_compress != "none", "--grad-compress"),
+        (config.sentinel != "off", "--sentinel")) if cond]
 
 
 def staged_setup(spec: WorkloadSpec, config: Config, logger,
@@ -855,9 +998,99 @@ def _make_1f1b_train_step(model, loss_fn, microbatch: int | None,
     return train_step
 
 
+def _make_grid_steps(model, loss_fn, microbatch: int, grid, schedule: str,
+                     remat: str | None = None):
+    """``(train_step, eval_step)`` of a ``PipelinedLM`` as rank ``(d, s)``
+    of ``grid`` (its trunk holding stage ``s``'s slice), on this data
+    coordinate's rows, ``microbatch`` of them a microbatch.  The
+    embedding runs on every rank (stage 0 backpropagates it with the
+    pipeline's ``dx``), the head on the last stage; the embedding's and
+    the head's gradients are summed over every rank (over the stages,
+    then the data axis, as JAX's ``psum``s take them), so every replica
+    takes the same update.  1F1B and interleaved log JAX's loss, the mean
+    of the microbatch means over the data shards; GPipe's is the global
+    batch's mean over its counted sites, as JAX's step over the GPipe
+    forward takes it.  Evaluation runs GPipe's forward without gradients
+    and the global batch's loss and counts."""
+    from torch.func import functional_call
+
+    from distributed_deep_learning_tpu_torch.parallel import spmd_pipeline
+
+    gpipe = schedule == "gpipe"
+    pipeline = {"1f1b": spmd_pipeline.spmd_pipeline_1f1b,
+                "interleaved": spmd_pipeline.spmd_pipeline_interleaved,
+                "gpipe": spmd_pipeline.spmd_pipeline_gpipe}[schedule]
+
+    def head_loss(hp, h_mb, y_mb):
+        logits = functional_call(model.head, hp, (h_mb,))
+        loss = loss_fn(logits, y_mb)
+        metrics = prediction_metrics(logits.detach(), y_mb, loss.detach())
+        if gpipe:
+            # this coordinate's share of the global batch's mean
+            sites = loss_fn.sites(y_mb).double()
+            total = sites.clone()
+            if grid.data_group is not None:
+                torch.distributed.all_reduce(total, group=grid.data_group)
+            loss = loss * (sites / total.clamp_min(1.0)).float()
+        return loss, metrics
+
+    def train_step(state: TrainState, x, y):
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        seed = model.dropout_seed(state.generator)
+        with torch.set_grad_enabled(grid.first):
+            h = model.embed(x)
+        kw = {"remat": remat} if gpipe else {}
+        loss, tg, hg, dh, aux = pipeline(
+            model.trunk.stage_fn, head_loss, model.trunk.stacked(),
+            dict(model.head.named_parameters()), h.detach(), y,
+            microbatch_size=microbatch, has_aux=True, seed=seed, grid=grid,
+            **kw)
+        if grid.first:
+            h.backward(dh.to(h.dtype))
+        embed = dict(model.embed.named_parameters())
+        eg = spmd_pipeline._all_reduced(
+            {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in embed.items()})
+        for k, p in embed.items():
+            p.grad = eg[k].to(p.dtype)
+        for k, p in model.trunk.stacked().items():
+            p.grad = tg[k].to(p.dtype)
+        for k, p in model.head.named_parameters():
+            p.grad = hg[k].to(p.dtype)
+        state.apply_gradients()
+        return state, {"loss": loss, "correct": aux["correct"],
+                       "count": aux["count"]}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, x, y):
+        model.eval()
+        out = spmd_pipeline.spmd_pipeline_forward(
+            model.trunk.stage_fn, model.trunk.stacked(), model.embed(x),
+            grid=grid, microbatch_size=microbatch,
+            n_chunks=model.trunk.n_chunks)
+        stats = torch.zeros(4, dtype=torch.float64, device=x.device)
+        if grid.last:
+            pred = model.head(out)
+            loss = loss_fn(pred, y)
+            m = prediction_metrics(pred, y, loss)
+            sites = loss_fn.sites(y)
+            stats = torch.stack([loss.double() * sites, sites.double(),
+                                 m["correct"].double(),
+                                 m["count"].double()])
+        torch.distributed.all_reduce(stats)
+        total = stats[1].clamp_min(1.0)
+        return {"loss": (stats[0] / total).float(),
+                "correct": stats[2].to(torch.int32),
+                "count": stats[3].to(torch.int32)}
+
+    return train_step, eval_step
+
+
 def pipeline_stages(config: Config, n_devices: int) -> int:
     """``--nstages``, or JAX's default: the largest stage count dividing
-    both the trunk's depth and the device count."""
+    both the trunk's depth and the device count (on a grid, the rank
+    count)."""
     if config.num_stages:
         return config.num_stages
     return max((s for s in range(1, n_devices + 1)
@@ -865,24 +1098,49 @@ def pipeline_stages(config: Config, n_devices: int) -> int:
                default=1)
 
 
-def snap_microbatch(batch: int, microbatch: int | None) -> int:
-    """JAX's snapping at ``dp = 1``: ``-p`` when it divides the batch,
-    else the nearest divisor (the smaller on a tie)."""
-    mb = microbatch or 1
-    if batch % mb == 0:
+def snap_microbatch(batch: int, microbatch: int | None, dp: int = 1) -> int:
+    """JAX's snapping: ``-p`` (default ``dp``) when ``dp`` divides it and
+    it divides the batch, else the nearest such size (the smaller on a
+    tie)."""
+    mb = microbatch or dp
+    if mb % dp == 0 and batch % mb == 0:
         return mb
-    valid = [d for d in range(1, batch + 1) if batch % d == 0]
+    valid = [d for d in range(dp, batch + 1, dp) if batch % d == 0]
     return min(valid, key=lambda d: (abs(d - mb), d))
 
 
+def _pipeline_grid(config: Config, n_stages: int):
+    """``(grid, created)``: the data x stage grid of a launch of more than
+    one rank (None at world 1), with JAX's stage-count refusals over the
+    rank count (its device count)."""
+    env, created = _data_parallel_env(config)
+    if env.world == 1:
+        return None, created
+    try:
+        if n_stages > env.world:
+            raise ValueError(f"--nstages {n_stages} exceeds {env.world} "
+                             "devices")
+        if env.world % n_stages:
+            raise ValueError(f"--nstages {n_stages} must divide the device "
+                             f"count {env.world} (the rest becomes the "
+                             "data axis)")
+        return PipelineGrid.build(env.world // n_stages, n_stages), created
+    except Exception:
+        if created:
+            bootstrap.shutdown()
+        raise
+
+
 def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
-                     init_state_dict=None):
+                     init_state_dict=None, grid=None):
     """``(config, state, train_step, eval_step, dataset, loaders)`` of a
-    ``-m pipeline`` run of a pipelined LM: one process walks the
-    schedule's ticks, every stage on the one device (``dp = 1``), the
-    trunk's parameters stacked in JAX's layout (one optimizer over the
-    whole model, so ``--clip-norm`` is global); ``config`` carries the
-    snapped ``-p``."""
+    ``-m pipeline`` run of a pipelined LM, the trunk's parameters stacked
+    in JAX's layout (one optimizer over the model, so ``--clip-norm`` is
+    global).  Without a ``grid`` one process walks the schedule's ticks,
+    every stage on the one device (``dp = 1``); on a grid
+    (:class:`..runtime.mesh.PipelineGrid`) a rank keeps its stage's slice
+    of the trunk and trains on its data coordinate's rows.  ``config``
+    carries the snapped ``-p`` (the global microbatch)."""
     if config.pipeline_schedule == "interleaved" and \
             config.virtual_stages < 2:
         raise ValueError(f"--pipeline-schedule interleaved needs "
@@ -897,22 +1155,31 @@ def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
     if config.remat_policy != "nothing" and hand_scheduled:
         raise ValueError("--remat-policy has no effect under "
                          "--pipeline-schedule 1f1b/interleaved")
+    if config.sentinel != "off":
+        raise ValueError("--sentinel supports -m sequential/data (the "
+                         "fused train step); the SPMD pipeline's staged "
+                         "step has no sentinel wiring yet")
     if config.grad_accum > 1:
         raise ValueError("--grad-accum: -m pipeline takes no gradient "
                          "accumulation (its microbatches are the "
                          "accumulation; the JAX package's pipeline ignores "
                          "the flag); use -p to size them")
     device = resolve_device(config.device)
-    n_stages = pipeline_stages(config, len(_devices(config)))
-    logger.info(f"SPMD pipeline: {n_stages} stages x 1-way data parallel "
-                f"({config.pipeline_schedule}, every stage on {device})")
+    dp = 1 if grid is None else grid.dp
+    n_stages = grid.stages if grid is not None else \
+        pipeline_stages(config, len(_devices(config)))
+    where = f"every stage on {device}" if grid is None else \
+        "one rank a stage"
+    logger.info(f"SPMD pipeline: {n_stages} stages x {dp}-way data parallel "
+                f"({config.pipeline_schedule}, {where})")
     if hand_scheduled and config.remat:
         logger.info("--remat: the 1f1b/interleaved backward recomputes "
                     "each stage already")
-    snapped = snap_microbatch(config.batch_size, config.microbatch)
-    if snapped != (config.microbatch or 1):
-        logger.info(f"microbatch {config.microbatch} incompatible with "
-                    f"batch {config.batch_size} / dp 1; using {snapped}")
+    mb = config.microbatch or dp
+    snapped = snap_microbatch(config.batch_size, config.microbatch, dp)
+    if snapped != mb:
+        logger.info(f"microbatch {mb} incompatible with batch "
+                    f"{config.batch_size} / dp {dp}; using {snapped}")
     config = config.replace(microbatch=snapped)
     dataset, splits = _dataset_splits(spec, config)
     tx = _optimizer(spec, config, splits)
@@ -921,13 +1188,25 @@ def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     model.to(device)
+    if grid is not None:
+        model.trunk.keep_stage(grid)
     # a CPU generator: each step draws its dropout seed without a sync
+    # (on a grid every rank draws the same)
     gen = torch.Generator().manual_seed(config.seed + 1) \
         if config.dropout > 0 else None
     state = TrainState(model=model, tx=tx, generator=gen,
                        optimizer=tx.build(model.named_parameters(),
                                           layout=model.flax_layout))
     loss_fn = spec.build_loss(config)
+    if grid is not None:
+        train_step, eval_step = _make_grid_steps(
+            model, loss_fn, snapped // dp, grid, config.pipeline_schedule,
+            remat=config.remat_policy if config.remat and not hand_scheduled
+            else None)
+        loaders = make_loaders(dataset, splits, config.batch_size, device,
+                               seed=config.seed, rank=grid.data, world=dp,
+                               accum=config.batch_size // snapped)
+        return config, state, train_step, eval_step, dataset, loaders
     train_step, eval_step = make_step_fns(
         loss_fn, remat=config.remat and not hand_scheduled,
         remat_policy=config.remat_policy)
@@ -943,22 +1222,41 @@ def pipelined_setup(spec: WorkloadSpec, config: Config, logger,
 def _run_spmd_pipelined(spec: WorkloadSpec, config: Config,
                         init_state_dict):
     """``-m pipeline`` for the workloads with a pipelined LM
-    (:func:`pipelined_setup`), with ``--checkpoint-dir``/``--resume``."""
-    logger = PhaseLogger(verbose=True)
+    (:func:`pipelined_setup`): one process, or a data x stage grid when
+    more than one rank is launched; with ``--checkpoint-dir``/
+    ``--resume`` (a grid's checkpoints hold whole tensors, so either
+    restores the other's) and ``--elastic``."""
+    launched = max(config.world_size, bootstrap.env_topology()[1])
+    grid, created = (None, False) if launched == 1 else \
+        _pipeline_grid(config, pipeline_stages(config, launched))
+    try:
+        return _pipelined_fit(spec, config, init_state_dict, grid)
+    finally:
+        if created:
+            bootstrap.shutdown()
+
+
+def _pipelined_fit(spec, config, init_state_dict, grid):
+    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
     config, state, train_step, eval_step, dataset, loaders = \
-        pipelined_setup(spec, config, logger, init_state_dict)
+        pipelined_setup(spec, config, logger, init_state_dict, grid)
     ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
-        _maybe_checkpointer(config, 0, shared=False)
-    if ckpt is not None and ckpt_step is not None:
-        state, start_epoch, resume_batch, resume_totals = _restore_resume(
-            ckpt, state, ckpt_step, start_epoch, resume_batch, resume_totals,
-            logger)
-    state, history = fit(state, train_step, eval_step, *loaders,
-                         epochs=config.epochs, logger=logger,
-                         checkpointer=ckpt, start_epoch=start_epoch,
-                         checkpoint_every=config.checkpoint_every,
-                         resume_batch=resume_batch,
-                         resume_totals=resume_totals)
+        _maybe_checkpointer(config, 0, shared=grid is not None,
+                            replicated_generator=True)
+    if config.elastic:
+        state, history = _fit_elastic(config, logger, _reset_fn(state),
+                                      train_step, eval_step, loaders, ckpt)
+    else:
+        if ckpt is not None and ckpt_step is not None:
+            state, start_epoch, resume_batch, resume_totals = \
+                _restore_resume(ckpt, state, ckpt_step, start_epoch,
+                                resume_batch, resume_totals, logger)
+        state, history = fit(state, train_step, eval_step, *loaders,
+                             epochs=config.epochs, logger=logger,
+                             checkpointer=ckpt, start_epoch=start_epoch,
+                             checkpoint_every=config.checkpoint_every,
+                             resume_batch=resume_batch,
+                             resume_totals=resume_totals)
     if (config.generate_tokens or config.serve) and \
             spec.post_train is not None:
         spec.post_train(config, state, logger, dataset)

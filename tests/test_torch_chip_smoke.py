@@ -13,6 +13,7 @@ import ast
 import inspect
 import sys
 from concurrent.futures import Future
+from fractions import Fraction
 from pathlib import Path
 
 import pytest
@@ -189,7 +190,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               23: "phase_workload_checkpoint", 24: "phase_resnet",
               25: "phase_zoo_lm", 26: "phase_zoo_lm", 27: "phase_staged",
               28: "phase_pipeline", 29: "phase_pipeline_zoo",
-              30: "phase_moe", 31: "phase_sharded", 32: "phase_comm"}
+              30: "phase_moe", 31: "phase_sharded", 32: "phase_comm",
+              33: "phase_grid", 34: "phase_resilience"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -226,11 +228,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_staged", {}), ("phase_pipeline", ({}, {})),
             ("phase_pipeline_zoo", {}), ("phase_moe", {}),
             ("phase_sharded", {}),
-            ("phase_comm", {"comm": {}, "seq": {}})):
+            ("phase_comm", {"comm": {}, "seq": {}}),
+            ("phase_grid", {}), ("phase_resilience", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 33)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 35)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -542,3 +545,85 @@ def test_dense_walk_holds_the_flash_trunk_and_restores_it():
     dense = chip_smoke.dense_walk(model, tokens, targets)
     assert abs(dense - flash) <= chip_smoke.FIRST_LOSS_TOL * abs(flash)
     assert {b.attention for b in model.trunk.stage.blocks} == {"flash"}
+
+
+@pytest.mark.parametrize("schedule,chunks", [("gpipe", 1), ("1f1b", 1),
+                                             ("interleaved", 2),
+                                             ("interleaved", 3)])
+def test_grid_launches_sum_to_one_process(schedule, chunks):
+    """Phase 33's per-rank launch counts: a data coordinate's stages sum
+    to what one process walking every stage launches (phase 28's
+    ``PIPE_FORWARDS`` rule for 1F1B and interleaved)."""
+    stages, layers, m = 2, 12, 4
+    ranks = [chip_smoke.grid_launches(schedule, s, stages, chunks, layers,
+                                      m) for s in range(stages)]
+    total = {k: sum(r[k] for r in ranks) for k in ranks[0]}
+    fwd = 1 if schedule == "gpipe" else 2 - Fraction(1, stages * chunks)
+    assert total == {"flash_forward": int(fwd * layers * m),
+                     "flash_backward_dq": layers * m,
+                     "flash_backward_dkv": layers * m}
+    assert ranks[0]["flash_backward_dq"] == ranks[1]["flash_backward_dq"]
+
+
+def test_one_shot_hook_fires_on_its_step_once():
+    """Phase 34's injected activations: the hook replaces one module's
+    output on the named step only, once, and is removed afterwards."""
+    import torch
+
+    lin = torch.nn.Linear(3, 3)
+    step = {"n": 0}
+    outs = []
+    with chip_smoke.one_shot_hook(lin, lambda: step["n"], 2,
+                                  lambda o: o * float("nan")) as fired:
+        for step["n"] in (1, 2, 2, 3):
+            outs.append(bool(torch.isnan(lin(torch.ones(3))).any()))
+    assert outs == [False, True, False, False] and fired == [2]
+    assert not lin._forward_hooks
+
+
+def test_full_run_kernels_line_carries_grid_and_resilience_launches(
+        monkeypatch, capsys):
+    """With every phase run (the card's work stubbed out), the kernels
+    line gives each flash kernel phase 33's launches by case and phase
+    34's, and the last line is the contract's; the usage lines name the
+    two phases' ``--phases`` call."""
+    import json
+
+    import torch
+
+    assert "--phases 1,7,33,34" in chip_smoke.__doc__
+    built = Future()
+    built.set_result(None)
+    flash = {"flash_forward": 1, "flash_backward_dq": 2,
+             "flash_backward_dkv": 3}
+    runs = {"case": {"launches": flash}}
+    values = {
+        "start_builds": {"flash_attention": built, "paged_decode": built},
+        "phase_kernel": {}, "phase_serve": ({"results": {}}, 0),
+        "phase_flash_kernels": {},
+        "phase_train_flash": (None, flash, None),
+        "phase_train_bf16": (None, flash, None),
+        "phase_data_parallel": (None, None),
+        "phase_post_train_serving": 0,
+        "phase_cli_spec_quant": {"launches": 0},
+        "phase_zoo_lm": runs, "phase_pipeline": ({}, runs),
+        "phase_pipeline_zoo": {}, "phase_moe": runs, "phase_sharded": runs,
+        "phase_comm": {"comm": runs, "seq": runs},
+        "phase_grid": {"1f1b f32 2 ranks": {"launches": flash}},
+        "phase_resilience": {"launches": flash},
+        "_write_tokens": ROOT}
+    for name in [n for n in dir(chip_smoke) if n.startswith("phase_")] + \
+            ["start_builds", "_write_tokens"]:
+        value = values.get(name)
+        monkeypatch.setattr(chip_smoke, name,
+                            lambda *a, _v=value, **k: _v)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert chip_smoke.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "card", "count": 1}}
+    kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
+    for name, n in flash.items():
+        assert kernels[name]["grid_launches"] == {"1f1b f32 2 ranks": n}
+        assert kernels[name]["resilience_launches"] == n

@@ -137,7 +137,8 @@ def test_refusals_match_jax(case, monkeypatch):
      "no space-to-depth form"),
     (["bert", "-m", "model", "--attention", "flash"], ValueError,
      "attends densely"),
-    (["mlp", "-m", "pipeline", "-r", "2"], NotImplementedError, "item 11"),
+    (["mlp", "-m", "pipeline", "-r", "2"], ValueError,
+     "-m pipeline of 'mlp' is the staged MPMD path"),
 ])
 def test_port_refusals(argv, error, match, monkeypatch):
     monkeypatch.setenv("DDL_DATA_LIMIT", "32")

@@ -241,20 +241,46 @@ def test_cli_defaults_match_jax():
 @pytest.mark.parametrize("argv,match", [
     (["--target-mesh", "data=2"], "item 14"), (["--canary-slots", "2"],
                                                 "item 13"),
-    (["--publish-weights", "p"], "item 13"), (["--heartbeat-timeout", "5"],
-                                              "item 12"),
-    (["--heartbeat-dir", "d"], "item 12"),
-    (["--elastic"], "item 12"), (["--sentinel", "skip"], "item 12"),
+    (["--publish-weights", "p"], "item 13"),
     (["--autotune"], "item 14"),
     (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
     (["--plan", "p.json"], "item 14"), (["--obs-file", "f"], "item 14"),
-    (["--reload-watch", "d"], "item 13"), (["--sentinel-window", "5"],
-                                           "item 12"),
+    (["--reload-watch", "d"], "item 13"),
     (["--disagg"], "item 13"), (["--replicas", "2"], "item 13"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tconfig.parse_args(argv, "gpt")
+
+
+#: the training-resilience flags (item 12, refused until it landed), and
+#: JAX's parse-time checks of them
+RESILIENCE_FLAGS = [
+    ["--heartbeat-timeout", "5"], ["--heartbeat-dir", "d"], ["--elastic"],
+    ["--sentinel", "skip"], ["--sentinel-window", "5"],
+    ["--sentinel", "rollback", "--elastic", "--sentinel-factor", "3"],
+]
+
+
+@pytest.mark.parametrize("argv", RESILIENCE_FLAGS)
+def test_resilience_flags_parse_as_jax(argv):
+    mine = tconfig.parse_args(argv, "gpt")
+    theirs = jconfig.parse_args(argv, "gpt")
+    for field in ("sentinel", "sentinel_window", "sentinel_factor",
+                  "elastic", "heartbeat_dir", "heartbeat_timeout"):
+        assert getattr(mine, field) == getattr(theirs, field), field
+
+
+@pytest.mark.parametrize("argv", [
+    ["--sentinel", "rollback"],
+    ["--sentinel", "skip", "--sentinel-factor", "1"],
+])
+def test_resilience_flags_raise_jax_parse_messages(argv):
+    with pytest.raises(SystemExit) as theirs:
+        jconfig.parse_args(argv, "gpt")
+    with pytest.raises(SystemExit) as mine:
+        tconfig.parse_args(argv, "gpt")
+    assert str(mine.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("argv", [
