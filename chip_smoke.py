@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,7,31  # sharded state
     python3 chip_smoke.py --phases 1,6,7,32  # compressed collectives, ring
     python3 chip_smoke.py --phases 1,7,33,34  # pipeline grid, resilience
+    python3 chip_smoke.py --phases 1,35  # serving resilience and the fleet
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -316,7 +317,33 @@ Phases, in order; any failure raises and exits non-zero:
     bit-identical to an uninterrupted run's, the launches the
     uninterrupted run's plus the replayed step's, the time from the
     failure to completion) and its latest save truncated (quarantined,
-    the older step restored).
+    the older step restored);
+35. serving resilience and the fleet on phase 4's model and the first 8
+    requests of its trace (run beside phase 4, before its model leaves
+    the card): the fault-free supervised run, whose ticks' logits give
+    the near-tie limit (twice the largest |logit difference| between the
+    chunk prefill and the decode tick at the same positions); each
+    ``SERVE_KIND`` under the supervisor, twice (detection ticks, restart
+    and replay cost; zero lost, committed tokens kept, a parted request
+    first parting at a near-tie, the two runs alike; ``slow_tick``
+    exact); hot reload through publish, watch, verify and canary (the
+    live weights promoted, zeroed weights rolled back, a NaN publication
+    quarantined; publish, load and in-place swap times, decode captures 1
+    and the canary's tick captured once); the admission ladder shedding
+    priority >= 1; priority preemption on a 2-slot engine with the host
+    and the device wire (exact against uncontended runs) and
+    ``migrate_drop`` (the digest trips, the ledger replays); a slot
+    move's bytes, digest and copy times; two replicas behind the router
+    under ``replica_crash``, an evacuation and one with ``evac_drop``
+    (blocks moved at rest, digest-verified; bytes, digest and copy
+    times), the autoscaler growing by one at the launch geometry and
+    draining back; then the CLI, twice a few training steps of phase 8's
+    ``gpt`` and ``--serve --paged --priority-classes ...
+    --serve-deadline-ms ... --admission ... --migrate device
+    --reload-watch ...`` (the ``serve(supervised)`` line), again with
+    ``--replicas 2 --evacuate-on degraded --autoscale ...`` (the
+    ``serve(fleet)`` line).  Every leg's decode launches equal its decode
+    ticks (the canary's included) x layers.
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -4766,12 +4793,598 @@ def phase_resilience(data_dir: Path) -> dict:
     return {"launches": launches}
 
 
+# --- phase 35: serving resilience and the fleet -----------------------------
+
+#: phase 35's cut of phase 4's trace: its first 8 requests (data depth cut
+#: so that some twenty serving runs fit the phase's time)
+RESILIENT_REQUESTS = 8
+#: the 2-slot priority-pressure trace's engine (the fleet drill's, at full
+#: width): two priority-2 requests, then a priority-0 and a priority-1
+PREEMPT_ENGINE = dict(max_slots=2, max_len=48, kv_block_size=16,
+                      prefill_chunk=16)
+#: the fleet drill's straggler (5 virtual seconds a tick past 1 s) and
+#: the evacuation it triggers
+EVAC_FLEET = dict(slow_tick_s=1.0, degrade_after=1, evacuate_on="degraded")
+
+
+#: the CLI legs: a few training steps, then the trace under the
+#: supervisor (a deadline, a reload watch on an empty directory,
+#: admission control, a priority mix with preemption over the device
+#: wire), and again through two replicas with evacuation and autoscaling
+SERVE_SUPERVISED_FLAGS = (
+    "--serve", "--paged", "--priority-classes", "0=0.25,1=0.5,2=0.25",
+    "--serve-deadline-ms", "600000", "--admission", "depth=16",
+    "--migrate", "device", "--max-slots", "4")
+SERVE_FLEET_FLAGS = SERVE_SUPERVISED_FLAGS + (
+    "--replicas", "2", "--evacuate-on", "degraded", "--autoscale",
+    "min=1,max=3,patience=2,cool=2")
+_SERVE_FLEET_LINE = re.compile(
+    r'"serve\(fleet\): (\d+) requests over (\d+) replicas, \d+ tokens, '
+    r'rounds=\d+, lost=(\d+), .*? launches=(\d+)')
+_SERVE_SUPERVISED_LINE = re.compile(
+    r'"serve\(supervised\): restarts=(\d+), lost=(\d+), deadline_misses='
+    r'\d+, ticks=\d+, reload swaps=(\d+) rollbacks=\d+ rejected=\d+, '
+    r'admission level=\d+ shed=\d+"')
+
+
+def _snapshot_supervisor(engine, **kw):
+    """A :class:`..serve.supervisor.ServeSupervisor` that keeps, in
+    ``before_fault``, each request's committed tokens after the last tick
+    that landed before its first fault."""
+    from distributed_deep_learning_tpu_torch.serve.supervisor import \
+        ServeSupervisor
+
+    class Snapshotting(ServeSupervisor):
+        before_fault: dict = {}
+
+        def _on_tick(self, report):
+            super()._on_tick(report)
+            if not self.faults:
+                self.before_fault = self.ledger.snapshot()
+
+    return Snapshotting(engine, **kw)
+
+
+@contextlib.contextmanager
+def _tick_calls():
+    """Count the calls of every decode tick whose body launches the paged
+    decode kernel (the canary's among them) while the block runs."""
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+    from distributed_deep_learning_tpu_torch.serve.graphs import DecodeTick
+
+    calls, real = {"n": 0, "canary": 0}, DecodeTick.__call__
+
+    def counted(self, engine):
+        if paged_flash_decode in self.counters:
+            calls["n"] += 1
+            calls["canary"] += self is getattr(engine, "_canary_tick", None)
+        return real(self, engine)
+
+    DecodeTick.__call__ = counted
+    try:
+        yield calls
+    finally:
+        DecodeTick.__call__ = real
+
+
+class _Margins:
+    """A tick observer (a supervisor's ``fleet_hook``) recording, for every
+    token a fault-free run commits, the top-2 logit margin of the tick that
+    chose it and (``keep_rows``) the logits row itself; token 0 comes from
+    the chunk prefill and is filled in by :func:`_chunk_logits`."""
+
+    def __init__(self, keep_rows=False):
+        self.margin, self.rows, self.seen = {}, {}, {}
+        self.keep_rows = keep_rows
+
+    def __call__(self, report, *_):
+        import torch
+
+        if report.kind != "decode":
+            for uid, _ in report.emitted:
+                self.seen[uid] = 1
+            return
+        logits = report.engine._last_logits
+        sel = logits[torch.as_tensor(report.slots, device=logits.device)]
+        top2 = torch.topk(sel, 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        for j, (uid, _) in enumerate(report.emitted):
+            k = self.seen.get(uid, 0)
+            self.margin.setdefault(uid, {})[k] = gaps[j]
+            if self.keep_rows:
+                self.rows.setdefault(uid, {})[k] = sel[j].clone()
+            self.seen[uid] = k + 1
+
+
+def _chunk_logits(eng, stream):
+    """``(len(stream), V)`` f32 logits at every position of ``stream``
+    through ``eng``'s chunk prefill (a scratch slot of the reset engine,
+    chunks of ``eng.chunk`` from position 0), the pad id masked as the
+    tick masks it."""
+    import numpy as np
+    import torch
+
+    from distributed_deep_learning_tpu_torch.serve import paged
+    from distributed_deep_learning_tpu_torch.serve.prefill import \
+        write_targets
+
+    eng.reset()
+    mgr, L = eng.manager, len(stream)
+    mgr.admit(0, paged.SharedPrefix([], None, 0, b""), L)
+    table = eng._tensor(mgr.tables[0], torch.long)
+    out = []
+    with torch.no_grad():
+        for s in range(0, L, eng.chunk):
+            n = min(eng.chunk, L - s)
+            toks = np.full(eng.chunk, eng.pad_fill, np.int64)
+            toks[:n] = stream[s:s + n]
+            wb, wo, _ = write_targets(s, eng.chunk, s, L, mgr.tables[0],
+                                      eng.block_size)
+            hidden = eng._prefill_chunk(
+                eng.model, eng.pools, eng._tensor(toks, torch.long)[None],
+                table, s, eng._tensor(wb, torch.long),
+                eng._tensor(wo, torch.long))
+            out.append(eng.model.logits_from(hidden[0, :n]))
+    mgr.release(0)
+    logits = torch.cat(out)
+    if eng.model.pad_id is not None:
+        logits[:, eng.model.pad_id] = -torch.inf
+    return logits
+
+
+def _first_margins(eng, trace, marg):
+    """Each request's token-0 margin: the chunk prefill's over its prompt
+    (which chooses token 0), into ``marg``."""
+    import numpy as np
+    import torch
+
+    for r in trace:
+        cl = _chunk_logits(eng, np.asarray(r.prompt).astype(np.int64))
+        top2 = torch.topk(cl[-1], 2).values
+        marg.margin.setdefault(r.uid, {})[0] = float(top2[0] - top2[1])
+
+
+def _delta_and_first_margins(eng, trace, results, marg):
+    """The largest |logit difference| between the chunk prefill and the
+    decode tick at the same positions, over the fault-free run's every
+    decoded token; and each request's token-0 margin (the chunk
+    prefill's, which chooses it)."""
+    import numpy as np
+    import torch
+
+    delta = 0.0
+    for r in trace:
+        toks = np.asarray(results[r.uid])
+        L = len(r.prompt)
+        cl = _chunk_logits(eng, np.concatenate(
+            [np.asarray(r.prompt), toks[:-1]]).astype(np.int64))
+        top2 = torch.topk(cl[L - 1], 2).values
+        marg.margin.setdefault(r.uid, {})[0] = float(top2[0] - top2[1])
+        for k, row in marg.rows.get(r.uid, {}).items():
+            d = (row - cl[L - 1 + k]).abs()
+            delta = max(delta, float(d[torch.isfinite(d)].max()))
+    return delta
+
+
+def _hold_replay(label, out, ref, marg, tol, *, exact=False, before=None,
+                 again=None):
+    """Zero requests lost and the determinism rule against the fault-free
+    ``ref``: ``exact`` (a move at rest) every token equal; otherwise every
+    request that parts from ``ref`` parts first at a near-tie (the
+    fault-free margin there below ``tol``), past every token committed
+    before the fault (``before``: uid -> count).  ``again``: the same run
+    repeated, which must serve the same tokens.  Returns (requests that
+    parted, the largest margin they parted at)."""
+    import numpy as np
+
+    st = out["stats"]
+    if st["requests_lost"] or out["errors"]:
+        raise RuntimeError(f"{label}: {st['requests_lost']} lost, errors "
+                           f"{out['errors']}")
+    parted, worst = 0, 0.0
+    for uid, want in ref["results"].items():
+        got, want = np.asarray(out["results"][uid]), np.asarray(want)
+        diff = np.flatnonzero(got != want) if len(got) == len(want) else \
+            np.arange(min(len(got), len(want)) + 1)
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        parted += 1
+        margin = marg.margin.get(uid, {}).get(j, float("inf"))
+        worst = max(worst, margin)
+        if exact or margin >= tol or j < (before or {}).get(uid, 0):
+            raise RuntimeError(
+                f"{label}: request {uid} parts from the fault-free run at "
+                f"token {j} (margin {margin:.4g}, near-tie limit {tol:.4g}, "
+                f"{(before or {}).get(uid, 0)} committed before the fault"
+                f"{', a move at rest must be exact' if exact else ''})")
+    if again is not None and any(
+            not np.array_equal(np.asarray(again["results"][u]),
+                               np.asarray(t))
+            for u, t in out["results"].items()):
+        raise RuntimeError(f"{label}: the same run twice served different "
+                           "tokens")
+    print(f"{label}: 0 lost, {parted} of {len(ref['results'])} requests "
+          f"part from the fault-free run"
+          + (f" (each first at a near-tie: largest margin {worst:.4g} < "
+             f"{tol:.4g})" if parted else " (bit-identical)")
+          + (", the same tokens run twice" if again is not None else ""))
+    return parted, worst
+
+
+def phase_serving_resilience(rec4):
+    """Phase 35: the supervisor, hot reload, admission control and the
+    fleet router on phase 4's model; returns each leg's decode launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+    from distributed_deep_learning_tpu_torch.serve import migrate as mig
+    from distributed_deep_learning_tpu_torch.serve import paged
+    from distributed_deep_learning_tpu_torch.serve import reload as rel
+    from distributed_deep_learning_tpu_torch.serve.admission import \
+        AdmissionController
+    from distributed_deep_learning_tpu_torch.serve.autoscaler import \
+        FleetAutoscaler
+    from distributed_deep_learning_tpu_torch.serve.bench import \
+        DEFAULT_PRIORITY_CLASSES
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+    from distributed_deep_learning_tpu_torch.serve.fleet import (
+        QUARANTINED, RETIRED, FleetRouter)
+    from distributed_deep_learning_tpu_torch.serve.supervisor import \
+        ServeSupervisor
+    from distributed_deep_learning_tpu_torch.utils.chaos import (
+        SERVE_KINDS, ChaosEvent, ChaosPlan, preemption_requests)
+
+    t_phase = time.perf_counter()
+    model, trace, cap = _full_width()
+    trace = trace[:RESILIENT_REQUESTS]
+    layers = FULL_MODEL["num_layers"]
+    eng = PagedEngine(model, max_len=cap, **FULL_ENGINE)
+    launches = {}
+
+    def leg(label, fn, engines=(eng,)):
+        """``fn()`` from cold engines, the kernel's count zeroed just
+        before and read just after; launches must equal the decode ticks
+        run (the canary's too) x layers."""
+        for e in engines:
+            e.reset()
+        paged_flash_decode.launches = 0
+        t0 = time.perf_counter()
+        with _tick_calls() as calls:
+            out = fn()
+        torch.cuda.synchronize()
+        n, want = paged_flash_decode.launches, calls["n"] * layers
+        print(f"resilience-serve[{label}]: {time.perf_counter() - t0:.2f} s"
+              f", paged_flash_decode launches {n}, ticks {calls['n']} "
+              f"(canary {calls['canary']}) x {layers} layers = {want}")
+        if n != want or not n:
+            raise RuntimeError(f"{label}: {n} launches for {calls['n']} "
+                               "decode ticks")
+        launches[label] = n
+        return out
+
+    def captures(label, e, canary=0):
+        if e._tick.captures != 1 or (
+                canary and e._canary_tick.captures != 1):
+            raise RuntimeError(f"{label}: decode captures "
+                               f"{e._tick.captures} (canary "
+                               f"{getattr(e._canary_tick, 'captures', 0)})"
+                               ", expected 1")
+
+    # --- the fault-free supervised run, and the rule's near-tie limit ----
+    marg = _Margins(keep_rows=True)
+    ref = leg("reference", lambda: ServeSupervisor(
+        eng, fleet_hook=marg).run(list(trace)))
+    ref_s = ref["stats"]["total_seconds"]
+    delta = _delta_and_first_margins(eng, trace, ref["results"], marg)
+    tol = 2 * delta
+    print(f"resilience-serve: chunk prefill vs decode tick at the same "
+          f"positions: max |dlogit| {delta:.4g} over "
+          f"{sum(len(v) for v in marg.rows.values())} tokens; near-tie "
+          f"limit {tol:.4g}; fault-free run {ref_s:.3f} s")
+    marg.rows.clear()
+
+    # --- each serve fault kind under the supervisor, twice ---------------
+    for kind in SERVE_KINDS:
+        outs, sups = [], []
+        for _ in range(2):
+            ev = ChaosEvent(step=5, kind=kind, magnitude=0.3
+                            if kind == "stalled_tick" else 0.0)
+            sup = _snapshot_supervisor(
+                eng, chaos=ChaosPlan([ev]), stall_timeout_s=0.1
+                if kind == "stalled_tick" else None)
+            outs.append(leg(f"supervised {kind}",
+                            lambda: sup.run(list(trace))))
+            sups.append(sup)
+        st, sup = outs[0]["stats"], sups[0]
+        fault = st["faults"][0] if st["faults"] else None
+        if kind == "slow_tick":
+            if st["restarts"]:
+                raise RuntimeError("slow_tick: a restart")
+            _hold_replay(f"supervised {kind}", outs[0], ref, marg, tol,
+                         exact=True, again=outs[1])
+            continue
+        if fault is None or st["restarts"] != 1:
+            raise RuntimeError(f"supervised {kind}: no contained fault")
+        fired = sup.chaos.fired[0][0]
+        replayed = st["engine"]["paged"]["prompt_tokens"]
+        print(f"supervised {kind}: fired at tick {fired}, detected "
+              f"{fault['tick'] - fired} ticks later ({fault['kind']}); "
+              f"restart {1e3 * fault['recovery_s']:.2f} ms, replay "
+              f"{replayed} prompt + committed tokens through the chunk "
+              f"prefill, run {st['total_seconds']:.3f} s against "
+              f"{ref_s:.3f} s fault-free")
+        _hold_replay(f"supervised {kind}", outs[0], ref, marg, tol,
+                     before=sup.before_fault, again=outs[1])
+        captures(f"supervised {kind}", eng)
+
+    # --- hot reload: publish, watch, verify, canary -----------------------
+    pub = ROOT / "build" / "chip_smoke_reload"
+    shutil.rmtree(pub, ignore_errors=True)
+    live = {k: v.detach().clone() for k, v in eng.params.items()}
+    t0 = time.perf_counter()
+    rel.publish_weights(str(pub), 1, live)
+    t_pub = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = rel.load_verified(str(pub), 1, eng.params)
+    t_load = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.swap_params(loaded)
+    torch.cuda.synchronize()
+    t_swap = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in live.values())
+    print(f"reload: {nbytes / 2**20:.1f} MiB of weights: publish "
+          f"{t_pub:.3f} s, load + verify (npz, CRC32s) {t_load:.3f} s, "
+          f"in-place swap {1e3 * t_swap:.2f} ms")
+
+    def reloaded(label):
+        rm = rel.ReloadManager(str(pub), canary_slots=2, canary_ticks=4,
+                               min_compare=4)
+        rm.watcher.seen |= seen
+        out = leg(label, lambda: ServeSupervisor(eng, reload=rm).run(
+            list(trace)))
+        seen.update(rm.watcher.seen)
+        return out, rm
+
+    seen = {1}
+    rel.publish_weights(str(pub), 2, live)        # the live weights again
+    out, rm = reloaded("reload promote")
+    if (rm.swaps, rm.rollbacks, out["stats"]["restarts"]) != (1, 0, 0):
+        raise RuntimeError(f"reload promote: swaps {rm.swaps}, rollbacks "
+                           f"{rm.rollbacks}")
+    _hold_replay("reload promote", out, ref, marg, tol)
+    captures("reload promote", eng, canary=1)
+    # zeroed weights: finite, and wrong (JAX's drill's bad candidate)
+    rel.publish_weights(str(pub), 3, {k: torch.zeros_like(v)
+                                      for k, v in live.items()})
+    out, rm = reloaded("reload rollback")
+    ev = rm.events[-1]
+    if (rm.swaps, rm.rollbacks, out["stats"]["restarts"]) != (0, 1, 1):
+        raise RuntimeError(f"reload rollback: swaps {rm.swaps}, rollbacks "
+                           f"{rm.rollbacks}")
+    print(f"reload rollback: canary nonfinite {ev['nonfinite']}, "
+          f"acceptance {ev['acceptance']:.3f} over {ev['compared']} "
+          "comparisons")
+    _hold_replay("reload rollback", out, ref, marg, tol)
+    captures("reload rollback", eng, canary=1)
+    if any(not torch.equal(eng.params[k], v.to(eng.device))
+           for k, v in live.items()):
+        raise RuntimeError("reload rollback: the live weights changed")
+    rel.publish_weights(str(pub), 4, {k: torch.full_like(v, float("nan"))
+                                      for k, v in live.items()})
+    out, rm = reloaded("reload reject")
+    if (rm.rejected, rm.swaps) != (1, 0):
+        raise RuntimeError("reload reject: the NaN publication was not "
+                           "quarantined")
+    _hold_replay("reload reject", out, ref, marg, tol, exact=True)
+    print(f"reload: quarantined {sorted(os.listdir(pub / 'quarantine'))}")
+    shutil.rmtree(pub, ignore_errors=True)
+
+    # --- the admission ladder sheds priority >= 1 -------------------------
+    rng = np.random.default_rng(0)
+    prios = [p for p, _ in DEFAULT_PRIORITY_CLASSES]
+    frac = [f for _, f in DEFAULT_PRIORITY_CLASSES]
+    ptrace = [dataclasses.replace(r, priority=int(rng.choice(prios, p=frac)))
+              for r in trace]
+    adm = AdmissionController(itl_p99_ms=1e-3, max_queue_depth=1,
+                              patience=1, cool=1000)
+    out = leg("admission", lambda: ServeSupervisor(eng, admission=adm).run(
+        list(ptrace)))
+    shed = {u for u, m in out["errors"].items() if m.startswith("shed:")}
+    prio = {r.uid: r.priority for r in ptrace}
+    if not shed or any(prio[u] == 0 for u in shed) or not adm.level:
+        raise RuntimeError(f"admission: level {adm.level}, shed {shed}")
+    print(f"admission: ladder {adm.level_changes}, shed {len(shed)} of "
+          f"{len(ptrace)} (priorities {sorted(prio[u] for u in shed)}), "
+          f"served {len(out['results'])}")
+
+    # --- priority preemption: spill and resume at rest, both wires --------
+    preqs = preemption_requests(FULL_MODEL["vocab_size"], 0)
+    solo_eng = PagedEngine(model, **PREEMPT_ENGINE)
+    solo = {}
+    for r in preqs:
+        solo_eng.reset()
+        solo[r.uid] = solo_eng.run([dataclasses.replace(
+            r, arrival_tick=0, priority=1)])["results"][r.uid]
+    solo_ref = {"results": solo}
+    pmarg = _Margins()
+    _first_margins(solo_eng, preqs, pmarg)
+    for wire in ("host", "device"):
+        pe = PagedEngine(model, preempt=True, migrate=wire,
+                         **PREEMPT_ENGINE)
+        out = leg(f"preempt {wire}", lambda: ServeSupervisor(
+            pe, fleet_hook=pmarg).run(list(preqs)), engines=(pe,))
+        ps = out["stats"]["engine"]["preempt"]
+        if not (ps["preemptions"] and ps["resumes"]) or ps["still_spilled"]:
+            raise RuntimeError(f"preempt {wire}: {ps}")
+        print(f"preempt {wire}: {ps['preemptions']} spilled, "
+              f"{ps['resumes']} resumed, {ps['migration_bytes']} bytes "
+              f"moved on the card in {1e3 * ps['migration_seconds']:.2f} ms")
+        _hold_replay(f"preempt {wire}", out, solo_ref, pmarg, tol,
+                     exact=True)
+        captures(f"preempt {wire}", pe)
+    outs = []
+    for _ in range(2):
+        plan = ChaosPlan([ChaosEvent(step=1, kind="migrate_drop")])
+        pe._migrate_chaos = plan.migrate_corruptor()
+        sup = _snapshot_supervisor(pe, retries=2)
+        outs.append(leg("migrate_drop", lambda: sup.run(list(preqs)),
+                        engines=(pe,)))
+        kinds = [f["kind"] for f in outs[-1]["stats"]["faults"]]
+        if kinds != ["MigrationError"] or not plan.fired:
+            raise RuntimeError(f"migrate_drop: faults {kinds}")
+    _hold_replay("migrate_drop", outs[0], solo_ref, pmarg, tol,
+                 before=sup.before_fault, again=outs[1])
+    del pe, solo_eng
+
+    # a move's bytes, digest and copy at the cut trace's longest slot
+    longest = max(len(r.prompt) + r.max_new_tokens for r in trace)
+    eng.reset()
+    eng.manager.admit(0, paged.SharedPrefix([], None, 0, b""), longest)
+    image = eng._slot_image(eng.manager.tables[0], longest)
+    eng.manager.release(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mig.tree_digest(image)
+    t_dig = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mig.offload(image, eng.device)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    [mig.to_host(t) for t in image]
+    t_host = time.perf_counter() - t0
+    print(f"move of a {longest}-position slot ({len(image)} tensors, "
+          f"{mig.tree_bytes(image) / 2**20:.2f} MiB): blake2b digest "
+          f"{1e3 * t_dig:.2f} ms, chunked copy on the card "
+          f"{1e3 * t_copy:.3f} ms, pinned host copy {1e3 * t_host:.2f} ms")
+    del image
+
+    # --- two replicas behind the router -----------------------------------
+    eng2 = PagedEngine(model, max_len=cap, **FULL_ENGINE)
+    pair = (eng, eng2)
+    fmarg = _Margins()
+
+    def fleet(label, chaos=None, hook=None, **kw):
+        router = FleetRouter(pair, chaos=chaos, **kw)
+        if hook is not None:
+            observe = router._observe_tick
+            router._observe_tick = lambda rep, report: (
+                hook(report), observe(rep, report))
+        return leg(label, lambda: router.run(list(trace)), pair), router
+
+    fref, _ = fleet("fleet reference", hook=fmarg)
+    _first_margins(eng, trace, fmarg)
+    crash = []
+    for _ in range(2):
+        plan = ChaosPlan([ChaosEvent(step=3, kind="replica_crash")])
+        out, _ = fleet("fleet replica_crash", chaos=plan)
+        crash.append(out)
+        st = out["stats"]
+        if QUARANTINED not in st["health"].values() or not plan.fired:
+            raise RuntimeError(f"fleet replica_crash: health "
+                               f"{st['health']}")
+    f0 = crash[0]["stats"]["faults"][0]
+    print(f"fleet replica_crash: replica {f0['replica']} quarantined at "
+          f"tick {f0['tick']}, {crash[0]['stats']['rounds']} rounds, "
+          f"recovery {f0['recovery_s']:.3f} s")
+    _hold_replay("fleet replica_crash", crash[0], fref, fmarg, tol,
+                 again=crash[1])
+
+    for label, extra in (("evacuation", ()),
+                         ("evacuation evac_drop",
+                          (ChaosEvent(step=1, kind="evac_drop"),))):
+        plan = ChaosPlan([ChaosEvent(step=2, kind="replica_straggler",
+                                     magnitude=5.0), *extra])
+        out, router = fleet(label, chaos=plan, **EVAC_FLEET)
+        rb, ms = out["stats"]["rebalance"], router._evac_migrator.stats
+        if not rb["evacuations"] or bool(rb["rolled_back"]) != bool(extra):
+            raise RuntimeError(f"{label}: {rb['evacuations']} evacuations, "
+                               f"{rb['rolled_back']} rolled back")
+        if ms.verified != ms.moves + ms.failed:
+            raise RuntimeError(f"{label}: a move left unverified")
+        print(f"{label}: {rb['evacuations']} slots, {rb['evacuated_blocks']}"
+              f" blocks ({rb['evacuated_tokens']} tokens) moved at rest, "
+              f"{rb['rolled_back']} rolled back; {ms.moves} moves of "
+              f"{ms.wire_bytes / 2**20:.2f} MiB, digests "
+              f"{1e3 * ms.digest_seconds:.2f} ms, copies "
+              f"{1e3 * ms.copy_seconds:.2f} ms")
+        _hold_replay(label, out, fref, fmarg, tol)
+
+    def grown():
+        return PagedEngine(model, max_len=cap, **FULL_ENGINE)
+
+    auto = FleetAutoscaler(min_replicas=2, max_replicas=3, patience=1,
+                           cool=1)
+    router = FleetRouter(pair, autoscaler=auto, engine_factory=grown)
+    for e in pair:
+        e.reset()
+    router._autoscale_round(override="hot")
+    grew = sum(r.health != RETIRED for r in router.replicas)
+    router._autoscale_round(override="cold")
+    shrunk = sum(r.health != RETIRED for r in router.replicas)
+    out = leg("autoscaler", lambda: router.run(list(trace)),
+              [r.engine for r in router.replicas
+               if r.health != RETIRED])
+    if (grew, shrunk, len(auto.events)) != (3, 2, 2):
+        raise RuntimeError(f"autoscaler: grew to {grew}, shrank to "
+                           f"{shrunk}, {auto.events}")
+    print(f"autoscaler: grew to {grew} replicas (launch geometry), drained "
+          f"back to {shrunk}, {len(auto.events)} scale events")
+    _hold_replay("autoscaler", out, fref, fmarg, tol)
+    del router, eng2, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- the CLI: a few training steps, then the supervisor, the fleet ------
+    watch = ROOT / "build" / "chip_smoke_cli_watch"
+    watch.mkdir(parents=True, exist_ok=True)
+    data_dir = _write_tokens()
+    for label, flags in (("cli supervised", SERVE_SUPERVISED_FLAGS),
+                         ("cli fleet", SERVE_FLEET_FLAGS)):
+        os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+        try:
+            _, _, perf = _train(data_dir, "flash", *flags, "--reload-watch",
+                                str(watch), label=label)
+        finally:
+            os.environ.pop("DDL_DATA_LIMIT", None)
+        ticks = sum(run["out"]["stats"]["decode_ticks"]
+                    for run in perf["served"])
+        if label == "cli fleet":
+            n_req, replicas, lost, n_launch = _one(
+                _SERVE_FLEET_LINE, perf["log"], label)
+            what = f"{int(n_req)} requests over {int(replicas)} replicas"
+        else:
+            restarts, lost, swaps = _one(_SERVE_SUPERVISED_LINE,
+                                         perf["log"], label)
+            n_launch = _one(_SERVE_PAGED_LINE, perf["log"], label)[-1]
+            what = f"restarts {int(restarts)}, reload swaps {int(swaps)}"
+        print(f"{label}: {what}, lost {int(lost)}, paged_flash_decode "
+              f"launches {perf['decode_launches']} (logged {int(n_launch)})"
+              f", decode ticks {ticks} x {TRAIN_LAYERS} layers = "
+              f"{ticks * TRAIN_LAYERS}")
+        if lost or not perf["decode_launches"] == n_launch == \
+                ticks * TRAIN_LAYERS:
+            raise RuntimeError(f"{label}: lost requests or launches off")
+        launches[label] = perf["decode_launches"]
+    shutil.rmtree(watch, ignore_errors=True)
+    print(f"phase 35: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 35)),
+                    default=",".join(str(i) for i in range(1, 36)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -4780,7 +5393,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 35)) and opts.waves is None
+    complete = phases == set(range(1, 36)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -4799,10 +5412,10 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build(builds["paged_decode"])
     decode = rec = None
-    if phases & {3, 4, 5, 13, 14, 18, 19, 20}:
+    if phases & {3, 4, 5, 13, 14, 18, 19, 20, 35}:
         builds["paged_decode"].result()        # not built again at use
         timing = phase_kernel() if 3 in phases else {}
-        if phases & {4, 5, 13, 14, 18, 19, 20}:
+        if phases & {4, 5, 13, 14, 18, 19, 20, 35}:
             rec, launches = phase_serve(compare_engine=14 in phases)
             decode = {"name": "paged_flash_decode", "route": "cuda",
                       "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -4820,12 +5433,16 @@ def main(argv=None) -> int:
                 decode["spec_launches"] = phase_spec(rec)
             if 20 in phases:
                 decode["window_launches"] = phase_window(rec)
-        # phases 13 and 18-20's model: off the card before the training
-        # phases read their peaks
+            if 35 in phases:
+                builds["flash_attention"].result()  # its CLI leg trains
+                decode["resilience_serve_launches"] = \
+                    phase_serving_resilience(rec)
+        # phases 13, 18-20 and 35's model: off the card before the
+        # training phases read their peaks
         _full_width.cache_clear()
         gc.collect()
         torch.cuda.empty_cache()
-        lap("2-5, 13, 14, 18-20")
+        lap("2-5, 13, 14, 18-20, 35")
     if 6 in phases:
         phase_ptxas(builds)
     if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34}

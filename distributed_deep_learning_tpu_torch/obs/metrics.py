@@ -1,11 +1,15 @@
-"""Log-bucketed latency histograms, copied from the JAX package's
-``obs/metrics.py`` (the part the serving engine's latency percentiles
-use).
+"""Process-local metrics: counters, gauges and log-bucketed histograms,
+copied from the JAX package's ``obs/metrics.py``.
 
-``Histogram.observe`` is one ``bisect`` into precomputed geometric
-bounds, so p50/p99 over any number of latencies cost a fixed few hundred
-bytes; quantile error is bounded by the bucket growth factor (default
-1.25, at most ~12% relative), with exact min/max kept to clamp the tails.
+``Counter.inc`` is a float add and ``Histogram.observe`` one ``bisect``
+into precomputed geometric bounds, so p50/p99 over any number of
+latencies cost a fixed few hundred bytes; quantile error is bounded by the
+bucket growth factor (default 1.25, at most ~12% relative), with exact
+min/max kept to clamp the tails.  A :class:`MetricsRegistry` hands out
+instruments by name and labels (look one up once, hold it in the loop);
+``snapshot()`` is a JSON-able dict and :func:`merge_snapshots` combines
+two (counters add, histograms add bucket-wise, gauges keep the later
+value).  The fleet router and the KV migrator count with them.
 """
 
 from __future__ import annotations
@@ -13,6 +17,39 @@ from __future__ import annotations
 import math
 from bisect import bisect_left
 from typing import Iterable
+
+
+def _key(name: str, labels: dict) -> str:
+    """Stable instrument key: ``name{k=v,...}`` with sorted labels (the
+    Prometheus convention, so export is a string copy)."""
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
+    return f"{name}{{{inner}}}"
+
+
+class Counter:
+    """Monotonic event count (float so it can carry seconds too)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+
+class Gauge:
+    """Last-written value (queue depth, slot occupancy, device bytes)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
 
 
 def log_bounds(lo: float, hi: float, growth: float) -> tuple[float, ...]:
@@ -85,3 +122,81 @@ class Histogram:
                 return min(max(est, self.min), self.max)
             cum += c
         return self.max
+
+    def to_dict(self) -> dict:
+        return {"bounds": list(self.bounds), "counts": list(self.counts),
+                "count": self.count, "sum": self.sum,
+                "min": self.min if self.count else None,
+                "max": self.max if self.count else None}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Histogram":
+        h = Histogram(bounds=d["bounds"])
+        h.counts = list(d["counts"])
+        h.count = int(d["count"])
+        h.sum = float(d["sum"])
+        h.min = d["min"] if d.get("min") is not None else math.inf
+        h.max = d["max"] if d.get("max") is not None else -math.inf
+        return h
+
+
+class MetricsRegistry:
+    """Get-or-create instrument store, keyed by (name, labels)."""
+
+    def __init__(self) -> None:
+        self.counters: dict[str, Counter] = {}
+        self.gauges: dict[str, Gauge] = {}
+        self.histograms: dict[str, Histogram] = {}
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self.counters.setdefault(_key(name, labels), Counter())
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self.gauges.setdefault(_key(name, labels), Gauge())
+
+    def histogram(self, name: str, lo: float = 1e-5, hi: float = 100.0,
+                  growth: float = 1.25, **labels) -> Histogram:
+        key = _key(name, labels)
+        h = self.histograms.get(key)
+        if h is None:
+            h = self.histograms[key] = Histogram(lo=lo, hi=hi, growth=growth)
+        return h
+
+    def snapshot(self) -> dict:
+        """Plain JSON-able view of every instrument."""
+        return {
+            "counters": {k: c.value for k, c in self.counters.items()},
+            "gauges": {k: g.value for k, g in self.gauges.items()},
+            "histograms": {k: h.to_dict()
+                           for k, h in self.histograms.items()},
+        }
+
+
+def merge_snapshots(a: dict, b: dict) -> dict:
+    """Combine two registry snapshots: counters add, gauges keep ``b``
+    (latest wins), histograms add bucket-wise.  Histograms under one key
+    must share bounds; differing bounds raise rather than mis-bin."""
+    out = {"counters": dict(a.get("counters", {})),
+           "gauges": dict(a.get("gauges", {})),
+           "histograms": {k: dict(v)
+                          for k, v in a.get("histograms", {}).items()}}
+    for k, v in b.get("counters", {}).items():
+        out["counters"][k] = out["counters"].get(k, 0.0) + v
+    out["gauges"].update(b.get("gauges", {}))
+    for k, hv in b.get("histograms", {}).items():
+        if k not in out["histograms"]:
+            out["histograms"][k] = dict(hv)
+            continue
+        ha = out["histograms"][k]
+        if list(ha["bounds"]) != list(hv["bounds"]):
+            raise ValueError(f"histogram {k!r}: cannot merge differing "
+                             "bucket bounds")
+        merged = Histogram.from_dict(ha)
+        other = Histogram.from_dict(hv)
+        merged.counts = [x + y for x, y in zip(merged.counts, other.counts)]
+        merged.count += other.count
+        merged.sum += other.sum
+        merged.min = min(merged.min, other.min)
+        merged.max = max(merged.max, other.max)
+        out["histograms"][k] = merged.to_dict()
+    return out

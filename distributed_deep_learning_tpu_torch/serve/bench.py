@@ -60,6 +60,11 @@ DEFAULT_LOAD = dict(n_requests=24, arrival="poisson", rate=2.0,
                     slo_e2e_ms=15000.0)
 
 
+#: the fleet's priority mix: a quarter interactive (priority 0, never
+#: preempted or shed), half standard, a quarter batch
+DEFAULT_PRIORITY_CLASSES = ((0, 0.25), (1, 0.5), (2, 0.25))
+
+
 def build_model(seed: int = 0, device="cuda", **overrides) -> CausalLM:
     """A :class:`CausalLM` with seeded random weights on ``device``.  The
     weights are drawn on the CPU from a ``torch.Generator``, so a seed
@@ -215,6 +220,43 @@ def run_paged(model, requests: Sequence[Request], **engine_kw) -> dict:
     """One :class:`PagedEngine` lifetime over the trace; returns its
     ``{"results", "errors", "stats"}``."""
     return PagedEngine(model, **engine_kw).run(requests)
+
+
+def run_supervised(model, requests: Sequence[Request], *,
+                   paged: bool = False,
+                   deadline_ms: Optional[float] = None, retries: int = 2,
+                   stall_timeout_s: Optional[float] = None,
+                   reload_watch: Optional[str] = None,
+                   canary_slots: int = 2,
+                   admission: Optional[dict] = None,
+                   **engine_kw) -> dict:
+    """One SUPERVISED engine lifetime over the trace: the same
+    ``{"results", "errors", "stats"}`` contract as :func:`run_engine` /
+    :func:`run_paged`, with the engine run under
+    :class:`.supervisor.ServeSupervisor` — tick watchdog, crash
+    containment with zero-loss replay, per-request deadlines and bounded
+    retries.  ``reload_watch`` adds hot weight reload
+    (:class:`.reload.ReloadManager` watching that directory, with
+    ``canary_slots`` of canary before promote); ``admission`` is a kwargs
+    dict for :class:`.admission.AdmissionController`
+    (``utils.config.parse_admission_arg`` makes it from the CLI).  The
+    engine-level stats land under ``stats["engine"]``."""
+    from distributed_deep_learning_tpu_torch.serve.admission import \
+        AdmissionController
+    from distributed_deep_learning_tpu_torch.serve.reload import \
+        ReloadManager
+    from distributed_deep_learning_tpu_torch.serve.supervisor import \
+        ServeSupervisor
+
+    eng = (PagedEngine if paged else ServeEngine)(model, **engine_kw)
+    rm = (ReloadManager(reload_watch, canary_slots=canary_slots)
+          if reload_watch is not None else None)
+    adm = AdmissionController(**admission) if admission is not None \
+        else None
+    sup = ServeSupervisor(eng, deadline_ms=deadline_ms, retries=retries,
+                          stall_timeout_s=stall_timeout_s, reload=rm,
+                          admission=adm)
+    return sup.run(requests)
 
 
 def paged_max_len(model_max_len: int, kv_block_size: int,

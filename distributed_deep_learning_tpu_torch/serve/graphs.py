@@ -11,8 +11,9 @@ with a CUDA graph:
   tick's tokens, positions, block tables, write targets) and the call
   copies it into one static device buffer before the body runs;
 * **the body**, ``body(engine, staged) -> (logits, picked)``: the model
-  forward through the tied head, the greedy argmax and the finiteness
-  flag, all on device with static shapes (:func:`head`).  The engine is
+  forward through the tied head, the greedy argmax, the finiteness flag
+  and the chosen token's log-probability, all on device with static
+  shapes (:func:`head`).  The engine is
   passed in at each call, not held, so an engine and its tick form no
   reference cycle and a dropped engine frees its caches at once.
 
@@ -59,16 +60,25 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[index]
 
 
+def chosen_logprob(logits, tokens):
+    """Log-probability of ``tokens`` ``(S,)`` under f32 ``logits`` ``(S,
+    V)``: the drift signal a canary compares between weight sets."""
+    return torch.log_softmax(logits, dim=-1).gather(
+        -1, tokens[:, None])[:, 0]
+
+
 def head(model, hidden):
     """The tick's tail on device: ``hidden`` ``(S, d)`` through the tied
-    head to f32 logits ``(S, V)`` (pad id masked), and ``picked`` ``(2,
-    S)`` int64: the greedy tokens and a 0/1 flag that the row's hidden
-    state is finite (non-finite KV anywhere in a slot's attention shows
-    here one tick later)."""
+    head to f32 logits ``(S, V)`` (pad id masked), and ``picked`` ``(3,
+    S)`` f64: the greedy tokens, a 0/1 flag that the row's hidden state is
+    finite (non-finite KV anywhere in a slot's attention shows here one
+    tick later) and the greedy token's log-probability.  One host copy
+    of ``picked`` carries all three."""
     logits = model.logits_from(hidden)
     greedy = pick_tokens(model, logits)
     finite = torch.isfinite(hidden).all(dim=-1)
-    return logits, torch.stack([greedy, finite.to(torch.int64)])
+    return logits, torch.stack([greedy.double(), finite.double(),
+                                chosen_logprob(logits, greedy).double()])
 
 
 class DecodeTick:

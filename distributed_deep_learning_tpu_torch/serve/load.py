@@ -185,3 +185,47 @@ def slo_report(requests, ttft_s: dict, e2e_s: dict) -> dict:
                            ttft_s, e2e_s)
         for p in sorted({r.priority for r in requests})}
     return rep
+
+
+def merge_slo_reports(reports, classes=None) -> dict:
+    """Fold per-replica :func:`slo_report` dicts into one fleet-level
+    report: counts sum, attainment is recomputed from the summed counts
+    (NOT averaged — replicas see different request counts), and the
+    ``by_priority`` breakdowns merge class-wise.
+
+    ``classes`` (optional) is the expected priority-class universe (any
+    ints or strings; normalised to the reports' string keys).  Classes
+    no replica reported — every request of that priority landed
+    elsewhere this round, or none arrived at all — still appear, with
+    zero counts and ``slo_attainment`` None, so fleet-level attainment
+    is comparable across rounds instead of silently changing shape."""
+    reports = [r for r in reports if r]
+    checked = sum(r["slo_checked"] for r in reports)
+    attained = sum(r["slo_attained"] for r in reports)
+    merged = {
+        "slo_checked": checked,
+        "slo_attained": attained,
+        "slo_attainment": (attained / checked) if checked else None,
+        "slo_ttft_misses": sum(r["slo_ttft_misses"] for r in reports),
+        "slo_e2e_misses": sum(r["slo_e2e_misses"] for r in reports),
+    }
+    seen = {p for r in reports for p in r.get("by_priority", {})}
+    expected = {str(p) for p in classes} if classes is not None else set()
+    all_classes = sorted(seen | expected)
+    if all_classes:
+        merged["by_priority"] = {}
+        for p in all_classes:
+            subs = [r["by_priority"][p] for r in reports
+                    if p in r.get("by_priority", {})]
+            c = sum(s["slo_checked"] for s in subs)
+            a = sum(s["slo_attained"] for s in subs)
+            merged["by_priority"][p] = {
+                "slo_checked": c,
+                "slo_attained": a,
+                "slo_attainment": (a / c) if c else None,
+                "slo_ttft_misses": sum(s["slo_ttft_misses"]
+                                       for s in subs),
+                "slo_e2e_misses": sum(s["slo_e2e_misses"]
+                                      for s in subs),
+            }
+    return merged

@@ -15,14 +15,17 @@ The port of ``distributed_deep_learning_tpu/serve/paged.py``.
   at-rest form: a bf16 cast, or an int8 :class:`.quant.QuantTensor` with
   ``(num_blocks, block_size, Hkv, 1)`` f32 scales, which the pool ops
   index as they index a tensor.
-* **Host side** (numpy, copied as it is, less the methods that only
-  prefix migration, hot weight swap and the tracer call; they come with
-  those modules): :class:`BlockManager` owns the
+* **Host side** (numpy, copied as it is, less the tracer's event hook):
+  :class:`BlockManager` owns the
   free list, per-block refcounts, per-slot tables and a
   :class:`PrefixIndex` keyed by a rolling chain hash of token-prefix
   blocks, so a hash hit means the whole prefix matches (token equality
   is re-verified).  Matching blocks are shared by reference and a shared
-  block is copied the moment a slot writes into it.
+  block is copied the moment a slot writes into it.  For the fleet:
+  :meth:`BlockManager.flush_index` (a hot weight swap), ``adopt_prefix``
+  and ``unadopt`` (the destination half of a KV migration and its
+  rollback), ``prefix_summary`` and :func:`predict_shared_len` (routing
+  on predicted prefix hits).
 
 Physical block 0 is a TRASH block: reads of it are masked garbage (free
 slots, table tails) and writes that must be discarded are routed to it.
@@ -129,6 +132,13 @@ def scatter_span(layer: dict, k, v, valid, blocks, offsets) -> None:
             rows = rows.to(pool.dtype)
         pool[blocks, offsets] = rows
     layer[VALID_LEAF][blocks, offsets] = valid
+
+
+def extract_span(layer: dict, pos: int, n: int) -> dict:
+    """Positions ``[pos, pos + n)`` of one layer's dense cache (the
+    ``(1, L, ...)`` layout :func:`gather_slot` returns), as ``(n, ...)``
+    rows: what a program hands to :func:`scatter_span`."""
+    return {name: t[0, pos:pos + n] for name, t in layer.items()}
 
 
 def copy_block(pools, src: int, dst: int) -> None:
@@ -283,6 +293,21 @@ class BlockManager:
             self.evictions += 1
             freed += 1
         return freed
+
+    def flush_index(self) -> int:
+        """Drop EVERY prefix-index entry and the reference each holds.
+
+        Blocks still owned by live slots stay alive (the slots' own
+        refs remain); blocks the index alone retained return to the
+        free list.  Hot weight swap calls this: indexed KV was computed
+        under the OLD weights, so matching it as a prefix under the new
+        weights would silently mix generations."""
+        dropped = 0
+        for h in list(self.index.entries):
+            b = self.index.remove(h)
+            self._deref(b)
+            dropped += 1
+        return dropped
 
     # --- prefix matching --------------------------------------------------
     def match_prefix(self, prompt: np.ndarray) -> SharedPrefix:
@@ -445,6 +470,81 @@ class BlockManager:
         self._chain[slot] = (done, h)
         return added
 
+    def adopt_prefix(self, tokens, n_blocks: int):
+        """Register the first ``n_blocks`` full blocks of ``tokens`` as
+        if a local slot had prefilled them, allocating fresh physical
+        blocks for the chain links not already indexed — the
+        destination half of cross-engine prefix cloning
+        (:func:`..serve.migrate.clone_prefix`).
+
+        Returns ``(start, new_block_ids)``: ``start`` chain links were
+        already indexed here (nothing to copy), and ``new_block_ids``
+        are freshly-allocated blocks for links ``start..`` — held ONLY
+        by the index (refcount 1), so they age out under LRU eviction
+        like any locally-prefilled prefix.  The caller MUST fill every
+        returned block with the exact at-rest KV for its positions
+        before anything admits against the chain.  Returns None when
+        the pool cannot free enough blocks (sharing is best-effort and
+        never steals from live slots)."""
+        bs = self.block_size
+        toks = np.asarray(tokens)
+        chain = []
+        h = b""
+        for i in range(int(n_blocks)):
+            blk = tuple(int(t) for t in toks[i * bs:(i + 1) * bs])
+            if len(blk) < bs:
+                break
+            parent = h
+            h = chain_hash(h, blk)
+            chain.append((parent, h, blk))
+        start = 0
+        for parent, h2, blk in chain:
+            e = self.index.get(h2)
+            if e is None:
+                break
+            if e.tokens != blk:     # hash collision: never adopt over it
+                return None
+            self.index.touch(h2)    # protect the stem from our own evict
+            start += 1
+        todo = chain[start:]
+        if not todo:
+            return start, []
+        if len(self.free) < len(todo):
+            self.evict(len(todo))
+        if len(self.free) < len(todo):
+            return None
+        ids = []
+        for parent, h2, blk in todo:
+            b = self._alloc()       # refcount 1: the index's reference
+            if not self.index.add(parent, h2, b, blk):
+                self._deref(b)
+                return None
+            ids.append(b)
+        return start, ids
+
+    def unadopt(self, block_ids) -> int:
+        """Roll back a failed adoption: drop the index entries holding
+        the given freshly-adopted blocks and release the blocks back to
+        the free list (a migration that tripped its digest).  Returns
+        how many blocks were released."""
+        dropped = 0
+        for b in block_ids:
+            h = self.index.by_block.get(int(b))
+            if h is None:
+                continue
+            self.index.remove(h)
+            self._deref(int(b))
+            dropped += 1
+        return dropped
+
+    def prefix_summary(self) -> frozenset:
+        """Cheap export of this manager's prefix-index coverage: the set
+        of chain hashes currently indexed.  Each hash commits to an
+        entire token prefix (see :func:`chain_hash`), so a router can
+        predict how many prompt tokens would hit this replica's cache
+        without seeing any cached tokens (:func:`predict_shared_len`)."""
+        return frozenset(self.index.entries)
+
     def stats(self) -> dict:
         return {
             "blocks_total": self.num_blocks,
@@ -454,3 +554,23 @@ class BlockManager:
             "cow_copies": self.copies,
             "evictions": self.evictions,
         }
+
+
+def predict_shared_len(summary, prompt, block_size: int) -> int:
+    """Predicted prefix-cache hit for ``prompt`` against a replica's
+    :meth:`BlockManager.prefix_summary`: tokens covered by the longest
+    chain of fully-matched blocks (the full-block walk of
+    :meth:`BlockManager.match_prefix`, without the token re-check or the
+    partial tail: the summary carries hashes only)."""
+    bs = block_size
+    toks = np.asarray(prompt)
+    L = len(toks)
+    h = b""
+    i = 0
+    while (i + 1) * bs <= L - 1:    # same cap as match_prefix
+        h2 = chain_hash(h, tuple(int(t) for t in toks[i * bs:(i + 1) * bs]))
+        if h2 not in summary:
+            break
+        h = h2
+        i += 1
+    return i * bs

@@ -363,9 +363,16 @@ class Checkpointer:
 
     def __init__(self, directory: str | os.PathLike, *, keep: int = 3,
                  shared: bool = True, topology: dict | None = None,
-                 replicated_generator: bool = False):
+                 replicated_generator: bool = False,
+                 publish_dir: str | None = None):
         self._dir = os.path.abspath(os.fspath(directory))
         self.keep = keep
+        #: ``--publish-weights``: every save's params are also published
+        #: here (:func:`..serve.reload.publish_weights`) once the save is
+        #: durable, for serving engines watching it (``--reload-watch``);
+        #: process 0 publishes (ranks that keep their own replicas too)
+        self.publish_dir = publish_dir if (
+            not dist.is_initialized() or dist.get_rank() == 0) else None
         self.topology = topology
         self.replicated_generator = replicated_generator
         self._thread: threading.Thread | None = None
@@ -450,6 +457,12 @@ class Checkpointer:
             tmp = f"{path}.tmp.{os.getpid()}"
             torch.save(payload, tmp)
             os.replace(tmp, path)                 # atomic on POSIX
+            if self.publish_dir is not None:
+                # durability gate: only weights a restart could also
+                # restore are offered to live engines
+                from distributed_deep_learning_tpu_torch.serve.reload import \
+                    publish_weights
+                publish_weights(self.publish_dir, step, payload["params"])
             self._collect(newest=step)
         except BaseException as e:  # noqa: BLE001 - re-raised on wait
             self._error = e

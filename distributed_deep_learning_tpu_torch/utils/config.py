@@ -7,9 +7,13 @@ data`` with ``--mesh`` and ``--zero 1|fsdp``, ``--dtype``,
 ``--double-softmax``, ``--packed-cache``, ``--image-size``,
 ``--stem-s2d``, every ``--optimizer``, the step variants, checkpointing,
 the resilience flags (``--sentinel*``, ``--elastic``, ``--heartbeat-*``),
-and the post-train ``--generate`` and ``--serve [--paged]`` with
-speculation (``--draft``, ``--spec-k``) and quantized serving
-(``--kv-dtype``, ``--weight-dtype``)).
+the post-train ``--generate`` and ``--serve [--paged]`` with
+speculation (``--draft``, ``--spec-k``), quantized serving
+(``--kv-dtype``, ``--weight-dtype``), supervision and hot reload
+(``--serve-deadline-ms``, ``--serve-retries``, ``--reload-watch``,
+``--canary-slots``, ``--admission``, ``--publish-weights``) and the
+fleet (``--replicas``, ``--priority-classes``, ``--spill-dir``,
+``--migrate``, ``--evacuate-on``, ``--autoscale``)).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
@@ -125,6 +129,29 @@ class Config:
     heartbeat_timeout: float = 30.0     # seconds before a peer is dead
     weight_dtype: str | None = None     # serving: weight storage, bf16 or
                                         #   int8 (per-channel scales)
+    serve_deadline_ms: float | None = None  # supervised serving: hard
+                                        #   per-request wall deadline
+    serve_retries: int = 2              # supervised serving: engine-fault
+                                        #   replays a request may survive
+    reload_watch: str | None = None     # supervised serving: hot weight-
+                                        #   reload watch directory
+    canary_slots: int = 2               # supervised serving: slots routed
+                                        #   to candidate weights
+    admission: dict | None = None       # supervised serving: admission-
+                                        #   control knobs (--admission)
+    replicas: int = 1                   # fleet serving: paged-engine
+                                        #   replicas behind the router
+    priority_classes: tuple | None = None  # fleet serving: priority mix
+    spill_dir: str | None = None        # fleet serving: npz audit of
+                                        #   preempted-slot KV
+    autoscale: dict | None = None       # fleet serving: elastic replica-
+                                        #   count knobs (--autoscale)
+    evacuate_on: str = "off"            # fleet serving: live mid-request
+                                        #   slot evacuation trigger
+    migrate: str = "host"               # serving: where preempted KV
+                                        #   parks (host | device)
+    publish_weights: str | None = None  # checkpointing: publish each save
+                                        #   for --reload-watch
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -145,7 +172,7 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    13: "ROADMAP.md queue 1 item 13 (serving resilience and fleet)",
+    13: "ROADMAP.md queue 1 item 13's remainder (disaggregated serving)",
     14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
     16: "ROADMAP.md queue 1 item 16 (--remat-policy dots on the conv and "
         "BatchNorm models)",
@@ -154,12 +181,7 @@ ROADMAP_ITEMS = {
 #: JAX CLI flags the port refuses -> the item that ports them; a
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
-    "--publish-weights=": 13,
-    "--serve-deadline-ms=": 13, "--serve-retries=": 13,
-    "--reload-watch=": 13, "--canary-slots=": 13, "--admission=": 13,
-    "--replicas=": 13, "--priority-classes=": 13, "--spill-dir=": 13,
-    "--autoscale=": 13, "--evacuate-on=": 13, "--disagg": 13,
-    "--pool-elastic": 13, "--prefill-workers=": 13, "--migrate=": 13,
+    "--disagg": 13, "--pool-elastic": 13, "--prefill-workers=": 13,
     "--reshard": 14, "--target-mesh=": 14, "--autotune": 14, "--plan=": 14,
     "--metrics-file=": 14, "--obs": 14, "--obs-file=": 14, "--obs-trace=": 14,
     "--obs-rotate-mb=": 14, "--obs-blackbox=": 14, "--profile-dir=": 14,
@@ -403,6 +425,91 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    help="serving: weight storage dtype, bf16 or int8 "
                         "(per-output-channel scales, each weight "
                         "dequantized at its use; unset = full precision)")
+    p.add_argument("--serve-deadline-ms", dest="serve_deadline_ms",
+                   type=float, default=None, metavar="MS",
+                   help="supervised serving: hard per-request wall "
+                        "deadline — a request a fault loop holds past "
+                        "this errors out instead of replaying forever "
+                        "(serve/supervisor.py; implies supervision)")
+    p.add_argument("--serve-retries", dest="serve_retries", type=int,
+                   default=2, metavar="N",
+                   help="supervised serving: engine faults a request may "
+                        "survive (with zero-loss replay) before it is "
+                        "errored out")
+    p.add_argument("--reload-watch", dest="reload_watch", type=str,
+                   default=None, metavar="DIR",
+                   help="supervised serving: watch DIR for atomically "
+                        "published weights (serve/reload.py) and hot-swap "
+                        "them between ticks — canary first, integrity-"
+                        "manifest verified, corrupt saves quarantined")
+    p.add_argument("--canary-slots", dest="canary_slots", type=int,
+                   default=2, metavar="N",
+                   help="supervised serving: decode slots routed to "
+                        "candidate weights while old/new agreement and "
+                        "logprob drift decide promote vs rollback "
+                        "(0 = swap verified weights directly)")
+    p.add_argument("--admission", type=str, default=None,
+                   metavar="K=V,...",
+                   help="supervised serving: SLO-aware admission control "
+                        "— 'depth=16,itl-p99-ms=200,shed-priority=2' "
+                        "(keys: depth, itl-p99-ms, shed-priority, "
+                        "patience, cool); degrades quality (spec decode "
+                        "off, chunk budget down) before shedding, and "
+                        "never sheds priority-0 requests")
+    p.add_argument("--replicas", type=int, default=1, metavar="N",
+                   help="fleet serving: run N paged-engine replicas "
+                        "behind the health-checked prefix-affinity "
+                        "router (serve/fleet.py) — crash-quarantine with "
+                        "zero-loss cross-replica replay; requires "
+                        "--paged when N > 1")
+    p.add_argument("--priority-classes", dest="priority_classes",
+                   type=str, default=None, metavar="P=F,...",
+                   help="fleet serving: request priority mix, e.g. "
+                        "'0=0.25,1=0.5,2=0.25' (priority=fraction, "
+                        "fractions sum to 1); under slot/block pressure "
+                        "higher-priority arrivals preempt the lowest-"
+                        "priority slots (KV spilled to host, resumed "
+                        "bit-identically); priority 0 is never "
+                        "preempted or shed; requires --paged")
+    p.add_argument("--spill-dir", dest="spill_dir", type=str,
+                   default=None, metavar="DIR",
+                   help="fleet serving: also write each preempted "
+                        "slot's spilled KV to DIR as an npz audit "
+                        "trail (resume itself stays in host memory); "
+                        "requires --priority-classes")
+    p.add_argument("--autoscale", type=str, default=None,
+                   metavar="K=V,...",
+                   help="fleet serving: elastic replica autoscaling, "
+                        "e.g. 'min=1,max=4,patience=2,cool=2' — "
+                        "patience consecutive hot rounds warm one new "
+                        "replica from the published weights (prefix-"
+                        "warmed via clone_prefix), cool consecutive "
+                        "cold rounds retire one through the drain "
+                        "protocol (stop placement, evacuate open "
+                        "slots, retire); requires --replicas > 1")
+    p.add_argument("--evacuate-on", dest="evacuate_on",
+                   choices=["off", "degraded", "hotspot"],
+                   default="off",
+                   help="fleet serving: live mid-request slot "
+                        "evacuation — on 'degraded' a health-degraded "
+                        "replica's open slots migrate (digest-verified "
+                        "committed KV) to healthy peers and resume "
+                        "bit-identically; 'hotspot' also evacuates on "
+                        "sustained per-replica latency skew; requires "
+                        "--replicas > 1")
+    p.add_argument("--migrate", choices=["host", "device"],
+                   default="host",
+                   help="serving preemption: where a preempted slot's "
+                        "KV parks — host (pinned memory, npz-auditable, "
+                        "the default) or device (a tensor on the card, "
+                        "its digest checked on resume)")
+    p.add_argument("--publish-weights", dest="publish_weights", type=str,
+                   default=None, metavar="DIR",
+                   help="checkpointing: after each verified save, "
+                        "atomically publish the params to DIR in the "
+                        "serve/reload.py manifest format, so serving "
+                        "fleets watching it (--reload-watch) hot-swap "
+                        "the new weights; requires --checkpoint-dir")
     for flag, item in UNPORTED_FLAGS.items():
         kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
               else {"action": "store_true", "default": None})
@@ -456,12 +563,67 @@ def parse_args(argv: Sequence[str] | None = None,
     if args.spec_k < 1:
         raise SystemExit(f"--spec-k {args.spec_k}: must be >= 1")
     for flag, v in (("--slo-ttft-ms", args.slo_ttft_ms),
-                    ("--slo-e2e-ms", args.slo_e2e_ms)):
+                    ("--slo-e2e-ms", args.slo_e2e_ms),
+                    ("--serve-deadline-ms", args.serve_deadline_ms)):
         if v is not None and v <= 0:
             raise SystemExit(f"{flag} {v}: must be positive milliseconds")
+    # the JAX CLI's supervision and fleet checks (utils/config.py:1034-
+    # 1133 there), in its order and with its messages; the disaggregated
+    # flags' checks come with disaggregation, refused below
+    if args.serve_retries < 0:
+        raise SystemExit(f"--serve-retries {args.serve_retries}: must be "
+                         ">= 0 (0 = error a request on its first engine "
+                         "fault)")
+    if args.canary_slots < 0:
+        raise SystemExit(f"--canary-slots {args.canary_slots}: must be "
+                         ">= 0 (0 swaps verified weights without a "
+                         "canary)")
+    # the cap only binds when a reload watch will actually canary: the
+    # default canary_slots must not invalidate small --max-slots runs
+    if args.reload_watch and args.canary_slots >= args.max_slots:
+        raise SystemExit(f"--canary-slots {args.canary_slots}: must be "
+                         f"< --max-slots {args.max_slots} (at least one "
+                         "slot must keep serving the stable weights)")
+    for flag, v in (("--reload-watch", args.reload_watch),
+                    ("--admission", args.admission)):
+        if v and not args.serve:
+            raise SystemExit(f"{flag} requires --serve (it extends the "
+                             "post-train serving demo)")
     err = serve_dtype_error(args.kv_dtype, args.weight_dtype, args.paged)
     if err:
         raise SystemExit(err)
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas {args.replicas}: must be >= 1 "
+                         "(1 = a single un-routed engine)")
+    if args.replicas > 1 and not args.paged:
+        raise SystemExit("--replicas > 1 requires --paged (the fleet "
+                         "router's prefix-affinity placement and "
+                         "zero-loss failover replay are built on the "
+                         "paged engine's prefix index and ledger)")
+    # the rebalance tier (evacuation + autoscaling) lives in the fleet
+    # router: both flags are meaningless without a routed replica set
+    if args.autoscale and args.replicas < 2:
+        raise SystemExit("--autoscale requires --replicas > 1 (elastic "
+                         "sizing grows/shrinks the fleet router's "
+                         "replica set; a single un-routed engine has "
+                         "nothing to scale)")
+    if args.evacuate_on != "off" and args.replicas < 2:
+        raise SystemExit(f"--evacuate-on {args.evacuate_on} requires "
+                         "--replicas > 1 (a mid-request evacuation "
+                         "needs a healthy peer to migrate the open "
+                         "slots' committed KV to)")
+    if args.priority_classes and not args.paged:
+        raise SystemExit("--priority-classes requires --paged "
+                         "(priority preemption spills and resumes "
+                         "paged KV blocks)")
+    if args.spill_dir and not args.priority_classes:
+        raise SystemExit("--spill-dir requires --priority-classes "
+                         "(spill files are only written when "
+                         "preemption can fire)")
+    if args.publish_weights and not args.checkpoint_dir:
+        raise SystemExit("--publish-weights requires --checkpoint-dir "
+                         "(only verified checkpoint saves are "
+                         "published for serving reload)")
     # the JAX CLI's mesh checks (utils/config.py:964-968 there)
     mesh_shape = parse_mesh_arg(args.mesh)
     if mesh_shape and args.nstages and \
@@ -546,7 +708,147 @@ def parse_args(argv: Sequence[str] | None = None,
         sentinel_window=args.sentinel_window,
         sentinel_factor=args.sentinel_factor, elastic=args.elastic,
         heartbeat_dir=args.heartbeat_dir,
-        heartbeat_timeout=args.heartbeat_timeout)
+        heartbeat_timeout=args.heartbeat_timeout,
+        serve_deadline_ms=args.serve_deadline_ms,
+        serve_retries=args.serve_retries, reload_watch=args.reload_watch,
+        canary_slots=args.canary_slots,
+        admission=parse_admission_arg(args.admission),
+        replicas=args.replicas,
+        priority_classes=parse_priority_classes(args.priority_classes),
+        spill_dir=args.spill_dir,
+        autoscale=parse_autoscale_arg(args.autoscale),
+        evacuate_on=args.evacuate_on, migrate=args.migrate,
+        publish_weights=args.publish_weights)
+
+
+#: ``--admission`` spec keys → (AdmissionController kwarg, converter,
+#: minimum).  Kept here so a typo'd knob dies at the CLI boundary with
+#: the full key list, not as a TypeError from the controller mid-serve.
+_ADMISSION_KEYS = {
+    "depth": ("max_queue_depth", int, 1),
+    "itl-p99-ms": ("itl_p99_ms", float, 1e-9),
+    "shed-priority": ("shed_priority", int, 1),
+    "patience": ("patience", int, 1),
+    "cool": ("cool", int, 1),
+}
+
+
+def parse_admission_arg(text: str | None,
+                        flag: str = "--admission") -> dict | None:
+    """``--admission`` string → :class:`..serve.admission.
+    AdmissionController` kwargs, validated at parse time (mirrors
+    :func:`parse_mesh_arg`).  Example:
+    ``"depth=16,itl-p99-ms=200,shed-priority=2"``."""
+    if not text:
+        return None
+    out: dict = {}
+    for part in text.split(","):
+        key, _, val = part.strip().partition("=")
+        if key not in _ADMISSION_KEYS:
+            raise SystemExit(
+                f"{flag}: unknown key {key!r} in entry {part!r}; known "
+                f"keys: {', '.join(sorted(_ADMISSION_KEYS))}")
+        name, conv, lo = _ADMISSION_KEYS[key]
+        if name in out:
+            raise SystemExit(f"{flag}: key {key!r} given twice")
+        try:
+            v = conv(val)
+        except ValueError:
+            raise SystemExit(f"{flag}: {key}={val!r} is not a valid "
+                             f"{conv.__name__}") from None
+        if v < lo:
+            raise SystemExit(f"{flag}: {key}={val!r} must be >= {lo}")
+        out[name] = v
+    return out
+
+
+#: ``--autoscale`` spec keys → (FleetAutoscaler kwarg, converter,
+#: minimum).  Same contract as ``_ADMISSION_KEYS``: a typo'd knob dies
+#: at the CLI boundary with the full key list, not as a TypeError from
+#: the autoscaler mid-serve.
+_AUTOSCALE_KEYS = {
+    "min": ("min_replicas", int, 1),
+    "max": ("max_replicas", int, 1),
+    "patience": ("patience", int, 1),
+    "cool": ("cool", int, 1),
+}
+
+
+def parse_autoscale_arg(text: str | None,
+                        flag: str = "--autoscale") -> dict | None:
+    """``--autoscale`` string → :class:`..serve.autoscaler.
+    FleetAutoscaler` kwargs, validated at parse time (mirrors
+    :func:`parse_admission_arg`).  Example:
+    ``"min=1,max=4,patience=2,cool=2"``."""
+    if not text:
+        return None
+    out: dict = {}
+    for part in text.split(","):
+        key, _, val = part.strip().partition("=")
+        if key not in _AUTOSCALE_KEYS:
+            raise SystemExit(
+                f"{flag}: unknown key {key!r} in entry {part!r}; known "
+                f"keys: {', '.join(sorted(_AUTOSCALE_KEYS))}")
+        name, conv, lo = _AUTOSCALE_KEYS[key]
+        if name in out:
+            raise SystemExit(f"{flag}: key {key!r} given twice")
+        try:
+            v = conv(val)
+        except ValueError:
+            raise SystemExit(f"{flag}: {key}={val!r} is not a valid "
+                             f"{conv.__name__}") from None
+        if v < lo:
+            raise SystemExit(f"{flag}: {key}={val!r} must be >= {lo}")
+        out[name] = v
+    if ("min_replicas" in out and "max_replicas" in out
+            and out["max_replicas"] < out["min_replicas"]):
+        raise SystemExit(f"{flag}: max={out['max_replicas']} < "
+                         f"min={out['min_replicas']} (the fleet cannot "
+                         "be smaller than its floor)")
+    return out
+
+
+def parse_priority_classes(text: str | None,
+                           flag: str = "--priority-classes"
+                           ) -> tuple | None:
+    """``--priority-classes`` string → ``LoadSpec.priority_classes``
+    tuple, validated at parse time (mirrors :func:`parse_admission_arg`).
+    Example: ``"0=0.25,1=0.5,2=0.25"`` → ``((0, 0.25), (1, 0.5),
+    (2, 0.25))``."""
+    if not text:
+        return None
+    out: list[tuple[int, float]] = []
+    seen: set[int] = set()
+    for part in text.split(","):
+        key, _, val = part.strip().partition("=")
+        if not val:
+            raise SystemExit(f"{flag}: bad entry {part!r}; expected "
+                             "'<priority>=<fraction>', e.g. '0=0.25'")
+        try:
+            prio = int(key)
+        except ValueError:
+            raise SystemExit(f"{flag}: priority {key!r} is not an "
+                             "integer") from None
+        if prio < 0:
+            raise SystemExit(f"{flag}: priority {prio} must be >= 0 "
+                             "(0 is the most-protected class)")
+        if prio in seen:
+            raise SystemExit(f"{flag}: priority {prio} given twice")
+        seen.add(prio)
+        try:
+            frac = float(val)
+        except ValueError:
+            raise SystemExit(f"{flag}: fraction {val!r} for priority "
+                             f"{prio} is not a number") from None
+        if frac < 0:
+            raise SystemExit(f"{flag}: fraction {frac} for priority "
+                             f"{prio} must be >= 0")
+        out.append((prio, frac))
+    total = sum(f for _, f in out)
+    if abs(total - 1.0) > 1e-6:
+        raise SystemExit(f"{flag}: fractions must sum to 1, got "
+                         f"{total:g}")
+    return tuple(out)
 
 
 def parse_mesh_arg(text: str | None,

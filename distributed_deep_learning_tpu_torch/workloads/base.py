@@ -229,7 +229,8 @@ def _maybe_checkpointer(config: Config, rank: int, shared: bool,
     directory = config.checkpoint_dir if shared or rank == 0 \
         else os.path.join(config.checkpoint_dir, f"rank-{rank}")
     ckpt = Checkpointer(directory, shared=shared, topology=topology,
-                        replicated_generator=replicated_generator)
+                        replicated_generator=replicated_generator,
+                        publish_dir=config.publish_weights)
     if not config.resume:
         last = ckpt.latest_step()
         if not config.elastic and last is not None:

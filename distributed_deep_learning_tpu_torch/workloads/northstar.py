@@ -35,6 +35,10 @@ prompts and ``--serve`` serves a seeded trace through the slot engine
 (``--paged``: the paged engine, ``--draft N`` speculating with its first N
 layers), both on the trained weights at the run's ``--dtype``, the KV
 cache and weights stored as ``--kv-dtype`` and ``--weight-dtype`` say.
+``--serve-deadline-ms``, ``--reload-watch`` or ``--admission`` run the
+engine under its supervisor; ``--priority-classes`` turns preemption on
+(``--migrate``, ``--spill-dir``); ``--replicas N`` serves through the
+fleet router (``--evacuate-on``, ``--autoscale``).
 
 ``-m model`` stages each workload's layer list: ResNet's stem, blocks and
 head, and for the LMs an embedding, the blocks and a head attending
@@ -449,14 +453,48 @@ def _gpt_generate(config: Config, state, logger, dataset) -> None:
         logger.info(f"generate prompt={row_p} continuation={row_o}")
 
 
+def _serve_supervision_kw(config: Config) -> dict | None:
+    """Supervisor kwargs when any serve-resilience knob is on the CLI
+    (``--serve-deadline-ms`` / ``--reload-watch`` / ``--admission``);
+    ``None`` means run the engine bare.  ``--serve-retries`` and
+    ``--canary-slots`` only shape behaviour once one of the trigger
+    knobs is set."""
+    if (config.serve_deadline_ms is None and not config.reload_watch
+            and config.admission is None):
+        return None
+    return dict(deadline_ms=config.serve_deadline_ms,
+                retries=config.serve_retries,
+                reload_watch=config.reload_watch,
+                canary_slots=config.canary_slots,
+                admission=config.admission)
+
+
+def _log_supervision(logger, sv: dict) -> None:
+    """One log line for the supervisor-level outcome (the engine-level
+    line still follows from ``stats["engine"]``), JAX's."""
+    line = (f"serve(supervised): restarts={sv['restarts']}, lost="
+            f"{sv['requests_lost']}, deadline_misses="
+            f"{sv['deadline_misses']}, ticks={sv['ticks']}")
+    r = sv.get("reload")
+    if r:
+        line += (f", reload swaps={r['swaps']} rollbacks={r['rollbacks']}"
+                 f" rejected={r['rejected']}")
+    a = sv.get("admission")
+    if a:
+        line += f", admission level={a['level']} shed={a['shed_total']}"
+    logger.info(line)
+
+
 def _gpt_serve(config: Config, state, logger, dataset) -> None:
     """``--serve``: a seeded mixed-length request trace (prompts drawn over
     the dataset's vocabulary) through the slot engine on the trained
     weights, logging tokens/s, mean slot occupancy and the decode tick's
     captures; with ``--paged`` through the paged engine
-    (:func:`_gpt_serve_paged`)."""
-    from distributed_deep_learning_tpu_torch.serve.bench import (make_trace,
-                                                                 run_engine)
+    (:func:`_gpt_serve_paged`).  Any supervision knob runs the engine
+    under :class:`..serve.supervisor.ServeSupervisor` and logs JAX's
+    ``serve(supervised)`` line first."""
+    from distributed_deep_learning_tpu_torch.serve.bench import (
+        make_trace, run_engine, run_supervised)
 
     model = _served_model(config, state, dataset)
     seq = dataset.features.shape[1]
@@ -471,9 +509,18 @@ def _gpt_serve(config: Config, state, logger, dataset) -> None:
     trace = make_trace(max(2 * config.max_slots, 8),
                        vocab_size=_vocab(dataset), seed=config.seed,
                        prompt_lens=(2, p_hi), new_tokens=(1, new_hi))
-    s = run_engine(model, trace, device=next(model.parameters()).device,
-                   max_slots=config.max_slots, kv_dtype=config.kv_dtype,
-                   weight_dtype=config.weight_dtype)["stats"]
+    engine_kw = dict(device=next(model.parameters()).device,
+                     max_slots=config.max_slots, kv_dtype=config.kv_dtype,
+                     weight_dtype=config.weight_dtype)
+    sup_kw = _serve_supervision_kw(config)
+    if sup_kw is None:
+        s = run_engine(model, trace, **engine_kw)["stats"]
+    else:
+        out = run_supervised(model, trace, **engine_kw, **sup_kw)
+        _log_supervision(logger, out["stats"])
+        s = out["stats"]["engine"]
+        if s is None:
+            return
     logger.info(
         f"serve: {s['requests']} requests, {s['generated_tokens']} tokens "
         f"at {s['tokens_per_sec']:.1f} tok/s, occupancy "
@@ -487,7 +534,7 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
     with the config's block, chunk, draft, quantization and SLO settings;
     a ``--draft`` the model cannot take is logged and dropped."""
     from distributed_deep_learning_tpu_torch.serve.bench import (
-        make_trace, paged_max_len, run_paged)
+        make_trace, paged_max_len, run_paged, run_supervised)
 
     draft = config.draft or None
     if draft is not None and not 1 <= draft < model.num_layers:
@@ -511,13 +558,36 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
         trace = [dataclasses.replace(r, slo_ttft_ms=config.slo_ttft_ms,
                                      slo_e2e_ms=config.slo_e2e_ms)
                  for r in trace]
-    s = run_paged(model, trace, device=next(model.parameters()).device,
-                  max_slots=config.max_slots, max_len=cap,
-                  kv_block_size=block,
-                  prefill_chunk=min(config.prefill_chunk, cap),
-                  draft_layers=draft, spec_k=config.spec_k,
-                  kv_dtype=config.kv_dtype,
-                  weight_dtype=config.weight_dtype)["stats"]
+    engine_kw = dict(device=next(model.parameters()).device,
+                     max_slots=config.max_slots, max_len=cap,
+                     kv_block_size=block,
+                     prefill_chunk=min(config.prefill_chunk, cap),
+                     draft_layers=draft, spec_k=config.spec_k,
+                     kv_dtype=config.kv_dtype,
+                     weight_dtype=config.weight_dtype)
+    if config.priority_classes:
+        # a seeded priority mix over the same trace, and engine-side
+        # preemption so the mix has teeth: low-priority slots spill
+        pcs = config.priority_classes
+        rng = np.random.default_rng(config.seed)
+        fr = np.asarray([f for _, f in pcs]) / sum(f for _, f in pcs)
+        trace = [dataclasses.replace(r, priority=int(
+            rng.choice([p for p, _ in pcs], p=fr))) for r in trace]
+        engine_kw.update(preempt=True, spill_dir=config.spill_dir,
+                         migrate=config.migrate)
+    if config.replicas > 1:
+        _gpt_serve_fleet(config, model, logger, trace, engine_kw)
+        return
+    sup_kw = _serve_supervision_kw(config)
+    if sup_kw is None:
+        s = run_paged(model, trace, **engine_kw)["stats"]
+    else:
+        out = run_supervised(model, trace, paged=True, **engine_kw,
+                             **sup_kw)
+        _log_supervision(logger, out["stats"])
+        s = out["stats"]["engine"]
+        if s is None:
+            return
     pg, sp, slo = s["paged"], s["spec"], s["slo"]
     line = (f"serve(paged): {s['requests']} requests, "
             f"{s['generated_tokens']} tokens at "
@@ -533,6 +603,71 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
             line += f", spec acceptance {sp['acceptance_rate']:.3f}"
     if slo["slo_attainment"] is not None:
         line += f", slo attainment {slo['slo_attainment']:.2f}"
+    logger.info(line)
+
+
+def _gpt_serve_fleet(config: Config, model, logger, trace,
+                     engine_kw: dict) -> None:
+    """``--serve --paged --replicas N``: the same trace through N
+    supervised paged replicas, sharing the model's weights, behind the
+    prefix-affinity fleet router (:mod:`..serve.fleet`) — crash
+    quarantine, zero-loss replay, per-priority SLO rollup, evacuation
+    and autoscaling as the flags ask; logs JAX's ``serve(fleet)``
+    line."""
+    from distributed_deep_learning_tpu_torch.serve.admission import \
+        AdmissionController
+    from distributed_deep_learning_tpu_torch.serve.autoscaler import \
+        FleetAutoscaler
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+    from distributed_deep_learning_tpu_torch.serve.fleet import FleetRouter
+
+    engines = [PagedEngine(model, **engine_kw)
+               for _ in range(config.replicas)]
+    admissions = None
+    if config.admission is not None:
+        admissions = {i: AdmissionController(**config.admission)
+                      for i in range(config.replicas)}
+    autoscaler = engine_factory = None
+    if config.autoscale is not None:
+        autoscaler = FleetAutoscaler(**config.autoscale)
+        # every grown replica serves the weights the fleet launched with,
+        # at the launch geometry (so the decode's splits are the same)
+        engine_factory = lambda: PagedEngine(model, **engine_kw)  # noqa: E731
+    flt = FleetRouter(engines, deadline_ms=config.serve_deadline_ms,
+                      retries=config.serve_retries, admissions=admissions,
+                      evacuate_on=config.evacuate_on,
+                      autoscaler=autoscaler, engine_factory=engine_factory)
+    launches0 = paged_flash_decode.launches
+    out = flt.run(list(trace))
+    launches = paged_flash_decode.launches - launches0
+    st = out["stats"]
+    tokens = sum(len(v) for v in out["results"].values())
+    line = (f"serve(fleet): {st['requests']} requests over "
+            f"{len(engines)} replicas, {tokens} tokens, rounds="
+            f"{st['rounds']}, lost={st['requests_lost']}, predicted hit "
+            f"tokens {st['routing']['predicted_hit_tokens']}, decode "
+            f"captures={max(v['decode_captures'] for v in st['per_replica'].values())} "
+            f"launches={launches}")
+    slo = st["slo"]
+    if slo.get("slo_attainment") is not None:
+        line += f", slo attainment {slo['slo_attainment']:.2f}"
+        bp = slo.get("by_priority") or {}
+        if bp:
+            line += " (" + ", ".join(
+                f"p{p}={s['slo_attainment']:.2f}" for p, s in
+                sorted(bp.items()) if s["slo_attainment"] is not None) + ")"
+    rb = st.get("rebalance")
+    if rb and rb["evacuate_on"] != "off":
+        line += (f", evacuated {rb['evacuated_slots']} slots "
+                 f"({rb['evacuated_tokens']} tokens, "
+                 f"{rb['rolled_back']} rolled back)")
+    asc = st.get("autoscaler")
+    if asc:
+        line += (f", scale events {asc['scale_events']} "
+                 f"(+{asc['grows']}/-{asc['shrinks']}, "
+                 f"{asc['replicas_final']} final)")
     logger.info(line)
 
 

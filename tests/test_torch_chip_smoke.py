@@ -191,7 +191,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               25: "phase_zoo_lm", 26: "phase_zoo_lm", 27: "phase_staged",
               28: "phase_pipeline", 29: "phase_pipeline_zoo",
               30: "phase_moe", 31: "phase_sharded", 32: "phase_comm",
-              33: "phase_grid", 34: "phase_resilience"}
+              33: "phase_grid", 34: "phase_resilience",
+              35: "phase_serving_resilience"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -229,11 +230,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_pipeline_zoo", {}), ("phase_moe", {}),
             ("phase_sharded", {}),
             ("phase_comm", {"comm": {}, "seq": {}}),
-            ("phase_grid", {}), ("phase_resilience", {})):
+            ("phase_grid", {}), ("phase_resilience", {}),
+            ("phase_serving_resilience", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 35)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 36)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -627,3 +629,94 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
     for name, n in flash.items():
         assert kernels[name]["grid_launches"] == {"1f1b f32 2 ranks": n}
         assert kernels[name]["resilience_launches"] == n
+
+
+def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
+    """Phase 35 runs inside phase 4's block (its model and trace), after
+    phase 20 and before the model leaves the card; the complete run is
+    phases 1-35 and its launches land on the decode kernel's entry."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_window(rec)") < src.index(
+        "phase_serving_resilience(rec)") < src.index(
+        "_full_width.cache_clear()")
+    assert '"resilience_serve_launches"' in src
+    assert "set(range(1, 36))" in src
+
+
+def _tiny_paged():
+    from distributed_deep_learning_tpu_torch.serve.bench import (build_model,
+                                                                 make_trace)
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+
+    model = build_model(0, "cpu", vocab_size=61, num_layers=2, d_model=32,
+                        num_heads=4, mlp_dim=64, max_len=64)
+    eng = PagedEngine(model, device="cpu", max_slots=3, kv_block_size=8,
+                      prefill_chunk=8)
+    trace = make_trace(4, vocab_size=61, seed=1, prompt_lens=(3, 12),
+                       new_tokens=(3, 8))
+    return model, eng, trace
+
+
+def test_phase_35_margins_chunk_logits_and_tick_count():
+    """The phase's instruments on a tiny CPU engine: the tick counter
+    counts the engine's decode ticks, the recorder a margin for every
+    decoded token, and the chunk prefill's logits are the plain
+    forward's."""
+    import numpy as np
+    import torch
+
+    from distributed_deep_learning_tpu_torch.serve.supervisor import \
+        ServeSupervisor
+
+    model, eng, trace = _tiny_paged()
+    marg = chip_smoke._Margins(keep_rows=True)
+    with chip_smoke._tick_calls() as calls:
+        out = ServeSupervisor(eng, fleet_hook=marg).run(list(trace))
+    assert calls["n"] == out["stats"]["engine"]["decode_ticks"] > 0
+    for r in trace:
+        assert sorted(marg.margin[r.uid]) == list(range(
+            1, len(out["results"][r.uid])))
+    delta = chip_smoke._delta_and_first_margins(eng, trace, out["results"],
+                                                marg)
+    assert 0 <= delta < 1e-4
+    r = trace[0]
+    stream = np.concatenate([r.prompt, out["results"][r.uid]]).astype(
+        np.int64)
+    got = chip_smoke._chunk_logits(eng, stream)
+    with torch.no_grad():
+        want = model.logits_from(model.cached_forward(
+            torch.as_tensor(stream)[None], model.init_cache(1, 64)))[0]
+    if model.pad_id is not None:
+        want[:, model.pad_id] = -torch.inf       # as the tick masks it
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_phase_35_replay_rule_holds_near_ties_and_fails_the_rest():
+    """The determinism rule's check: a request may part from the
+    fault-free run only first at a near-tie past its pre-fault tokens;
+    a move at rest must not part at all; zero loss throughout."""
+    marg = chip_smoke._Margins()
+    marg.margin = {0: {0: 5.0, 1: 0.01, 2: 3.0}, 1: {0: 4.0, 1: 2.0}}
+    ref = {"results": {0: [1, 2, 3], 1: [4, 5]}}
+
+    def out(r0, r1, lost=0):
+        return {"results": {0: r0, 1: r1}, "errors": {},
+                "stats": {"requests_lost": lost}}
+
+    assert chip_smoke._hold_replay("same", out([1, 2, 3], [4, 5]), ref, marg,
+                                   0.1, exact=True) == (0, 0.0)
+    # request 0 parts at its token 1, a near-tie (0.01 < 0.1)
+    assert chip_smoke._hold_replay("tie", out([1, 9, 9], [4, 5]), ref, marg,
+                                   0.1, before={0: 1})[0] == 1
+    for kw, r0 in (({}, [1, 2, 9]),              # token 2: margin 3.0
+                   ({"exact": True}, [1, 9, 9]),  # at rest: exact
+                   ({"before": {0: 2}}, [1, 9, 9])):  # a kept token moved
+        with pytest.raises(RuntimeError, match="parts from"):
+            chip_smoke._hold_replay("bad", out(r0, [4, 5]), ref, marg, 0.1,
+                                    **kw)
+    with pytest.raises(RuntimeError, match="lost"):
+        chip_smoke._hold_replay("lost", out([1, 2, 3], [4, 5], lost=1), ref,
+                                marg, 0.1)
+    with pytest.raises(RuntimeError, match="twice"):
+        chip_smoke._hold_replay("again", out([1, 2, 3], [4, 5]), ref, marg,
+                                0.1, again=out([1, 2, 3], [4, 6]))

@@ -156,13 +156,19 @@ def test_serve_cli_prints_one_record(capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"preempt": True}, "preemption"),
-    ({"migrate": "device"}, "preemption"),
+    ({"preempt": True}, "spill_dir requires preempt"),
+    ({"migrate": "device"}, "migrate must be"),
 ])
 def test_unported_options_raise(kw, match):
+    """Preemption and the device spill construct (item 13 ported them);
+    their misuses raise with JAX's messages."""
     _, _, tm = _models()
-    with pytest.raises(NotImplementedError, match=match):
-        teng.PagedEngine(tm, device="cpu", **kw)
+    eng = teng.PagedEngine(tm, device="cpu", **kw)
+    assert eng._preempt == kw.get("preempt", False)
+    assert eng.migrate_kind == kw.get("migrate", "host")
+    bad = ({"spill_dir": "d"} if "preempt" in kw else {"migrate": "disk"})
+    with pytest.raises(ValueError, match=match):
+        teng.PagedEngine(tm, device="cpu", **bad)
 
 
 def test_window_and_telemetry_raise():
@@ -249,6 +255,10 @@ def test_importing_the_port_loads_no_jax():
             "pipeline_transformer\n"
             "import distributed_deep_learning_tpu_torch.models.pipelined_lm\n"
             "import distributed_deep_learning_tpu_torch.models.moe\n"
+            "import distributed_deep_learning_tpu_torch.serve.fleet\n"
+            "import distributed_deep_learning_tpu_torch.serve.reload\n"
+            "import distributed_deep_learning_tpu_torch.serve.autoscaler\n"
+            "import distributed_deep_learning_tpu_torch.utils.chaos\n"
             "from distributed_deep_learning_tpu_torch.workloads import "
             "get_spec\n"
             "for w in ('resnet', 'transformer', 'bert', 'moe', 'gpt'):\n"

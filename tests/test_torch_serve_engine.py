@@ -325,17 +325,59 @@ def test_unported_options_raise(kw, match):
         teng.ServeEngine(tm, device="cpu", **kw)
 
 
+def _hook_on_tick(e):
+    reports = []
+    out = e.run(_trace()[:3], on_tick=reports.append)
+    assert [r.kind for r in reports].count("prefill") == 3
+    assert sum(len(r.emitted) for r in reports) == sum(
+        len(t) for t in out["results"].values())
+    assert all(all(r.finite.values()) for r in reports)
+
+
+def _hook_admission(e):
+    from distributed_deep_learning_tpu_torch.serve.admission import \
+        AdmissionController
+
+    adm = AdmissionController(max_queue_depth=1, shed_priority=1)
+    out = e.run(_trace(stagger=0), admission=adm)
+    assert out["errors"] and all(m.startswith("shed: ")
+                                 for m in out["errors"].values())
+
+
+def _hook_reset(e):
+    e.run(_trace()[:2])
+    e.reset()
+    assert not any(bool(t.any()) for layer in e.slots["layers"]
+                   for t in layer.values())
+    assert e.restarts == 1
+
+
+def _hook_swap(e):
+    live = {k: v.data_ptr() for k, v in e.model.state_dict().items()}
+    e.swap_params({k: v.clone() for k, v in e.model.state_dict().items()})
+    assert {k: v.data_ptr() for k, v in e.model.state_dict().items()} \
+        == live
+    assert e.weight_swaps == 1
+    with pytest.raises(ValueError, match="tree structure"):
+        e.swap_params({})
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda e: e.run([], telemetry=object()), "item 14"),
-    (lambda e: e.run([], on_tick=print), "item 13"),
-    (lambda e: e.run([], admission=object()), "item 13"),
-    (lambda e: e.reset(), "item 13"),
-    (lambda e: e.swap_params({}), "item 13"),
+    (_hook_on_tick, None), (_hook_admission, None), (_hook_reset, None),
+    (_hook_swap, None),
 ], ids=["telemetry", "on_tick", "admission", "reset", "swap_params"])
 def test_unported_hooks_raise(call, match):
+    """Telemetry stays refused (item 14); the supervision seams (item 13)
+    work on the slot engine: tick reports before the commit, admission
+    shedding, an in-place reset and an in-place weight swap."""
     _, _, tm = _models()
+    eng = teng.ServeEngine(tm, device="cpu", max_slots=2)
+    if match is None:
+        call(eng)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        call(teng.ServeEngine(tm, device="cpu", max_slots=2))
+        call(eng)
 
 
 def test_cuda_without_a_card_raises():
