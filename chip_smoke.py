@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,6,7,32  # compressed collectives, ring
     python3 chip_smoke.py --phases 1,7,33,34  # pipeline grid, resilience
     python3 chip_smoke.py --phases 1,35  # serving resilience and the fleet
+    python3 chip_smoke.py --phases 1,36,37  # disaggregation, observability
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -344,6 +345,29 @@ Phases, in order; any failure raises and exits non-zero:
     ``--replicas 2 --evacuate-on degraded --autoscale ...`` (the
     ``serve(fleet)`` line).  Every leg's decode launches equal its decode
     ticks (the canary's included) x layers.
+36. disaggregated serving on phase 35's model and trace, a prefill pool
+    (4 rows a batched chunk) and a decode pool both on card 0: each wire
+    (``at_rest``, ``int8``) served warm and then timed, its decode
+    launches equal to its ticks x layers; the at-rest run's tokens held
+    to the determinism rule against the unified engine (exact, or parting
+    first at a near-tie under twice the largest |dlogit| between the two
+    runs at the same positions), the int8 wire's agreement printed; a
+    handoff of one slot's blocks with digests (bytes, digest ms, copy
+    ms); ``reassign`` both ways on a third worker; the CLI's refusal of
+    ``--disagg`` on one card; ``disagg_serving_bench``'s record (speedup
+    against the unified engine, ITL p99s, migration GiB/s, agreement,
+    ``prefill_util``).
+37. observability: phase 31's bf16 ``gpt`` on its 24 rows through the
+    CLI with ``--obs --obs-trace --obs-blackbox --metrics-file
+    --profile-dir``, and again without: the losses equal bit for bit, the
+    flash launches phase 31's plus one counted step; the MFU record
+    against the card's peak from ``obs/mfu.py``'s table; the step's FLOPs
+    with ``--attention dense`` within 1% of flash's; the profiler trace
+    naming the flash kernels, and the card's idle share between its first
+    and last kernel; ``overhead_bench`` and ``trace_overhead_bench``; phase
+    35's 8 requests served under telemetry, a tracer and a recorder, a
+    planted SLO breach tripping it; a captured decode tick replayed under
+    the profiler (its idle share).
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -5379,12 +5403,352 @@ def phase_serving_resilience(rec4):
 
 
 
+# --- phase 36: disaggregated serving ----------------------------------------
+
+#: phase 36's prefill rows a batched chunk (JAX's default)
+DISAGG_STREAMS = 4
+
+
+def _disagg_run(label, eng, trace, marg=None):
+    """One :class:`DisaggEngine` run from a reset engine, the decode
+    kernel's count zeroed just before and read just after; the launches
+    must equal the decode ticks x layers."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops.paged_decode import \
+        paged_flash_decode
+
+    eng.reset()
+    paged_flash_decode.launches = 0
+    out = eng.run(list(trace), on_tick=marg)
+    torch.cuda.synchronize()
+    n, st = paged_flash_decode.launches, out["stats"]
+    want = st["decode_ticks"] * FULL_MODEL["num_layers"]
+    mig = st["migration"]
+    print(f"disagg[{label}]: {st['generated_tokens']} tokens at "
+          f"{st['tokens_per_sec']:.1f} tok/s ({st['total_seconds']:.3f} s), "
+          f"prefill util {st['prefill_util']:.3f} over "
+          f"{st['prefill_chunk_calls']} batched chunks, decode "
+          f"{st['decode_seconds'] / max(st['decode_ticks'], 1) * 1e3:.3f} ms"
+          f" a tick over {st['decode_ticks']} ticks, {mig['moves']} handoffs"
+          f" of {mig['blocks']} blocks ({mig['wire_bytes'] / 2**20:.2f} MiB)"
+          f"; paged_flash_decode launches {n}, ticks x layers {want}")
+    if out["errors"]:
+        raise RuntimeError(f"disagg[{label}]: {out['errors']}")
+    if n != want or n != st["paged_decode_launches"] or not n:
+        raise RuntimeError(f"disagg[{label}]: {n} decode launches for "
+                           f"{st['decode_ticks']} ticks")
+    if st["decode_captures"] != 1:
+        raise RuntimeError(f"disagg[{label}]: decode captures "
+                           f"{st['decode_captures']}")
+    return out, n
+
+
+def _logit_delta(ref_marg, marg, ref, out):
+    """The largest |logit difference| at the same decoded positions of two
+    runs, up to each request's first parting."""
+    import numpy as np
+
+    delta = 0.0
+    for uid, rows in ref_marg.rows.items():
+        a, b = np.asarray(ref["results"][uid]), np.asarray(
+            out["results"][uid])
+        same = int(np.argmax(a != b)) if (a != b).any() else len(a)
+        for k, row in rows.items():
+            other = marg.rows.get(uid, {}).get(k)
+            if other is not None and k <= same:
+                d = (row - other).abs()
+                delta = max(delta, float(d[d == d].max()))
+    return delta
+
+
+def phase_disagg():
+    """Phase 36: the disaggregated engine on phase 4's model and its
+    trace's first 8 requests, both pools on card 0; returns each wire's
+    decode launches."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.serve import migrate as mig
+    from distributed_deep_learning_tpu_torch.serve.bench import \
+        disagg_serving_bench
+    from distributed_deep_learning_tpu_torch.serve.disagg import \
+        DisaggEngine
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+
+    t_phase = time.perf_counter()
+    model, trace, cap = _full_width()
+    trace = trace[:RESILIENT_REQUESTS]
+    dev = torch.device("cuda", 0)
+    kw = dict(max_len=cap, prefill_streams=DISAGG_STREAMS, **FULL_ENGINE)
+    uni = PagedEngine(model, max_len=cap, **FULL_ENGINE)
+    ref_marg = _Margins(keep_rows=True)
+    ref = uni.run(list(trace), on_tick=ref_marg)
+    _first_margins(uni, trace, ref_marg)
+    print(f"disagg: unified reference {ref['stats']['tokens_per_sec']:.1f} "
+          f"tok/s ({ref['stats']['total_seconds']:.3f} s)")
+    launches = {}
+    eng = None
+    for wire in ("at_rest", "int8"):
+        eng = DisaggEngine(model, devices=[dev, dev], wire=wire, **kw)
+        _disagg_run(f"{wire} warm", eng, trace)
+        marg = _Margins(keep_rows=True)
+        out, launches[wire] = _disagg_run(wire, eng, trace, marg)
+        _check_results(f"disagg[{wire}]", out["results"],
+                       {r.uid: r.max_new_tokens for r in trace})
+        delta = _logit_delta(ref_marg, marg, ref, out)
+        shim = {"results": out["results"], "errors": out["errors"],
+                "stats": {"requests_lost": 0}}
+        if wire == "at_rest":
+            # the determinism rule: tokens equal to the unified engine's,
+            # or parting first at a near-tie (twice the largest |dlogit|
+            # between the two runs at the same positions)
+            print(f"disagg[{wire}]: max |dlogit| against the unified "
+                  f"engine {delta:.4g}; near-tie limit {2 * delta:.4g}")
+            _hold_replay(f"disagg[{wire}]", shim, ref, ref_marg, 2 * delta)
+        else:
+            agree = _agreement(ref["results"], out["results"],
+                               f"disagg[{wire}] vs unified")
+            print(f"disagg[{wire}]: max |dlogit| against the unified "
+                  f"engine {delta:.4g} (a lossy wire), agreement "
+                  f"{agree:.4f}")
+        del eng
+    # the handoff: one slot's blocks moved prefill -> decode, digested
+    # before and after, waiting for each move
+    eng = DisaggEngine(model, devices=[dev, dev], **kw)
+    _disagg_run("handoff warm", eng, trace)
+    pw, dw = eng.prefill[0], eng.decode[0]
+    ids = list(range(1, pw.eng.blocks_per_slot + 1))
+    m = mig.BlockMigrator(len(ids))
+    for _ in range(4):
+        m.migrate(pw.eng.pools, dw.eng.pools, ids, ids, device=dev,
+                  verify=True, sync=True)
+    st = m.stats
+    print(f"disagg: handoff of {len(ids)} blocks "
+          f"({st.wire_bytes / st.moves / 2**20:.2f} MiB a move): digest "
+          f"{st.digest_seconds / st.moves * 1e3:.3f} ms, copy on the card "
+          f"{st.copy_seconds / st.moves * 1e3:.3f} ms a move "
+          f"({st.gb_per_s():.3f} GiB/s overall)")
+    # role elasticity: a third worker on the same card moves both ways
+    del eng
+    three = DisaggEngine(model, prefill_workers=1, decode_workers=2,
+                         devices=[dev] * 3, **kw)
+    moved = [three.reassign("to_prefill"), three.reassign("to_decode")]
+    pools = (len(three.prefill), len(three.decode))
+    print(f"disagg: reassign to_prefill, to_decode -> {moved}, pools "
+          f"{pools[0]}P+{pools[1]}D")
+    if moved != [True, True] or pools != (1, 2):
+        raise RuntimeError(f"disagg: reassign {moved}, pools {pools}")
+    del three
+    # the CLI on one card: JAX's refusal
+    if torch.cuda.device_count() == 1:
+        try:
+            parse_args(["--serve", "--paged", "--disagg"], "gpt")
+        except SystemExit as e:
+            if "only 1 visible" not in str(e):
+                raise RuntimeError(f"disagg: CLI refusal {e}") from e
+            print(f"disagg: the CLI on one card: {e}")
+        else:
+            raise RuntimeError("disagg: the CLI took --disagg on one card")
+    rec = disagg_serving_bench(device="cuda", devices=[dev, dev],
+                               model=model, trace=trace, max_slots=8,
+                               kv_block_size=16, prefill_chunk=64,
+                               prefill_streams=DISAGG_STREAMS)
+    print("disagg: bench " + json.dumps({k: rec[k] for k in (
+        "speedup", "itl_p99_ratio", "token_agreement", "migration_gbps",
+        "migration_ms_per_move", "wire_bytes_per_block",
+        "int8_wire_shrink_x")}) + f"; unified itl p99 "
+        f"{rec['unified']['itl_p99_s']:.5f} s, disagg itl p99 "
+        f"{rec['disagg']['itl_p99_s']:.5f} s, prefill util "
+        f"{rec['disagg']['prefill_util']:.3f}")
+    if rec["errors"]:
+        raise RuntimeError(f"disagg: bench errors {rec['errors']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --- phase 37: observability ------------------------------------------------
+
+#: phase 37's CLI run: phase 31's gpt in bf16 on its 24 rows
+OBS_FLAGS = ("--dtype", "bfloat16")
+
+
+def _trace_kernels(path):
+    """The kernel events of a Chrome trace the profiler wrote: ``(names,
+    busy ms, window ms)``, the window from the first kernel's start to
+    the last one's end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ks = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not ks:
+        return set(), 0.0, 0.0
+    t0 = min(e["ts"] for e in ks)
+    t1 = max(e["ts"] + e["dur"] for e in ks)
+    return {e["name"] for e in ks}, sum(e["dur"] for e in ks) / 1e3, \
+        (t1 - t0) / 1e3
+
+
+def phase_obs(data_dir: Path) -> dict:
+    """Phase 37: telemetry, tracing, the flight recorder, MFU and the
+    profiler on the card; returns the flash launches of the observed
+    CLI run."""
+    import dataclasses
+
+    import torch
+
+    from distributed_deep_learning_tpu_torch import obs
+    from distributed_deep_learning_tpu_torch.obs import bench as obs_bench
+    from distributed_deep_learning_tpu_torch.obs import memory as obs_memory
+    from distributed_deep_learning_tpu_torch.obs import mfu as obs_mfu
+    from distributed_deep_learning_tpu_torch.obs.recorder import \
+        FlightRecorder
+    from distributed_deep_learning_tpu_torch.obs.trace import \
+        read_chrome_trace
+    from distributed_deep_learning_tpu_torch.serve.engine import PagedEngine
+    from distributed_deep_learning_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    obs_argv = ("--obs", "--obs-file", str(out_dir / "ev.jsonl"),
+                "--obs-trace", str(out_dir / "tr.json"), "--obs-blackbox",
+                str(out_dir / "bb.json"), "--metrics-file",
+                str(out_dir / "m.jsonl"), "--profile-dir",
+                str(out_dir / "prof"))
+    os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+    try:
+        off, _, _ = _train(data_dir, "flash", *OBS_FLAGS, label="obs off")
+        on, launches, perf = _train(data_dir, "flash", *OBS_FLAGS,
+                                    *obs_argv, label="obs on")
+    finally:
+        os.environ.pop("DDL_DATA_LIMIT", None)
+    lose = [(h.phase, h.loss, h.step_losses) for h in on]
+    if lose != [(h.phase, h.loss, h.step_losses) for h in off]:
+        raise RuntimeError("obs: the losses with --obs differ from those "
+                           "without it")
+    steps = split_steps(SHARD_ROWS, TRAIN_BATCH)
+    want = expected_launches(TRAIN_LAYERS, steps)
+    # measure_flops runs one more train step, on a copy of the state
+    want = {k: v + TRAIN_LAYERS for k, v in want.items()}
+    check_launches("obs", launches, want)
+    events = [json.loads(line) for line in open(out_dir / "ev.jsonl")]
+    mfu = next(e for e in events if e["event"] == "obs_mfu")
+    names = [e["event"] for e in events]
+    print(f"obs: losses with --obs equal those without, bit for bit; "
+          f"sidecar events {names}")
+    print(f"obs: step FLOPs {mfu['step_flops']:.6g}, "
+          f"{mfu['steps_per_sec']:.4f} steps/s over the epoch's train "
+          f"phase, MFU {mfu['mfu']:.4f} against {mfu['device_kind']}'s "
+          f"{mfu['peak_flops_per_chip']:.4g} FLOP/s "
+          f"({mfu['peak_flops_source']})")
+    if mfu["peak_flops_source"] != "table" or not mfu["mfu"] or \
+            mfu["peak_flops_per_chip"] != obs_mfu.chip_peak_flops(
+                torch.cuda.get_device_name(0)):
+        raise RuntimeError(f"obs: MFU record {mfu}")
+    spans = read_chrome_trace(str(out_dir / "tr.json"))
+    if not {"compile", "dispatch", "data_wait", "device_sync"} <= \
+            {s["name"] for s in spans}:
+        raise RuntimeError("obs: the span trace lacks the loop's spans")
+    # the step's FLOPs with dense attention: within 1% of flash's
+    os.environ["DDL_DATA_LIMIT"] = str(SHARD_ROWS)
+    try:
+        dense, _, _ = _train(data_dir, "dense", *OBS_FLAGS, "--obs",
+                             "--obs-file", str(out_dir / "dense.jsonl"),
+                             label="obs dense")
+    finally:
+        os.environ.pop("DDL_DATA_LIMIT", None)
+    dmfu = next(e for e in (json.loads(line) for line in
+                            open(out_dir / "dense.jsonl"))
+                if e["event"] == "obs_mfu")
+    gap = _rel(mfu["step_flops"], dmfu["step_flops"])
+    print(f"obs: step FLOPs flash {mfu['step_flops']:.6g} / dense "
+          f"{dmfu['step_flops']:.6g}: {gap:.2e} apart (limit 1e-2)")
+    if not gap <= 1e-2:
+        raise RuntimeError("obs: flash and dense step FLOPs differ")
+    # the profiler window of the observed run: the flash kernels, and the
+    # card's idle share over the span its kernels cover
+    prof = sorted((out_dir / "prof").glob("trace.*.json"))
+    knames, busy, window = _trace_kernels(prof[-1])
+    flash = sorted(n for n in knames if "flash_" in n)
+    print(f"obs: --profile-dir trace {prof[-1].name}: {len(knames)} kernel "
+          f"names, flash kernels {flash}; {busy:.3f} ms busy of "
+          f"{window:.3f} ms from the first kernel to the last: idle share "
+          f"{1 - busy / window:.3f}")
+    if not any("flash_fwd" in n for n in flash) or \
+            not any("flash_dq" in n for n in flash):
+        raise RuntimeError("obs: the profiler trace names no flash kernel")
+    rec = obs_bench.overhead_bench(device="cuda")
+    rec2 = obs_bench.trace_overhead_bench(device="cuda")
+    # the instruments' own costs: the memory tracker's poll (a sample
+    # every 8 steps: the allocator's counters and the host's RSS) and a
+    # timeline record
+    tel = obs.RunTelemetry(path=None, device=torch.device("cuda", 0))
+    costs = {name: _host_us(fn, calls=80, rounds=5) for name, fn in (
+        ("allocator counters", lambda: obs_memory.device_memory_stats(
+            tel.memory.device)),
+        ("host RSS", obs_memory.host_rss_bytes),
+        ("memory on_step", tel.memory.on_step),
+        ("timeline add+step", lambda: (tel.timeline.add("dispatch", 0.0),
+                                       tel.timeline.step())))}
+    print("obs: instrument costs (host us a call) " + ", ".join(
+        f"{k} {v:.2f}" for k, v in costs.items()))
+    print(f"obs: telemetry overhead {rec['obs_overhead_fraction']:+.4f} "
+          f"({rec['per_step_overhead_us']:+.2f} us a step at "
+          f"{rec['steps_per_sec_off']:.1f} steps/s); tracing "
+          f"{rec2['obs_trace_overhead_fraction']:+.4f} "
+          f"({rec2['per_step_overhead_us']:+.2f} us a step)")
+    # a served run under telemetry, a tracer and the recorder: a planted
+    # SLO breach (request 0's TTFT limit below any TTFT) trips it
+    model, trace, cap = _full_width()
+    trace = [dataclasses.replace(r, slo_ttft_ms=1e-3 if r.uid == 0
+                                 else None, slo_e2e_ms=None)
+             for r in trace[:RESILIENT_REQUESTS]]
+    rec_bb = FlightRecorder()
+    rec_bb.arm(str(out_dir / "serve_bb.json"))
+    tel = obs.RunTelemetry(str(out_dir / "serve.jsonl"),
+                           trace_path=str(out_dir / "serve_tr.json"),
+                           recorder=rec_bb)
+    eng = PagedEngine(model, max_len=cap, **FULL_ENGINE)
+    out = eng.run(list(trace), telemetry=tel)
+    summary = tel.close()
+    sspans = read_chrome_trace(str(out_dir / "serve_tr.json"))
+    kinds = collections.Counter(s["name"] for s in sspans)
+    print(f"obs: served {out['stats']['generated_tokens']} tokens under "
+          f"telemetry: {summary['trace']['spans']} spans "
+          f"{dict(sorted(kinds.items()))}; recorder trips {rec_bb.trips}")
+    if rec_bb.trips != ["slo_breach"] or not kinds["decode_tick"]:
+        raise RuntimeError("obs: the planted SLO breach did not trip the "
+                           "recorder, or no tick was traced")
+    # a tick's idle share: the captured decode tick replayed under the
+    # profiler (the run's last staged rows)
+    for _ in range(3):
+        eng._decode()
+    torch.cuda.synchronize()
+    with profiling.trace(str(out_dir / "tick")) as p:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng._decode()
+        wall = (time.perf_counter() - t0) / 20 * 1e3
+    tick_busy = (profiling.busy_ms(p) or 0.0) / 20
+    print(f"obs: a decode tick {wall:.3f} ms on the host clock, "
+          f"{tick_busy:.3f} ms of kernels: idle share "
+          f"{1 - tick_busy / wall:.3f}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 37: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 36)),
+                    default=",".join(str(i) for i in range(1, 38)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -5393,7 +5757,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 36)) and opts.waves is None
+    complete = phases == set(range(1, 38)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -5412,10 +5776,10 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build(builds["paged_decode"])
     decode = rec = None
-    if phases & {3, 4, 5, 13, 14, 18, 19, 20, 35}:
+    if phases & {3, 4, 5, 13, 14, 18, 19, 20, 35, 36}:
         builds["paged_decode"].result()        # not built again at use
         timing = phase_kernel() if 3 in phases else {}
-        if phases & {4, 5, 13, 14, 18, 19, 20, 35}:
+        if phases & {4, 5, 13, 14, 18, 19, 20, 35, 36}:
             rec, launches = phase_serve(compare_engine=14 in phases)
             decode = {"name": "paged_flash_decode", "route": "cuda",
                       "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -5437,15 +5801,17 @@ def main(argv=None) -> int:
                 builds["flash_attention"].result()  # its CLI leg trains
                 decode["resilience_serve_launches"] = \
                     phase_serving_resilience(rec)
+            if 36 in phases:
+                decode["disagg_launches"] = phase_disagg()
         # phases 13, 18-20 and 35's model: off the card before the
         # training phases read their peaks
         _full_width.cache_clear()
         gc.collect()
         torch.cuda.empty_cache()
-        lap("2-5, 13, 14, 18-20, 35")
+        lap("2-5, 13, 14, 18-20, 35, 36")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34}
+    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34, 37}
                  | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
@@ -5528,6 +5894,11 @@ def main(argv=None) -> int:
     resilience = phase_resilience(_write_tokens()) if 34 in phases else {}
     if resilience:
         lap(34)
+    observed = {}
+    if 37 in phases:
+        builds["paged_decode"].result()
+        observed = phase_obs(_write_tokens())
+        lap(37)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -5552,6 +5923,7 @@ def main(argv=None) -> int:
                                   for label, run in grid.items()}
         entry["resilience_launches"] = \
             resilience.get("launches", {}).get(entry["name"])
+        entry["obs_launches"] = observed.get(entry["name"])
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

@@ -30,6 +30,7 @@ build at first use (:mod:`.build`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from pathlib import Path
@@ -307,13 +308,96 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+# --- FLOP accounting --------------------------------------------------------
+#
+# ``torch.utils.flop_counter.FlopCounterMode`` counts the ATen products it
+# sees; the kernels launch through ctypes, where it sees nothing, and the
+# plain versions' einsums would count the kernels' recomputation.  While
+# :func:`counting_flops` is on, :class:`_FlashAttention` calls the three
+# kernels through custom ops instead, whose registered formulas count what
+# the dense path's products count: the forward Q·Kᵀ and P·V, the dQ
+# kernel dO·Vᵀ and dS·K, the dK/dV kernel Pᵀ·dO and dSᵀ·Q, each
+# ``2·B·H·Tq·Tk·D`` (masked entries included, as a dense product counts
+# them).
+
+_COUNTING = [0]
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """Route the flash calls through the counted custom ops (see above)."""
+    ops = _counted_ops()
+    _COUNTING[0] += 1
+    try:
+        yield ops
+    finally:
+        _COUNTING[0] -= 1
+
+
+def _products_flops(q_shape, k_shape, n: int = 2) -> int:
+    B, Tq, H, D = q_shape
+    return n * 2 * B * H * Tq * k_shape[1] * D
+
+
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? key_valid, bool causal, "
+               "float sm_scale, int? window) -> (Tensor, Tensor)")
+_BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor? key_valid, Tensor dout, "
+             "Tensor lse, Tensor delta, bool causal, float sm_scale, "
+             "int? window)")
+
+
+@functools.cache
+def _counted_ops():
+    """Define the custom ops and their FLOP formulas (once, at first
+    use)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def fwd(q, k, v, key_valid, causal, sm_scale, window):
+        out, lse = flash_forward(q, k, v, key_valid, causal=causal,
+                                 sm_scale=sm_scale, window=window)
+        return out.clone(), lse.clone()
+
+    def dq(q, k, v, key_valid, dout, lse, delta, causal, sm_scale, window):
+        kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+        if q.device.type == "cpu":
+            return _backward_plain(q, k, v, key_valid, dout, lse, delta,
+                                   **kw)[0]
+        return flash_backward_dq(q, k, v, key_valid, dout, lse, delta, **kw)
+
+    def dkv(q, k, v, key_valid, dout, lse, delta, causal, sm_scale,
+            window):
+        kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+        if q.device.type == "cpu":
+            return _backward_plain(q, k, v, key_valid, dout, lse, delta,
+                                   **kw)[1:]
+        return flash_backward_dkv(q, k, v, key_valid, dout, lse, delta,
+                                  **kw)
+
+    ops = []
+    for name, fn, schema in (
+            ("flash_fwd", fwd, _FWD_SCHEMA),
+            ("flash_dq", dq, _BWD_ARGS + " -> Tensor"),
+            ("flash_dkv", dkv, _BWD_ARGS + " -> (Tensor, Tensor)")):
+        op = torch.library.custom_op(f"ddl_torch::{name}", fn,
+                                     mutates_args=(), schema=schema)
+        register_flop_formula(getattr(torch.ops.ddl_torch, name))(
+            lambda q_shape, k_shape, *a, out_shape=None, **kw:
+            _products_flops(q_shape, k_shape))
+        ops.append(op)
+    return tuple(ops)
+
+
 # --- the autograd Function and the public entry -----------------------------
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_valid, causal, sm_scale, window):
-        out, lse = flash_forward(q, k, v, key_valid, causal=causal,
-                                 sm_scale=sm_scale, window=window)
+        if _COUNTING[0]:
+            out, lse = _counted_ops()[0](q, k, v, key_valid, causal,
+                                         sm_scale, window)
+        else:
+            out, lse = flash_forward(q, k, v, key_valid, causal=causal,
+                                     sm_scale=sm_scale, window=window)
         ctx.save_for_backward(q, k, v, key_valid, out, lse)
         ctx.opts = dict(causal=causal, sm_scale=sm_scale, window=window)
         return out
@@ -321,8 +405,17 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_valid, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, key_valid, out, lse, dout,
-                                    **ctx.opts)
+        if _COUNTING[0]:
+            _, dq_op, dkv_op = _counted_ops()
+            dout = dout.contiguous()
+            args = (q, k, v, key_valid, dout, lse, _delta(out, dout),
+                    ctx.opts["causal"], ctx.opts["sm_scale"],
+                    ctx.opts["window"])
+            dq = dq_op(*args)
+            dk, dv = dkv_op(*args)
+        else:
+            dq, dk, dv = flash_backward(q, k, v, key_valid, out, lse, dout,
+                                        **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 

@@ -572,13 +572,32 @@ def load_residual(state, saved: dict) -> None:
 
 
 def make_fsdp_step_fns(loss_fn: Callable, comm: ExplicitFSDP, *,
-                       remat: bool = False, remat_policy: str = "nothing"):
+                       remat: bool = False, remat_policy: str = "nothing",
+                       registry=None):
     """``(train_step, eval_step)`` of ``--zero fsdp --comm``
     (:class:`ExplicitFSDP`): each rank's loss, BatchNorm statistics and
     routing are its own shard's, averaged over the batch ranks as JAX's
-    ``shard_map`` does; evaluation reads the exactly gathered model."""
+    ``shard_map`` does; evaluation reads the exactly gathered model.
+    With a ``registry`` (:class:`..obs.metrics.MetricsRegistry`) each
+    train step adds its wire bytes (:meth:`ExplicitFSDP.wire_stats`) to
+    ``comm_bytes{op=all_gather|reduce_scatter, method=...}``, as JAX's
+    counted step does."""
     from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 
-    return make_step_fns(loss_fn, remat=remat, remat_policy=remat_policy,
-                         global_batch=True, group=comm.batch_group,
-                         local_mean=True, comm=comm)
+    train_step, eval_step = make_step_fns(
+        loss_fn, remat=remat, remat_policy=remat_policy, global_batch=True,
+        group=comm.batch_group, local_mean=True, comm=comm)
+    if registry is None:
+        return train_step, eval_step
+    stats = comm.wire_stats()
+    gathered = registry.counter("comm_bytes", op="all_gather",
+                                method=comm.method)
+    scattered = registry.counter("comm_bytes", op="reduce_scatter",
+                                 method=comm.method)
+
+    def train_step_counted(state, x, y):
+        gathered.inc(stats["all_gather_bytes"])
+        scattered.inc(stats["reduce_scatter_bytes"])
+        return train_step(state, x, y)
+
+    return train_step_counted, eval_step

@@ -17,8 +17,9 @@ speculates with the target's first N layers (paged only), ``--kv-dtype``
 and ``--weight-dtype`` store the KV cache and the weights in bf16 or int8
 (int8 KV needs ``--paged``).  The flags are the subset of
 ``scripts/serve_bench.py`` that the port's engines support, plus
-``--device`` (``cuda`` unless given); telemetry is not ported (ROADMAP.md
-queue 1 item 14).  A human latency line goes to stderr.
+``--device`` (``cuda`` unless given); the script's ``--obs`` flags come
+with its counterpart (ROADMAP.md item 15).  A human latency line goes to
+stderr.
 """
 
 from __future__ import annotations

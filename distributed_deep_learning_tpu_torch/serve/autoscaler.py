@@ -14,9 +14,9 @@ shared prefixes; shrink = drain protocol: stop placement → evacuate
 open slots → retire) — keeping ``observe`` pure makes the hysteresis
 unit-testable with injected signal dicts.
 
-The port of the JAX package's ``serve/autoscaler.py`` less its
-``PoolRebalancer``, which moves workers between disaggregated serving's
-pools (ROADMAP.md queue 1 item 13's remainder, disaggregation).
+The port of the JAX package's ``serve/autoscaler.py``, with its
+:class:`PoolRebalancer`, which moves workers between disaggregated
+serving's pools (:mod:`.disagg`).
 """
 
 from __future__ import annotations
@@ -124,3 +124,52 @@ class FleetAutoscaler:
             "shrinks": sum(1 for e in self.events
                            if e["action"] == "shrink"),
         }
+
+
+class PoolRebalancer:
+    """Role elasticity for disaggregated serving: decide when a device
+    should change sides between the prefill and decode pools.
+
+    Feed :meth:`observe` the run's ``prefill_util`` (useful rows per
+    dispatched row-slot of the batched chunk program).  Sustained
+    utilisation above ``hi`` means prefill is the bottleneck (every
+    row-slot full, prompts queueing) — move a decode worker over
+    (``"to_prefill"``); sustained utilisation below ``lo`` means the
+    prefill pool is overprovisioned — hand a worker to decode
+    (``"to_decode"``).  Same patience hysteresis as the autoscaler; the
+    caller actuates via :meth:`..serve.disagg.DisaggEngine.reassign`,
+    which keeps >= 1 worker per role and only moves idle workers."""
+
+    def __init__(self, *, hi: float = 0.9, lo: float = 0.25,
+                 patience: int = 2):
+        if not 0.0 <= lo < hi <= 1.0:
+            raise ValueError(f"need 0 <= lo < hi <= 1, got lo={lo} "
+                             f"hi={hi}")
+        if patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        self.hi, self.lo = float(hi), float(lo)
+        self.patience = int(patience)
+        self._high = 0
+        self._low = 0
+        self.events: list[dict] = []
+
+    def observe(self, prefill_util: float):
+        """Returns ``"to_prefill"``/``"to_decode"``/None."""
+        u = float(prefill_util)
+        if u >= self.hi:
+            self._high += 1
+            self._low = 0
+        elif u <= self.lo:
+            self._low += 1
+            self._high = 0
+        else:
+            self._high = self._low = 0
+        if self._high >= self.patience:
+            self._high = 0
+            self.events.append({"action": "to_prefill", "util": u})
+            return "to_prefill"
+        if self._low >= self.patience:
+            self._low = 0
+            self.events.append({"action": "to_decode", "util": u})
+            return "to_decode"
+        return None

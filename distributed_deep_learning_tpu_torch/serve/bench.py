@@ -13,6 +13,9 @@
   (:mod:`.load`: Poisson arrivals, bimodal prompt lengths, a shared system
   prompt, per-request SLOs) through :class:`.engine.PagedEngine` and, as
   its comparison leg, through the slot engine on the same trace.
+* :func:`quantized_serving_bench`, :func:`fleet_serving_bench` and
+  :func:`disagg_serving_bench`: JAX's quantized A/B, fleet and
+  disaggregation benches, on the port's engines.
 
 Both take the engines' serving options: ``kv_dtype`` and ``weight_dtype``
 (the records carry the KV and weight bytes, and under int8 weights the
@@ -375,3 +378,260 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
             record["speedup_vs_v1"] = ps["tokens_per_sec"] / \
                 vs["tokens_per_sec"]
     return record
+
+
+def _token_agreement(a: dict, b: dict) -> float:
+    """Fraction of greedy tokens identical between two result maps (uid
+    -> token array) over their shared uids."""
+    total = same = 0
+    for uid, toks in a.items():
+        if uid not in b:
+            continue
+        other = np.asarray(b[uid])
+        toks = np.asarray(toks)
+        n = min(len(toks), len(other))
+        total += n
+        same += int(np.sum(toks[:n] == other[:n]))
+    return same / total if total else 1.0
+
+
+def quantized_serving_bench(*, seed: int = 0, device="cuda",
+                            load_kw: Optional[dict] = None,
+                            model_kw: Optional[dict] = None,
+                            max_slots: int = 8, kv_block_size: int = 16,
+                            prefill_chunk: int = 32, kv_dtype: str = "int8",
+                            weight_dtype: str = "int8") -> dict:
+    """The quantized-serving A/B (JAX's record): the same trace through
+    the paged engine at full precision and again with ``kv_dtype`` pools
+    and ``weight_dtype`` weights.  ``kv_shrink_x`` is the measured pool
+    bytes' ratio, ``max_context_at_budget`` the KV positions that fit the
+    full-precision pools' bytes under each representation, and
+    ``logprob_drift`` the calibrated int8 weight drift on a probe of the
+    trace's prompts.  The JAX record's compile counts are the decode
+    tick's captures here."""
+    model = build_model(seed, device, **(model_kw or {}))
+    spec = LoadSpec(**{**DEFAULT_LOAD, **(load_kw or {})})
+    cap = paged_max_len(model.max_len, kv_block_size, False, 0)
+    trace = make_load(spec, vocab_size=model.vocab_size, seed=seed)
+    engine_kw = dict(device=device, max_slots=max_slots, max_len=cap,
+                     kv_block_size=kv_block_size,
+                     prefill_chunk=min(prefill_chunk, cap))
+    base = run_paged(model, trace, **engine_kw)
+    bs_ = base["stats"]
+    q = run_paged(model, trace, kv_dtype=kv_dtype,
+                  weight_dtype=weight_dtype, **engine_kw)
+    qs = q["stats"]
+    positions = bs_["paged"]["blocks_total"] * kv_block_size
+    budget = bs_["kv_cache_bytes"]
+    base_ctx = int(budget // (bs_["kv_cache_bytes"] / positions))
+    quant_ctx = int(budget // (qs["kv_cache_bytes"] / positions))
+    drift = _weight_drift(model, trace, weight_dtype) if weight_dtype else {
+        "measured_max_drift": 0.0, "declared_bound": 0.0,
+        "probe_argmax_agreement": 1.0, "probe_tokens": 0}
+    return {
+        "metric": "quantized serving hot path A/B (paged engine)",
+        "device": bs_["device"],
+        "model": {**DEFAULT_MODEL, **(model_kw or {})},
+        "load": {**DEFAULT_LOAD, **(load_kw or {})},
+        "max_slots": max_slots,
+        "kv_block_size": kv_block_size,
+        "kv_dtype": kv_dtype,
+        "weight_dtype": weight_dtype,
+        "errors": len(base["errors"]) + len(q["errors"]),
+        "baseline": {
+            "tokens_per_sec": round(bs_["tokens_per_sec"], 2),
+            "kv_cache_bytes": bs_["kv_cache_bytes"],
+            "kv_bytes_per_slot": bs_["kv_cache_bytes"] // max_slots,
+            "max_context_at_budget": base_ctx,
+            "decode_captures": bs_["decode_captures"],
+        },
+        "quantized": {
+            "tokens_per_sec": round(qs["tokens_per_sec"], 2),
+            "kv_cache_bytes": qs["kv_cache_bytes"],
+            "kv_bytes_per_slot": qs["kv_cache_bytes"] // max_slots,
+            "max_context_at_budget": quant_ctx,
+            "decode_captures": qs["decode_captures"],
+            "weight_bytes": qs["weight_bytes"],
+        },
+        "kv_shrink_x": round(
+            bs_["kv_cache_bytes"] / qs["kv_cache_bytes"], 3),
+        "token_agreement": round(
+            _token_agreement(base["results"], q["results"]), 4),
+        "logprob_drift": round(drift["measured_max_drift"], 5),
+        "declared_drift_bound": round(drift["declared_bound"], 5),
+        "probe_argmax_agreement": drift["probe_argmax_agreement"],
+    }
+
+
+def fleet_serving_bench(*, seed: int = 0, device="cuda", replicas: int = 3,
+                        load_kw: Optional[dict] = None,
+                        model_kw: Optional[dict] = None,
+                        max_slots: int = 4, kv_block_size: int = 16,
+                        prefill_chunk: int = 32, telemetry=None) -> dict:
+    """Throughput and routing quality of a :class:`.fleet.FleetRouter`
+    over ``replicas`` paged engines sharing one model, on the shared-prefix
+    Poisson trace with priority classes (JAX's record)."""
+    from distributed_deep_learning_tpu_torch.serve.fleet import FleetRouter
+
+    model = build_model(seed, device, **(model_kw or {}))
+    spec = LoadSpec(**{**DEFAULT_LOAD,
+                       "priority_classes": DEFAULT_PRIORITY_CLASSES,
+                       **(load_kw or {})})
+    trace = make_load(spec, vocab_size=model.vocab_size, seed=seed)
+    cap = paged_max_len(model.max_len, kv_block_size, False, 0)
+    engines = [PagedEngine(model, device=device, max_slots=max_slots,
+                           max_len=cap, kv_block_size=kv_block_size,
+                           prefill_chunk=prefill_chunk)
+               for _ in range(replicas)]
+    flt = FleetRouter(engines, telemetry=telemetry)
+    t0 = time.perf_counter()
+    out = flt.run(list(trace))
+    total = time.perf_counter() - t0
+    st = out["stats"]
+    tokens = int(sum(len(v) for v in out["results"].values()))
+    return {
+        "metric": "fleet serving: routed throughput / SLO by priority",
+        "replicas": replicas,
+        "requests": st["requests"],
+        "completed": st["completed"],
+        "requests_lost": st["requests_lost"],
+        "errors": len(out["errors"]),
+        "generated_tokens": tokens,
+        "tokens_per_sec": round(tokens / total, 2) if total else None,
+        "rounds": st["rounds"],
+        "routing": st["routing"],
+        "health": st["health"],
+        "decode_captures_max": max(
+            v["decode_captures"] for v in st["per_replica"].values()),
+        "slo_attainment": st["slo"]["slo_attainment"],
+        "slo_by_priority": {
+            p: s["slo_attainment"]
+            for p, s in st["slo"].get("by_priority", {}).items()},
+    }
+
+
+def disagg_serving_bench(*, seed: int = 0, device="cuda", devices=None,
+                         load_kw: Optional[dict] = None,
+                         model_kw: Optional[dict] = None,
+                         prefill_workers: int = 1, decode_workers: int = 1,
+                         prefill_streams: int = 4, max_slots: int = 8,
+                         kv_block_size: int = 16, prefill_chunk: int = 32,
+                         kv_dtype: Optional[str] = None,
+                         decode_passes: int = 2, telemetry=None,
+                         model: Optional[CausalLM] = None,
+                         trace: Optional[Sequence[Request]] = None) -> dict:
+    """The disaggregation A/B (JAX's record): the same trace through the
+    unified :class:`PagedEngine` and through
+    :class:`.disagg.DisaggEngine`.  Both engines are warmed on the trace
+    and reset before the timed runs, and the migrator's stats are zeroed
+    after the warm run.  ``speedup`` is disagg / unified tokens/s;
+    ``migration_gbps`` comes from four synchronised moves of one slot's
+    blocks; ``token_agreement`` holds the greedy outputs together.
+
+    ``devices`` (default ``[device, device]``: both pools on one card)
+    are the workers' devices; ``model``/``trace`` replace the seeded
+    ones (a caller's model at its own width)."""
+    from distributed_deep_learning_tpu_torch.serve import migrate as \
+        migrate_mod
+    from distributed_deep_learning_tpu_torch.serve.disagg import \
+        DisaggEngine
+
+    if model is None:
+        model = build_model(seed, device, **(model_kw or {}))
+    cap = paged_max_len(model.max_len, kv_block_size, False, 0)
+    if trace is None:
+        spec = LoadSpec(**{**DEFAULT_LOAD, **(load_kw or {})})
+        trace = make_load(spec, vocab_size=model.vocab_size, seed=seed)
+    dev = next(model.parameters()).device
+    if devices is None:
+        devices = [dev] * (prefill_workers + decode_workers)
+    uni = PagedEngine(model, device=dev, max_slots=max_slots, max_len=cap,
+                      kv_block_size=kv_block_size,
+                      prefill_chunk=min(prefill_chunk, cap),
+                      kv_dtype=kv_dtype)
+    dis = DisaggEngine(model, prefill_workers=prefill_workers,
+                       decode_workers=decode_workers,
+                       prefill_streams=prefill_streams,
+                       max_slots=max_slots, max_len=cap,
+                       kv_block_size=kv_block_size,
+                       prefill_chunk=min(prefill_chunk, cap),
+                       kv_dtype=kv_dtype, decode_passes=decode_passes,
+                       devices=devices, telemetry=telemetry)
+    # warm both arms (kernel builds, graph captures), then reset
+    uni.run(list(trace))
+    uni.reset()
+    dis.run(list(trace))
+    dis.reset()
+    dis.migrator.stats = migrate_mod.MigrationStats()
+
+    du = uni.run(list(trace))
+    dd = dis.run(list(trace), telemetry=telemetry)
+    us, ds = du["stats"], dd["stats"]
+
+    # synchronised migration bandwidth: one slot's blocks moved from the
+    # prefill to the decode pool four times, waiting for each
+    pw, dw = dis.prefill[0], dis.decode[0]
+    nb = pw.eng.blocks_per_slot
+    ids = np.arange(nb)
+    dis.migrator.stats = migrate_mod.MigrationStats()
+    for _ in range(4):
+        dw.eng.pools = dis.migrator.migrate(
+            pw.eng.pools, dw.eng.pools, ids, ids, device=dw.device,
+            sync=True, trace_id="bench")
+    sync_stats = dis.migrator.stats
+    at_rest_per_block = sync_stats.wire_bytes / sync_stats.blocks
+    wire_shrink = None
+    if kv_dtype != "int8":
+        m8 = migrate_mod.BlockMigrator(nb, wire="int8")
+        dw.eng.pools = m8.migrate(pw.eng.pools, dw.eng.pools, ids, ids,
+                                  device=dw.device, trace_id="bench")
+        wire_shrink = round(
+            at_rest_per_block / (m8.stats.wire_bytes / m8.stats.blocks), 3)
+
+    speedup = (round(ds["tokens_per_sec"] / us["tokens_per_sec"], 3)
+               if us["tokens_per_sec"] else None)
+    ul, dl = us["latency"], ds["latency"]
+    return {
+        "metric": "disaggregated prefill/decode vs unified paged engine",
+        "device": str(dev),
+        "model": {**DEFAULT_MODEL, **(model_kw or {})},
+        "load": {**DEFAULT_LOAD, **(load_kw or {})},
+        "prefill_workers": prefill_workers,
+        "decode_workers": decode_workers,
+        "prefill_streams": prefill_streams,
+        "max_slots": max_slots,
+        "kv_block_size": kv_block_size,
+        "kv_dtype": kv_dtype,
+        "decode_passes": decode_passes,
+        "errors": len(du["errors"]) + len(dd["errors"]),
+        "unified": {
+            "tokens_per_sec": round(us["tokens_per_sec"], 2),
+            "kv_cache_bytes": us["kv_cache_bytes"],
+            "decode_captures": us["decode_captures"],
+            "itl_p99_s": ul["itl_p99_s"],
+            "ttft_p99_s": ul["ttft_p99_s"],
+        },
+        "disagg": {
+            "tokens_per_sec": round(ds["tokens_per_sec"], 2),
+            "kv_cache_bytes": ds["kv_cache_bytes"],
+            "decode_captures": ds["decode_captures"],
+            "paged_decode_launches": ds["paged_decode_launches"],
+            "decode_ticks": ds["decode_ticks"],
+            "prefill_util": ds["prefill_util"],
+            "prefill_chunk_calls": ds["prefill_chunk_calls"],
+            "itl_p99_s": dl["itl_p99_s"],
+            "ttft_p99_s": dl["ttft_p99_s"],
+            "migration": ds["migration"],
+        },
+        "speedup": speedup,
+        # > 1 means disagg's inter-token gaps are worse than unified's
+        "itl_p99_ratio": (round(dl["itl_p99_s"] / ul["itl_p99_s"], 3)
+                          if ul["itl_p99_s"] else None),
+        "token_agreement": round(
+            _token_agreement(du["results"], dd["results"]), 4),
+        "migration_gbps": round(sync_stats.gb_per_s(), 3),
+        "migration_ms_per_move": round(
+            1e3 * sync_stats.seconds / sync_stats.moves, 3),
+        "wire_bytes_per_block": int(at_rest_per_block),
+        "int8_wire_shrink_x": wire_shrink,
+    }

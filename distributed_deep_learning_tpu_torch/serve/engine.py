@@ -83,8 +83,17 @@ valid under the captured tick:
 * ``admission`` (:class:`.admission.AdmissionController`) is asked before
   each placement and fed the live signals after each tick.
 
-Telemetry (``telemetry=``) raises ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 14.
+``run(telemetry=...)`` (:class:`..obs.RunTelemetry`) records JAX's
+serving telemetry: the latency histograms and queue, occupancy and KV
+gauges in the run's registry; with its tracer, a span tree a request
+(``request``, ``queued``, ``admit``, ``prefix_match``, ``prefill`` or
+``prefill_chunk``, ``cow``, ``decode``, ``retire``) and a
+``decode_tick`` span an engine tick; with its flight recorder, the
+admits, sheds, preemptions, resumes, retirements, the block manager's
+evictions and copy-on-write detaches, and the first SLO breach trips it;
+an ``obs_window`` event of the live signals at most once a second and an
+``obs_serve`` event of the stats at the end.  Without telemetry none of
+it runs.
 """
 
 from __future__ import annotations
@@ -123,12 +132,6 @@ from distributed_deep_learning_tpu_torch.serve.spec import (greedy_accept,
 #: chip_smoke.py can hold the kernel against its plain version in place
 DECODE_ATTENTION = {"kernel": paged_flash_decode,
                     "plain": paged_decode_reference}
-
-
-def _unported(option: str, item: str):
-    return NotImplementedError(
-        f"{option} is not ported to the PyTorch engine yet "
-        f"(ROADMAP.md {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +237,90 @@ def _zero_(t) -> None:
         t.s.zero_()
     else:
         t.zero_()
+
+
+class _Serving:
+    """What a ``run()`` records into its telemetry (JAX's instruments):
+    the histograms live in the run's registry, or stand alone without
+    telemetry; the gauges, tracer and recorder exist only with it."""
+
+    def __init__(self, telemetry, kv_cache_bytes: int):
+        self.telemetry = telemetry
+        if telemetry is None:
+            self.h_ttft, self.h_itl, self.h_e2e = (Histogram(), Histogram(),
+                                                   Histogram())
+            self.tracer = self.recorder = None
+            return
+        reg = telemetry.registry
+        self.h_ttft = reg.histogram("serve_ttft_seconds")
+        self.h_itl = reg.histogram("serve_intertoken_seconds")
+        self.h_e2e = reg.histogram("serve_e2e_seconds")
+        self.h_tick = reg.histogram("serve_decode_tick_seconds")
+        self.g_queue = reg.gauge("serve_queue_depth")
+        self.g_occ = reg.gauge("serve_slot_occupancy")
+        reg.gauge("serve_kv_cache_bytes").set(kv_cache_bytes)
+        self.reg = reg
+        self.tracer = telemetry.tracer
+        self.recorder = telemetry.recorder
+        self.root: dict[int, int] = {}        # uid -> open request span
+        self.last_window = -float("inf")
+
+    def admitted(self, req, idx, arr, t_adm, now, shared=None) -> None:
+        if self.tracer is not None:
+            trk = f"req{req.uid}"
+            rid = self.tracer.begin("request", req.trace_id, track=trk,
+                                    t0=arr, prompt_len=len(req.prompt),
+                                    max_new_tokens=req.max_new_tokens)
+            self.root[req.uid] = rid
+            self.tracer.add("queued", arr, t_adm, req.trace_id, parent=rid,
+                            track=trk)
+            if shared is None:
+                self.tracer.add("admit", t_adm, t_adm, req.trace_id,
+                                parent=rid, track=trk, slot=idx)
+            else:
+                aid = self.tracer.add("admit", t_adm, now, req.trace_id,
+                                      parent=rid, track=trk, slot=idx,
+                                      shared_len=shared)
+                self.tracer.add("prefix_match", t_adm, now, req.trace_id,
+                                parent=aid, track=trk, shared_len=shared,
+                                hit=shared > 0)
+        if self.recorder is not None:
+            if shared is None:
+                self.recorder.record("admit", uid=req.uid, slot=idx)
+            else:
+                self.recorder.record("admit", uid=req.uid, slot=idx,
+                                     shared_len=shared)
+
+    def span(self, name, t0, t1, req, **attrs) -> None:
+        if self.tracer is not None:
+            self.tracer.add(name, t0, t1, req.trace_id,
+                            parent=self.root.get(req.uid),
+                            track=f"req{req.uid}", **attrs)
+
+    def retired(self, req, now, n_tok, **fields) -> None:
+        if self.tracer is not None:
+            rid = self.root.pop(req.uid, None)
+            self.tracer.add("retire", now, now, req.trace_id, parent=rid,
+                            track=f"req{req.uid}", tokens=n_tok, **fields)
+            if rid is not None:
+                self.tracer.end(rid, t1=now)
+        if self.recorder is not None:
+            self.recorder.record("retire", uid=req.uid, **fields,
+                                 tokens=n_tok)
+
+    def tick(self, t0, now, **attrs) -> None:
+        self.h_tick.observe(now - t0)
+        if self.tracer is not None:
+            self.tracer.add("decode_tick", t0, now, "engine",
+                            track="engine", **attrs)
+
+    def window(self, live, now) -> None:
+        """An ``obs_window`` event of the live signals, at most one a
+        second."""
+        if now - self.last_window >= 1.0:
+            self.last_window = now
+            self.telemetry.writer.emit("obs_window", scope="serve",
+                                       **live.signals(now))
 
 
 def _latency(h_ttft: Histogram, h_itl: Histogram, h_e2e: Histogram) -> dict:
@@ -453,9 +540,8 @@ class ServeEngine(_Engine):
         submit or shed; throughput, occupancy, ``decode_captures`` and the
         ``latency`` percentiles).  ``on_tick`` receives a
         :class:`TickReport` after every tick's compute, before its tokens
-        are recorded; ``admission`` is asked before each placement."""
-        if telemetry is not None:
-            raise _unported("serving telemetry", "queue 1 item 14")
+        are recorded; ``admission`` is asked before each placement;
+        ``telemetry`` records what the module docstring says."""
         sched = SlotScheduler(self.max_slots)
         n_req = 0
         errors: dict[int, str] = {}
@@ -468,7 +554,8 @@ class ServeEngine(_Engine):
             sched.submit(req)
             n_req += 1
 
-        h_ttft, h_itl, h_e2e = Histogram(), Histogram(), Histogram()
+        obs = _Serving(telemetry, self.kv_cache_bytes)
+        h_ttft, h_itl, h_e2e = obs.h_ttft, obs.h_itl, obs.h_e2e
         first_wall: dict[int, float] = {}   # uid -> first-token wall time
         live = LiveSignals()
         last_tok_wall: dict[int, float] = {}  # uid -> last emit wall
@@ -480,12 +567,16 @@ class ServeEngine(_Engine):
             if fw is not None and n_tok > 1:
                 h_itl.observe((now - fw) / (n_tok - 1))
             last_tok_wall.pop(req.uid, None)
+            if telemetry is not None:
+                obs.retired(req, now, n_tok)
 
         t_start = time.perf_counter()
         t_prefill = t_decode = 0.0
         tick = prefill_calls = decode_ticks = occupancy_sum = nonfinite = 0
         while sched.pending or sched.occupancy:
             sched.mark_arrivals(tick, time.perf_counter())
+            if telemetry is not None:
+                obs.g_queue.set(sched.queue_depth(tick))
             # admit every arrived request a free slot can take; a row
             # retired below frees its slot for the very next tick's admit
             while True:
@@ -498,11 +589,18 @@ class ServeEngine(_Engine):
                     if reason is not None:
                         shed_req = sched.drop_head(tick)
                         errors[shed_req.uid] = f"shed: {reason}"
+                        if obs.recorder is not None:
+                            obs.recorder.record("shed", uid=shed_req.uid,
+                                                reason=reason)
                         continue
                 placed = sched.place(tick)
                 if placed is None:
                     break
                 idx, req = placed
+                if telemetry is not None:
+                    t_adm = time.perf_counter()
+                    obs.admitted(req, idx, sched.arrival_wall.get(
+                        req.uid, t_adm), t_adm, t_adm)
                 t0 = time.perf_counter()
                 first, ok, lp = self._prefill(req.prompt, idx)
                 now = time.perf_counter()
@@ -513,6 +611,9 @@ class ServeEngine(_Engine):
                 h_ttft.observe(ttft)
                 live.observe_ttft(ttft, now)
                 last_tok_wall[req.uid] = now
+                if telemetry is not None:
+                    obs.span("prefill", t0, now, req,
+                             prompt_len=len(req.prompt))
                 if on_tick is not None:
                     on_tick(TickReport(
                         tick=tick, kind="prefill", elapsed_s=now - t0,
@@ -531,6 +632,8 @@ class ServeEngine(_Engine):
                 continue
 
             occupancy_sum += sched.occupancy
+            if telemetry is not None:
+                obs.g_occ.set(sched.occupancy)
             self._tick.host[0] = sched.last_tokens()
             self._tick.host[1] = slot_cache.tick_positions(self.slots)
             t0 = time.perf_counter()
@@ -542,6 +645,8 @@ class ServeEngine(_Engine):
             if admission is not None:
                 admission.observe(live, sched.queue_depth(tick), now)
                 admission.apply(self)
+            if telemetry is not None:
+                obs.tick(t0, now, slots=sched.occupancy)
             act = sched.active_slots
             if on_tick is not None:
                 uids = [sched.slots[i].request.uid for i in act]
@@ -560,9 +665,13 @@ class ServeEngine(_Engine):
                     live.observe_itl(now - lt, now)
                 last_tok_wall[r.uid] = now
                 nonfinite += int(not finite[idx])
+                if telemetry is not None:
+                    obs.span("decode", t0, now, r)
                 done = sched.record(idx, int(out[idx]), self.eos_id)
                 if done is not None:
                     retire(done, now)
+            if telemetry is not None:
+                obs.window(live, now)
             tick += 1
 
         total = time.perf_counter() - t_start
@@ -593,6 +702,8 @@ class ServeEngine(_Engine):
             "latency": _latency(h_ttft, h_itl, h_e2e),
             "window": live.signals(),
         }
+        if telemetry is not None:
+            telemetry.writer.emit("obs_serve", stats=stats)
         return {"results": sched.finished, "errors": errors, "stats": stats}
 
 
@@ -1140,9 +1251,7 @@ class PagedEngine(_Engine):
         discards the tick.  ``admission``
         (:class:`.admission.AdmissionController`) is consulted before
         each placement; shed requests land in ``errors`` as ``"shed:
-        ..."``."""
-        if telemetry is not None:
-            raise _unported("serving telemetry", "queue 1 item 14")
+        ..."``.  ``telemetry`` records what the module docstring says."""
         sched = PagedScheduler(self.max_slots)
         mgr = self.manager
         bs = self.block_size
@@ -1158,7 +1267,40 @@ class PagedEngine(_Engine):
             sched.submit(req)
             accepted.append(req)
 
-        h_ttft, h_itl, h_e2e = Histogram(), Histogram(), Histogram()
+        obs = _Serving(telemetry, self.kv_cache_bytes)
+        h_ttft, h_itl, h_e2e = obs.h_ttft, obs.h_itl, obs.h_e2e
+        tracer, recorder = obs.tracer, obs.recorder
+        if telemetry is not None:
+            h_chunks = obs.reg.histogram("serve_chunks_per_tick")
+            h_accept = obs.reg.histogram("serve_spec_acceptance")
+        slo_tripped = False
+        if recorder is not None:
+            # the block manager's evictions and COW detaches go into the
+            # black box; unhooked before run() returns (the manager
+            # outlives the run)
+            mgr.on_event = (lambda kind, **f:
+                            recorder.record("kv_" + kind, **f))
+
+        def check_slo(req, now):
+            """Breaches of the request's SLOs go into the flight
+            recorder, and the first one trips a dump."""
+            nonlocal slo_tripped
+            breaches = []
+            t = ttft_s.get(req.uid)
+            if req.slo_ttft_ms is not None and t is not None \
+                    and t * 1e3 > req.slo_ttft_ms:
+                breaches.append(("ttft", t * 1e3, req.slo_ttft_ms))
+            e = e2e_s.get(req.uid)
+            if req.slo_e2e_ms is not None and e is not None \
+                    and e * 1e3 > req.slo_e2e_ms:
+                breaches.append(("e2e", e * 1e3, req.slo_e2e_ms))
+            for which, ms, slo in breaches:
+                recorder.record("slo_breach", uid=req.uid, which=which,
+                                measured_ms=ms, slo_ms=slo)
+            if breaches and not slo_tripped:
+                slo_tripped = True
+                recorder.trip("slo_breach")
+
         # per-slot host state: the token stream (prompt + emitted), how
         # many positions hold committed KV, remaining chunk plans, and the
         # pending token (emitted, not yet fed)
@@ -1190,6 +1332,22 @@ class PagedEngine(_Engine):
             if fw is not None and n_tok > 1:
                 h_itl.observe((now - fw) / (n_tok - 1))
             last_tok_wall.pop(req.uid, None)
+            if telemetry is not None:
+                obs.retired(req, now, n_tok, slot=idx)
+                if recorder is not None:
+                    check_slo(req, now)
+
+        def make_writable(idx, lo, hi):
+            """Copy-on-write with a ``cow`` span when tracing (one more
+            clock read, only then)."""
+            if tracer is None:
+                self._make_writable(idx, lo, hi)
+                return
+            t0 = time.perf_counter()
+            n = self._make_writable(idx, lo, hi)
+            if n:
+                obs.span("cow", t0, time.perf_counter(),
+                         sched.slots[idx].request, copies=n)
 
         def emit(idx, token, now):
             """Record one token; True when the slot retired."""
@@ -1208,7 +1366,7 @@ class PagedEngine(_Engine):
             req = sched.slots[idx].request
             plan = plans[idx].pop(0)
             toks = chunk_tokens(stream[idx], plan, self.chunk, self.pad_fill)
-            self._make_writable(idx, committed[idx], plan.commit_to - 1)
+            make_writable(idx, committed[idx], plan.commit_to - 1)
             wb, wo, _ = write_targets(plan.feed_start, self.chunk,
                                       committed[idx], len(req.prompt),
                                       mgr.tables[idx], bs)
@@ -1231,6 +1389,10 @@ class PagedEngine(_Engine):
                 ttft_s[req.uid] = now - sched.arrival_wall.get(req.uid, now)
                 h_ttft.observe(ttft_s[req.uid])
                 live.observe_ttft(ttft_s[req.uid], now)
+                if telemetry is not None:
+                    obs.span("prefill_chunk", t0, now, req,
+                             feed_start=plan.feed_start,
+                             commit_to=plan.commit_to, is_last=True)
                 if on_tick is not None:
                     on_tick(TickReport(
                         tick=tick, kind="prefill", elapsed_s=now - t0,
@@ -1242,7 +1404,12 @@ class PagedEngine(_Engine):
                 emit(idx, first, now)
             else:
                 self._sync()
-                t_prefill += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                t_prefill += t1 - t0
+                if telemetry is not None:
+                    obs.span("prefill_chunk", t0, t1, req,
+                             feed_start=plan.feed_start,
+                             commit_to=plan.commit_to, is_last=False)
 
         # --- priority preemption (opt-in): spilled-slot parking lot ------
         spilled: list[_SpillRecord] = []
@@ -1297,6 +1464,10 @@ class PagedEngine(_Engine):
                        for i, leaf in enumerate(kv)})
             if ev is not None:
                 ev["preempted"].append(req.uid)
+            if recorder is not None:
+                recorder.record("preempt", uid=req.uid, slot=victim,
+                                committed=rec.committed,
+                                by_uid=head_req.uid)
             return True
 
         def resume_one(ev):
@@ -1344,6 +1515,9 @@ class PagedEngine(_Engine):
             resume_count += 1
             if ev is not None:
                 ev["resumed"].append(rec.request.uid)
+            if recorder is not None:
+                recorder.record("resume", uid=rec.request.uid, slot=idx,
+                                committed=rec.committed)
             return True
 
         def report(dec, out, ok, lp, elapsed):
@@ -1363,6 +1537,8 @@ class PagedEngine(_Engine):
         t_start = time.perf_counter()
         while sched.pending or sched.occupancy or spilled:
             sched.mark_arrivals(tick, time.perf_counter())
+            if telemetry is not None:
+                obs.g_queue.set(sched.queue_depth(tick))
             ev = ({"tick": tick, "placed": [], "chunks": [], "decoded": [],
                    "shed": [], "preempted": [], "resumed": []}
                   if keep_timeline else None)
@@ -1396,6 +1572,9 @@ class PagedEngine(_Engine):
                         errors[shed_req.uid] = f"shed: {reason}"
                         if ev is not None:
                             ev["shed"].append(shed_req.uid)
+                        if recorder is not None:
+                            recorder.record("shed", uid=shed_req.uid,
+                                            reason=reason)
                         continue
                 if not can_place:
                     # slot pressure: evict a strictly-lower-priority
@@ -1403,6 +1582,8 @@ class PagedEngine(_Engine):
                     if not preempt_one(head_req, ev):
                         break
                     continue
+                if telemetry is not None:
+                    t_adm = time.perf_counter()
                 sp = mgr.match_prefix(head_req.prompt)
                 need_ok = mgr.can_admit(sp, self._capacity_len(head_req))
                 while not need_ok and self._preempt:
@@ -1427,6 +1608,10 @@ class PagedEngine(_Engine):
                 prompt_tokens += L
                 if ev is not None:
                     ev["placed"].append(req.uid)
+                if telemetry is not None:
+                    noww = time.perf_counter()
+                    obs.admitted(req, idx, sched.arrival_wall.get(
+                        req.uid, noww), t_adm, noww, shared=shared)
 
             if not sched.occupancy:
                 nxt = sched.next_arrival()
@@ -1437,6 +1622,8 @@ class PagedEngine(_Engine):
                 tick = max(tick, nxt)  # idle engine: jump to arrival
                 continue
             occupancy_sum += sched.occupancy
+            if telemetry is not None:
+                obs.g_occ.set(sched.occupancy)
 
             # chunked prefill under the per-tick budget, round-robin
             budget = self.chunks_per_tick
@@ -1448,6 +1635,8 @@ class PagedEngine(_Engine):
                         continue       # finished earlier this pass
                     run_chunk(idx, ev)
                     budget -= 1
+            if telemetry is not None:
+                h_chunks.observe(self.chunks_per_tick - budget)
 
             # decode every tick: live streams advance regardless of how
             # much prefill work is queued — the stall bound
@@ -1459,7 +1648,7 @@ class PagedEngine(_Engine):
                 host[:, bps + 2:bps + 2 + T] = paged.TRASH  # write to TRASH
                 for i in dec:
                     c = committed[i]
-                    self._make_writable(i, c, c + k)
+                    make_writable(i, c, c + k)
                     pp = np.arange(c, c + T)
                     host[i, bps:bps + 2] = (c, pendtok[i])
                     host[i, bps + 2:bps + 2 + T] = mgr.tables[i][pp // bs]
@@ -1472,6 +1661,8 @@ class PagedEngine(_Engine):
                 t_decode += now - t0
                 decode_ticks += 1
                 spec_rounds += len(dec)
+                if telemetry is not None:
+                    obs.tick(t0, now, slots=len(dec), speculative=True)
                 # acceptance decided BEFORE any state mutates, so the
                 # tick report (and a hook that rejects it) sees exactly
                 # what would be committed
@@ -1489,6 +1680,10 @@ class PagedEngine(_Engine):
                     committed[i] += a + 1
                     if ev is not None:
                         ev["decoded"].append(sched.slots[i].request.uid)
+                    if telemetry is not None:
+                        h_accept.observe(a / k if k else 0.0)
+                        obs.span("decode", t0, now,
+                                 sched.slots[i].request, accepted=a)
                     retired = False
                     for tok in emitted:
                         stream[i].append(tok)
@@ -1504,7 +1699,7 @@ class PagedEngine(_Engine):
                 host[:, bps + 2] = paged.TRASH  # token 0 written to TRASH
                 for i in dec:
                     c = committed[i]
-                    self._make_writable(i, c, c)
+                    make_writable(i, c, c)
                     host[i, bps:] = (c, pendtok[i], mgr.tables[i, c // bs],
                                      c % bs)
                 host[:, :bps] = mgr.tables
@@ -1516,6 +1711,8 @@ class PagedEngine(_Engine):
                 now = time.perf_counter()
                 t_decode += now - t0
                 decode_ticks += 1
+                if telemetry is not None:
+                    obs.tick(t0, now, slots=len(dec))
                 report(dec, {i: [out[i]] for i in dec}, finite, lp,
                        now - t0)
                 for i in dec:
@@ -1527,12 +1724,16 @@ class PagedEngine(_Engine):
                     pendtok[i] = tok
                     if ev is not None:
                         ev["decoded"].append(sched.slots[i].request.uid)
+                    if telemetry is not None:
+                        obs.span("decode", t0, now, sched.slots[i].request)
                     emit(i, tok, now)
             noww = time.perf_counter()
             live.sample(sched.queue_depth(tick), sched.occupancy, noww)
             if admission is not None:
                 admission.observe(live, sched.queue_depth(tick), noww)
                 admission.apply(self)
+            if telemetry is not None:
+                obs.window(live, noww)
             if ev is not None:
                 timeline.append(ev)
             tick += 1
@@ -1606,6 +1807,12 @@ class PagedEngine(_Engine):
             "latency": _latency(h_ttft, h_itl, h_e2e),
             "window": live.signals(),
         }
+        if telemetry is not None:
+            obs.reg.gauge("serve_kv_blocks_in_use").set(mgr.in_use)
+            obs.reg.gauge("serve_prefix_hit_rate").set(hit)
+            if recorder is not None:
+                mgr.on_event = None
+            telemetry.writer.emit("obs_serve", stats=stats)
         out = {"results": sched.finished, "errors": errors, "stats": stats}
         if keep_timeline:
             out["timeline"] = timeline

@@ -41,8 +41,9 @@ whole tier deterministic and drillable; the routing, failover, and
 health logic are exactly what a concurrent deployment would run between
 ticks.  The replicas share one copy of the weights (engines built on one
 model hold the same module), each with its own pools and captured tick.
-``telemetry=`` and ``recorder=`` are ROADMAP.md queue 1 item 14 and
-refused.
+``telemetry=`` routes the router's and the engines' metrics into one
+registry; ``recorder=`` (:class:`..obs.recorder.FlightRecorder`) gets
+the routing, health, evacuation and scaling events.
 """
 
 from __future__ import annotations
@@ -161,14 +162,12 @@ class FleetRouter:
             raise ValueError(f"evacuate_on must be one of 'off', "
                              f"'degraded', 'hotspot'; got "
                              f"{evacuate_on!r}")
-        if telemetry is not None or recorder is not None:
-            raise NotImplementedError(
-                "fleet telemetry and the flight recorder are not ported to "
-                "the PyTorch engine yet (ROADMAP.md queue 1 item 14)")
         eos = {e.eos_id for e in engines}
         if len(eos) != 1:
             raise ValueError(f"replicas disagree on eos_id: {sorted(map(str, eos))}")
         self.chaos = chaos
+        self.telemetry = telemetry
+        self.recorder = recorder
         self.retries = int(retries)
         self.slow_tick_s = slow_tick_s
         self.degrade_after = int(degrade_after)
@@ -188,7 +187,8 @@ class FleetRouter:
         self.predicted_hit_tokens = 0
         self.shared_prefix_moves = 0
         self.shared_prefix_tokens = 0
-        reg = MetricsRegistry()
+        reg = telemetry.registry if telemetry is not None \
+            else MetricsRegistry()
         self._registry = reg
         # warm prefix sharing: when placement lands off the warm
         # replica (health outranks hits), migrate the donor's committed
@@ -251,12 +251,20 @@ class FleetRouter:
             if (rep.slow_ticks >= self.degrade_after
                     and rep.health == HEALTHY):
                 rep.health = DEGRADED
+                if self.recorder is not None:
+                    self.recorder.record("replica_degraded",
+                                         replica=rep.rid,
+                                         slow_ticks=rep.slow_ticks)
                 if self.evacuate_on != "off":
                     raise rebalance.EvacuationSignal(rep.rid, "degraded")
         if self._hotspot is not None and report.kind == "decode":
             hot = self._hotspot.observe(rep.rid, elapsed)
             if hot and rep.health == HEALTHY:
                 rep.health = DEGRADED
+                if self.recorder is not None:
+                    self.recorder.record("replica_degraded",
+                                         replica=rep.rid,
+                                         reason="hotspot")
                 raise rebalance.EvacuationSignal(rep.rid, "hotspot")
 
     def _export_gauges(self) -> None:
@@ -283,6 +291,9 @@ class FleetRouter:
                 rep.placements += 1
                 rep.summary.update(_prompt_hashes(
                     req.prompt, rep.engine.block_size))
+                if self.recorder is not None:
+                    self.recorder.record("route", uid=req.uid,
+                                         replica=rep.rid, pinned=True)
                 return rep
         flaky = (self.chaos is not None
                  and self.chaos.route_hook(self.route_seq))
@@ -314,6 +325,11 @@ class FleetRouter:
                 if moved:
                     self.shared_prefix_moves += 1
                     self.shared_prefix_tokens += moved
+                    if self.recorder is not None:
+                        self.recorder.record(
+                            "prefix_share", uid=req.uid,
+                            donor=donor.rid, replica=best.rid,
+                            tokens=moved)
         best.assigned.append(req)
         best.placements += 1
         # feed the placement back: the routed prompt's blocks will be
@@ -324,6 +340,10 @@ class FleetRouter:
         # hottest shared prefixes (shared-prefix traces repeat them)
         self._recent_prompts.append(req.prompt)
         del self._recent_prompts[:-16]
+        if self.recorder is not None:
+            self.recorder.record("route", uid=req.uid, replica=best.rid,
+                                 predicted_hit=hits[best.rid],
+                                 flaky=flaky)
         return best
 
     def _live_candidates(self) -> list:
@@ -335,7 +355,9 @@ class FleetRouter:
             # least once.  The engines were warm-reset at quarantine
             # time, so return them to service DEGRADED rather than
             # losing work — least-struck replica first (the routing
-            # tiebreak on ``strikes`` makes the preference real).
+            # tiebreak on ``strikes`` makes the preference real), and
+            # a ``fleet_fallback`` flight-recorder event so the
+            # postmortem can see the fleet ran on known-bad hardware.
             pool = sorted((r for r in self.replicas
                            if r.health != RETIRED),
                           key=lambda r: (r.strikes, r.rid))
@@ -343,6 +365,10 @@ class FleetRouter:
                 r.health = DEGRADED
                 r.draining = False
             cands = pool
+            if self.recorder is not None and pool:
+                self.recorder.record(
+                    "fleet_fallback", preferred=pool[0].rid,
+                    strikes={r.rid: r.strikes for r in pool})
         return cands
 
     # --- live rebalancing -------------------------------------------------
@@ -415,6 +441,10 @@ class FleetRouter:
                     "message": "injected target crash mid-evacuation",
                     "tick": None, "round": self.rounds,
                     "recovery_s": None, "_t_fault": self._clock()})
+                if self.recorder is not None:
+                    self.recorder.record("replica_quarantined",
+                                         replica=tgt.rid,
+                                         during="evacuation")
                 records.append({"uid": uid, "source": rep.rid,
                                 "target": tgt.rid, "ok": False,
                                 "rolled_back": False,
@@ -439,6 +469,12 @@ class FleetRouter:
             if rec["ok"] and rec["tokens"] > 0:
                 self._pins[uid] = tgt.rid
             records.append(rec)
+            if self.recorder is not None:
+                self.recorder.record(
+                    "evacuation", uid=uid, source=rep.rid,
+                    target=tgt.rid, blocks=rec.get("blocks", 0),
+                    rolled_back=rec.get("rolled_back", False),
+                    reason=reason)
         self.evacuations.extend(records)
         return records
 
@@ -481,6 +517,9 @@ class FleetRouter:
         serves), warmed with ``clone_prefix`` of the hottest recent
         prompts so its first placements already hit cache."""
         if self.engine_factory is None:
+            if self.recorder is not None:
+                self.recorder.record("scale_up_skipped",
+                                     reason="no engine_factory")
             return None
         eng = self.engine_factory()
         rid = len(self.replicas)
@@ -506,6 +545,9 @@ class FleetRouter:
                                           replica=str(rid))
         self._g_ticks[rid] = reg.gauge("fleet_replica_ticks",
                                        replica=str(rid))
+        if self.recorder is not None:
+            self.recorder.record("scale_up", replica=rid,
+                                 warm_tokens=warmed)
         return rep
 
     def _scale_down(self) -> Optional[_Replica]:
@@ -532,6 +574,8 @@ class FleetRouter:
         victim.engine.reset()           # 3) retire (warm: programs kept)
         victim.health = RETIRED
         victim.draining = False
+        if self.recorder is not None:
+            self.recorder.record("scale_down", replica=victim.rid)
         return victim
 
     # --- replay (fleet ledger -> next round's requests) -------------------
@@ -594,13 +638,15 @@ class FleetRouter:
                 sup = ServeSupervisor(
                     rep.engine, chaos=None,
                     admission=self.admissions.get(rep.rid),
+                    recorder=self.recorder,
                     fleet_hook=(lambda report, _rep=rep:
                                 self._observe_tick(_rep, report)),
                     fatal=self._fatal, **rep.supervisor_kw)
                 t0 = self._clock()
                 evac_signal = None
                 try:
-                    out = sup.run(list(rep.assigned))
+                    out = sup.run(list(rep.assigned),
+                                  telemetry=self.telemetry)
                 except rebalance.EvacuationSignal as exc:
                     # proactive drain: the replica is degrading, not
                     # dead — after the ledger harvest below, its open
@@ -626,6 +672,10 @@ class FleetRouter:
                         "recovery_s": None,   # filled when replays land
                         "_t_fault": t0,
                     })
+                    if self.recorder is not None:
+                        self.recorder.record("replica_quarantined",
+                                             replica=rep.rid,
+                                             tick=fault_tick)
                     out = None
                 finally:
                     # EVERY supervisor ledger is harvested — crashed

@@ -32,7 +32,8 @@ Packing, chunking and the digest check all happen before any scatter.
 
 Wire bytes land in ``comm_bytes{op="kv_migrate"}`` and
 ``serve_migration_bytes`` of a :class:`..obs.metrics.MetricsRegistry`,
-wall time in the ``serve_migration_s`` histogram.
+wall time in the ``serve_migration_s`` histogram; a ``tracer``
+(:class:`..obs.trace.Tracer`) gets a ``kv_migrate`` span a move.
 """
 
 from __future__ import annotations
@@ -161,11 +162,20 @@ def _pool_leaves(pools):
 
 def _int8_rows(x: torch.Tensor):
     """Symmetric int8 with one f32 scale a row of ``x`` ``(n, m)``: the
-    gradient collectives' wire format, a row at a time."""
-    amax = x.float().abs().amax(dim=1, keepdim=True)
+    gradient collectives' wire format, a row at a time.  The amax, the
+    scale and ``x / scale`` are taken in ``x``'s own dtype, as JAX's
+    ``collectives.quantize`` takes them; only the scale is carried in
+    f32."""
+    amax = x.abs().amax(dim=1, keepdim=True)
     scale = torch.clamp(amax / 127.0, min=1e-30)
-    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
-    return q.to(torch.int8), scale[:, 0]
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale[:, 0].float()
+
+
+def _int8_rows_back(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """:func:`_int8_rows`' inverse, JAX's ``collectives.dequantize``:
+    the codes in ``dtype`` times the f32 scale, back in ``dtype``."""
+    return (q.to(dtype) * scale[:, None]).to(dtype)
 
 
 class BlockMigrator:
@@ -182,14 +192,11 @@ class BlockMigrator:
             raise ValueError(f"migrator width must be >= 1, got {width}")
         if wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer spans are not ported to the PyTorch engine yet "
-                "(ROADMAP.md queue 1 item 14)")
         self.width = int(width)
         self.wire = wire
         self.chunk_bytes = int(chunk_bytes)
         self.stats = MigrationStats()
+        self.tracer = tracer
         if registry is not None:
             self._c_bytes = registry.counter("serve_migration_bytes",
                                              wire=wire)
@@ -239,8 +246,8 @@ class BlockMigrator:
                 offs["b_int8"] += n
                 s = payload["scales"][srow:srow + shape[0]]
                 srow += shape[0]
-                x = (flat.reshape(shape[0], -1).float() * s[:, None]).to(
-                    leaf.dtype)
+                x = _int8_rows_back(flat.reshape(shape[0], -1), s,
+                                    leaf.dtype)
             else:
                 key = "b_" + str(leaf.dtype).rsplit(".", 1)[-1]
                 x = payload[key][offs[key]:offs[key] + n]
@@ -318,6 +325,10 @@ class BlockMigrator:
             self._c_bytes.inc(wire_b)
             self._c_comm.inc(wire_b)
             self._h_s.observe(dt)
+        if self.tracer is not None:
+            self.tracer.add("kv_migrate", t0, t0 + dt, trace_id,
+                            track="migrate", blocks=len(src_ids),
+                            bytes=wire_b, hop=hop, wire=self.wire)
         return dst_pools
 
 

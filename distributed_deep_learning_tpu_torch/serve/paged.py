@@ -15,7 +15,7 @@ The port of ``distributed_deep_learning_tpu/serve/paged.py``.
   at-rest form: a bf16 cast, or an int8 :class:`.quant.QuantTensor` with
   ``(num_blocks, block_size, Hkv, 1)`` f32 scales, which the pool ops
   index as they index a tensor.
-* **Host side** (numpy, copied as it is, less the tracer's event hook):
+* **Host side** (numpy, copied as it is, with the tracer's event hook):
   :class:`BlockManager` owns the
   free list, per-block refcounts, per-slot tables and a
   :class:`PrefixIndex` keyed by a rolling chain hash of token-prefix
@@ -253,6 +253,10 @@ class BlockManager:
         self.copies = 0
         self.evictions = 0
         self.peak_in_use = 0
+        # optional observability hook: ``on_event(kind, **fields)`` fires
+        # on evictions and COW detaches (the engine wires it to the
+        # tracer/flight recorder; None costs nothing)
+        self.on_event = None
 
     # --- accounting -------------------------------------------------------
     @property
@@ -292,6 +296,8 @@ class BlockManager:
             self._deref(b)
             self.evictions += 1
             freed += 1
+        if freed and self.on_event is not None:
+            self.on_event("evict", freed=freed, need=need)
         return freed
 
     def flush_index(self) -> int:
@@ -307,6 +313,8 @@ class BlockManager:
             b = self.index.remove(h)
             self._deref(b)
             dropped += 1
+        if dropped and self.on_event is not None:
+            self.on_event("index_flush", dropped=dropped)
         return dropped
 
     # --- prefix matching --------------------------------------------------
@@ -443,6 +451,9 @@ class BlockManager:
         self.tables[slot, logical] = dst
         self._deref(b)
         self.copies += 1
+        if self.on_event is not None:
+            self.on_event("cow", slot=slot, logical=logical,
+                          src=b, dst=dst)
         return b, dst
 
     # --- registration -----------------------------------------------------
@@ -520,6 +531,8 @@ class BlockManager:
                 self._deref(b)
                 return None
             ids.append(b)
+        if self.on_event is not None:
+            self.on_event("adopt", blocks=len(ids))
         return start, ids
 
     def unadopt(self, block_ids) -> int:
@@ -535,6 +548,8 @@ class BlockManager:
             self.index.remove(h)
             self._deref(int(b))
             dropped += 1
+        if dropped and self.on_event is not None:
+            self.on_event("unadopt", blocks=dropped)
         return dropped
 
     def prefix_summary(self) -> frozenset:

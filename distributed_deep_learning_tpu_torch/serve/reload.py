@@ -256,7 +256,8 @@ class ReloadManager:
 
     Wired into :class:`..serve.supervisor.ServeSupervisor` (which calls
     ``on_tick(report, ledger)`` after each tick commits).  ``recorder``
-    (the flight recorder) is ROADMAP.md queue 1 item 14 and refused.  With
+    (:class:`..obs.recorder.FlightRecorder`) gets a ``reload_<action>``
+    record a decision and trips on a canary rollback.  With
     ``canary_slots=0`` verified weights swap in directly; otherwise a
     canary runs for at least ``canary_ticks`` decode ticks and
     ``min_compare`` comparison samples, then promotes or rolls back on
@@ -277,10 +278,7 @@ class ReloadManager:
         if not 0.0 <= min_acceptance <= 1.0:
             raise ValueError(f"min_acceptance must be in [0, 1], got "
                              f"{min_acceptance}")
-        if recorder is not None:
-            raise NotImplementedError(
-                "the flight recorder is not ported to the PyTorch engine "
-                "yet (ROADMAP.md queue 1 item 14)")
+        self.recorder = recorder
         self.directory = os.fspath(directory)
         self.canary_slots = int(canary_slots)
         self.canary_ticks = int(canary_ticks)
@@ -326,6 +324,8 @@ class ReloadManager:
 
     def _note(self, action: str, step: int, **fields) -> None:
         self.events.append({"action": action, "step": step, **fields})
+        if self.recorder is not None:
+            self.recorder.record("reload_" + action, step=step, **fields)
 
     # --- supervisor hook --------------------------------------------------
     def on_tick(self, report, ledger) -> None:
@@ -408,7 +408,10 @@ class ReloadManager:
             f"canary rollback: acceptance {acceptance:.3f} (min "
             f"{self.min_acceptance}), drift p99 {drift_p99:.3g} (max "
             f"{self.max_drift_p99}), nonfinite {self._nonfinite}")
-        self._note("rollback", step, dump=None, **verdict)
+        dump = None
+        if self.recorder is not None:
+            dump = self.recorder.trip("canary_rollback")
+        self._note("rollback", step, dump=dump, **verdict)
         raise CanaryRollback(
             f"canary step {step} rolled back (acceptance "
             f"{acceptance:.3f}, drift p99 {drift_p99:.3g}, nonfinite "

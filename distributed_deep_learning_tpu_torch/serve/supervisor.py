@@ -170,10 +170,7 @@ class ServeSupervisor:
         self.retries = retries
         self.max_restarts = max_restarts
         self.stall_timeout_s = stall_timeout_s
-        if recorder is not None:
-            raise NotImplementedError(
-                "the flight recorder is not ported to the PyTorch engine "
-                "yet (ROADMAP.md queue 1 item 14)")
+        self.recorder = recorder
         self.chaos = chaos
         self.reload = reload
         self.admission = admission
@@ -310,6 +307,10 @@ class ServeSupervisor:
                     # just a tick — record it and escalate.  No restart
                     # and no reset here; the router owns recovery (it
                     # harvests this ledger and replays elsewhere).
+                    if self.recorder is not None:
+                        self.recorder.record(
+                            "engine_fault", kind=type(exc).__name__,
+                            message=str(exc), tick=tick, escalated=True)
                     self.faults.append({
                         "kind": type(exc).__name__,
                         "message": str(exc),
@@ -321,6 +322,12 @@ class ServeSupervisor:
                     raise
                 self.restarts += 1
                 crash_looping = self.restarts > self.max_restarts
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "engine_fault", kind=type(exc).__name__,
+                        message=str(exc), tick=tick,
+                        restart=self.restarts,
+                        gave_up=crash_looping)
                 if crash_looping:
                     raise
                 self.engine.reset()

@@ -73,7 +73,7 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
                       monitor: FailureMonitor | None = None,
                       max_restarts: int = 2,
                       checkpoint_every: int | None = None,
-                      sentinel=None, chaos=None
+                      sentinel=None, chaos=None, telemetry=None
                       ) -> tuple[Any, list[EpochResult]]:
     """Run :func:`..loop.fit` with checkpointed restart on failure.
 
@@ -100,6 +100,9 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
       between attempts, so a recorded failure from the dead attempt does
       not permanently poison the retries (the replacement worker is
       expected to heartbeat again).
+    * ``telemetry`` (:class:`..obs.RunTelemetry`) puts every restore in
+      the ``recovery`` span, counts restarts by cause
+      (``elastic_restarts{cause=...}``) and rides into :func:`..loop.fit`.
     """
     logger = logger or PhaseLogger(verbose=False)
     train_loader, val_loader, test_loader = loaders
@@ -113,7 +116,11 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
         # resume point: a step save scheduled just before the failure must
         # be visible to this retry, or it would resume from an older
         # boundary and try to re-save an id that then finalises under it
-        restored, ckpt_step = checkpointer.restore_verified(state)
+        if telemetry is None:
+            restored, ckpt_step = checkpointer.restore_verified(state)
+        else:
+            with telemetry.timeline.span("recovery"):
+                restored, ckpt_step = checkpointer.restore_verified(state)
         if ckpt_step is not None:
             state = restored
             _, start_epoch, resume_batch, resume_totals = \
@@ -142,7 +149,8 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
                            resume_batch=resume_batch,
                            resume_totals=resume_totals, history_sink=sink,
                            sentinel=sentinel, chaos=chaos,
-                           skip_steps=skip_steps or None)
+                           skip_steps=skip_steps or None,
+                           telemetry=telemetry)
             return state, _merge_history(sink)
         except AnomalyError as e:
             if e.policy != "rollback":
@@ -150,6 +158,9 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
             restarts += 1
             if restarts > max_restarts:
                 raise
+            if telemetry is not None:
+                telemetry.registry.counter(
+                    "elastic_restarts", cause="sentinel_rollback").inc()
             skip_steps.add(e.global_step)
             checkpointer.wait_until_finished()
             logger.info(f"sentinel rollback ({e}); restart "
@@ -173,6 +184,9 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
             restarts += 1
             if restarts > max_restarts:
                 raise
+            if telemetry is not None:
+                telemetry.registry.counter(
+                    "elastic_restarts", cause=type(e).__name__).inc()
             # flush BEFORE reading the point for the log too, or a save
             # still in flight makes the message claim an older boundary
             # than the retry will actually use

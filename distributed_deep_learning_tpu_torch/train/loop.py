@@ -1,7 +1,6 @@
 """Epoch loop with the reference's phase/metric semantics: the port of
 ``distributed_deep_learning_tpu/train/loop.py`` with its checkpointing,
-resume, failure monitor, anomaly sentinel and chaos hooks (telemetry is
-``ROADMAP.md`` item 14).
+resume, failure monitor, anomaly sentinel, chaos hooks and telemetry.
 
 Per epoch a train phase and a validation phase, then one final test
 phase; accuracy = argmax matches × 100 / sites, and the logged loss keeps
@@ -31,10 +30,20 @@ logs them at the phase's end.  A ``chaos`` plan
 rollback replay's poisoned window).  The ``DDL_INJECT_FAILURE`` and
 ``DDL_INJECT_STEP_FAILURE`` hooks (:mod:`..utils.failures`) fire at the
 start of an epoch and after a step.
+
+``telemetry`` (:class:`..obs.RunTelemetry`) records JAX's spans: per
+step ``data_wait`` around the loader, ``dispatch`` around the step call
+(a step function's first call as ``compile``) and the memory tracker's
+subsampled poll; ``device_sync`` around a phase's one fetch;
+``checkpoint`` around every save; a goodput rollup and the MFU totals
+per train phase; the sentinel's contained steps as a counter and a
+flight-recorder trip.  With ``telemetry=None`` the loop is the one
+without it: no clock is read and nothing is recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -111,7 +120,8 @@ def _sum_totals(metrics, init_totals=None):
 
 def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
                init_totals=None, on_step=None, monitor=None,
-               batch_hook=None, skip_pred=None, check_anomaly=None):
+               batch_hook=None, skip_pred=None, check_anomaly=None,
+               telemetry=None):
     """Drive one phase; returns ``(state, totals, step_losses,
     step_seconds)`` with one host sync at the end.  The first ``skip``
     batches are skipped (mid-epoch resume; ``init_totals`` holds what
@@ -121,9 +131,14 @@ def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
     ``batch_hook(b, x, y) -> (x, y)`` may replace or fail a train batch,
     ``skip_pred(b)`` consumes one untrained, and ``check_anomaly(b,
     metrics)`` reads step ``b``'s metrics after step ``b + 1`` is
-    queued (and the last step's at the end)."""
+    queued (and the last step's at the end).  ``telemetry`` records the
+    module docstring's spans."""
+    batches, step = loader.iter_batches(skip), step_fn
+    if telemetry is not None:
+        batches = _waited(batches, telemetry.timeline)
+        step = _observed(step_fn, telemetry, train)
     metrics, clock, pending = [], None, None
-    for i, (x, y) in enumerate(loader.iter_batches(skip), start=skip + 1):
+    for i, (x, y) in enumerate(batches, start=skip + 1):
         if monitor is not None:
             monitor.raise_if_failed()
         if train:
@@ -133,10 +148,10 @@ def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
                 x, y = batch_hook(i, x, y)
             if clock is None:
                 clock = _StepClock(x.device)
-            state, m = step_fn(state, x, y)
+            state, m = step(state, x, y)
             clock.mark()
         else:
-            m = step_fn(state, x, y)
+            m = step(state, x, y)
         metrics.append(m)
         if check_anomaly is not None:
             if pending is not None:
@@ -147,9 +162,45 @@ def _run_phase(step_fn, state, loader, *, train: bool, skip: int = 0,
                     lambda: _sum_totals(metrics, init_totals)[0])
     if pending is not None:
         check_anomaly(*pending)
-    totals, host = _sum_totals(metrics, init_totals)
+    with (telemetry.timeline.span("device_sync") if telemetry is not None
+          else contextlib.nullcontext()):
+        totals, host = _sum_totals(metrics, init_totals)
+        seconds = clock.seconds() if clock else []
     losses = host["loss"].tolist() if train and host else []
-    return state, totals, losses, clock.seconds() if clock else []
+    return state, totals, losses, seconds
+
+
+def _waited(batches, tl):
+    """``batches`` with the host's wait for each in a ``data_wait``
+    span."""
+    it = iter(batches)
+    while True:
+        t = tl.clock()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        tl.add("data_wait", tl.clock() - t)
+        yield batch
+
+
+def _observed(step_fn, telemetry, train: bool):
+    """``step_fn`` with its call in a ``dispatch`` span (its first call
+    a ``compile`` span), a train step counted and the memory tracker
+    polled on its cadence."""
+    tl = telemetry.timeline
+
+    def step(*args):
+        kind = telemetry.dispatch_kind(step_fn)
+        t = tl.clock()
+        out = step_fn(*args)
+        tl.add(kind, tl.clock() - t)
+        if train:
+            tl.step()
+            telemetry.memory.on_step()
+        return out
+
+    return step
 
 
 def _result(phase: str, epoch: int | None, totals, t0: float, t1: float,
@@ -171,7 +222,46 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
         checkpoint_every: int | None = None, resume_batch: int = 0,
         resume_totals: dict | None = None,
         history_sink: list | None = None, sentinel=None, chaos=None,
-        skip_steps=None) -> tuple[TrainState, list[EpochResult]]:
+        skip_steps=None, telemetry=None
+        ) -> tuple[TrainState, list[EpochResult]]:
+    """Drive the epoch loop (see :func:`_fit`), adding JAX's OOM
+    postmortem: when the card runs out of memory and the telemetry has a
+    flight recorder, the memory tracker's watermarks and the largest
+    state tensors are recorded and the recorder trips before the error
+    propagates."""
+    try:
+        return _fit(state, train_step, eval_step, train_loader, val_loader,
+                    test_loader, epochs, logger,
+                    checkpointer=checkpointer, start_epoch=start_epoch,
+                    monitor=monitor, checkpoint_every=checkpoint_every,
+                    resume_batch=resume_batch, resume_totals=resume_totals,
+                    history_sink=history_sink, sentinel=sentinel,
+                    chaos=chaos, skip_steps=skip_steps, telemetry=telemetry)
+    except Exception as err:
+        if telemetry is not None and telemetry.recorder is not None:
+            from distributed_deep_learning_tpu_torch.obs import \
+                memory as obs_memory
+
+            if obs_memory.is_oom_error(err):
+                top = []
+                try:
+                    top = obs_memory.top_leaves(state, n=10)
+                except Exception:
+                    pass   # the postmortem must never mask the OOM
+                obs_memory.record_oom_postmortem(
+                    telemetry.recorder, error=err, top_buffers=top,
+                    watermarks=telemetry.memory.timeline, context="train")
+        raise
+
+
+def _fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
+         test_loader, epochs: int, logger: PhaseLogger | None = None, *,
+         checkpointer=None, start_epoch: int = 1, monitor=None,
+         checkpoint_every: int | None = None, resume_batch: int = 0,
+         resume_totals: dict | None = None,
+         history_sink: list | None = None, sentinel=None, chaos=None,
+         skip_steps=None, telemetry=None
+         ) -> tuple[TrainState, list[EpochResult]]:
     """Drive the epoch loop from ``start_epoch``; returns the final state
     and every phase's :class:`EpochResult` in order (train, validation
     per epoch, then test).  The log lines follow the reference's grammar.
@@ -182,8 +272,8 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
     caller that catches a failure keeps the finished phases
     (:func:`..elastic.fit_with_recovery`).  ``sentinel``
     (:class:`.sentinel.SentinelConfig`, the one ``train_step`` was built
-    with) selects the policy; ``monitor``, ``chaos`` and ``skip_steps``
-    are the module docstring's."""
+    with) selects the policy; ``monitor``, ``chaos``, ``skip_steps`` and
+    ``telemetry`` are the module docstring's."""
     logger = logger or PhaseLogger(verbose=False)
     history: list[EpochResult] = [] if history_sink is None \
         else history_sink
@@ -217,12 +307,16 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
             maybe_inject_step_failure(gstep)
             if checkpointer is not None and checkpoint_every \
                     and b % checkpoint_every == 0 and b < spe:
+                ck0 = telemetry.timeline.clock() if telemetry else None
                 checkpointer.save(
                     gstep, st, wait=False,
                     extra={"epoch": _epoch, "batch": b,
                            "epoch_complete": False,
                            "totals": {k: float(v)
                                       for k, v in totals_fn().items()}})
+                if telemetry is not None:
+                    telemetry.timeline.add(
+                        "checkpoint", telemetry.timeline.clock() - ck0)
 
         batch_hook = skip_pred = check_anomaly = None
         if chaos is not None:
@@ -242,17 +336,21 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
                                        int(float(m["anomaly_code"])))
 
         t0 = logger.phase_begin("train", epoch)
+        phase_mark = telemetry.timeline.snapshot() if telemetry else None
         state, totals, losses, secs = _run_phase(
             train_step, state, train_loader, train=True, skip=skip,
             init_totals=init_totals, on_step=on_step, monitor=monitor,
             batch_hook=batch_hook, skip_pred=skip_pred,
-            check_anomaly=check_anomaly)
+            check_anomaly=check_anomaly, telemetry=telemetry)
         t1 = logger.clock()
         if sentinel is not None and totals.get("anomaly"):
             logger.info(f"sentinel: contained {int(totals['anomaly'])} "
                         f"anomalous step(s) in epoch {epoch} "
                         f"(policy={sentinel.policy})")
         res = _result("train", epoch, totals, t0, t1, losses, secs)
+        if telemetry is not None:
+            _observe_train_phase(telemetry, epoch, totals, res, sentinel,
+                                 phase_mark)
         logger.phase_end("train", epoch, accuracy=res.accuracy, loss=res.loss)
         logger.metrics(phase="train", epoch=epoch,
                        examples_per_sec=round(res.examples_per_sec, 1),
@@ -261,7 +359,8 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
 
         t0 = logger.clock()
         _, totals, _, _ = _run_phase(eval_step, state, val_loader,
-                                     train=False, monitor=monitor)
+                                     train=False, monitor=monitor,
+                                     telemetry=telemetry)
         t1 = logger.clock()
         res = _result("validation", epoch, totals, t0, t1)
         # the reference prints only the validation end line
@@ -269,17 +368,45 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
                          loss=res.loss)
         history.append(res)
         if checkpointer is not None:
+            ck0 = telemetry.timeline.clock() if telemetry else None
             checkpointer.save(epoch * spe if checkpoint_every else epoch,
                               state, wait=False,
                               extra={"epoch": epoch, "batch": spe,
                                      "epoch_complete": True})
+            if telemetry is not None:
+                telemetry.timeline.add(
+                    "checkpoint", telemetry.timeline.clock() - ck0)
 
     if checkpointer is not None:
-        checkpointer.wait_until_finished()
+        if telemetry is None:
+            checkpointer.wait_until_finished()
+        else:
+            with telemetry.timeline.span("checkpoint"):
+                checkpointer.wait_until_finished()
     t0 = logger.clock()
-    _, totals, _, _ = _run_phase(eval_step, state, test_loader, train=False)
+    _, totals, _, _ = _run_phase(eval_step, state, test_loader, train=False,
+                                 telemetry=telemetry)
     t1 = logger.clock()
     res = _result("test", None, totals, t0, t1)
     logger.phase_end("test", accuracy=res.accuracy, loss=res.loss)
     history.append(res)
     return state, history
+
+
+def _observe_train_phase(telemetry, epoch, totals, res, sentinel,
+                         phase_mark) -> None:
+    """A train phase's telemetry: the sentinel's contained steps (a
+    counter, a record and a trip of the flight recorder), the phase's
+    goodput rollup and its MFU totals."""
+    if totals.get("anomaly"):
+        telemetry.registry.counter("sentinel_anomalies").inc(
+            float(totals["anomaly"]))
+        rec = telemetry.recorder
+        if rec is not None:
+            rec.record("sentinel_anomaly", epoch=epoch,
+                       count=int(totals["anomaly"]),
+                       policy=sentinel.policy if sentinel is not None
+                       else None)
+            rec.trip("sentinel_anomaly")
+    gp = telemetry.phase_rollup(f"train_epoch_{epoch}", since=phase_mark)
+    telemetry.note_train(gp["steps"], gp["wall_seconds"], res.examples)

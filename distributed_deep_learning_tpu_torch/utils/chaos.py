@@ -26,8 +26,9 @@ kind at a global train step, so the same plan replays bit-identically.
 path on a small MLP and returns its record;
 :func:`run_serve_resilience_drill`, :func:`run_fleet_resilience_drill`
 and :func:`run_rebalance_drill` do the same for one supervised engine,
-a fleet of three and its rebalancing.  The topology fault
-(``shrink_topology``) is ``ROADMAP.md`` item 14.
+a fleet of three and its rebalancing; :func:`run_blackbox_drill` leaves
+a flight recorder's dump behind a contained anomaly.  The topology fault
+(``shrink_topology``) is ``ROADMAP.md`` item 14(b).
 """
 
 from __future__ import annotations
@@ -105,14 +106,24 @@ class ChaosPlan:
     ``fired`` records every event that actually triggered as
     ``(global_step, kind)``: the evidence that the fault happened.
     ``sleep`` is how the stall kinds spend their time (``time.sleep``;
-    a test passes its fake clock's, so nothing sleeps)."""
+    a test passes its fake clock's, so nothing sleeps).  ``recorder``
+    (:class:`..obs.recorder.FlightRecorder`) gets a ``chaos_fired``
+    record a fired fault."""
 
-    def __init__(self, events, seed: int = 0, sleep=time.sleep):
+    def __init__(self, events, seed: int = 0, sleep=time.sleep,
+                 recorder=None):
         self.events = sorted(events, key=lambda e: e.step)
         self.seed = int(seed)
         self.sleep = sleep
+        self.recorder = recorder
         self.fired: list[tuple[int, str]] = []
         self._done: set[int] = set()  # indices of one-shot events consumed
+
+    def _record(self, step: int, kind: str, **fields) -> None:
+        """A fired fault into the flight recorder, when one is attached."""
+        if self.recorder is not None:
+            self.recorder.record("chaos_fired", step=step, fault=kind,
+                                 **fields)
 
     @classmethod
     def parse(cls, spec: str, seed: int = 0) -> "ChaosPlan":
@@ -146,6 +157,7 @@ class ChaosPlan:
                 continue
             self._done.add(i)
             self.fired.append((global_step, ev.kind))
+            self._record(global_step, ev.kind)
             if ev.kind == "nan_batch":
                 x = self._poison(x, ev, np.nan)
             elif ev.kind == "grad_spike":
@@ -198,6 +210,7 @@ class ChaosPlan:
                 continue  # defer until there is a live slot to poison
             self._done.add(i)
             self.fired.append((report.tick, ev.kind))
+            self._record(report.tick, ev.kind)
             if ev.kind == "engine_crash":
                 from distributed_deep_learning_tpu_torch.serve.supervisor \
                     import EngineCrash
@@ -271,6 +284,7 @@ class ChaosPlan:
                 continue
             self._done.add(i)
             self.fired.append((report.tick, ev.kind))
+            self._record(report.tick, ev.kind, replica=int(rid))
             if ev.kind == "replica_crash":
                 from distributed_deep_learning_tpu_torch.serve.fleet import \
                     ReplicaCrash
@@ -298,6 +312,7 @@ class ChaosPlan:
             if seq >= ev.step:
                 if (ev.step, ev.kind) not in self.fired:
                     self.fired.append((ev.step, ev.kind))
+                    self._record(ev.step, ev.kind)
                 flaky = True
         return flaky
 
@@ -333,6 +348,7 @@ class ChaosPlan:
                     continue
                 self._done.add(i)
                 self.fired.append((calls["n"], ev.kind))
+                self._record(calls["n"], ev.kind)
                 payload = self._damage_largest_leaf(payload)
             return payload
 
@@ -372,6 +388,7 @@ class ChaosPlan:
                 continue
             self._done.add(i)
             self.fired.append((seq, ev.kind))
+            self._record(seq, ev.kind)
             return True
         return False
 
@@ -392,6 +409,7 @@ class ChaosPlan:
             if round_no >= ev.step:
                 if (ev.step, ev.kind) not in self.fired:
                     self.fired.append((ev.step, ev.kind))
+                    self._record(ev.step, ev.kind)
                 return ("hot" if (round_no - ev.step) % 2 == 0
                         else "cold")
         return None
@@ -650,6 +668,68 @@ def _fleet_trace(model, seed):
                     slo_e2e_ms=30000.0,
                     priority_classes=DEFAULT_PRIORITY_CLASSES)
     return make_load(spec, vocab_size=model.vocab_size, seed=seed)
+
+
+def run_blackbox_drill(seed: int = 0, dump_path: str | None = None,
+                       device: str = "cpu") -> dict:
+    """Seeded chaos to a deterministic flight-recorder dump (JAX's
+    drill): the resilience drill's sentinel section with a
+    :class:`..obs.recorder.FlightRecorder` in sequence-only mode
+    (``clock=None``) wired into the chaos plan and the train loop.  The
+    planted ``nan_batch`` fires, the sentinel contains it and the
+    containment trips the recorder, whose dump's bytes are the same on
+    every run of a seed.  Returns the dump's path, its sha256, its trips
+    and events, and what fired."""
+    import hashlib
+    import json
+    import tempfile
+
+    from distributed_deep_learning_tpu_torch.data.datasets import \
+        synthetic_mqtt
+    from distributed_deep_learning_tpu_torch.data.loader import make_loaders
+    from distributed_deep_learning_tpu_torch.data.splits import \
+        train_val_test_split
+    from distributed_deep_learning_tpu_torch.models.mlp import MLP
+    from distributed_deep_learning_tpu_torch.obs import RunTelemetry
+    from distributed_deep_learning_tpu_torch.obs.recorder import \
+        FlightRecorder
+    from distributed_deep_learning_tpu_torch.train.loop import fit
+    from distributed_deep_learning_tpu_torch.train.objectives import \
+        cross_entropy_loss
+    from distributed_deep_learning_tpu_torch.train.sentinel import (
+        SentinelConfig, attach_sentinel)
+    from distributed_deep_learning_tpu_torch.train.state import (
+        Optimizer, create_train_state)
+    from distributed_deep_learning_tpu_torch.train.step import make_step_fns
+
+    ds = synthetic_mqtt(1024, seed=21)
+    splits = train_val_test_split(len(ds), seed=42)
+    loaders = make_loaders(ds, splits, 64, device)
+    cfg = SentinelConfig(policy="skip", warmup_steps=2)
+    state = attach_sentinel(create_train_state(
+        MLP(48, hidden_size=16), 7, Optimizer("sgd", 0.05), device=device))
+    sent_step, eval_step = make_step_fns(cross_entropy_loss, sentinel=cfg)
+    if dump_path is None:
+        dump_path = os.path.join(tempfile.mkdtemp(prefix="blackbox_"),
+                                 "blackbox.json")
+    rec = FlightRecorder(clock=None)   # sequence-only: deterministic bytes
+    rec.arm(dump_path)
+    plan = ChaosPlan([ChaosEvent(step=5, kind="nan_batch")], seed=seed,
+                     recorder=rec)
+    telemetry = RunTelemetry(path=None, recorder=rec)
+    fit(state, sent_step, eval_step, *loaders, epochs=1, sentinel=cfg,
+        chaos=plan, telemetry=telemetry)
+    telemetry.close()
+    with open(dump_path, "rb") as f:
+        raw = f.read()
+    doc = json.loads(raw)
+    return {
+        "dump_path": dump_path,
+        "dump_sha256": hashlib.sha256(raw).hexdigest(),
+        "trips": doc["trips"],
+        "events_captured": doc["captured"],
+        "faults_fired": list(plan.fired),
+    }
 
 
 def run_serve_resilience_drill(seed: int = 0, device: str = "cpu",
@@ -1080,7 +1160,7 @@ def preemption_requests(vocab_size: int, seed: int = 0) -> list:
 
 
 def run_rebalance_drill(seed: int = 0, device: str = "cpu",
-                        model=None) -> dict:
+                        model=None, disagg_devices=None) -> dict:
     """Live fleet REBALANCING end to end; returns JAX's
     ``fleet_rebalance`` record.  Sections, each against a clean fleet
     reference on the same trace: **evacuation (f32)** and **(int8)**
@@ -1091,9 +1171,14 @@ def run_rebalance_drill(seed: int = 0, device: str = "cpu",
     **target_crash_mid_evac** (the target dies mid-move: quarantined,
     aborted, replayed), **autoscaler drain** (grow by one, shrink back
     through the drain protocol) and **scale_thrash** (an oscillating
-    signal the hysteresis must damp).  The JAX drill's pool-elasticity
-    section belongs to disaggregation (ROADMAP.md item 13's remainder)
-    and is recorded as skipped."""
+    signal the hysteresis must damp).  **pool elasticity** runs, as in
+    JAX, given at least three ``disagg_devices`` (a device may repeat:
+    ``[device] * 3`` puts every pool on one card): a disaggregated engine
+    (one prefill, two decode workers) serves the trace, the pool
+    rebalancer judges its ``prefill_util``, ``reassign`` moves a worker,
+    and the reset engine serves the trace again, token for token as the
+    unified engine; without them it is recorded as skipped, as JAX's is
+    on fewer than three devices."""
     from distributed_deep_learning_tpu_torch.serve.autoscaler import (
         FleetAutoscaler)
     from distributed_deep_learning_tpu_torch.serve.bench import paged_max_len
@@ -1304,11 +1389,16 @@ def run_rebalance_drill(seed: int = 0, device: str = "cpu",
     all_ok = all_ok and ok
     lost_total += st["requests_lost"]
 
-    record["scenarios"]["pool_elasticity"] = {
-        "skipped": "disaggregated serving is ROADMAP.md queue 1 item "
-                   "13's remainder",
-        "passed": True,
-    }
+    if disagg_devices is not None and len(disagg_devices) >= 3:
+        ok, record["scenarios"]["pool_elasticity"] = _pool_elasticity(
+            model, trace, cap, engine, disagg_devices, want_captures)
+        all_ok = all_ok and ok
+    else:
+        record["scenarios"]["pool_elasticity"] = {
+            "skipped": "needs >= 3 local devices for a reassignable "
+                       "worker (pass disagg_devices)",
+            "passed": True,
+        }
     record["requests_lost_total"] = lost_total
     record["evac_ms_mean"] = (round(1e3 * sum(evac_seconds)
                                     / len(evac_seconds), 3)
@@ -1318,3 +1408,40 @@ def run_rebalance_drill(seed: int = 0, device: str = "cpu",
         if isinstance(s, dict))
     record["drill_passed"] = bool(all_ok and lost_total == 0)
     return record
+
+
+def _pool_elasticity(model, trace, cap, engine, devices, want_captures):
+    """The rebalance drill's pool-elasticity section (JAX's section 7):
+    ``(passed, record)``."""
+    from distributed_deep_learning_tpu_torch.serve.autoscaler import \
+        PoolRebalancer
+    from distributed_deep_learning_tpu_torch.serve.disagg import \
+        DisaggEngine
+
+    uref = engine().run(list(trace))
+    deng = DisaggEngine(model, prefill_workers=1, decode_workers=2,
+                        prefill_streams=4, max_slots=4, max_len=cap,
+                        kv_block_size=8, prefill_chunk=16,
+                        devices=list(devices)[:3])
+    d1 = deng.run(list(trace))
+    bal = PoolRebalancer(hi=0.9, lo=0.25, patience=2)
+    direction = None
+    for _ in range(2):          # sustained skew, not a single sample
+        direction = bal.observe(d1["stats"]["prefill_util"])
+    moved = deng.reassign(direction) if direction else False
+    deng.reset()
+    d2 = deng.run(list(trace))
+    agree = _same_results(d2, uref)
+    ok = (agree and not d2["errors"]
+          and d2["stats"]["decode_captures"] == want_captures)
+    return ok, {
+        "prefill_util": round(d1["stats"]["prefill_util"], 4),
+        "direction": direction,
+        "reassigned": bool(moved),
+        "pool_reassignments": d2["stats"]["pool_reassignments"],
+        "prefill_workers": d2["stats"]["prefill_workers"],
+        "decode_workers": d2["stats"]["decode_workers"],
+        "bit_identical": agree,
+        "decode_captures": d2["stats"]["decode_captures"],
+        "passed": ok,
+    }

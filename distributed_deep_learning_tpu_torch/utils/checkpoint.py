@@ -563,7 +563,7 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint step {step} was saved under {saved}, this run "
                 f"is {self.topology}: restoring it into another layout is "
-                f"--reshard's, not ported yet: {ROADMAP_ITEMS[14]}")
+                f"--reshard's, not ported yet: {ROADMAP_ITEMS['14b']}")
         if self.replicated_generator:
             return load_payload(state, payload)
         return load_payload(state, payload, rank=self._rank,

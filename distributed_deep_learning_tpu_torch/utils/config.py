@@ -152,6 +152,18 @@ class Config:
                                         #   parks (host | device)
     publish_weights: str | None = None  # checkpointing: publish each save
                                         #   for --reload-watch
+    disagg: bool = False                # serving: prefill and decode pools
+                                        #   joined by KV-block migration
+    pool_elastic: bool = False          # disagg serving: move a worker
+                                        #   between the pools on skew
+    prefill_workers: int = 1            # disagg serving: prefill workers
+    profile_dir: str | None = None      # torch.profiler trace of each fit
+    metrics_file: str | None = None     # JSONL event sink (rank 0)
+    obs: bool = False                   # run telemetry (obs/)
+    obs_file: str | None = None         # its sidecar (obs_events.jsonl)
+    obs_trace: str | None = None        # span-trace export (Chrome JSON)
+    obs_rotate_mb: float | None = None  # size-cap the sidecar
+    obs_blackbox: str | None = None     # arm the flight recorder
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -172,8 +184,8 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 
 #: ROADMAP.md queue 1 items that port what the port refuses
 ROADMAP_ITEMS = {
-    13: "ROADMAP.md queue 1 item 13's remainder (disaggregated serving)",
-    14: "ROADMAP.md queue 1 item 14 (observability, tuning, resharding)",
+    "14b": "ROADMAP.md queue 1 item 14(b) (resharding)",
+    "14c": "ROADMAP.md queue 1 item 14(c) (tuning)",
     16: "ROADMAP.md queue 1 item 16 (--remat-policy dots on the conv and "
         "BatchNorm models)",
 }
@@ -181,10 +193,8 @@ ROADMAP_ITEMS = {
 #: JAX CLI flags the port refuses -> the item that ports them; a
 #: trailing "=" marks a flag that takes a value
 UNPORTED_FLAGS = {
-    "--disagg": 13, "--pool-elastic": 13, "--prefill-workers=": 13,
-    "--reshard": 14, "--target-mesh=": 14, "--autotune": 14, "--plan=": 14,
-    "--metrics-file=": 14, "--obs": 14, "--obs-file=": 14, "--obs-trace=": 14,
-    "--obs-rotate-mb=": 14, "--obs-blackbox=": 14, "--profile-dir=": 14,
+    "--reshard": "14b", "--target-mesh=": "14b", "--autotune": "14c",
+    "--plan=": "14c",
 }
 
 #: reduced-precision storage the serving options take (None: the compute
@@ -208,6 +218,16 @@ def serve_dtype_error(kv_dtype, weight_dtype, paged: bool) -> str | None:
                 "slot table supports bf16 only (the spec-decode draft "
                 "pool inherits --kv-dtype automatically)")
     return None
+
+
+def local_device_count(device: str) -> int:
+    """Devices a ``-d`` choice sees: the visible CUDA devices, or the one
+    CPU (what the JAX CLI's ``len(jax.local_devices())`` counts)."""
+    if device == "cpu":
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
 
 
 def _dest(flag: str) -> str:
@@ -510,6 +530,49 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                         "serve/reload.py manifest format, so serving "
                         "fleets watching it (--reload-watch) hot-swap "
                         "the new weights; requires --checkpoint-dir")
+    p.add_argument("--disagg", action="store_true",
+                   help="serving: disaggregate the replica into a "
+                        "prefill worker pool and decode workers joined "
+                        "by KV-block migration (serve/disagg.py); "
+                        "requires --paged and at least 2 devices")
+    p.add_argument("--prefill-workers", dest="prefill_workers", type=int,
+                   default=1, metavar="N",
+                   help="disaggregated serving: devices in the prefill "
+                        "pool; the remaining visible devices decode "
+                        "(requires --disagg)")
+    p.add_argument("--pool-elastic", dest="pool_elastic",
+                   action="store_true",
+                   help="disaggregated serving: after the run, judge the "
+                        "measured prefill_util against the pool "
+                        "rebalancer's hysteresis and reassign one idle "
+                        "worker between the pools when the skew is "
+                        "sustained (requires --disagg)")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler trace of each fit here "
+                        "(the card's activity only, as Chrome JSON)")
+    p.add_argument("--metrics-file", type=str, default=None,
+                   help="append one JSON object per phase/metric event "
+                        "(structured sibling of the reference log stream)")
+    p.add_argument("--obs", action="store_true",
+                   help="run telemetry (obs/): per-step spans rolled up "
+                        "into a goodput breakdown, MFU from the step's "
+                        "counted FLOPs and the card's peak, and a JSONL "
+                        "event stream")
+    p.add_argument("--obs-file", type=str, default=None, metavar="PATH",
+                   help="telemetry event-stream path (default "
+                        "obs_events.jsonl; requires --obs)")
+    p.add_argument("--obs-trace", type=str, default=None, metavar="PATH",
+                   help="also record causal spans and export them here as "
+                        "Chrome/Perfetto trace JSON (requires --obs)")
+    p.add_argument("--obs-rotate-mb", type=float, default=None,
+                   metavar="MB",
+                   help="rotate the JSONL sidecar at this many MB, "
+                        "fsyncing each closed segment (requires --obs)")
+    p.add_argument("--obs-blackbox", type=str, default=None,
+                   metavar="PATH",
+                   help="arm a crash flight recorder, dumped here on a "
+                        "sentinel anomaly, an SLO breach, a fatal signal "
+                        "or exit (requires --obs)")
     for flag, item in UNPORTED_FLAGS.items():
         kw = ({"type": str, "metavar": "X"} if flag.endswith("=")
               else {"action": "store_true", "default": None})
@@ -620,6 +683,38 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit("--spill-dir requires --priority-classes "
                          "(spill files are only written when "
                          "preemption can fire)")
+    if args.disagg and not args.paged:
+        raise SystemExit("--disagg requires --paged (the prefill and "
+                         "decode pools exchange committed paged-KV "
+                         "blocks; the dense slot cache has no block "
+                         "table to migrate)")
+    if args.prefill_workers < 1:
+        raise SystemExit(f"--prefill-workers {args.prefill_workers}: "
+                         "must be >= 1")
+    if args.prefill_workers != 1 and not args.disagg:
+        raise SystemExit("--prefill-workers requires --disagg (worker "
+                         "pools only exist in disaggregated serving)")
+    if args.pool_elastic and not args.disagg:
+        raise SystemExit("--pool-elastic requires --disagg (role "
+                         "reassignment moves a worker between the "
+                         "prefill and decode pools, which only exist "
+                         "in disaggregated serving)")
+    if args.disagg:
+        # the JAX CLI resolves the visible devices here, so the flag's
+        # name is in the refusal
+        ndev = local_device_count(args.device)
+        if ndev < 2:
+            raise SystemExit("--disagg: disaggregated serving needs "
+                             ">= 2 local devices (one per pool); only "
+                             f"{ndev} visible — drop --disagg for the "
+                             "unified paged engine, or run under a "
+                             "multi-device mesh")
+        if args.prefill_workers >= ndev:
+            raise SystemExit(f"--prefill-workers {args.prefill_workers}"
+                             f": the {ndev} visible devices must "
+                             "partition into prefill + decode pools "
+                             "with at least one decode worker — use "
+                             f"1..{ndev - 1}")
     if args.publish_weights and not args.checkpoint_dir:
         raise SystemExit("--publish-weights requires --checkpoint-dir "
                          "(only verified checkpoint saves are "
@@ -660,6 +755,19 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit("--comm-overlap requires --comm bf16|int8 (it "
                          "selects the ring schedule for the explicit "
                          "collectives --comm turns on)")
+    # the JAX CLI's --obs checks (utils/config.py:1000-1011 there)
+    if args.obs_file and not args.obs:
+        raise SystemExit("--obs-file requires --obs (the path names the "
+                         "telemetry stream --obs records)")
+    for flag, val in (("--obs-trace", args.obs_trace),
+                      ("--obs-rotate-mb", args.obs_rotate_mb),
+                      ("--obs-blackbox", args.obs_blackbox)):
+        if val and not args.obs:
+            raise SystemExit(f"{flag} requires --obs (it extends the "
+                             "telemetry --obs turns on)")
+    if args.obs_rotate_mb is not None and args.obs_rotate_mb <= 0:
+        raise SystemExit(f"--obs-rotate-mb {args.obs_rotate_mb}: must "
+                         "be > 0")
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, _dest(flag)) is not None:
             raise NotImplementedError(
@@ -718,7 +826,12 @@ def parse_args(argv: Sequence[str] | None = None,
         spill_dir=args.spill_dir,
         autoscale=parse_autoscale_arg(args.autoscale),
         evacuate_on=args.evacuate_on, migrate=args.migrate,
-        publish_weights=args.publish_weights)
+        publish_weights=args.publish_weights, disagg=args.disagg,
+        pool_elastic=args.pool_elastic,
+        prefill_workers=args.prefill_workers, profile_dir=args.profile_dir,
+        metrics_file=args.metrics_file, obs=args.obs, obs_file=args.obs_file,
+        obs_trace=args.obs_trace, obs_rotate_mb=args.obs_rotate_mb,
+        obs_blackbox=args.obs_blackbox)
 
 
 #: ``--admission`` spec keys → (AdmissionController kwarg, converter,

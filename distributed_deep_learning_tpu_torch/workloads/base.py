@@ -54,6 +54,7 @@ The optimizers follow optax, not torch's defaults: see
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Callable, Optional
@@ -91,6 +92,7 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import (
     Checkpointer, load_payload, state_payload, whole_state_dict)
 from distributed_deep_learning_tpu_torch.utils.config import (
     REMAT_POLICIES, ROADMAP_ITEMS, Config, Mode)
+from distributed_deep_learning_tpu_torch.utils import profiling
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 
 
@@ -448,7 +450,7 @@ def _reset_fn(state: TrainState) -> Callable[[], TrainState]:
 
 
 def _fit_elastic(config: Config, logger, make_state, train_step, eval_step,
-                 loaders, ckpt, sentinel=None):
+                 loaders, ckpt, sentinel=None, telemetry=None):
     """``--elastic``: checkpointed restart on a failure
     (:func:`..train.elastic.fit_with_recovery`), with heartbeats and a
     failure monitor under ``--heartbeat-dir``, stopped in ``finally``."""
@@ -477,7 +479,7 @@ def _fit_elastic(config: Config, logger, make_state, train_step, eval_step,
                                  checkpointer=ckpt, logger=logger,
                                  monitor=monitor,
                                  checkpoint_every=config.checkpoint_every,
-                                 sentinel=sentinel)
+                                 sentinel=sentinel, telemetry=telemetry)
     finally:
         if monitor is not None:
             monitor.stop()
@@ -632,10 +634,10 @@ def _shard_fn(spec, config, sharding, layout):
     return None
 
 
-def train_setup(spec, config, env, init_state_dict, logger):
+def train_setup(spec, config, env, init_state_dict, logger, registry=None):
     """``(state, train_step, eval_step, loaders, dataset, checkpointer
     parts, sentinel config)`` of a sequential or ``-m data`` run (see
-    :func:`_train`)."""
+    :func:`_train`); ``registry`` counts ``--comm``'s wire bytes a step."""
     device = env.device
     dataset, splits = _dataset_splits(spec, config)
     sentinel = _sentinel_config(config)
@@ -701,7 +703,8 @@ def train_setup(spec, config, env, init_state_dict, logger):
         global_batch_statistics(state.model)
         global_routing(state.model, layout.batch_rows)
     if explicit:
-        return (*_explicit_fsdp(config, state, layout, tx, loss_fn), loaders,
+        return (*_explicit_fsdp(config, state, layout, tx, loss_fn,
+                                registry), loaders,
                 dataset, ckpt_parts, sentinel)
     if data_parallel and (layout.mesh is None
                           or (synced and sharding != "fsdp")):
@@ -728,7 +731,8 @@ def train_setup(spec, config, env, init_state_dict, logger):
             sentinel)
 
 
-def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn):
+def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn,
+                   registry=None):
     """``(state, train_step, eval_step)`` of ``--zero fsdp --comm``: the
     state's optimizer rebuilt over the :class:`..parallel.collectives.
     ExplicitFSDP` masters (each split leaf's shard), the residual
@@ -744,36 +748,130 @@ def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn):
     attach_comm_residual(config, state, state.model.named_parameters(),
                          layout.batch_world)
     train_step, eval_step = make_fsdp_step_fns(
-        loss_fn, comm, remat=config.remat, remat_policy=config.remat_policy)
+        loss_fn, comm, remat=config.remat, remat_policy=config.remat_policy,
+        registry=registry)
     return state, train_step, eval_step
 
 
 def _train(spec, config, env, init_state_dict):
-    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
-    state, train_step, eval_step, loaders, dataset, ckpt_parts, sentinel = \
-        train_setup(spec, config, env, init_state_dict, logger)
-    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = ckpt_parts
-    if config.elastic:
-        state, history = _fit_elastic(config, logger, _reset_fn(state),
-                                      train_step, eval_step, loaders, ckpt,
-                                      sentinel=sentinel)
-    else:
-        if ckpt is not None and ckpt_step is not None:
-            state, start_epoch, resume_batch, resume_totals = \
-                _restore_resume(ckpt, state, ckpt_step, start_epoch,
-                                resume_batch, resume_totals, logger)
-        state, history = fit(state, train_step, eval_step, *loaders,
-                             epochs=config.epochs, logger=logger,
-                             checkpointer=ckpt, start_epoch=start_epoch,
-                             checkpoint_every=config.checkpoint_every,
-                             resume_batch=resume_batch,
-                             resume_totals=resume_totals, sentinel=sentinel)
-    # every rank runs the hook, as in the JAX package; rank 0 logs
-    if (config.generate_tokens or config.serve) and \
-            spec.post_train is not None:
-        spec.post_train(config, whole_state(spec, config, dataset, state),
-                        logger, dataset)
-    return state, history
+    with _run_context(config, bootstrap.is_coordinator()) as (logger,
+                                                              telemetry):
+        state, train_step, eval_step, loaders, dataset, ckpt_parts, \
+            sentinel = train_setup(
+                spec, config, env, init_state_dict, logger,
+                telemetry.registry if telemetry is not None else None)
+        ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
+            ckpt_parts
+        if telemetry is not None:
+            if config.mode is Mode.SEQUENTIAL:
+                _measure_train_flops(telemetry, train_step, state,
+                                     loaders[0], n_devices=1)
+            else:
+                logger.info("obs: step FLOPs are not measured under -m "
+                            "data (the step runs over the live model's "
+                            "DDP wrapper, which a copy of the state does "
+                            "not carry); MFU is not reported")
+        with profiling.trace(config.profile_dir):
+            if config.elastic:
+                state, history = _fit_elastic(
+                    config, logger, _reset_fn(state), train_step,
+                    eval_step, loaders, ckpt, sentinel=sentinel,
+                    telemetry=telemetry)
+            else:
+                if ckpt is not None and ckpt_step is not None:
+                    state, start_epoch, resume_batch, resume_totals = \
+                        _restore_resume(ckpt, state, ckpt_step, start_epoch,
+                                        resume_batch, resume_totals, logger)
+                state, history = fit(
+                    state, train_step, eval_step, *loaders,
+                    epochs=config.epochs, logger=logger, checkpointer=ckpt,
+                    start_epoch=start_epoch,
+                    checkpoint_every=config.checkpoint_every,
+                    resume_batch=resume_batch, resume_totals=resume_totals,
+                    sentinel=sentinel, telemetry=telemetry)
+        # every rank runs the hook, as in the JAX package; rank 0 logs
+        if (config.generate_tokens or config.serve) and \
+                spec.post_train is not None:
+            spec.post_train(config,
+                            whole_state(spec, config, dataset, state),
+                            logger, dataset)
+        return state, history
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (obs/) wiring
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _run_context(config: Config, verbose: bool):
+    """A training path's logger (its JSONL sidecar under
+    ``--metrics-file``) and telemetry (under ``--obs``); on the way out
+    the telemetry's run summary is written and logged, and both close."""
+    logger = PhaseLogger(verbose=verbose, jsonl_path=config.metrics_file)
+    telemetry = _maybe_telemetry(config)
+    try:
+        yield logger, telemetry
+    finally:
+        if telemetry is not None:
+            _log_obs_summary(logger, telemetry.close())
+        logger.close()
+
+
+def _maybe_telemetry(config: Config):
+    """``--obs``: a :class:`..obs.RunTelemetry` for this process (JAX's).
+    Every process records; a rank other than 0 writes its sidecars with a
+    ``.rankN`` suffix."""
+    if not config.obs:
+        return None
+    from distributed_deep_learning_tpu_torch.obs import (FlightRecorder,
+                                                         RunTelemetry)
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+
+    def _rank(p: str | None) -> str | None:
+        return p if p is None or rank == 0 else f"{p}.rank{rank}"
+
+    recorder = None
+    if config.obs_blackbox:
+        import time as _time
+
+        recorder = FlightRecorder(clock=_time.perf_counter)
+        recorder.install(path=_rank(config.obs_blackbox))
+    return RunTelemetry(_rank(config.obs_file or "obs_events.jsonl"),
+                        trace_path=_rank(config.obs_trace),
+                        recorder=recorder, rotate_mb=config.obs_rotate_mb,
+                        fsync_on_rollover=config.obs_rotate_mb is not None,
+                        device=resolve_device(config.device))
+
+
+def _log_obs_summary(logger, summary: dict) -> None:
+    """One goodput/MFU line at the run's end (JAX's)."""
+    gp = summary.get("goodput")
+    if not gp:
+        return
+    fr = gp["fractions"]
+    parts = " ".join(f"{c}={fr[c]:.3f}" for c in
+                     ("productive", "input_stall", "checkpoint",
+                      "recovery", "compile"))
+    mfu = (summary.get("mfu") or {}).get("mfu")
+    mfu_txt = f" mfu={mfu:.4f}" if mfu is not None else ""
+    logger.info(f"obs: goodput {parts} over {gp['wall_seconds']:.1f}s "
+                f"({gp['steps']} steps){mfu_txt}")
+
+
+def _measure_train_flops(telemetry, train_step, state, train_loader,
+                         n_devices: int) -> None:
+    """Peek one batch (the seeded loader replays each epoch's order from
+    ``set_epoch``, so training sees the same stream afterwards) and record
+    the train step's FLOPs for MFU."""
+    try:
+        train_loader.set_epoch(1)
+        x, y = next(iter(train_loader.iter_batches()))
+    except Exception:
+        return
+    telemetry.measure_flops(train_step, state, x, y, n_devices=n_devices)
 
 
 def whole_state(spec, config, dataset, state: TrainState) -> TrainState:
@@ -941,15 +1039,21 @@ def staged_setup(spec: WorkloadSpec, config: Config, logger,
 def _run_staged(spec: WorkloadSpec, config: Config, init_state_dict):
     """``-m model`` and, for the workloads without a pipelined LM, ``-m
     pipeline``: the layer list staged over the devices."""
-    logger = PhaseLogger(verbose=True)
-    trainer, state, dataset, loaders = staged_setup(spec, config, logger,
-                                                    init_state_dict)
-    state, history = fit(state, trainer.train_step, trainer.eval_step,
-                         *loaders, epochs=config.epochs, logger=logger)
-    if (config.generate_tokens or config.serve) and \
-            spec.post_train is not None:
-        spec.post_train(config, state, logger, dataset)
-    return state, history
+    with _run_context(config, True) as (logger, telemetry):
+        trainer, state, dataset, loaders = staged_setup(
+            spec, config, logger, init_state_dict)
+        if telemetry is not None:
+            _measure_train_flops(telemetry, trainer.train_step, state,
+                                 loaders[0], n_devices=1)
+        with profiling.trace(config.profile_dir):
+            state, history = fit(state, trainer.train_step,
+                                 trainer.eval_step, *loaders,
+                                 epochs=config.epochs, logger=logger,
+                                 telemetry=telemetry)
+        if (config.generate_tokens or config.serve) and \
+                spec.post_train is not None:
+            spec.post_train(config, state, logger, dataset)
+        return state, history
 
 
 # ---------------------------------------------------------------------------
@@ -1238,27 +1342,34 @@ def _run_spmd_pipelined(spec: WorkloadSpec, config: Config,
 
 
 def _pipelined_fit(spec, config, init_state_dict, grid):
-    logger = PhaseLogger(verbose=bootstrap.is_coordinator())
-    config, state, train_step, eval_step, dataset, loaders = \
-        pipelined_setup(spec, config, logger, init_state_dict, grid)
-    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
-        _maybe_checkpointer(config, 0, shared=grid is not None,
-                            replicated_generator=True)
-    if config.elastic:
-        state, history = _fit_elastic(config, logger, _reset_fn(state),
-                                      train_step, eval_step, loaders, ckpt)
-    else:
-        if ckpt is not None and ckpt_step is not None:
-            state, start_epoch, resume_batch, resume_totals = \
-                _restore_resume(ckpt, state, ckpt_step, start_epoch,
-                                resume_batch, resume_totals, logger)
-        state, history = fit(state, train_step, eval_step, *loaders,
-                             epochs=config.epochs, logger=logger,
-                             checkpointer=ckpt, start_epoch=start_epoch,
-                             checkpoint_every=config.checkpoint_every,
-                             resume_batch=resume_batch,
-                             resume_totals=resume_totals)
-    if (config.generate_tokens or config.serve) and \
-            spec.post_train is not None:
-        spec.post_train(config, state, logger, dataset)
-    return state, history
+    with _run_context(config, bootstrap.is_coordinator()) as (logger,
+                                                              telemetry):
+        config, state, train_step, eval_step, dataset, loaders = \
+            pipelined_setup(spec, config, logger, init_state_dict, grid)
+        ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
+            _maybe_checkpointer(config, 0, shared=grid is not None,
+                                replicated_generator=True)
+        if telemetry is not None and grid is None:
+            _measure_train_flops(telemetry, train_step, state, loaders[0],
+                                 n_devices=1)
+        with profiling.trace(config.profile_dir):
+            if config.elastic:
+                state, history = _fit_elastic(
+                    config, logger, _reset_fn(state), train_step,
+                    eval_step, loaders, ckpt, telemetry=telemetry)
+            else:
+                if ckpt is not None and ckpt_step is not None:
+                    state, start_epoch, resume_batch, resume_totals = \
+                        _restore_resume(ckpt, state, ckpt_step, start_epoch,
+                                        resume_batch, resume_totals, logger)
+                state, history = fit(
+                    state, train_step, eval_step, *loaders,
+                    epochs=config.epochs, logger=logger, checkpointer=ckpt,
+                    start_epoch=start_epoch,
+                    checkpoint_every=config.checkpoint_every,
+                    resume_batch=resume_batch, resume_totals=resume_totals,
+                    telemetry=telemetry)
+        if (config.generate_tokens or config.serve) and \
+                spec.post_train is not None:
+            spec.post_train(config, state, logger, dataset)
+        return state, history

@@ -575,6 +575,9 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
             rng.choice([p for p, _ in pcs], p=fr))) for r in trace]
         engine_kw.update(preempt=True, spill_dir=config.spill_dir,
                          migrate=config.migrate)
+    if config.disagg:
+        _gpt_serve_disagg(config, model, logger, trace, engine_kw)
+        return
     if config.replicas > 1:
         _gpt_serve_fleet(config, model, logger, trace, engine_kw)
         return
@@ -604,6 +607,78 @@ def _gpt_serve_paged(config: Config, model, logger, dataset, p_hi: int,
     if slo["slo_attainment"] is not None:
         line += f", slo attainment {slo['slo_attainment']:.2f}"
     logger.info(line)
+
+
+def local_devices(config: Config) -> list:
+    """The devices ``--disagg`` splits into its pools: the visible CUDA
+    devices, or the one CPU (JAX's ``jax.local_devices()``)."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.utils.config import \
+        local_device_count
+
+    if config.device == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i)
+            for i in range(local_device_count(config.device))]
+
+
+def _gpt_serve_disagg(config: Config, model, logger, trace,
+                      engine_kw: dict) -> None:
+    """``--serve --paged --disagg``: the same trace through the
+    disaggregated engine (:mod:`..serve.disagg`), a prefill pool and a
+    decode pool joined by per-prompt KV-block migration; JAX's
+    ``serve(disagg):`` line, and under ``--pool-elastic`` the pool
+    rebalancer's verdict on the run's ``prefill_util``."""
+    from distributed_deep_learning_tpu_torch.serve.disagg import \
+        DisaggEngine
+
+    if config.draft:
+        logger.info("serve(disagg): --draft ignored (speculation runs "
+                    "on the unified engine only)")
+    devices = local_devices(config)
+    ndev = len(devices)
+    eng = DisaggEngine(
+        model, prefill_workers=config.prefill_workers,
+        decode_workers=max(1, ndev - config.prefill_workers),
+        max_slots=engine_kw["max_slots"], max_len=engine_kw["max_len"],
+        kv_block_size=engine_kw["kv_block_size"],
+        prefill_chunk=engine_kw["prefill_chunk"],
+        kv_dtype=engine_kw["kv_dtype"],
+        weight_dtype=engine_kw["weight_dtype"], devices=devices)
+    out = eng.run(list(trace))
+    s = out["stats"]
+    mig = s["migration"]
+    logger.info(
+        f"serve(disagg): {s['requests']} requests, "
+        f"{s['generated_tokens']} tokens at "
+        f"{s['tokens_per_sec']:.1f} tok/s over "
+        f"{config.prefill_workers}P+{max(1, ndev - config.prefill_workers)}D, "
+        f"prefill util {s['prefill_util']:.2f}, migrated "
+        f"{mig['moves']} handoffs ({mig['wire_bytes']} B), decode "
+        f"captures={s['decode_captures']} ticks={s['decode_ticks']} "
+        f"launches={s['paged_decode_launches']}")
+    if config.pool_elastic:
+        from distributed_deep_learning_tpu_torch.serve.autoscaler import \
+            PoolRebalancer
+
+        # the run-level prefill_util is the whole run's average: feed it
+        # through the full patience window before actuating
+        bal = PoolRebalancer()
+        direction = None
+        for _ in range(bal.patience):
+            direction = bal.observe(s["prefill_util"])
+        if direction and eng.reassign(direction):
+            logger.info(
+                f"serve(disagg): pool-elastic moved one worker "
+                f"{direction.replace('_', ' ')} (prefill util "
+                f"{s['prefill_util']:.2f}); pools now "
+                f"{len(eng.prefill)}P+{len(eng.decode)}D")
+        else:
+            logger.info(
+                f"serve(disagg): pool-elastic held the split "
+                f"(prefill util {s['prefill_util']:.2f} inside the "
+                f"hysteresis band, or no idle worker to move)")
 
 
 def _gpt_serve_fleet(config: Config, model, logger, trace,

@@ -33,6 +33,7 @@ from distributed_deep_learning_tpu_torch.train.objectives import \
     cross_entropy_loss
 from distributed_deep_learning_tpu_torch.utils import checkpoint as ck
 from distributed_deep_learning_tpu_torch.utils.determinism import diff_trees
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def _batch(g):

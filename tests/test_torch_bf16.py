@@ -33,6 +33,7 @@ from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import northstar as tns
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 T = 32
 MODEL = dict(vocab_size=61, num_layers=2, d_model=64, num_heads=4,

@@ -17,6 +17,7 @@ from fractions import Fraction
 from pathlib import Path
 
 import pytest
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -192,7 +193,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               28: "phase_pipeline", 29: "phase_pipeline_zoo",
               30: "phase_moe", 31: "phase_sharded", 32: "phase_comm",
               33: "phase_grid", 34: "phase_resilience",
-              35: "phase_serving_resilience"}
+              35: "phase_serving_resilience", 36: "phase_disagg",
+              37: "phase_obs"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -231,11 +233,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_sharded", {}),
             ("phase_comm", {"comm": {}, "seq": {}}),
             ("phase_grid", {}), ("phase_resilience", {}),
-            ("phase_serving_resilience", {})):
+            ("phase_serving_resilience", {}), ("phase_disagg", {}),
+            ("phase_obs", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 36)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 38)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -613,6 +616,7 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
         "phase_comm": {"comm": runs, "seq": runs},
         "phase_grid": {"1f1b f32 2 ranks": {"launches": flash}},
         "phase_resilience": {"launches": flash},
+        "phase_obs": flash, "phase_disagg": {"at_rest": 4, "int8": 4},
         "_write_tokens": ROOT}
     for name in [n for n in dir(chip_smoke) if n.startswith("phase_")] + \
             ["start_builds", "_write_tokens"]:
@@ -629,18 +633,24 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
     for name, n in flash.items():
         assert kernels[name]["grid_launches"] == {"1f1b f32 2 ranks": n}
         assert kernels[name]["resilience_launches"] == n
+        assert kernels[name]["obs_launches"] == n
+    assert kernels["paged_flash_decode"]["disagg_launches"] == {
+        "at_rest": 4, "int8": 4}
 
 
 def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
-    """Phase 35 runs inside phase 4's block (its model and trace), after
-    phase 20 and before the model leaves the card; the complete run is
-    phases 1-35 and its launches land on the decode kernel's entry."""
+    """Phases 35 and 36 run inside phase 4's block (its model and trace),
+    after phase 20 and before the model leaves the card; phase 37 runs
+    after the training phases; the complete run is phases 1-37 and their
+    launches land on the kernels' entries."""
     src = inspect.getsource(chip_smoke.main)
     assert src.index("phase_window(rec)") < src.index(
         "phase_serving_resilience(rec)") < src.index(
-        "_full_width.cache_clear()")
+        "phase_disagg()") < src.index("_full_width.cache_clear()") < \
+        src.index("phase_resilience(") < src.index("phase_obs(")
     assert '"resilience_serve_launches"' in src
-    assert "set(range(1, 36))" in src
+    assert '"disagg_launches"' in src and '"obs_launches"' in src
+    assert "set(range(1, 38))" in src
 
 
 def _tiny_paged():
@@ -720,3 +730,38 @@ def test_phase_35_replay_rule_holds_near_ties_and_fails_the_rest():
     with pytest.raises(RuntimeError, match="twice"):
         chip_smoke._hold_replay("again", out([1, 2, 3], [4, 5]), ref, marg,
                                 0.1, again=out([1, 2, 3], [4, 6]))
+
+
+def test_phase_36_logit_delta_stops_at_the_first_parting():
+    """The largest |dlogit| between two runs counts only the positions up
+    to each request's first parting."""
+    import torch
+
+    a, b = chip_smoke._Margins(keep_rows=True), \
+        chip_smoke._Margins(keep_rows=True)
+    a.rows = {0: {1: torch.tensor([1.0, 2.0]), 2: torch.tensor([0.0, 0.0]),
+                  3: torch.tensor([5.0, 5.0])}}
+    b.rows = {0: {1: torch.tensor([1.5, 2.0]), 2: torch.tensor([0.0, 0.25]),
+                  3: torch.tensor([-5.0, 5.0])}}
+    ref = {"results": {0: [7, 8, 9, 10]}}
+    out = {"results": {0: [7, 8, 3, 10]}}    # parts at token 2
+    assert chip_smoke._logit_delta(a, b, ref, out) == 0.5
+    assert chip_smoke._logit_delta(a, b, ref, ref) == 10.0
+
+
+def test_phase_37_reads_kernels_and_idle_share_from_a_chrome_trace(
+        tmp_path):
+    import json
+
+    path = tmp_path / "trace.1.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "flash_fwd_kernel<float>", "ts": 100,
+         "dur": 30},
+        {"cat": "kernel", "name": "ampere_sgemm", "ts": 150, "dur": 50},
+        {"cat": "cpu_op", "name": "aten::mm", "ts": 0, "dur": 500},
+        {"cat": "kernel", "name": "flash_dq_kernel<float>", "ts": 180,
+         "dur": 20}]}))
+    names, busy, window = chip_smoke._trace_kernels(path)
+    assert names == {"flash_fwd_kernel<float>", "ampere_sgemm",
+                     "flash_dq_kernel<float>"}
+    assert (busy, window) == (0.1, 0.1)

@@ -35,6 +35,7 @@ from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.parallel import collectives as coll
 from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
 from test_torch_zero import check_history, jax_init
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 S = 4

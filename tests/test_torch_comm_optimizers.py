@@ -26,6 +26,7 @@ from distributed_deep_learning_tpu.workloads import get_spec as jget
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from test_torch_zero import LIMIT, check_history, jax_init, run_cli_ranks
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 FSDP = ["-m", "data", "-r", "2", "-d", "cpu", "-e", "1", "--zero", "fsdp"]
 #: wide enough that the square attention kernels are split (128 x 128)

@@ -26,6 +26,7 @@ from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 from test_torch_zero import check_history, jax_init, run_cli_ranks
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 #: test_compress.py's MLP: hidden 16, SGD at 0.05; 48 train rows = 3
 #: steps of 16

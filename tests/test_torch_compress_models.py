@@ -22,6 +22,7 @@ from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from test_torch_compress import jax_run
 from test_torch_zero import check_history, run_cli_ranks
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 CNN = ["-m", "data", "-r", "2", "-d", "cpu", "-l", "1", "-s", "2", "-e",
        "1", "-b", "8"]

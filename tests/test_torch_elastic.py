@@ -58,6 +58,7 @@ from distributed_deep_learning_tpu_torch.utils.failures import (
     detect_failures, last_beat)
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SPE = 11

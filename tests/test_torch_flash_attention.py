@@ -17,6 +17,7 @@ import torch
 
 from distributed_deep_learning_tpu.ops import attention_pallas as jap
 from distributed_deep_learning_tpu_torch.ops import attention as tat
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 B, H, T, D = 2, 4, 24, 16
 BLOCK = 8

@@ -25,6 +25,7 @@ from distributed_deep_learning_tpu_torch.models.transformer import (
     CausalLM, load_flax_params)
 from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy as tfused
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 

@@ -44,6 +44,7 @@ from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import northstar as tns
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 T, BATCH = 16, 8

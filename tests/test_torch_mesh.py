@@ -17,6 +17,7 @@ from distributed_deep_learning_tpu_torch.runtime import mesh as tmesh
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def _outcome(fn):

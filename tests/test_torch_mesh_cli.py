@@ -15,6 +15,7 @@ import torch
 
 from test_torch_zero import (check_history, jax_history, jax_init,
                              run_cli_ranks)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 GPT = ["-m", "data", "-r", "4", "-d", "cpu", "-l", "2", "-s", "128", "-e",
        "1", "-b", "8"]

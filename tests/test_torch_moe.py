@@ -52,6 +52,7 @@ from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 #: the test model: 4 layers (two routed), d 32, 2 heads, 8 experts
 LM = dict(vocab_size=61, num_layers=4, d_model=32, num_heads=2, mlp_dim=64,

@@ -47,6 +47,7 @@ from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LM = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=2, mlp_dim=64,

@@ -17,6 +17,7 @@ import torch
 
 from test_torch_zero import (check_history, jax_history, jax_init,
                              run_cli_ranks)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 CASES = {
     "moe_expert": ("moe", ["-l", "2", "-s", "64", "-e", "1", "-b", "8",

@@ -29,6 +29,7 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
     Checkpointer
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 SMALL = ["-l", "2", "-s", "32", "-e", "1", "-b", "8", "-d", "cpu"]
 RANK_TIMEOUT = 120.0

@@ -21,6 +21,7 @@ from distributed_deep_learning_tpu_torch.models import transformer as ttf
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 CASES = {
     "resnet": (["-e", "1", "-b", "8"], tres.load_flax_variables, 1e-3),

@@ -35,6 +35,7 @@ from distributed_deep_learning_tpu_torch.data import packed as tpk
 from distributed_deep_learning_tpu_torch.data import tokens as ttok
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import northstar as tns
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 IDX = np.random.default_rng(3).permutation(32)[:12]
 

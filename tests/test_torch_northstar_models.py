@@ -56,6 +56,7 @@ from distributed_deep_learning_tpu.workloads.northstar import \
 from distributed_deep_learning_tpu_torch.models import resnet as tres
 from distributed_deep_learning_tpu_torch.models import transformer as ttf
 from distributed_deep_learning_tpu_torch.train import objectives as tobj
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 F32_TOL, RESNET_TOL, GRAD_TOL, BF16_SLACK = 1e-5, 1e-4, 1e-4, 2e-2
 V, D, HEADS, MLP, LAYERS = 128, 64, 4, 256, 2

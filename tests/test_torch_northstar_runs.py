@@ -28,6 +28,7 @@ from distributed_deep_learning_tpu.workloads import get_spec as jget
 from distributed_deep_learning_tpu_torch.__main__ import main
 from distributed_deep_learning_tpu_torch.data import datasets as tds
 from distributed_deep_learning_tpu_torch.data import packed as tpk
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROWS = 96
 

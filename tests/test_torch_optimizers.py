@@ -35,6 +35,7 @@ from distributed_deep_learning_tpu_torch.train.state import Adafactor
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import northstar as tns
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=256, num_layers=2, d_model=128, num_heads=4,
              mlp_dim=256, max_len=32)

@@ -22,6 +22,7 @@ import torch
 from distributed_deep_learning_tpu.ops import paged_decode_pallas as jpd
 from distributed_deep_learning_tpu.serve import quant
 from distributed_deep_learning_tpu_torch.ops import paged_decode as tpd
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 

@@ -28,6 +28,7 @@ from distributed_deep_learning_tpu_torch.models import transformer as ttr
 from distributed_deep_learning_tpu_torch.serve import bench as tbench
 from distributed_deep_learning_tpu_torch.serve import engine as teng
 from distributed_deep_learning_tpu_torch.serve import load as tload
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=4,
@@ -171,15 +172,20 @@ def test_unported_options_raise(kw, match):
         teng.PagedEngine(tm, device="cpu", **bad)
 
 
-def test_window_and_telemetry_raise():
+def test_window_and_telemetry_raise(tmp_path):
     """A windowed model is served (its window on every path); telemetry
-    and an unknown decode attention are refused."""
+    is taken (an empty run emits its ``obs_serve`` event) and an unknown
+    decode attention is refused."""
+    from distributed_deep_learning_tpu_torch.obs import RunTelemetry
+
     win = ttr.CausalLM(**MODEL, attention_window=8)
     assert teng.PagedEngine(win, device="cpu").window == 8
     _, _, tm = _models()
     eng = teng.PagedEngine(tm, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        eng.run([], telemetry=object())
+    tel = RunTelemetry(path=str(tmp_path / "ev.jsonl"))
+    eng.run([], telemetry=tel)
+    tel.close()
+    assert '"event": "obs_serve"' in (tmp_path / "ev.jsonl").read_text()
     with pytest.raises(ValueError, match="decode_attention"):
         teng.PagedEngine(tm, device="cpu", decode_attention="flash")
 

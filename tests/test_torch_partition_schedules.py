@@ -13,6 +13,7 @@ import torch
 from distributed_deep_learning_tpu.parallel import partition as jpart
 from distributed_deep_learning_tpu_torch.parallel import partition as tpart
 from distributed_deep_learning_tpu_torch.parallel import spmd_pipeline as tsp
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 # the JAX package's parallel/__init__ exports a function of that name
 jsp = importlib.import_module(

@@ -16,6 +16,7 @@ from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from test_torch_staged_cli import (_two_threads, check_history,  # noqa: F401
                                    staged_init)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 SMALL = ["-s", "32", "-e", "1", "-b", "8", "-p", "2"]
 CASES = {

@@ -43,6 +43,7 @@ from distributed_deep_learning_tpu.train.objectives import \
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LAYERS, D, HEADS, MLP, VOCAB, T, B, MB = 4, 32, 4, 64, 64, 8, 8, 4

@@ -38,6 +38,7 @@ from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
 from test_torch_pipeline_cli import pipelined_init
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LIMIT = "96"

@@ -27,6 +27,7 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
     Checkpointer
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 PIPE = ["gpt", "-m", "pipeline", "--nstages", "2", "-l", "4", "-s", "32",
         "-b", "8", "-p", "2", "-d", "cpu"]

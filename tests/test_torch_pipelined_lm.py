@@ -51,6 +51,7 @@ from distributed_deep_learning_tpu_torch.train.objectives import \
 from distributed_deep_learning_tpu_torch.train.state import (Optimizer,
                                                              TrainState)
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 S, LAYERS, D, HEADS, MLP, VOCAB, T, B, MB = 2, 4, 64, 4, 128, 64, 16, 8, 2
 LR = 1e-3

@@ -18,6 +18,7 @@ from distributed_deep_learning_tpu_torch.train.state import (Optimizer,
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from test_torch_pipelined_lm import (  # noqa: F401
     LR, _data, _jax_model, _port_model, _two_threads, check_step)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])

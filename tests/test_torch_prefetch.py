@@ -21,6 +21,7 @@ from distributed_deep_learning_tpu_torch.data.datasets import (ArrayDataset,
                                                                synthetic_lm)
 from distributed_deep_learning_tpu_torch.data.splits import \
     train_val_test_split
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 JOIN_TIMEOUT = 10.0
 

@@ -24,6 +24,7 @@ from distributed_deep_learning_tpu_torch.models import densenet as tdn
 from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.utils.torch_migrate import \
     state_dict_from_reference
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

@@ -35,6 +35,7 @@ from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from distributed_deep_learning_tpu_torch.parallel import ring_attention
 from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, T, H, D = 4, 16, 4, 8

@@ -8,6 +8,7 @@ import re
 import pytest
 
 from distributed_deep_learning_tpu_torch.runtime.launch import launch_local
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 LINE = re.compile(r"^SELFTEST rank=(\d) world=2 (loss=\S+ checksum=\S+)$",
                   re.M)

@@ -62,6 +62,7 @@ from distributed_deep_learning_tpu_torch.utils.determinism import (
     diff_trees, state_tree)
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 SPE = 11                 # 1024 rows -> 716 train examples -> 11 of 64
 EVENTS = [(5, "nan_batch", 0.0), (SPE + 3, "grad_spike", 1e6)]

@@ -2,7 +2,9 @@
 ``--serve --paged``) against the JAX package's, on the CPU.
 
 Both packages train the same 3-step ``gpt`` run from the JAX init (the
-port through ``init_state_dict``), then serve: the logged ``generate``
+port through ``init_state_dict``) once for the file (the serving flags
+change nothing before the post-train hook), then each serving case runs
+that hook on its flags: the logged ``generate``
 lines must be equal, and the ``serve:``/``serve(paged):`` lines must agree
 on everything but speed and the compile counts, which the port logs as
 ``decode captures=N`` (0 on the CPU).  Also: the port's serve trace is
@@ -35,6 +37,7 @@ from distributed_deep_learning_tpu_torch.workloads import northstar as tns
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ARGV = ["-l", "2", "-s", "32", "-e", "1", "-b", "8", "-d", "cpu"]
 
@@ -64,19 +67,53 @@ SPEC_FLAGS = ["--draft", "1", "--spec-k", "3"]
 QUANT_FLAGS = ["--kv-dtype", "int8", "--weight-dtype", "int8"]
 
 
+@pytest.fixture(scope="module")
+def trained():
+    """The 3-step run through each package's runner, once: ``{package:
+    (state, dataset)}`` as the runner hands them to its ``post_train``
+    hook (JAX's CLI and the port's from JAX's init)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("DDL_DATA_LIMIT", "35")
+    argv = ARGV + ["--generate", "4"]
+    out = {}
+    try:
+        for name, base, ns, config, kw in (
+                ("jax", jbase, jns, jconfig, {}),
+                ("port", tbase, tns, tconfig,
+                 {"init_state_dict": _jax_init(argv)})):
+            def keep(cfg, state, logger, dataset, _name=name):
+                out[_name] = (state, dataset)
+
+            base.run_workload(dataclasses.replace(ns.GPT_SPEC,
+                                                  post_train=keep),
+                              config.parse_args(argv, "gpt"), **kw)
+    finally:
+        mp.undo()
+    return out
+
+
 @pytest.mark.parametrize("serve", [
     ["--serve"], ["--serve", "--paged"], ["--serve", "--paged", *SPEC_FLAGS],
     ["--serve", "--paged", *QUANT_FLAGS],
     ["--serve", "--kv-dtype", "bf16", "--weight-dtype", "int8"]],
     ids=["slot", "paged", "paged_spec", "paged_int8", "slot_quant"])
-def test_post_train_serving_matches_jax(serve, monkeypatch, capsys):
+def test_post_train_serving_matches_jax(serve, trained, monkeypatch,
+                                        capsys):
+    from distributed_deep_learning_tpu.utils.logging import \
+        PhaseLogger as JLogger
+    from distributed_deep_learning_tpu_torch.utils.logging import \
+        PhaseLogger as TLogger
+
     monkeypatch.setenv("DDL_DATA_LIMIT", "35")
     argv = ARGV + ["--generate", "4", *serve]
-    init = _jax_init(argv)
-    jbase.run_workload(jns.GPT_SPEC, jconfig.parse_args(argv, "gpt"))
+    capsys.readouterr()
+    jns.GPT_SPEC.post_train(jconfig.parse_args(argv, "gpt"),
+                            *trained["jax"][:1], JLogger(),
+                            trained["jax"][1])
     theirs = capsys.readouterr().out
-    tbase.run_workload(tns.GPT_SPEC, tconfig.parse_args(argv, "gpt"),
-                       init_state_dict=init)
+    tns.GPT_SPEC.post_train(tconfig.parse_args(argv, "gpt"),
+                            *trained["port"][:1], TLogger(),
+                            trained["port"][1])
     mine = capsys.readouterr().out
     gen = _lines(mine, "generate ")
     assert len(gen) == 2 and gen == _lines(theirs, "generate ")

@@ -31,6 +31,7 @@ from distributed_deep_learning_tpu_torch.serve import bench as tbench
 from distributed_deep_learning_tpu_torch.serve import cache as tcache
 from distributed_deep_learning_tpu_torch.serve import engine as teng
 from distributed_deep_learning_tpu_torch.serve.scheduler import Request
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=4,
              mlp_dim=64, max_len=48)
@@ -362,15 +363,21 @@ def _hook_swap(e):
         e.swap_params({})
 
 
+def _telemetry():
+    from distributed_deep_learning_tpu_torch.obs import RunTelemetry
+
+    return RunTelemetry(path=None)
+
+
 @pytest.mark.parametrize("call,match", [
-    (lambda e: e.run([], telemetry=object()), "item 14"),
+    (lambda e: e.run([], telemetry=_telemetry()), None),
     (_hook_on_tick, None), (_hook_admission, None), (_hook_reset, None),
     (_hook_swap, None),
 ], ids=["telemetry", "on_tick", "admission", "reset", "swap_params"])
 def test_unported_hooks_raise(call, match):
-    """Telemetry stays refused (item 14); the supervision seams (item 13)
-    work on the slot engine: tick reports before the commit, admission
-    shedding, an in-place reset and an in-place weight swap."""
+    """Telemetry (item 14(a)) and the supervision seams (item 13) work on
+    the slot engine: telemetry's run, tick reports before the commit,
+    admission shedding, an in-place reset and an in-place weight swap."""
     _, _, tm = _models()
     eng = teng.ServeEngine(tm, device="cpu", max_slots=2)
     if match is None:

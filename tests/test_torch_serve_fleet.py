@@ -37,6 +37,7 @@ from distributed_deep_learning_tpu_torch.serve import paged as tpaged
 from distributed_deep_learning_tpu_torch.serve import supervisor as tsup
 from distributed_deep_learning_tpu_torch.utils import chaos as tchaos
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4,
              mlp_dim=64, max_len=48)
@@ -360,5 +361,8 @@ def test_fleet_flags_parse_as_jax():
         assert getattr(mine, field) == getattr(theirs, field), field
     for flag in (["--disagg"], ["--prefill-workers", "2"],
                  ["--pool-elastic"]):
-        with pytest.raises(NotImplementedError, match="disaggregated"):
+        with pytest.raises(SystemExit) as theirs_exit:
+            jconfig.parse_args(flag, "gpt")
+        with pytest.raises(SystemExit, match="disagg") as mine_exit:
             tconfig.parse_args(flag, "gpt")
+        assert str(mine_exit.value) == str(theirs_exit.value)

@@ -41,6 +41,7 @@ from distributed_deep_learning_tpu_torch.serve import paged, quant
 from distributed_deep_learning_tpu_torch.serve.engine import (PagedEngine,
                                                               ServeEngine)
 from distributed_deep_learning_tpu_torch.serve.scheduler import Request
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=4,
              mlp_dim=64, max_len=48)

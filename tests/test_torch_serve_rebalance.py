@@ -31,6 +31,7 @@ from distributed_deep_learning_tpu_torch.serve import migrate as tmig
 from distributed_deep_learning_tpu_torch.serve import paged as tpaged
 from distributed_deep_learning_tpu_torch.serve import rebalance as treb
 from distributed_deep_learning_tpu_torch.utils import chaos as tchaos
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 def _tokens(out):
     return {uid: np.asarray(t).tolist() for uid, t in out["results"].items()}

@@ -34,6 +34,7 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
     CheckpointCorruption
 from distributed_deep_learning_tpu_torch.utils.failures import \
     MonitorUnhealthy
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4,
              mlp_dim=64, max_len=48)

@@ -34,6 +34,7 @@ from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
 from distributed_deep_learning_tpu_torch.workloads.base import staged_setup
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 BATCH = 8
 #: DenseNet-BC and ResNet-18 in ``test_torch_staged_cnn`` and

@@ -6,6 +6,7 @@ steps)."""
 
 from test_torch_staged_cli import (_two_threads, check_history,  # noqa: F401
                                    staged_init)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def test_cnn_pipeline_cli_history_matches_jax(monkeypatch):

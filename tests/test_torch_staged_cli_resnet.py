@@ -5,6 +5,7 @@ weights, as ``test_torch_staged_cli`` holds the reference's workloads
 
 from test_torch_staged_cli import (_two_threads, check_history,  # noqa: F401
                                    staged_init)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def test_resnet_model_cli_history_matches_jax(monkeypatch):

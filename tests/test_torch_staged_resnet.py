@@ -7,6 +7,7 @@ statistics."""
 import pytest
 
 from test_torch_staged import MODES, _two_threads, check_step  # noqa: F401
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("mode", list(MODES))

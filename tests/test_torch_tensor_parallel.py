@@ -43,6 +43,7 @@ from distributed_deep_learning_tpu_torch.train.objectives import \
     TokenCrossEntropy
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RANK_TIMEOUT = 180.0

@@ -34,6 +34,7 @@ from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def _logits_targets(seed=0, V=11):
@@ -243,15 +244,16 @@ def test_cli_defaults_match_jax():
                                                 None),
     (["--publish-weights", "p"], None),
     (["--autotune"], "item 14"),
-    (["--profile-dir", "d"], "item 14"), (["--obs"], "item 14"),
-    (["--plan", "p.json"], "item 14"), (["--obs-file", "f"], "item 14"),
+    (["--profile-dir", "d"], None), (["--obs"], None),
+    (["--plan", "p.json"], "item 14"), (["--obs-file", "f"], None),
     (["--reload-watch", "d"], None),
-    (["--disagg"], "item 13's remainder"), (["--replicas", "2"], None),
+    (["--disagg"], None), (["--replicas", "2"], None),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(argv, match):
-    """Refused flags name their item; the serving-resilience and fleet
-    flags (item 13, ``match=None``) parse as JAX's CLI parses them:
-    accepted, or refused with its message."""
+    """Refused flags name their item (14(b) resharding, 14(c) tuning);
+    the serving, disaggregation and observability flags (items 13 and
+    14(a), ``match=None``) parse as JAX's CLI parses them: accepted, or
+    refused with its message."""
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             tconfig.parse_args(argv, "gpt")

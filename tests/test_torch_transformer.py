@@ -14,6 +14,7 @@ import torch
 
 from distributed_deep_learning_tpu.models import transformer as jtr
 from distributed_deep_learning_tpu_torch.models import transformer as ttr
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MODEL = dict(vocab_size=61, num_layers=2, d_model=32, num_heads=4,
              mlp_dim=64, max_len=64)

@@ -16,6 +16,7 @@ import torch
 from distributed_deep_learning_tpu_torch.parallel import ulysses
 from test_torch_ring_attention import (CASES, check_attention, check_wmt,
                                        run_scheme)
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 #: where the kernels' plain version and JAX's dense inner agree: rows
 #: with a visible key (a fully padded row averages different keys)

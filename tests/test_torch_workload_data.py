@@ -30,6 +30,7 @@ from distributed_deep_learning_tpu_torch.data import mnist as tmnist
 from distributed_deep_learning_tpu_torch.data import mqtt as tmqtt
 from distributed_deep_learning_tpu_torch.data import pcb as tpcb
 from distributed_deep_learning_tpu_torch.data import pdm as tpdm
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "fixtures"

@@ -32,6 +32,7 @@ from distributed_deep_learning_tpu_torch.models import densenet as tdn
 from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.models import resnet as tres
 from distributed_deep_learning_tpu_torch.train import objectives as tobj
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 F32_TOL, CONV_TOL, BF16_TOL, STATS_TOL = 1e-5, 1e-4, 2e-2, 1e-5
 

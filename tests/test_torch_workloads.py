@@ -65,6 +65,7 @@ from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 LOADERS = {"mlp": tmlp.load_flax_variables, "cnn": tdn.load_flax_variables,
            "lstm": tlstm.load_flax_variables,

@@ -30,6 +30,7 @@ from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RANK_TIMEOUT = 240.0
