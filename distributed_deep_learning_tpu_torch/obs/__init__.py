@@ -87,6 +87,7 @@ class RunTelemetry:
         self.train_seconds = 0.0
         self.train_examples = 0.0
         self._dispatched_fns: set[int] = set()
+        self._count_flops = False
         self._closed = False
 
     # -- compile attribution ------------------------------------------
@@ -100,18 +101,26 @@ class RunTelemetry:
         return "compile"
 
     # -- model-FLOP accounting ----------------------------------------
-    def measure_flops(self, step_fn: Callable, *args,
-                      n_devices: int | None = None, **kwargs) -> None:
-        """Record the global FLOPs of one train step (one extra step on a
-        copy of the state, charged to the compile span).  Failure gives
-        ``step_flops=None`` rather than killing the run."""
+    def count_train_flops(self, n_devices: int = 1) -> None:
+        """Count the FLOPs of the run's first train step (the train loop
+        runs it under the counter) over ``n_devices`` ranks."""
         self.n_devices = n_devices
-        with self.timeline.span("compile"):
-            try:
-                self.step_flops = measure_step_flops(
-                    step_fn, *args, n_devices=n_devices, **kwargs)
-            except Exception:
-                self.step_flops = None
+        self._count_flops = True
+
+    def counts_flops(self, kind: str) -> bool:
+        """Whether a train step's call of ``kind`` (``compile`` /
+        ``dispatch``) runs under the FLOP counter: the first one, once
+        :meth:`count_train_flops` asked for it."""
+        return self._count_flops and kind == "compile" and \
+            self.step_flops is None
+
+    def measure_flops(self, step_fn: Callable, *args, **kwargs) -> Any:
+        """Call the train step ``step_fn(*args)`` under the FLOP counter,
+        record its global FLOPs (over :meth:`count_train_flops`' ranks)
+        and return its result."""
+        self.step_flops, out = measure_step_flops(
+            step_fn, *args, n_devices=self.n_devices, **kwargs)
+        return out
 
     def note_train(self, steps: float, seconds: float,
                    examples: float = 0.0) -> None:

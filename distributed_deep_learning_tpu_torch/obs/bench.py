@@ -6,11 +6,15 @@ loader with a step sized at about a millisecond of work (a tanh chain of
 ``depth`` ``dim × dim`` products, its gradient and an SGD update), off
 and on interleaved, and takes the medians, so a background blip cannot
 land on one side only.  Each phase ends in the loop's one host fetch of
-the metrics, so a phase's time holds its device time.
+the metrics, so a phase's time holds its device time.  Besides JAX's
+keys, each record carries the quartiles of the per-step cost over the
+repeats, each repeat's pair (off then on) differenced on its own: the
+spread that says whether the median is resolved.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -60,6 +64,14 @@ def _phase_sps(step, state, loader, steps: int, telemetry) -> float:
     return steps / (time.perf_counter() - t0)
 
 
+def _quartiles_us(base, instr) -> list[float]:
+    """Quartiles of the per-step cost ``1/instr - 1/base`` in
+    microseconds over paired steps/s readings."""
+    d = [(1.0 / b - 1.0 / a) * 1e6 for a, b in zip(base, instr)]
+    q = statistics.quantiles(d, n=4) if len(d) > 1 else d * 3
+    return [round(v, 2) for v in q]
+
+
 def _device(device):
     if device is None:
         return torch.device("cuda" if torch.cuda.is_available() else "cpu")
@@ -85,6 +97,7 @@ def overhead_bench(*, steps: int = 48, repeats: int = 5, dim: int = 256,
         off.append(_phase_sps(step, state, loader, steps, None))
         on.append(_phase_sps(step, state, loader, steps,
                              RunTelemetry(path=None, device=dev)))
+    quartiles = _quartiles_us(off, on)
     off.sort()
     on.sort()
     sps_off, sps_on = off[len(off) // 2], on[len(on) // 2]
@@ -99,6 +112,7 @@ def overhead_bench(*, steps: int = 48, repeats: int = 5, dim: int = 256,
         "obs_overhead_fraction": round(frac, 5),
         "per_step_overhead_us": round(
             (1.0 / sps_on - 1.0 / sps_off) * 1e6, 2),
+        "per_step_overhead_us_quartiles": quartiles,
     }
 
 
@@ -121,6 +135,7 @@ def trace_overhead_bench(*, steps: int = 48, repeats: int = 5,
         traced.append(_phase_sps(step, state, loader, steps,
                                  RunTelemetry(path=None, tracer=Tracer(),
                                               device=dev)))
+    quartiles = _quartiles_us(plain, traced)
     plain.sort()
     traced.sort()
     sps_plain = plain[len(plain) // 2]
@@ -137,4 +152,5 @@ def trace_overhead_bench(*, steps: int = 48, repeats: int = 5,
         "obs_trace_overhead_fraction": round(frac, 5),
         "per_step_overhead_us": round(
             (1.0 / sps_traced - 1.0 / sps_plain) * 1e6, 2),
+        "per_step_overhead_us_quartiles": quartiles,
     }

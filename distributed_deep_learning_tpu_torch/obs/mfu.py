@@ -4,7 +4,7 @@
 MFU = achieved model FLOP/s ÷ (n_devices × the card's peak dense bf16
 FLOP/s).  JAX reads the numerator from XLA's cost model of the compiled
 step; eager PyTorch compiles nothing, so :func:`measure_step_flops` runs
-one call of the step under ``torch.utils.flop_counter.FlopCounterMode``,
+the run's first train step under ``torch.utils.flop_counter.FlopCounterMode``,
 which counts the FLOPs of the matrix products, convolutions and
 attention calls it dispatches.  The flash kernels are launched outside
 ATen, so while the counter runs they go through custom ops with
@@ -22,7 +22,6 @@ runs use to exercise the full path.
 
 from __future__ import annotations
 
-import copy
 import os
 from typing import Any, Callable
 
@@ -82,24 +81,20 @@ def count_flops(fn: Callable, *args, **kwargs) -> tuple[float, Any]:
     return float(counter.get_total_flops()), out
 
 
-def measure_step_flops(step_fn: Callable, state, *args,
+def measure_step_flops(step_fn: Callable, *args,
                        n_devices: int | None = None,
-                       **kwargs) -> float | None:
-    """Total model FLOPs of one call of the train step ``step_fn(state,
-    *args)``, over ``n_devices`` ranks (default 1: this process's share
-    times the ranks the step's batch spans).
+                       **kwargs) -> tuple[float | None, Any]:
+    """``(FLOPs, result)`` of one call of the train step ``step_fn(*args)``:
+    the total model FLOPs over ``n_devices`` ranks (default 1: this
+    process's share times the ranks the step's batch spans), None when
+    the counter saw nothing.
 
-    The step runs on a deep copy of ``state``, so the run's own state,
-    optimizer moments and dropout generator are untouched and its losses
-    are those of a run without accounting.  Returns None when the
-    counter saw nothing (a state that cannot be copied raises, and
-    :meth:`..RunTelemetry.measure_flops` turns that into None)."""
-    twin = copy.deepcopy(state)
-    flops, _ = count_flops(step_fn, twin, *args, **kwargs)
-    del twin
-    if flops <= 0:
-        return None
-    return flops * (n_devices or 1)
+    The call is the run's own step (the train loop counts a step
+    function's first call): the counter only observes the operations it
+    dispatches, and the counted flash ops launch the same kernels, so the
+    step computes what it computes uncounted."""
+    flops, out = count_flops(step_fn, *args, **kwargs)
+    return (flops * (n_devices or 1) if flops > 0 else None), out
 
 
 def mfu_record(step_flops: float | None, steps: float, seconds: float,

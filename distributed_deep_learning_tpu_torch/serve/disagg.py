@@ -9,9 +9,8 @@ worker pool and joins them with the KV-block migration of
 
 * **Prefill workers** run chunked prefill over ``prefill_streams``
   prompts at once in ONE batched chunk forward (JAX vmaps its unified
-  chunk program; the port runs one plain-torch cached forward over the
-  rows, with the same gather, fresh-K/V overlay, causal prefix attention
-  and scatter as :meth:`.engine.PagedEngine._chunk`).  Rows the
+  chunk program; the port runs the unified engine's own
+  :meth:`.engine.PagedEngine._prefill_chunk` over the rows).  Rows the
   scheduler leaves empty compute on padding and write to
   :data:`.paged.TRASH`.  Each worker owns a :class:`.paged.BlockManager`
   with prefix reuse and copy-on-write, so a shared system prompt is
@@ -47,8 +46,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from distributed_deep_learning_tpu_torch.models.transformer import (
-    CausalLM, causal_prefix_attention)
+from distributed_deep_learning_tpu_torch.models.transformer import CausalLM
 from distributed_deep_learning_tpu_torch.obs.metrics import MetricsRegistry
 from distributed_deep_learning_tpu_torch.obs.window import LiveSignals
 from distributed_deep_learning_tpu_torch.ops.paged_decode import \
@@ -227,43 +225,17 @@ class DisaggEngine:
     @torch.no_grad()
     def _batch_chunk(self, eng: PagedEngine, toks, tables, pos, logit_idx,
                      wb, wo):
-        """One chunk for every row of a prefill worker: ``toks`` ``(P,
-        chunk)`` at per-row positions ``pos``, each row's cache gathered
-        through its table with the chunk's fresh K/V overlaid, attended
-        under the causal prefix mask, and the live positions scattered
-        (inactive rows write to TRASH).  Returns ``(3, P)`` f64 on the
-        device: each row's token sampled at ``logit_idx``, its finite flag
-        and log-probability."""
-        model, dev = eng.model, eng.device
-        toks = torch.as_tensor(toks, device=dev)
-        tables = torch.as_tensor(tables, device=dev).long()
-        pos = torch.as_tensor(pos, device=dev).long()
-        wb = torch.as_tensor(wb, device=dev).long()
-        wo = torch.as_tensor(wo, device=dev).long()
-        valid = model.token_valid(toks)
-        n = toks.shape[1]
-        positions = pos[:, None] + torch.arange(n, device=dev)
-        rows = torch.arange(toks.shape[0], device=dev)[:, None]
+        """One chunk for every row of a prefill worker (the engine's own
+        chunk program, ``P`` rows wide; inactive rows write to TRASH).
+        Returns ``(3, P)`` f64 on the device: each row's token sampled at
+        ``logit_idx``, its finite flag and log-probability."""
+        def t(x):
+            return eng._tensor(x, torch.long)
 
-        def attend(i, q, k, v):
-            layer = eng.pools[i]
-            cache = eng._gather(layer, tables, k.dtype)
-            ck, cv, cvalid = (cache["cached_key"], cache["cached_value"],
-                              cache[paged.VALID_LEAF])
-            ck[rows, positions] = k
-            cv[rows, positions] = v
-            cvalid[rows, positions] = valid
-            a = model.layers[i].self_attn
-            y = causal_prefix_attention(q, a.expand(ck), a.expand(cv),
-                                        cvalid, pos, window=eng.window)
-            eng._scatter(layer, k.flatten(0, 1), v.flatten(0, 1),
-                         valid.flatten(), wb.flatten(), wo.flatten())
-            return y
-
-        hidden = model.run(toks, positions, attend)        # (P, chunk, d)
-        li = torch.as_tensor(logit_idx, device=dev).long()
-        h = hidden[torch.arange(hidden.shape[0], device=dev), li]
-        return eng._sample_report(model, h)
+        hidden = eng._prefill_chunk(eng.model, eng.pools, t(toks),
+                                    t(tables), t(pos), t(wb), t(wo))
+        rows = torch.arange(hidden.shape[0], device=eng.device)
+        return eng._sample_report(eng.model, hidden[rows, t(logit_idx)])
 
     # --- host helpers -------------------------------------------------------
     def _validate(self, req: Request) -> None:
@@ -574,18 +546,9 @@ class DisaggEngine:
                     if not dw.slots:
                         continue
                     eng, mgr = dw.eng, dw.eng.manager
-                    bps = eng.blocks_per_slot
-                    host = eng._tick.host
-                    host[:, bps:] = 0               # free slots write
-                    host[:, bps + 2] = paged.TRASH  # token 0 to TRASH
                     dec = sorted(dw.slots)
-                    for i in dec:
-                        sl = dw.slots[i]
-                        c = sl.committed
-                        eng._make_writable(i, c, c)
-                        host[i, bps:] = (c, sl.pendtok,
-                                         mgr.tables[i, c // bs], c % bs)
-                    host[:, :bps] = mgr.tables
+                    eng._stage_tick([(i, dw.slots[i].committed,
+                                      dw.slots[i].pendtok) for i in dec])
                     t0 = time.perf_counter()
                     out, ok_h, lp_h = eng._decode()   # host fetch = barrier
                     # the tick's logits, for a measuring on_tick hook

@@ -396,6 +396,22 @@ class _Engine:
         ok = torch.isfinite(hidden_last).all(dim=-1)
         return torch.stack([tok.double(), ok.double(), lp.double()])
 
+    def _stage_tick(self, slots, make_writable=None) -> None:
+        """Stage the captured tick's host rows for one decode tick: each
+        ``(slot, committed, pending token)`` of ``slots`` decodes at its
+        committed position, its block made writable first
+        (``make_writable(slot, lo, hi)``, copy-on-write by default); every
+        other slot writes its token 0 to TRASH."""
+        make_writable = make_writable or self._make_writable
+        bps, bs, mgr = self.blocks_per_slot, self.block_size, self.manager
+        host = self._tick.host
+        host[:, bps:] = 0
+        host[:, bps + 2] = paged.TRASH
+        for i, c, tok in slots:
+            make_writable(i, c, c)
+            host[i, bps:] = (c, tok, mgr.tables[i, c // bs], c % bs)
+        host[:, :bps] = mgr.tables
+
     def _decode(self, tick=None):
         """Run a staged tick (``tick``, the engine's own by default);
         returns host arrays ``(tokens, finite, logprob)``, a row a slot.
@@ -884,29 +900,36 @@ class PagedEngine(_Engine):
         return quant.dequant_cache(paged.gather_slot(layer, tables.long()),
                                    dtype)
 
-    def _prefill_chunk(self, model, pools, toks, table, pos: int, wb, wo):
-        """``model``'s hidden states for one slot's chunk ``toks`` ``(1,
-        n)`` at ``pos``: each layer gathers the slot's cache, overlays the
-        chunk's fresh K/V, attends with the causal prefix mask, the stored
-        validity and the window, and scatters the live positions."""
+    def _prefill_chunk(self, model, pools, toks, tables, pos, wb, wo):
+        """``model``'s hidden states ``(P, n, d)`` for a chunk of ``P``
+        slots: ``toks`` ``(P, n)`` at per-row positions ``pos`` ``(P,)``.
+        Each layer gathers the rows' caches through ``tables`` ``(P,
+        Bps)``, overlays the chunk's fresh K/V at ``(row, position)``,
+        attends with the causal prefix mask, the stored validity and the
+        window, and scatters the live positions at ``wb``/``wo`` ``(P,
+        n)`` (an idle row writes to TRASH).  The unified engine runs one
+        row; the disaggregated prefill pool one a stream."""
         valid = model.token_valid(toks)
         n = toks.shape[1]
+        positions = pos[:, None] + torch.arange(n, device=self.device)
+        rows = torch.arange(toks.shape[0], device=self.device)[:, None]
+        wb, wo = wb.flatten(), wo.flatten()
 
         def attend(i, q, k, v):
             layer = pools[i]
-            cache = self._gather(layer, table, k.dtype)
+            cache = self._gather(layer, tables, k.dtype)
             ck, cv, cvalid = (cache["cached_key"], cache["cached_value"],
                               cache[paged.VALID_LEAF])
-            ck[:, pos:pos + n] = k
-            cv[:, pos:pos + n] = v
-            cvalid[:, pos:pos + n] = valid
+            ck[rows, positions] = k
+            cv[rows, positions] = v
+            cvalid[rows, positions] = valid
             a = model.layers[i].self_attn
             y = causal_prefix_attention(q, a.expand(ck), a.expand(cv),
                                         cvalid, pos, window=self.window)
-            self._scatter(layer, k[0], v[0], valid[0], wb, wo)
+            self._scatter(layer, k.flatten(0, 1), v.flatten(0, 1),
+                          valid.flatten(), wb, wo)
             return y
 
-        positions = pos + torch.arange(n, device=self.device)
         return model.run(toks, positions, attend)
 
     @torch.no_grad()
@@ -916,7 +939,8 @@ class PagedEngine(_Engine):
         sampled at ``logit_idx``, whether that hidden state is finite and
         the token's log-probability (meaningful on the final chunk)."""
         toks = self._tensor(tokens, torch.long)[None]
-        table = self._tensor(table, torch.long)
+        table = self._tensor(table, torch.long)[None]
+        pos = self._tensor([pos], torch.long)
         wb, wo = self._tensor(wb, torch.long), self._tensor(wo, torch.long)
         hidden = self._prefill_chunk(self.model, self.pools, toks, table,
                                      pos, wb, wo)
@@ -1694,15 +1718,8 @@ class PagedEngine(_Engine):
                         pendtok[i] = emitted[-1]
                         mgr.register_committed(i, stream[i], committed[i])
             elif dec:
-                host = self._tick.host
-                host[:, bps:] = 0               # free and prefilling slots:
-                host[:, bps + 2] = paged.TRASH  # token 0 written to TRASH
-                for i in dec:
-                    c = committed[i]
-                    make_writable(i, c, c)
-                    host[i, bps:] = (c, pendtok[i], mgr.tables[i, c // bs],
-                                     c % bs)
-                host[:, :bps] = mgr.tables
+                self._stage_tick([(i, committed[i], pendtok[i])
+                                  for i in dec], make_writable)
                 t0 = time.perf_counter()
                 if self._canary is not None:
                     out, finite, lp = self._canary_decode(dec)

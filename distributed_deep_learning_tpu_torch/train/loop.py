@@ -186,14 +186,18 @@ def _waited(batches, tl):
 
 def _observed(step_fn, telemetry, train: bool):
     """``step_fn`` with its call in a ``dispatch`` span (its first call
-    a ``compile`` span), a train step counted and the memory tracker
-    polled on its cadence."""
+    a ``compile`` span, and the first train call under the FLOP counter
+    when the telemetry counts FLOPs), a train step counted and the
+    memory tracker polled on its cadence."""
     tl = telemetry.timeline
 
     def step(*args):
         kind = telemetry.dispatch_kind(step_fn)
         t = tl.clock()
-        out = step_fn(*args)
+        if train and telemetry.counts_flops(kind):
+            out = telemetry.measure_flops(step_fn, *args)
+        else:
+            out = step_fn(*args)
         tl.add(kind, tl.clock() - t)
         if train:
             tl.step()

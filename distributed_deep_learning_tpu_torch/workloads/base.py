@@ -763,14 +763,7 @@ def _train(spec, config, env, init_state_dict):
         ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
             ckpt_parts
         if telemetry is not None:
-            if config.mode is Mode.SEQUENTIAL:
-                _measure_train_flops(telemetry, train_step, state,
-                                     loaders[0], n_devices=1)
-            else:
-                logger.info("obs: step FLOPs are not measured under -m "
-                            "data (the step runs over the live model's "
-                            "DDP wrapper, which a copy of the state does "
-                            "not carry); MFU is not reported")
+            telemetry.count_train_flops(n_devices=env.world)
         with profiling.trace(config.profile_dir):
             if config.elastic:
                 state, history = _fit_elastic(
@@ -859,19 +852,6 @@ def _log_obs_summary(logger, summary: dict) -> None:
     mfu_txt = f" mfu={mfu:.4f}" if mfu is not None else ""
     logger.info(f"obs: goodput {parts} over {gp['wall_seconds']:.1f}s "
                 f"({gp['steps']} steps){mfu_txt}")
-
-
-def _measure_train_flops(telemetry, train_step, state, train_loader,
-                         n_devices: int) -> None:
-    """Peek one batch (the seeded loader replays each epoch's order from
-    ``set_epoch``, so training sees the same stream afterwards) and record
-    the train step's FLOPs for MFU."""
-    try:
-        train_loader.set_epoch(1)
-        x, y = next(iter(train_loader.iter_batches()))
-    except Exception:
-        return
-    telemetry.measure_flops(train_step, state, x, y, n_devices=n_devices)
 
 
 def whole_state(spec, config, dataset, state: TrainState) -> TrainState:
@@ -1043,8 +1023,7 @@ def _run_staged(spec: WorkloadSpec, config: Config, init_state_dict):
         trainer, state, dataset, loaders = staged_setup(
             spec, config, logger, init_state_dict)
         if telemetry is not None:
-            _measure_train_flops(telemetry, trainer.train_step, state,
-                                 loaders[0], n_devices=1)
+            telemetry.count_train_flops(n_devices=1)
         with profiling.trace(config.profile_dir):
             state, history = fit(state, trainer.train_step,
                                  trainer.eval_step, *loaders,
@@ -1350,8 +1329,7 @@ def _pipelined_fit(spec, config, init_state_dict, grid):
             _maybe_checkpointer(config, 0, shared=grid is not None,
                                 replicated_generator=True)
         if telemetry is not None and grid is None:
-            _measure_train_flops(telemetry, train_step, state, loaders[0],
-                                 n_devices=1)
+            telemetry.count_train_flops(n_devices=1)
         with profiling.trace(config.profile_dir):
             if config.elastic:
                 state, history = _fit_elastic(

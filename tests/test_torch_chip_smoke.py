@@ -749,6 +749,50 @@ def test_phase_36_logit_delta_stops_at_the_first_parting():
     assert chip_smoke._logit_delta(a, b, ref, ref) == 10.0
 
 
+def test_phase_36_holds_each_wire_to_a_limit_read_apart_from_it():
+    """A run may part from the unified one only at a near-tie, and its
+    largest |dlogit| (the parting row included) must stay within a limit
+    that does not come from the run itself: a parting whose row moved by
+    more than the limit fails, however small the margin."""
+    import torch
+
+    a, b = chip_smoke._Margins(keep_rows=True), \
+        chip_smoke._Margins(keep_rows=True)
+    a.margin = {0: {0: 5.0, 1: 4.0, 2: 0.3}}
+    a.rows = {0: {1: torch.tensor([1.0, 2.0]), 2: torch.tensor([0.3, 0.0])}}
+    b.rows = {0: {1: torch.tensor([1.0, 2.0]), 2: torch.tensor([0.0, 0.2])}}
+    ref = {"results": {0: [7, 8, 9]}}
+    parted = {"results": {0: [7, 8, 3]}, "errors": {}}
+    assert chip_smoke._hold_disagg("same", ref | {"errors": {}}, ref, a, b,
+                                   0.5, 1.0) == pytest.approx(0.3)
+    assert chip_smoke._hold_disagg("tie", parted, ref, a, b, 0.5,
+                                   1.0) == pytest.approx(0.3)
+    with pytest.raises(RuntimeError, match="exceeds"):
+        chip_smoke._hold_disagg("moved", parted, ref, a, b, 0.1, 1.0)
+    with pytest.raises(RuntimeError, match="parts from"):
+        chip_smoke._hold_disagg("wide", parted, ref, a, b, 0.5, 0.2)
+
+
+def test_phase_37_step_window_spans_train_steps_2_to_4(tmp_path):
+    """Two flash forwards a train step: the window runs from step 2's
+    first to step 5's, and the card is busy for the union of the kernels
+    inside it (overlaps counted once, the edges clipped)."""
+    import json
+
+    fwd = [0, 10, 100, 110, 200, 210, 300, 310, 400, 410]
+    ev = [{"cat": "kernel", "name": "flash_fwd_kernel", "ts": t, "dur": 5}
+          for t in fwd]
+    ev += [{"cat": "kernel", "name": "gemm", "ts": 150, "dur": 20},
+           {"cat": "kernel", "name": "gemm", "ts": 160, "dur": 20},
+           {"cat": "kernel", "name": "gemm", "ts": 395, "dur": 10},
+           {"cat": "cpu_op", "name": "aten::mm", "ts": 120, "dur": 500}]
+    path = tmp_path / "trace.2.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    busy, window = chip_smoke._step_window(path, layers=2)
+    assert window == 0.3                      # 100 .. 400 us
+    assert busy == pytest.approx((6 * 5 + 30 + 5) / 1e3)
+
+
 def test_phase_37_reads_kernels_and_idle_share_from_a_chrome_trace(
         tmp_path):
     import json

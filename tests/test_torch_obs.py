@@ -337,10 +337,14 @@ def test_step_flops_are_analytic_and_flash_equals_dense():
     counts = {}
     for attention in ("dense", "flash"):
         step, state, x, y = _gpt_step(attention)
-        before = {k: v.clone() for k, v in state.model.state_dict().items()}
-        counts[attention] = tmfu.measure_step_flops(step, state, x, y)
-        for k, v in state.model.state_dict().items():
-            assert torch.equal(v, before[k]), k      # a copy stepped
+        counts[attention], (counted, m) = tmfu.measure_step_flops(
+            step, state, x, y)
+        step, state, x, y = _gpt_step(attention)
+        plain, m0 = step(state, x, y)
+        assert torch.equal(m["loss"], m0["loss"])
+        for (k, v), w in zip(counted.model.state_dict().items(),
+                             plain.model.state_dict().values()):
+            assert torch.equal(v, w), k     # the counter changes nothing
     want = _analytic_step_flops(2, 32)
     assert counts["dense"] == pytest.approx(want, rel=1e-9)
     assert counts["flash"] == pytest.approx(counts["dense"], rel=0.01)
@@ -412,10 +416,14 @@ def test_overhead_benches_have_jax_keys():
     kw = dict(steps=4, repeats=1, dim=16, depth=2, batch=8, device="cpu")
     a = tbench.overhead_bench(**kw)
     b = tbench.trace_overhead_bench(**kw)
-    assert set(a) - {"device"} == {
+    mine = {"device", "per_step_overhead_us_quartiles"}
+    assert set(a) - mine == {
         "metric", "steps", "repeats", "step_geometry", "steps_per_sec_off",
         "steps_per_sec_on", "obs_overhead_fraction", "per_step_overhead_us"}
     assert b["steps_per_sec_plain"] > 0 and b["steps_per_sec_traced"] > 0
+    for rec in (a, b):
+        q = rec["per_step_overhead_us_quartiles"]
+        assert len(q) == 3 and q == sorted(q)
 
 
 def test_step_flops_against_jax_cost_analysis(capsys):
