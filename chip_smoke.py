@@ -5599,8 +5599,11 @@ def phase_disagg():
 #: so that the step window below holds whole train steps 2-4)
 OBS_FLAGS = ("--dtype", "bfloat16")
 OBS_ROWS = 32
-#: the overhead benches' steps a phase and interleaved repeats
+#: the overhead benches' steps a phase and interleaved repeats: enough for
+#: telemetry's paired quartiles to clear 0 on the card; span tracing's
+#: cost is below what this can resolve, so its bench runs shorter
 OBS_BENCH_STEPS, OBS_BENCH_REPEATS = 256, 15
+OBS_TRACE_STEPS, OBS_TRACE_REPEATS = 128, 9
 
 
 def _trace_kernels(path):
@@ -5642,7 +5645,7 @@ def _step_window(path, layers: int, first: int = 2, last: int = 4):
     return busy / 1e3, (t1 - t0) / 1e3
 
 
-def _loop_instrument_us(steps: int = 1024, repeats: int = 9):
+def _loop_instrument_us(steps: int = 512, repeats: int = 9):
     """The train loop's instruments' host cost a step on the card, as
     quartiles in microseconds: ``_run_phase`` over a step that launches
     nothing (its metrics made once on the card), with telemetry against
@@ -5798,10 +5801,10 @@ def phase_obs(data_dir: Path) -> dict:
     if not any("flash_fwd" in n for n in flash) or \
             not any("flash_dq" in n for n in flash):
         raise RuntimeError("obs: the profiler trace names no flash kernel")
-    bench_kw = dict(device="cuda", steps=OBS_BENCH_STEPS,
-                    repeats=OBS_BENCH_REPEATS)
-    rec = obs_bench.overhead_bench(**bench_kw)
-    rec2 = obs_bench.trace_overhead_bench(**bench_kw)
+    rec = obs_bench.overhead_bench(device="cuda", steps=OBS_BENCH_STEPS,
+                                   repeats=OBS_BENCH_REPEATS)
+    rec2 = obs_bench.trace_overhead_bench(
+        device="cuda", steps=OBS_TRACE_STEPS, repeats=OBS_TRACE_REPEATS)
     # the instruments' own costs: the memory tracker's poll (a sample
     # every 8 steps: the allocator's counters and the host's RSS), a
     # timeline record, and all of the loop's instruments on a step that
