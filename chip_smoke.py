@@ -5602,8 +5602,8 @@ OBS_ROWS = 32
 #: the overhead benches' steps a phase and interleaved repeats: enough for
 #: telemetry's paired quartiles to clear 0 on the card; span tracing's
 #: cost is below what this can resolve, so its bench runs shorter
-OBS_BENCH_STEPS, OBS_BENCH_REPEATS = 256, 15
-OBS_TRACE_STEPS, OBS_TRACE_REPEATS = 128, 9
+OBS_BENCH_STEPS, OBS_BENCH_REPEATS = 256, 11
+OBS_TRACE_STEPS, OBS_TRACE_REPEATS = 128, 7
 
 
 def _trace_kernels(path):
@@ -5628,13 +5628,10 @@ def _step_window(path, layers: int, first: int = 2, last: int = 4):
     forwards, and the train steps come first), the card busy for the
     union of the kernels inside it."""
     with open(path) as f:
-        ks = sorted((e["ts"], e["ts"] + e["dur"]) for e in
-                    json.load(f)["traceEvents"]
-                    if e.get("cat") == "kernel" and "dur" in e)
-    with open(path) as f:
-        fwd = sorted(e["ts"] for e in json.load(f)["traceEvents"]
-                     if e.get("cat") == "kernel" and "flash_fwd" in
-                     e.get("name", ""))
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    ks = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    fwd = sorted(e["ts"] for e in events if "flash_fwd" in e["name"])
     t0, t1 = fwd[(first - 1) * layers], fwd[last * layers]
     busy, end = 0.0, t0
     for a, b in ks:
