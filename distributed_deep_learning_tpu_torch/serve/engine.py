@@ -396,22 +396,6 @@ class _Engine:
         ok = torch.isfinite(hidden_last).all(dim=-1)
         return torch.stack([tok.double(), ok.double(), lp.double()])
 
-    def _stage_tick(self, slots, make_writable=None) -> None:
-        """Stage the captured tick's host rows for one decode tick: each
-        ``(slot, committed, pending token)`` of ``slots`` decodes at its
-        committed position, its block made writable first
-        (``make_writable(slot, lo, hi)``, copy-on-write by default); every
-        other slot writes its token 0 to TRASH."""
-        make_writable = make_writable or self._make_writable
-        bps, bs, mgr = self.blocks_per_slot, self.block_size, self.manager
-        host = self._tick.host
-        host[:, bps:] = 0
-        host[:, bps + 2] = paged.TRASH
-        for i, c, tok in slots:
-            make_writable(i, c, c)
-            host[i, bps:] = (c, tok, mgr.tables[i, c // bs], c % bs)
-        host[:, :bps] = mgr.tables
-
     def _decode(self, tick=None):
         """Run a staged tick (``tick``, the engine's own by default);
         returns host arrays ``(tokens, finite, logprob)``, a row a slot.
@@ -1229,6 +1213,22 @@ class PagedEngine(_Engine):
                     paged.copy_block(self.draft_pools, *pair)
                 copies += 1
         return copies
+
+    def _stage_tick(self, slots, make_writable=None) -> None:
+        """Stage the captured tick's host rows for one decode tick: each
+        ``(slot, committed, pending token)`` of ``slots`` decodes at its
+        committed position, its block made writable first
+        (``make_writable(slot, lo, hi)``, copy-on-write by default); every
+        other slot writes its token 0 to TRASH."""
+        make_writable = make_writable or self._make_writable
+        bps, bs, mgr = self.blocks_per_slot, self.block_size, self.manager
+        host = self._tick.host
+        host[:, bps:] = 0
+        host[:, bps + 2] = paged.TRASH
+        for i, c, tok in slots:
+            make_writable(i, c, c)
+            host[i, bps:] = (c, tok, mgr.tables[i, c // bs], c % bs)
+        host[:, :bps] = mgr.tables
 
     def _capacity_len(self, req: Request) -> int:
         """Stream positions a request may ever write (with the speculative
