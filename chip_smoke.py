@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 1,7,33,34  # pipeline grid, resilience
     python3 chip_smoke.py --phases 1,35  # serving resilience and the fleet
     python3 chip_smoke.py --phases 1,36,37  # disaggregation, observability
+    python3 chip_smoke.py --phases 1,38,39,40  # remat, tuning, resharding
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -359,7 +360,8 @@ Phases, in order; any failure raises and exits non-zero:
     ``--disagg`` on one card; ``disagg_serving_bench``'s record (speedup
     against the unified engine, ITL p99s, migration GiB/s, agreement,
     ``prefill_util``).
-37. observability: phase 31's bf16 ``gpt`` on 32 rows through the CLI
+37. observability (beside phase 40's ranks, so its times are contended):
+    phase 31's bf16 ``gpt`` on 32 rows through the CLI
     with ``--obs --obs-trace --obs-blackbox --metrics-file
     --profile-dir``, and again without: the losses equal bit for bit, the
     flash launches those of the epoch (its first train step counted); the
@@ -371,6 +373,37 @@ Phases, in order; any failure raises and exits non-zero:
     35's 8 requests served under telemetry, a tracer and a recorder, a
     planted SLO breach tripping it; a captured decode tick replayed under
     the profiler (its idle share).
+38. remat on the conv models (beside phase 40's ranks, so its step times
+    are contended; its peaks are its own): ResNet-18 f32 at phase 24's
+    shape, three train steps each without remat and under
+    ``--remat-policy nothing``,
+    ``dots`` and ``dots_no_batch`` (losses, step time, peak): every
+    policy's losses within ``REMAT_TOL`` of the run without remat, the
+    ``dots`` peak below it; one ``dots`` run each of ``mlp``, ``lstm``,
+    ``mnist`` and ``cnn`` at phase 21's settings held to its run without
+    remat the same way.
+39. tuning on phase 8's ``gpt``: ``--autotune --plan FILE`` through the
+    CLI at world 1 over the one-device lattice (trials, rungs, steps/s),
+    then ``--plan FILE``, whose losses equal the searched run's bit for
+    bit; flash launches equal the trials' step calls times each plan's
+    kernels a step, plus the epoch's.  A real OOM: ``run_search`` with
+    ``--attention dense`` at ``TUNE_OOM_BATCH`` over no remat and remat
+    ``nothing``, the analytic model told to prune nothing: the allocator
+    refuses the first, ``memory_allocated`` after the search is what it
+    was before, the remat plan is chosen.  ``run_calibration``: each
+    corner's fitted activation fraction and recompute cost against JAX's
+    priors, analytic against calibrated error.
+40. resharding, run beside phases 37-39 (39's OOM trial waits for it):
+    phase 31's ``gpt`` (f32, 24 rows) at ``-b 12`` on gloo ranks sharing
+    card 0: ``--zero 1`` on 4 ranks saves epoch 1,
+    and the same ranks resume a copy as it was; (a) ``-r 3 --reshard
+    --resume`` re-plans onto ``data=3``, (b) ``-r 2 --reshard --resume
+    --target-mesh fsdp=2 --zero fsdp``.  Each leg: every rank restores
+    ``chunked``, its part of every leaf equal to the same part of the
+    saved tensors bit for bit, the first epoch-2 loss within
+    ``REMAT_TOL`` of the 4-rank resume's, the flash launches exact;
+    restore seconds, bytes copied to each rank's card, each rank's peak
+    and rank 0's seconds (start-up, set-up, training, saves) printed.
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -2610,7 +2643,8 @@ def _step_setup(workload: str, argv, device: str, prefetch: int = 0,
         ddp = DistributedDataParallel(
             state.model, device_ids=[torch.cuda.current_device()]
             if device == "cuda" else None)
-    step, _ = make_step_fns(spec.build_loss(cfg), ddp=ddp)
+    step, _ = make_step_fns(spec.build_loss(cfg), ddp=ddp, remat=cfg.remat,
+                            remat_policy=cfg.remat_policy)
     train.set_epoch(1)
     return state, step, train
 
@@ -4334,17 +4368,18 @@ def grid_launches(schedule: str, stage: int, stages: int, chunks: int,
 
 
 def _n_ranks(script: str, args: list, tag: str, n: int,
-             timeout: float = 300.0) -> list[dict]:
+             timeout: float = 300.0, env: dict | None = None) -> list[dict]:
     """Run ``script`` as ``n`` ranks on card 0 (torchrun's environment,
-    the one card each rank's ``LOCAL_RANK``); returns the JSON each rank
-    printed after ``tag``.  A rank that fails or is still running at
-    ``timeout`` fails the phase (every rank is stopped)."""
+    the one card each rank's ``LOCAL_RANK``, and ``env``); returns the
+    JSON each rank printed after ``tag``.  A rank that fails or is still
+    running at ``timeout`` fails the phase (every rank is stopped)."""
     procs = []
+    extra = dict(env or {})
     try:
         for rank in range(n):
             env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
                        LOCAL_RANK="0", OMP_NUM_THREADS="4",
-                       PYTHONPATH=str(ROOT))
+                       PYTHONPATH=str(ROOT), **extra)
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -5872,12 +5907,577 @@ def phase_obs(data_dir: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 38-40: remat on the conv models, tuning, resharding
+# ---------------------------------------------------------------------------
+
+#: phase 38: no remat, then each policy; losses held to the first's
+REMAT_CASES = (None, "nothing", "dots", "dots_no_batch")
+REMAT_STEPS = 3
+REMAT_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _data_limit(rows):
+    """``DDL_DATA_LIMIT`` at ``rows`` (None: unset) while the block runs,
+    then as it was."""
+    before = os.environ.get("DDL_DATA_LIMIT")
+    if rows is None:
+        os.environ.pop("DDL_DATA_LIMIT", None)
+    else:
+        os.environ["DDL_DATA_LIMIT"] = str(rows)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("DDL_DATA_LIMIT", None)
+        else:
+            os.environ["DDL_DATA_LIMIT"] = before
+
+
+def remat_steps(workload: str, argv, policy, steps: int = REMAT_STEPS,
+                device: str = "cuda"):
+    """``steps`` train steps of ``workload`` under ``argv`` on ``device``
+    with ``--remat --remat-policy policy`` (None: no remat), from the
+    CLI's initialisation and first batches (:func:`_step_setup`); returns
+    the losses, the median step seconds (steps 2 on) and the peak device
+    memory over the steps, the state's included (None on the CPU)."""
+    import torch
+
+    card = device == "cuda"
+    flags = (*argv, "--remat", "--remat-policy", policy) if policy \
+        else tuple(argv)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    state, step, train = _step_setup(workload, flags, device)
+    batches = _cycle(train)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(steps):
+        x, y = next(batches)
+        t0 = time.perf_counter()
+        losses.append(step(state, x, y)[1]["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() if card else None
+    batches.close()
+    return losses, statistics.median(seconds[1:]), peak
+
+
+def _loss_gap(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_remat() -> dict:
+    """Phase 38; returns each run's losses, step time and peak."""
+    out = {}
+    with _data_limit(None):
+        for policy in REMAT_CASES:
+            label = f"resnet18 {policy or 'no remat'}"
+            losses, step_s, peak = remat_steps("resnet", RESNET18_FLAGS,
+                                               policy)
+            out[label] = dict(losses=losses, step_s=step_s, peak=peak)
+            gap = _loss_gap(losses, out["resnet18 no remat"]["losses"])
+            print(f"remat[{label}]: losses "
+                  + " ".join(f"{x:.7f}" for x in losses)
+                  + f", {step_s:.5f} s/step (median of steps 2-{len(losses)})"
+                  f", peak {peak / 2**20:.1f} MiB, largest loss gap from no "
+                  f"remat {gap:.2e} (tol {REMAT_TOL:g})")
+            if not gap <= REMAT_TOL:
+                raise RuntimeError(f"remat[{label}]: the losses moved")
+        plain, dots = out["resnet18 no remat"], out["resnet18 dots"]
+        if not dots["peak"] < plain["peak"]:
+            raise RuntimeError("remat[resnet18 dots]: peak not below the "
+                               "run without remat")
+        for workload in WORKLOADS:
+            runs = {p: remat_steps(workload, WORKLOAD_FLAGS, p)
+                    for p in (None, "dots")}
+            gap = _loss_gap(runs["dots"][0], runs[None][0])
+            out[f"{workload} dots"] = dict(
+                losses=runs["dots"][0], step_s=runs["dots"][1],
+                peak=runs["dots"][2], plain_peak=runs[None][2])
+            print(f"remat[{workload} dots]: losses "
+                  + " ".join(f"{x:.7f}" for x in runs["dots"][0])
+                  + f", gap from no remat {gap:.2e} (tol {REMAT_TOL:g}); "
+                  f"{runs['dots'][1]:.5f} / {runs[None][1]:.5f} s/step, peak "
+                  f"{runs['dots'][2] / 2**20:.1f} / "
+                  f"{runs[None][2] / 2**20:.1f} MiB (dots / none)")
+            if not gap <= REMAT_TOL:
+                raise RuntimeError(f"remat[{workload} dots]: the losses "
+                                   "moved")
+    return out
+
+
+#: phase 39's real OOM: phase 8's model with dense attention at a batch
+#: whose saved score tensors cannot fit without remat
+TUNE_OOM_BATCH = 16
+TUNE_WARMUP = 2          # run_search's default warm-up steps a trial
+
+
+def _plan_launches(plan, calls: int, layers: int = TRAIN_LAYERS,
+                   device: str = "cuda") -> dict:
+    """The flash launches of ``calls`` train steps of phase 8's model
+    under ``plan`` on ``device``: a forward a layer (two under remat,
+    whose backward recomputes it) and a dQ and dK/dV a layer, each
+    microbatch; none where the plan's attention is dense (``auto`` is
+    the flash kernels on the card only)."""
+    if plan.attention == "dense" or (plan.attention == "auto"
+                                     and device != "cuda"):
+        return {name: 0 for name in FLASH_REPLACES}
+    fwd = (2 if plan.remat else 1) * plan.grad_accum
+    return {"flash_forward": calls * fwd * layers,
+            "flash_backward_dq": calls * plan.grad_accum * layers,
+            "flash_backward_dkv": calls * plan.grad_accum * layers}
+
+
+def _add(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def _trial_calls(trial: dict, warmup: int) -> int:
+    """A feasible trial's step calls from its record: the first step,
+    the FLOP count's, the warm-up and the timed steps."""
+    return 2 + warmup + trial["measured_steps"]
+
+
+def phase_tune(data_dir: Path) -> dict:
+    """Phase 39's search, replay and calibration; returns the flash
+    launches of each run.  Its OOM trial is :func:`phase_tune_oom`."""
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+    from distributed_deep_learning_tpu_torch.tune import (
+        Plan, load_plan, run_calibration)
+    from distributed_deep_learning_tpu_torch.tune.memory import ACT_FRACTION
+    from distributed_deep_learning_tpu_torch.tune.search import \
+        RECOMPUTE_COST
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+
+    out = {}
+    with _data_limit(None):
+        # (a) --autotune --plan FILE through the CLI, then --plan FILE
+        path = ROOT / "build" / "chip_smoke_tune" / "gpt.plan.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        hist, launches, _ = _train(data_dir, "flash", "--autotune", "--plan",
+                                   str(path), label="autotune", mode="data")
+        wall = time.perf_counter() - t0
+        plan, record = load_plan(str(path))
+        search = record["search"]
+        print(f"tune[search]: {search['n_candidates']} candidates, "
+              f"{len(search['trials'])} trials over {search['rungs']} rungs "
+              f"in {search['search_seconds']:.2f} s ({wall:.1f} s with the "
+              f"epoch); best {record['plan_hash']} [{plan.describe()}] "
+              f"{search['best_steps_per_sec']:.3f} steps/s, baseline "
+              f"{search['baseline_steps_per_sec']:.3f}")
+        want = {}
+        for t in search["trials"]:
+            tp = Plan.from_dict(t["plan"])
+            if t["infeasible"]:
+                raise RuntimeError(f"tune[search]: {tp.describe()} was "
+                                   f"infeasible ({t['error']})")
+            mem = t["memory"]
+            print(f"tune[trial]: {tp.describe()}: {t['steps_per_sec']:.3f} "
+                  f"steps/s over {t['measured_steps']} steps, first step "
+                  f"{t['compile_seconds']:.3f} s, temp "
+                  f"{mem.get('temp_size_in_bytes', 0) / 2**30:.3f} GiB, "
+                  f"{t['cost'].get('flops', 0):.4e} FLOPs a step")
+            want = _add(want, _plan_launches(
+                tp, _trial_calls(t, TUNE_WARMUP)))
+        steps = _phase_steps()
+        fwd = (2 if plan.remat else 1) * plan.grad_accum
+        epoch = expected_launches(TRAIN_LAYERS, steps, fwd, plan.grad_accum)
+        check_launches("tune[autotune]", launches, _add(want, epoch))
+        replay, replay_launches, _ = _train(data_dir, "flash", "--plan",
+                                            str(path), label="plan replay",
+                                            mode="data")
+        check_launches("tune[plan replay]", replay_launches, epoch)
+        same = [h.loss for h in replay] == [h.loss for h in hist] and \
+            replay[0].step_losses == hist[0].step_losses
+        print(f"tune[plan replay]: losses bit-identical to the searched "
+              f"run's: {same}")
+        if not same:
+            raise RuntimeError("tune[plan replay]: the replay trained "
+                               "another run")
+        out["autotune"], out["replay"] = _add(want, epoch), replay_launches
+
+        # (c) the calibration on phase 8's model
+        cfg = parse_args(["-m", "data", "-l", str(TRAIN_LAYERS), "-s",
+                          "768", "-b", str(TRAIN_BATCH), "--attention",
+                          "flash", "--data-dir", str(data_dir)], "gpt")
+        counters = _kernel_counters()[:3]
+        for c in counters:
+            c.launches = 0
+        env, created = bootstrap.initialize("cuda")
+        try:
+            t0 = time.perf_counter()
+            cal = run_calibration(get_spec("gpt"), cfg)
+            cal_s = time.perf_counter() - t0
+        finally:
+            if created:
+                bootstrap.shutdown()
+        want = {}
+        for c in cal["corners"]:
+            cp = Plan.from_dict(c["plan"])
+            if c["infeasible"]:
+                raise RuntimeError(f"tune[calibrate]: {c['corner']} was "
+                                   f"infeasible ({c.get('error')})")
+            want = _add(want, _plan_launches(cp, 2 + 1 + 2))
+            key = (cp.remat, cp.remat_policy)
+            print(f"tune[calibrate]: {c['corner']}: temp "
+                  f"{c['temp_size_in_bytes'] / 2**30:.3f} GiB, fitted "
+                  f"activation fraction {c.get('fitted_act_fraction')} "
+                  f"(prior {ACT_FRACTION[key]}), recompute cost "
+                  f"{c.get('fitted_recompute_cost')} (prior "
+                  f"{RECOMPUTE_COST[key]}), {c['steps_per_sec']:.3f} steps/s"
+                  f", error analytic {c.get('analytic_error')} calibrated "
+                  f"{c.get('calibrated_error')}")
+        print(f"tune[calibrate]: {cal_s:.2f} s; errors {cal['errors']}")
+        check_launches("tune[calibrate]",
+                       {c.__name__: c.launches for c in counters}, want)
+        out["calibrate"] = want
+    return out
+
+
+def phase_tune_oom(data_dir: Path) -> None:
+    """Phase 39's real OOM: no remat against remat ``nothing`` with dense
+    attention, the card to itself."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.runtime import bootstrap
+    from distributed_deep_learning_tpu_torch.tune import run_search
+    from distributed_deep_learning_tpu_torch.utils.config import parse_args
+    from distributed_deep_learning_tpu_torch.workloads import get_spec
+
+    with _data_limit(None):
+        cfg = parse_args(["-m", "data", "-l", str(TRAIN_LAYERS), "-s",
+                          "768", "-b", str(TUNE_OOM_BATCH), "--attention",
+                          "dense", "--data-dir", str(data_dir)], "gpt")
+        scores = TUNE_OOM_BATCH * 12 * TRAIN_T ** 2 * 4
+        total = torch.cuda.mem_get_info()[1]
+        print(f"tune[oom]: b {TUNE_OOM_BATCH}: a saved score tensor "
+              f"B·H·T²·4 = {scores / 2**30:.2f} GiB a layer, "
+              f"{TRAIN_LAYERS * scores / 2**30:.2f} GiB over "
+              f"{TRAIN_LAYERS} layers against the card's "
+              f"{total / 2**30:.2f} GiB")
+        starts = []
+        for c in _kernel_counters():
+            c.launches = 0
+        env, created = bootstrap.initialize("cuda")
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            # the lattice's plans take --attention auto (the flash
+            # kernels on the card) unless told; a warm-up step starts the
+            # timer
+            result = run_search(
+                get_spec("gpt"), cfg, budget_bytes=1 << 50, trial_steps=1,
+                warmup=1, max_rungs=1, max_trials=None,
+                oom_hook=lambda p: starts.append(time.perf_counter()),
+                space_options=dict(grad_accum_options=(1,),
+                                   attention_options=("dense",),
+                                   remat_options=((False, "nothing"),
+                                                  (True, "nothing"))))
+            gc.collect()
+            torch.cuda.empty_cache()
+            after = torch.cuda.memory_allocated()
+        finally:
+            if created:
+                bootstrap.shutdown()
+        oomed = [t for t in result.trials if t.infeasible]
+        kept = [t for t in result.trials if not t.infeasible]
+        oom_s = starts[1] - starts[0] if len(starts) == 2 else float("nan")
+        print(f"tune[oom]: {len(result.trials)} trials in "
+              f"{result.search_seconds:.2f} s; the OOM trial "
+              f"{oom_s:.3f} s: {oomed[0].error[:160] if oomed else None}; "
+              f"memory_allocated {before} B before the search, {after} B "
+              f"after; chosen [{result.best.describe()}] "
+              f"{result.best_sps:.4f} steps/s")
+        if not (len(result.trials) == 2 and len(oomed) == 1
+                and not oomed[0].plan.remat
+                and oomed[0].oom and "OutOfMemoryError" in oomed[0].error):
+            raise RuntimeError("tune[oom]: the plan without remat was not "
+                               "refused by the allocator")
+        if not (kept and result.best.remat and after == before):
+            raise RuntimeError("tune[oom]: the remat plan was not chosen, or "
+                               "the OOM trial left memory behind")
+        check_launches("tune[oom] (dense)", {
+            c.__name__: c.launches for c in _kernel_counters()[:3]},
+            {name: 0 for name in FLASH_REPLACES})
+
+
+
+#: phase 40: phase 31's gpt (f32, 24 rows) at a batch 4, 3 and 2 ranks
+#: divide; the ranks share card 0 over gloo
+RESHARD_BATCH = 12
+
+RESHARD_RANK = r"""
+import faulthandler, json, os, shutil, sys, time
+faulthandler.enable()
+t_start = time.time()
+import torch
+import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.__main__ import main as cli
+from distributed_deep_learning_tpu_torch.ops import attention as fa
+from distributed_deep_learning_tpu_torch.reshard import restore as rs
+from distributed_deep_learning_tpu_torch.utils import checkpoint as ck
+from distributed_deep_learning_tpu_torch.workloads import base
+from chip_smoke import restored_parts_exact
+
+# runs: [{"argv": CLI argv, "copy": [src, dst] or null}], one after the
+# other in this process (rank 0 copies src to dst before its run)
+runs, port, saved, gate = (json.loads(sys.argv[1]), sys.argv[2],
+                           sys.argv[3], sys.argv[4])
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+out = {"t_group": time.time() - t_start, "runs": []}
+rec, real = {}, rs.restore_resharded
+
+
+def restore(ckpt, target, **kw):
+    # the CLI's resharding restore, timed, then checked in place
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, info = real(ckpt, target, **kw)
+    torch.cuda.synchronize()
+    rec.update(mode=info.get("mode"), step=step,
+               seconds=time.perf_counter() - t0,
+               bytes=(info.get("redistribute") or {}).get("bytes_moved"),
+               restore_peak=torch.cuda.max_memory_allocated())
+    whole = torch.load(saved, map_location="cpu", weights_only=True,
+                       mmap=True)
+    rec["exact"] = restored_parts_exact(state, whole)
+    del whole
+    return state, step, info
+
+
+rs.restore_resharded = restore
+
+
+def timed(owner, name, key):
+    # seconds a rank spends in owner.name a run, summed over its calls
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+
+
+timed(base, "train_setup", "t_setup")
+timed(ck.Checkpointer, "save", "t_save")
+timed(ck, "state_payload", "t_payload")
+timed(ck, "_snapshot", "t_snapshot")
+timed(ck.Checkpointer, "_write", "t_write")
+counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+# a leg starts with the process, then waits for its checkpoint (the
+# orchestrator's gate file), so its start-up overlaps the leg before it
+t_gate = time.time()
+while gate and not os.path.exists(gate):
+    time.sleep(0.1)
+out["t_gate"] = time.time() - t_gate
+for run in runs:
+    if run["copy"] and rank == 0:
+        shutil.copytree(*run["copy"])
+    dist.barrier()
+    rec.clear()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_cli = time.time()
+    state, hist = cli(run["argv"])
+    torch.cuda.synchronize()
+    train = [h for h in hist if h.phase == "train"]
+    del state
+    rec.update(losses=[x for h in train for x in h.step_losses],
+               launches={c.__name__: c.launches for c in counters},
+               peak=torch.cuda.max_memory_allocated(),
+               t_cli=time.time() - t_cli,
+               t_train=sum(h.seconds for h in train))
+    out["runs"].append(dict(rec))
+dist.destroy_process_group()
+out["t_total"] = time.time() - t_start
+print("RESHARD_RANK " + json.dumps(out), flush=True)
+"""
+
+
+def restored_parts_exact(state, whole: dict) -> bool:
+    """Whether this rank's part of every parameter, buffer and optimizer
+    moment of ``state`` equals the same part of the saved whole tensors
+    ``whole`` (a checkpoint's payload), bit for bit, with no gather: a
+    split parameter's part as :func:`..reshard.redistribute.
+    host_local_part` cuts it, ZeRO-1's moments of the parameters this
+    rank owns."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.parallel.shards import (
+        local, resharded)
+    from distributed_deep_learning_tpu_torch.reshard.redistribute import \
+        host_local_part
+
+    def equal(got, want):
+        return bool(torch.equal(got.detach().cpu(), want.to(got.dtype)))
+
+    params = dict(resharded(state.model).named_parameters())
+    ok = True
+    for name, t in state.model.state_dict().items():
+        p = params.get(name)
+        want = whole["params"][name]
+        ok &= equal(local(p) if p is not None else t,
+                    host_local_part(p, want) if p is not None else want)
+    opt = state.optimizer
+    inner = getattr(opt, "optim", opt)            # ZeRO-1's local one
+    moments = 0
+    for i, p in enumerate(q for g in opt.param_groups for q in g["params"]):
+        for k, v in inner.state.get(p, {}).items():
+            want = whole["optimizer"]["state"][i][k]
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                v = local(v)
+                ok &= equal(v, want if tuple(v.shape) == tuple(want.shape)
+                            else host_local_part(p, want))
+                moments += 1
+            else:
+                ok &= float(v) == float(want)
+    return ok and moments > 0
+
+
+def _rank_times(ranks, run: int = 0) -> str:
+    """Rank 0's seconds: to its process group, waiting at its gate, in
+    its ``run``-th CLI run (its set-up, training and saves), in all."""
+    r, c = ranks[0], ranks[0]["runs"][run]
+    return (f"rank 0: group {r['t_group']:.1f} s, gate {r['t_gate']:.1f} "
+            f"s, CLI {c['t_cli']:.1f} s (set-up {c.get('t_setup', 0):.1f}, "
+            f"training {c['t_train']:.1f}, saves {c.get('t_save', 0):.1f}: "
+            f"payload {c.get('t_payload', 0):.1f}, snapshot "
+            f"{c.get('t_snapshot', 0):.1f}; writing {c.get('t_write', 0):.1f}"
+            f"), process {r['t_total']:.1f} s")
+
+
+def _reshard_ranks(n: int, runs: list, saved: str = "",
+                   gate: str = "") -> list[dict]:
+    """:data:`RESHARD_RANK` as ``n`` ranks on card 0, each running the CLI
+    ``runs`` in turn; ``gate``: a file each rank waits for after its
+    start-up, before its first run."""
+    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
+        free_port
+
+    # its rows in the ranks' environment, not this process's: phase 40
+    # runs beside phases 38 and 39, which set their own
+    return _n_ranks(RESHARD_RANK, [json.dumps(runs), str(free_port()),
+                                   saved, gate], "RESHARD_RANK ", n,
+                    env={"DDL_DATA_LIMIT": str(SHARD_ROWS)})
+
+
+def phase_reshard(data_dir: Path) -> dict:
+    """Phase 40; returns each leg's flash launches summed over its
+    ranks."""
+    from distributed_deep_learning_tpu_torch.utils.checkpoint import \
+        Checkpointer
+
+    base = ROOT / "build" / "chip_smoke_reshard"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    flags = ["gpt", "-m", "data", "--zero", "1", "-l", str(TRAIN_LAYERS),
+             "-s", "768", "-b", str(RESHARD_BATCH), "--attention", "flash",
+             "--data-dir", str(data_dir)]
+    steps = split_steps(SHARD_ROWS, RESHARD_BATCH)
+    want = expected_launches(TRAIN_LAYERS, steps)
+    saved_dir, same_dir = base / "epoch1", base / "same"
+    saved = str(saved_dir / f"ckpt-{steps[0]}.pt")
+
+    def resume(n, name, *extra):
+        return {"argv": flags + ["-r", str(n), "-e", "2", "--resume",
+                                 "--checkpoint-dir", str(base / name),
+                                 *extra], "copy": None}
+
+    legs = {"(a) data=3": (3, [resume(3, "data=3", "--reshard")]),
+            "(b) fsdp=2": (2, [resume(2, "fsdp=2", "--reshard",
+                                      "--target-mesh", "fsdp=2", "--zero",
+                                      "fsdp")])}
+    gate = base / "legs.go"
+    out = {}
+    with ThreadPoolExecutor(len(legs)) as pool:
+        # the legs' ranks start with the first four's and wait at the
+        # gate: the card holds the four ranks' two runs (epoch 1 saved,
+        # then resumed as it was on a copy) or the two legs, not both
+        t0 = time.perf_counter()
+        futures = {label: pool.submit(_reshard_ranks, n, runs, saved,
+                                      str(gate))
+                   for label, (n, runs) in legs.items()}
+        try:
+            first = _reshard_ranks(4, [
+                {"argv": flags + ["-r", "4", "-e", "1", "--checkpoint-dir",
+                                  str(saved_dir)], "copy": None},
+                {**resume(4, "same"), "copy": [str(saved_dir),
+                                               str(same_dir)]}])
+            step = Checkpointer(same_dir, shared=False).all_steps()[0]
+            print(f"reshard[save]: 4 ranks, --zero 1, epoch 1 saved at "
+                  f"step {step}; peaks "
+                  + ", ".join(f"{r['runs'][0]['peak'] / 2**30:.2f}"
+                              for r in first)
+                  + " GiB; " + _rank_times(first))
+            if step != steps[0]:
+                raise RuntimeError(f"reshard[save]: saved step {step}, "
+                                   f"expected {steps[0]}")
+            for r in first:
+                for run in r["runs"]:
+                    check_launches("reshard[save|same] a rank",
+                                   run["launches"], want)
+            for label in legs:
+                shutil.copytree(saved_dir, base / label.split()[-1])
+        finally:
+            gate.touch()                # no leg waits forever
+        runs = {label: f.result() for label, f in futures.items()}
+        print(f"reshard: all runs in {time.perf_counter() - t0:.1f} s")
+    ref = first[0]["runs"][1]["losses"][0]
+    print(f"reshard[same]: the 4 ranks resumed, first epoch-2 loss "
+          f"{ref:.9f}; " + _rank_times(first, 1))
+    for label, ranks in runs.items():
+        legs_runs = [r["runs"][0] for r in ranks]
+        gap = abs(legs_runs[0]["losses"][0] - ref) / abs(ref)
+        print(f"reshard{label}: {len(ranks)} ranks, modes "
+              f"{[r['mode'] for r in legs_runs]}, restore s "
+              + ", ".join(f"{r['seconds']:.3f}" for r in legs_runs)
+              + ", MiB to each rank's card "
+              + ", ".join(f"{r['bytes'] / 2**20:.1f}" for r in legs_runs)
+              + ", peaks " + ", ".join(f"{r['peak'] / 2**30:.2f}"
+                                       for r in legs_runs)
+              + f" GiB; each rank's parts equal to the saved tensors: "
+              f"{[r['exact'] for r in legs_runs]}; first epoch-2 loss "
+              f"{legs_runs[0]['losses'][0]:.9f}, gap {gap:.2e} from the "
+              f"4-rank resume (tol {REMAT_TOL:g}); " + _rank_times(ranks))
+        if any(r["mode"] != "chunked" for r in legs_runs):
+            raise RuntimeError(f"reshard{label}: a rank did not restore "
+                               "chunked")
+        if not all(r["exact"] for r in legs_runs):
+            raise RuntimeError(f"reshard{label}: the restored state is not "
+                               "the saved one")
+        if not gap <= REMAT_TOL:
+            raise RuntimeError(f"reshard{label}: the loss moved")
+        for r in legs_runs:
+            check_launches(f"reshard{label} a rank", r["launches"], want)
+        out[label] = {k: sum(r["launches"][k] for r in legs_runs)
+                      for k in want}
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 38)),
+                    default=",".join(str(i) for i in range(1, 41)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -5886,7 +6486,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 38)) and opts.waves is None
+    complete = phases == set(range(1, 41)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -5940,7 +6540,7 @@ def main(argv=None) -> int:
         lap("2-5, 13, 14, 18-20, 35, 36")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34, 37}
+    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34, 37, 39, 40}
                  | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
@@ -6023,11 +6623,27 @@ def main(argv=None) -> int:
     resilience = phase_resilience(_write_tokens()) if 34 in phases else {}
     if resilience:
         lap(34)
-    observed = {}
-    if 37 in phases:
-        builds["paged_decode"].result()
-        observed = phase_obs(_write_tokens())
-        lap(37)
+    observed = tuned = resharded = {}
+    if phases & {37, 38, 39, 40}:
+        # phase 40's ranks run beside phases 37-39 (their memory fits
+        # beside each other; a peak read here is this process's own), so
+        # 37-39's times are contended; 39's OOM trial then has the card
+        # to itself
+        tokens = _write_tokens()
+        with ThreadPoolExecutor(1) as side:
+            resharding = side.submit(phase_reshard, tokens) \
+                if 40 in phases else None
+            if 37 in phases:
+                builds["paged_decode"].result()
+                observed = phase_obs(tokens)
+                lap(37)
+            if 38 in phases:
+                phase_remat()
+            tuned = phase_tune(tokens) if 39 in phases else {}
+            resharded = resharding.result() if resharding else {}
+        if 39 in phases:
+            phase_tune_oom(tokens)
+        lap("38-40")
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -6053,6 +6669,10 @@ def main(argv=None) -> int:
         entry["resilience_launches"] = \
             resilience.get("launches", {}).get(entry["name"])
         entry["obs_launches"] = observed.get(entry["name"])
+        entry["tune_launches"] = {label: run[entry["name"]]
+                                  for label, run in tuned.items()}
+        entry["reshard_launches"] = {label: run[entry["name"]]
+                                     for label, run in resharded.items()}
     print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
     if not complete:
         return 0

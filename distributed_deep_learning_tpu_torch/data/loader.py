@@ -81,6 +81,14 @@ class DeviceLoader:
                 rows = rows[self._local_rows]
             yield self.dataset.batch(rows)
 
+    def local_batch(self, rows: np.ndarray
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """This rank's part of the global batch of dataset ``rows``, on
+        the device (a tuner's probe batch)."""
+        x, y = self.dataset.batch(np.asarray(rows)[self._local_rows])
+        return (torch.from_numpy(x).to(self.device),
+                torch.from_numpy(y).to(self.device))
+
     def __iter__(self) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
         return self.iter_batches()
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from distributed_deep_learning_tpu_torch.utils.config import ROADMAP_ITEMS
+from distributed_deep_learning_tpu_torch.utils.config import REMAT_POLICIES
 
 #: the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -155,16 +155,51 @@ def collect_losses():
         _state.losses = before
 
 
+def _saved_ops(policy: str) -> frozenset:
+    """The ops whose outputs the backward keeps under ``--remat-policy
+    policy``, as JAX's policies name them: ``dots_saveable`` keeps every
+    ``dot_general`` and ``conv_general_dilated`` output,
+    ``dots_with_no_batch_dims_saveable`` only the products without a batch
+    dimension (a ``Dense`` on ``(B, ...)`` rows folds to one ``mm``).  An
+    LSTM's gate products lie inside its one op (cuDNN's, or oneDNN's on
+    the CPU), so that op's outputs are kept under both."""
+    aten = torch.ops.aten
+    ops = [aten.mm, aten.addmm, aten._cudnn_rnn, aten.mkldnn_rnn_layer]
+    if policy == "dots":
+        ops += [aten.bmm, aten.baddbmm, aten.convolution]
+    return frozenset(ops)
+
+
+def _selective(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy``: selective activation
+    checkpointing that keeps :func:`_saved_ops`' outputs and recomputes
+    every other op of the layer in the backward."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    saved = _saved_ops(policy)
+
+    def decide(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(decide)
+
+
 def run_layers(layers: Sequence[Callable], x, remat: Optional[str] = None):
-    """``x`` through ``layers`` in order.  ``remat="nothing"`` keeps only
-    each layer's input and recomputes the layer in the backward
-    (``torch.utils.checkpoint``), with :func:`recomputing` true during the
-    recompute; the other policies keep matmul outputs, which these models'
-    convolutions and BatchNorms are not, so they are refused."""
-    if remat is not None and remat != "nothing":
-        raise NotImplementedError(
-            f"--remat-policy {remat} is not ported for this workload (only "
-            f"'nothing'): {ROADMAP_ITEMS[16]}")
+    """``x`` through ``layers`` in order.  ``remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``), with :func:`recomputing`
+    true during the recompute so that no BatchNorm updates its running
+    statistics twice: ``"nothing"`` keeps only each layer's input;
+    ``"dots"`` and ``"dots_no_batch"`` also keep the products that JAX's
+    policy of that name keeps (:func:`_saved_ops`), through selective
+    checkpointing.  A recompute computes the same values, so the
+    gradients are those of the run without ``remat``."""
+    if remat is not None and remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; choose from "
+                         f"{'/'.join(REMAT_POLICIES)}")
+    kw = {} if remat in (None, "nothing") else \
+        {"context_fn": _selective(remat)}
     for layer in layers:
         if remat is None or not torch.is_grad_enabled():
             x = layer(x)
@@ -178,5 +213,5 @@ def run_layers(layers: Sequence[Callable], x, remat: Optional[str] = None):
             with _recompute():
                 return layer(x)
 
-        x = checkpoint(replay, x, use_reentrant=False)
+        x = checkpoint(replay, x, use_reentrant=False, **kw)
     return x

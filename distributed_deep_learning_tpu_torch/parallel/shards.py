@@ -93,11 +93,35 @@ def whole(p, t: torch.Tensor) -> torch.Tensor:
         if not is_dtensor(t):
             t = _dtensor().from_local(t, p.device_mesh, p.placements,
                                       shape=p.shape, stride=p.stride())
-        return t.full_tensor()
+        return full_tensor(t)
     shard = getattr(p, "tp_shard", None)
     if shard is None:
         return t
     return _all_gather(t, shard.group, shard.dim)
+
+
+def full_tensor(t) -> torch.Tensor:
+    """``t.full_tensor()`` of a DTensor (not differentiable), gathered by
+    c10d's list all-gather one shard placement at a time, each rank's
+    part padded to ``torch.chunk``'s largest: DTensor's own functional
+    collectives crash on a gloo group over CUDA tensors (ranks sharing a
+    card).  Two placements splitting one dim take ``full_tensor``."""
+    dims = [pl.dim for pl in t.placements if pl.is_shard()]
+    if len(dims) != len(set(dims)):
+        return t.full_tensor()
+    x, mesh = t.to_local(), t.device_mesh
+    for i, pl in enumerate(t.placements):
+        if not pl.is_shard():
+            continue
+        d, k, n = pl.dim, mesh.size(i), t.shape[pl.dim]
+        pad = -(-n // k) - x.shape[d]
+        if pad:
+            x = torch.cat([x, x.new_zeros(*x.shape[:d], pad,
+                                          *x.shape[d + 1:])], d)
+        parts = [torch.empty_like(x) for _ in range(k)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group(i))
+        x = torch.cat(parts, d).narrow(d, 0, n)
+    return x
 
 
 def local_part(p, full: torch.Tensor) -> torch.Tensor:

@@ -73,8 +73,8 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
                       monitor: FailureMonitor | None = None,
                       max_restarts: int = 2,
                       checkpoint_every: int | None = None,
-                      sentinel=None, chaos=None, telemetry=None
-                      ) -> tuple[Any, list[EpochResult]]:
+                      sentinel=None, chaos=None, telemetry=None,
+                      restore_fn=None) -> tuple[Any, list[EpochResult]]:
     """Run :func:`..loop.fit` with checkpointed restart on failure.
 
     ``make_state`` returns the initial state (the restore target; called
@@ -103,6 +103,10 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
     * ``telemetry`` (:class:`..obs.RunTelemetry`) puts every restore in
       the ``recovery`` span, counts restarts by cause
       (``elastic_restarts{cause=...}``) and rides into :func:`..loop.fit`.
+    * ``restore_fn`` swaps the restore implementation — same contract as
+      :meth:`Checkpointer.restore_verified`; ``--reshard`` passes
+      :func:`..reshard.restore.make_restore_fn` here so a restart on a
+      different layout restores the checkpoint onto it.
     """
     logger = logger or PhaseLogger(verbose=False)
     train_loader, val_loader, test_loader = loaders
@@ -116,11 +120,12 @@ def fit_with_recovery(make_state: Callable[[], Any], train_step, eval_step,
         # resume point: a step save scheduled just before the failure must
         # be visible to this retry, or it would resume from an older
         # boundary and try to re-save an id that then finalises under it
+        restore = restore_fn or checkpointer.restore_verified
         if telemetry is None:
-            restored, ckpt_step = checkpointer.restore_verified(state)
+            restored, ckpt_step = restore(state)
         else:
             with telemetry.timeline.span("recovery"):
-                restored, ckpt_step = checkpointer.restore_verified(state)
+                restored, ckpt_step = restore(state)
         if ckpt_step is not None:
             state = restored
             _, start_epoch, resume_batch, resume_totals = \

@@ -27,8 +27,8 @@ path on a small MLP and returns its record;
 :func:`run_serve_resilience_drill`, :func:`run_fleet_resilience_drill`
 and :func:`run_rebalance_drill` do the same for one supervised engine,
 a fleet of three and its rebalancing; :func:`run_blackbox_drill` leaves
-a flight recorder's dump behind a contained anomaly.  The topology fault
-(``shrink_topology``) is ``ROADMAP.md`` item 14(b).
+a flight recorder's dump behind a contained anomaly.  The topology fault,
+:meth:`ChaosPlan.shrink_topology`, drives :mod:`..reshard.drill`.
 """
 
 from __future__ import annotations
@@ -495,6 +495,26 @@ class ChaosPlan:
 
         monitor.check = check
 
+    @staticmethod
+    def shrink_topology(devices, kill: int = 2,
+                        seed: int = 0) -> tuple[list, list[int]]:
+        """The pod-shrink drill: seed-pick `kill` devices (ranks) to
+        "lose" and return ``(survivors, dead_indices)``.
+
+        Like every injector here it is a pure function of its seed —
+        ``(seed, n_devices, kill)`` keys the rng, as in the JAX package —
+        so a drill replays bit-identically: same seed, same dead workers,
+        same surviving mesh, same re-plan."""
+        devices = list(devices)
+        if not 0 < kill < len(devices):
+            raise ValueError(
+                f"shrink_topology: kill must be in (0, {len(devices)}), "
+                f"got {kill}")
+        rng = np.random.default_rng((seed, len(devices), kill))
+        dead = set(rng.choice(len(devices), size=kill,
+                              replace=False).tolist())
+        survivors = [d for i, d in enumerate(devices) if i not in dead]
+        return survivors, sorted(dead)
 
 
 # ---------------------------------------------------------------------------

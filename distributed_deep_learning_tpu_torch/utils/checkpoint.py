@@ -8,7 +8,9 @@ temporary file and renamed into place, so a step either exists whole or
 not at all.  Beside it, written before it:
 
 * ``manifest-<s>.json``: per-leaf CRC32, shape, dtype and finiteness of
-  everything in the file; restores verify against it;
+  everything in the file, which restores verify against, and for a run
+  laid out over a mesh its ``topology`` block
+  (:class:`..reshard.manifest.Topology`: how each leaf was split);
 * ``extra-<s>.json`` (optional): the loader position and partial-phase
   totals of a mid-epoch save (:meth:`Checkpointer.read_extra`).
 
@@ -27,9 +29,11 @@ verifies, quarantining (renaming under ``quarantine/``, never deleting) a
 torn, bit-flipped or non-finite one.  A checkpointer ``shared`` by the
 ranks of a process group (``-m data``): the ranks gather their generator
 states, rank 0 writes and renames, every rank waits at a barrier after a
-save, loads the same file and takes its own generator state; a
-checkpoint of another world size is refused.  Otherwise (one process, or
-a ``--no-sync`` rank training its own replica) the process writes and
+save, loads the same file and takes its own generator state.  A
+checkpoint saved under another layout (another mesh, ``--zero`` or rank
+count) is refused: :mod:`..reshard.restore` (``--reshard``) restores it,
+each rank taking its part of each whole leaf.  Otherwise (one process,
+or a ``--no-sync`` rank training its own replica) the process writes and
 reads its directory alone.
 """
 
@@ -46,9 +50,9 @@ import torch
 import torch.distributed as dist
 
 from distributed_deep_learning_tpu_torch.parallel.shards import (
-    is_dtensor, is_split, local, local_part, resharded, whole, whole_shape)
+    full_tensor, is_dtensor, is_split, local, local_part, resharded, whole,
+    whole_shape)
 from distributed_deep_learning_tpu_torch.train.state import TrainState
-from distributed_deep_learning_tpu_torch.utils.config import ROADMAP_ITEMS
 
 _CKPT = re.compile(r"ckpt-(\d+)\.pt")
 
@@ -187,12 +191,10 @@ def whole_state_dict(model) -> dict:
 
 def _whole_optimizer(optimizer, writer: bool):
     """The optimizer's state dict with every split moment whole (the
-    writer's; None elsewhere for ZeRO-1, whose state consolidates on its
-    group's first rank)."""
+    writer's; None elsewhere for ZeRO-1, whose state consolidates on the
+    writer)."""
     if hasattr(optimizer, "consolidate_state_dict"):
-        group = optimizer.process_group
-        optimizer.consolidate_state_dict(to=dist.get_global_rank(group, 0))
-        return optimizer.state_dict() if writer else None
+        return _zero_state_dict(optimizer, writer)
     sd = optimizer.state_dict()
     params = [p for g in optimizer.param_groups for p in g["params"]]
     state = {}
@@ -203,11 +205,52 @@ def _whole_optimizer(optimizer, writer: bool):
     return {**sd, "state": state}
 
 
+def _zero_state_dict(optimizer, writer: bool):
+    """A ``ZeroRedundancyOptimizer``'s whole state dict in its
+    ``state_dict()`` format (the writer's; None elsewhere): each
+    parameter's state broadcast over the ZeRO group, by tensor
+    collectives, from the rank that holds it.  ZeRO's own
+    ``consolidate_state_dict`` pickles every rank's state and broadcasts
+    it to every rank, 75-80 s for 0.9 GB of Adam moments over gloo ranks
+    sharing an H100."""
+    group = optimizer.process_group
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    held = optimizer.optim.state
+    mine = {i: {k: ("tensor", tuple(v.shape), v.dtype, v.device.type)
+                if isinstance(v, torch.Tensor) else ("value", v)
+                for k, v in held[p].items()}
+            for i, p in enumerate(params) if p in held}
+    metas = [None] * dist.get_world_size(group)
+    dist.all_gather_object(metas, mine, group=group)
+    rank = dist.get_rank(group)
+    state = {}
+    for i, meta in sorted((i, m) for part in metas for i, m in part.items()):
+        p = params[i]
+        owner = optimizer._param_to_rank[p]
+        entry = {}
+        for k, m in meta.items():
+            if m[0] == "value":
+                entry[k] = m[1]
+                continue
+            _, shape, dtype, kind = m
+            # on the parameter's device: an NCCL group takes no CPU tensor
+            t = held[p][k].to(p.device) if owner == rank else \
+                torch.empty(shape, dtype=dtype, device=p.device)
+            dist.broadcast(t, src=dist.get_global_rank(group, owner),
+                           group=group)
+            entry[k] = t.cpu() if kind == "cpu" else t
+        state[i] = entry
+    if not writer:
+        return None
+    sd = torch.optim.Optimizer.state_dict(optimizer)
+    return {**sd, "state": state}
+
+
 def _whole_moment(p, v):
     if not (isinstance(v, torch.Tensor) and is_split(p)):
         return v
     if is_dtensor(v):
-        return v.full_tensor()
+        return full_tensor(v)
     if v.shape == local(p).shape and tuple(v.shape) != whole_shape(p):
         return whole(p, v)
     return v           # a statistic of the whole parameter already
@@ -268,9 +311,14 @@ def _with_sentinel(state: TrainState, payload: dict) -> dict:
     return payload
 
 
-def _load_params(model, sd: dict) -> None:
+def _load_params(model, sd: dict, method: str | None = None,
+                 stats=None) -> None:
+    """Copy the whole tensors of ``sd`` into ``model``, each rank its
+    part; ``method`` (``gather``, ``chunked`` or ``auto``) moves the
+    split ones as :func:`..reshard.redistribute.redistribute_leaf` does,
+    counted into ``stats``."""
     params = dict(resharded(model).named_parameters())
-    if not any(is_split(p) for p in params.values()):
+    if method is None and not any(is_split(p) for p in params.values()):
         model.load_state_dict(sd)
         return
     buffers = dict(model.named_buffers())
@@ -279,18 +327,44 @@ def _load_params(model, sd: dict) -> None:
                          f"match the model's {sorted(params)}")
     with torch.no_grad():
         for k, p in params.items():
+            if method is not None:
+                local(p).copy_(_placed(p, sd[k].to(dtype=local(p).dtype),
+                                       local(p).device, method, stats))
+                continue
             v = sd[k].to(local(p).device, local(p).dtype)
             local(p).copy_(local_part(p, v) if is_split(p) else v)
         for k, b in buffers.items():
             b.copy_(sd[k])
 
 
-def _load_optimizer(optimizer, sd: dict) -> None:
+def _placed(p, full, device, method: str, stats):
+    """This rank's part of ``full`` on ``device`` (see
+    :func:`_load_params`)."""
+    from distributed_deep_learning_tpu_torch.reshard.redistribute import \
+        redistribute
+
+    (part,), moved = redistribute([(p, full)], device, method=method)
+    if stats is not None:
+        stats.leaves += moved.leaves
+        stats.bytes_moved += moved.bytes_moved
+        stats.chunked += moved.chunked
+        stats.gathered += moved.gathered
+    return part
+
+
+def _load_optimizer(optimizer, sd: dict, method: str | None = None,
+                    stats=None) -> None:
     """Load whole moments into this run's layout: a split parameter's
     moment becomes its local part (a DTensor where the optimizer keeps
-    DTensor state, ``Adafactor``'s whole statistics as they are)."""
+    DTensor state, ``Adafactor``'s whole statistics as they are);
+    ``method`` as in :func:`_load_params`."""
     if hasattr(optimizer, "consolidate_state_dict"):
-        optimizer.load_state_dict(sd)
+        optimizer.load_state_dict(sd)       # keeps its own parameters'
+        if stats is not None:
+            from distributed_deep_learning_tpu_torch.parallel.zero import \
+                optimizer_state_bytes
+
+            stats.bytes_moved += optimizer_state_bytes(optimizer)
         return
     from torch.distributed.tensor import DTensor
 
@@ -302,9 +376,16 @@ def _load_optimizer(optimizer, sd: dict) -> None:
         p = params[int(i)]
         state[i] = {}
         for k, v in st.items():
-            if isinstance(v, torch.Tensor) and is_split(p) and \
+            moment = isinstance(v, torch.Tensor) and v.dim() > 0
+            if moment and method is not None and (
+                    not is_split(p) or keep_whole
+                    or tuple(v.shape) != whole_shape(p)):
+                v = _placed(None, v, local(p).device, method, stats)
+            elif moment and is_split(p) and \
                     not keep_whole and tuple(v.shape) == whole_shape(p):
-                part = local_part(p, v.to(local(p).device))
+                part = local_part(p, v.to(local(p).device)) \
+                    if method is None else \
+                    _placed(p, v, local(p).device, method, stats)
                 if is_dtensor(p) and not local_state:
                     part = DTensor.from_local(part, p.device_mesh,
                                               p.placements, shape=p.shape,
@@ -315,11 +396,14 @@ def _load_optimizer(optimizer, sd: dict) -> None:
 
 
 def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
-                 world: int = 1) -> TrainState:
+                 world: int = 1, method: str | None = None,
+                 stats=None) -> TrainState:
     """Copy a checkpoint's contents into ``state`` (in place), the dropout
     generator from the state that ``rank`` of ``world`` saved.  Raises
     ``ValueError`` when the checkpoint and the run disagree on dropout or
-    on the number of ranks that draw masks."""
+    on the number of ranks that draw masks.  ``method`` moves each leaf
+    as the resharding restore does (:mod:`..reshard.redistribute`),
+    counted into ``stats``."""
     gens = payload["generator"]
     if (gens is None) != (state.generator is None):
         raise ValueError("checkpoint and run disagree on dropout: one has a "
@@ -337,8 +421,9 @@ def load_payload(state: TrainState, payload: dict, *, rank: int = 0,
         state.comm.load(payload["params"], state.optimizer,
                         payload["optimizer"])
     else:
-        _load_params(state.model, payload["params"])
-        _load_optimizer(state.optimizer, payload["optimizer"])
+        _load_params(state.model, payload["params"], method, stats)
+        _load_optimizer(state.optimizer, payload["optimizer"], method,
+                        stats)
     if state.comm_residual is not None:
         from distributed_deep_learning_tpu_torch.parallel.collectives \
             import load_residual
@@ -359,10 +444,13 @@ class Checkpointer:
     """Checkpoints of one run directory, the newest ``keep`` kept.
     ``replicated_generator``: the ranks share one dropout stream (the
     pipeline grid's, whose ranks draw the same step seed), so a
-    checkpoint holds it once and restores at any world size."""
+    checkpoint holds it once and restores at any world size.  ``mesh``
+    (axis -> size): the layout the run's state lies on; each save then
+    records the state's topology, and a restore of another layout is
+    refused (``--reshard``'s)."""
 
     def __init__(self, directory: str | os.PathLike, *, keep: int = 3,
-                 shared: bool = True, topology: dict | None = None,
+                 shared: bool = True, mesh: dict | None = None,
                  replicated_generator: bool = False,
                  publish_dir: str | None = None):
         self._dir = os.path.abspath(os.fspath(directory))
@@ -373,7 +461,7 @@ class Checkpointer:
         #: process 0 publishes (ranks that keep their own replicas too)
         self.publish_dir = publish_dir if (
             not dist.is_initialized() or dist.get_rank() == 0) else None
-        self.topology = topology
+        self.mesh = mesh
         self.replicated_generator = replicated_generator
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -421,6 +509,12 @@ class Checkpointer:
         if step in self.all_steps():
             self._barrier()
             return False
+        topology = None
+        if self.mesh is not None:
+            from distributed_deep_learning_tpu_torch.reshard.manifest import \
+                capture
+
+            topology = capture(state, self.mesh).to_json()
         payload = None
         if self._writer or is_sharded(state):
             payload = state_payload(state, generators, writer=self._writer,
@@ -430,14 +524,16 @@ class Checkpointer:
             if event is not None:
                 state.fence = event
             self._thread = threading.Thread(
-                target=self._write, args=(step, payload, event, extra),
+                target=self._write,
+                args=(step, payload, event, extra, topology),
                 name=f"checkpoint-{step}", daemon=True)
             self._thread.start()
         if wait:
             self.wait_until_finished()
         return True
 
-    def _write(self, step: int, payload: dict, event, extra) -> None:
+    def _write(self, step: int, payload: dict, event, extra,
+               topology: dict | None = None) -> None:
         """The writer thread: the sidecars, then the file under a
         temporary name renamed into place."""
         try:
@@ -450,8 +546,8 @@ class Checkpointer:
                         "all_finite": all(r.get("finite", True)
                                           for r in records.values()),
                         "leaves": records}
-            if self.topology is not None:
-                manifest["topology"] = self.topology
+            if topology is not None:
+                manifest["topology"] = topology
             self._write_json(self._path("manifest", step), manifest)
             path = self._path("ckpt", step)
             tmp = f"{path}.tmp.{os.getpid()}"
@@ -536,38 +632,59 @@ class Checkpointer:
         """The integrity manifest of ``step`` (default: latest), or None."""
         return self._read_json("manifest", step)
 
+    def read_topology(self, step: int | None = None):
+        """The :class:`..reshard.manifest.Topology` ``step`` (default:
+        latest) was saved under, or None (no manifest, or one from before
+        topology manifests: legacy)."""
+        from distributed_deep_learning_tpu_torch.reshard.manifest import \
+            Topology
+
+        return Topology.from_json((self.read_manifest(step) or {})
+                                  .get("topology"))
+
     # -- restore ------------------------------------------------------------
-    def load(self, step: int) -> dict:
+    def load(self, step: int, mmap: bool = False) -> dict:
         """The payload of ``step``, checked against its manifest (raises
         :class:`CheckpointCorruption`; a torn file raises from
-        ``torch.load``)."""
+        ``torch.load``).  ``mmap``: the file is mapped, not read, so a
+        tensor's pages are read when it (or a slice of it) is used."""
         payload = torch.load(self._path("ckpt", step), map_location="cpu",
-                             weights_only=True)
+                             weights_only=True, mmap=mmap)
         self._verify(step, payload)
         return payload
 
-    def restore(self, state: TrainState,
-                step: int | None = None) -> TrainState | None:
+    def restore(self, state: TrainState, step: int | None = None, *,
+                method: str | None = None, stats=None
+                ) -> TrainState | None:
         """Load ``step`` (default: latest), verified, into ``state``; None
-        when the directory holds no checkpoint."""
+        when the directory holds no checkpoint.  ``method`` (``gather``,
+        ``chunked`` or ``auto``): restore it whatever layout it was saved
+        under, each leaf moved so (:mod:`..reshard.restore`; ``chunked``
+        maps the file), counted into ``stats``."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return self._into(state, self.load(step), step)
+        payload = self.load(step, mmap=method in ("chunked", "auto"))
+        return self._into(state, payload, step, method, stats)
 
-    def _into(self, state: TrainState, payload: dict,
-              step: int) -> TrainState:
-        saved = (self.read_manifest(step) or {}).get("topology")
-        if saved is not None and self.topology is not None and \
-                saved != self.topology:
-            raise ValueError(
-                f"checkpoint step {step} was saved under {saved}, this run "
-                f"is {self.topology}: restoring it into another layout is "
-                f"--reshard's, not ported yet: {ROADMAP_ITEMS['14b']}")
+    def _into(self, state: TrainState, payload: dict, step: int,
+              method: str | None = None, stats=None) -> TrainState:
+        if method is None and self.mesh is not None:
+            from distributed_deep_learning_tpu_torch.reshard.manifest import \
+                of_placement, same_topology
+
+            saved = self.read_topology(step)
+            current = of_placement(state, self.mesh)
+            if saved is not None and not same_topology(saved, current):
+                raise ValueError(
+                    f"checkpoint step {step} was saved under "
+                    f"{saved.describe()}, this run is {current.describe()}"
+                    " with another layout: restoring it needs --reshard "
+                    "(the resharding restore)")
         if self.replicated_generator:
-            return load_payload(state, payload)
+            return load_payload(state, payload, method=method, stats=stats)
         return load_payload(state, payload, rank=self._rank,
-                            world=self._world)
+                            world=self._world, method=method, stats=stats)
 
     def _verify(self, step: int, payload: dict) -> None:
         manifest = self.read_manifest(step)

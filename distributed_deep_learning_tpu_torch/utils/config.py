@@ -13,15 +13,17 @@ speculation (``--draft``, ``--spec-k``), quantized serving
 (``--serve-deadline-ms``, ``--serve-retries``, ``--reload-watch``,
 ``--canary-slots``, ``--admission``, ``--publish-weights``) and the
 fleet (``--replicas``, ``--priority-classes``, ``--spill-dir``,
-``--migrate``, ``--evacuate-on``, ``--autoscale``)).
+``--migrate``, ``--evacuate-on``, ``--autoscale``), resharding
+(``--reshard``, ``--target-mesh``) and tuning (``--autotune``,
+``--plan``)).
 
 Flag names, defaults, parse-time checks and the per-workload ``-l/-s``
 defaults are the JAX CLI's, except ``-d``: ``cuda`` (the default; ``gpu``
 is an alias) or ``cpu``.  ``--spawn`` is taken off the command line by
-``__main__`` before parsing, as in the JAX package.  The JAX CLI's other
-flags are accepted by the parser only to be refused: :func:`parse_args`
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
-port them.
+``__main__`` before parsing, as in the JAX package.  A JAX CLI flag the
+port does not run yet would be accepted by the parser only to be refused
+(:data:`UNPORTED_FLAGS`: :func:`parse_args` raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item); none is left.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import enum
+import os
 from typing import Sequence
 
 #: ``--remat-policy`` names, as the JAX CLI's; the model maps each to the
@@ -164,6 +167,17 @@ class Config:
     obs_trace: str | None = None        # span-trace export (Chrome JSON)
     obs_rotate_mb: float | None = None  # size-cap the sidecar
     obs_blackbox: str | None = None     # arm the flight recorder
+    reshard: bool = False               # cross-topology resume: restore a
+                                        #   checkpoint saved on another
+                                        #   layout, re-planning (reshard/)
+    target_mesh: dict[str, int] | None = None  # --target-mesh: pin the
+                                        #   restart mesh instead
+    autotune: bool = False              # search the plan lattice (tune/)
+                                        #   before training, train under
+                                        #   the best measured plan
+    plan_file: str | None = None        # plan artifact: --plan applies it;
+                                        #   with --autotune the search
+                                        #   result is written there
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -183,19 +197,11 @@ WORKLOAD_DEFAULTS: dict[str, dict[str, int]] = {
 }
 
 #: ROADMAP.md queue 1 items that port what the port refuses
-ROADMAP_ITEMS = {
-    "14b": "ROADMAP.md queue 1 item 14(b) (resharding)",
-    "14c": "ROADMAP.md queue 1 item 14(c) (tuning)",
-    16: "ROADMAP.md queue 1 item 16 (--remat-policy dots on the conv and "
-        "BatchNorm models)",
-}
+ROADMAP_ITEMS: dict = {}
 
 #: JAX CLI flags the port refuses -> the item that ports them; a
-#: trailing "=" marks a flag that takes a value
-UNPORTED_FLAGS = {
-    "--reshard": "14b", "--target-mesh=": "14b", "--autotune": "14c",
-    "--plan=": "14c",
-}
+#: trailing "=" marks a flag that takes a value (none is left)
+UNPORTED_FLAGS: dict = {}
 
 #: reduced-precision storage the serving options take (None: the compute
 #: dtype, which keeps every exact-parity guarantee)
@@ -394,7 +400,27 @@ def build_parser(workload: str = "") -> argparse.ArgumentParser:
                    help="shared directory for liveness heartbeats; with "
                         "--elastic, dead peers abort the step promptly "
                         "instead of hanging the collective")
+    p.add_argument("--reshard", action="store_true",
+                   help="cross-topology resume: restore the checkpoint even "
+                        "if it was saved on a different mesh, re-planning "
+                        "for the surviving devices via tune/ (requires "
+                        "--resume or --elastic)")
+    p.add_argument("--target-mesh", type=str, default=None, metavar="SHAPE",
+                   help="with --reshard: restore onto exactly this mesh "
+                        "(same axis=N syntax as --mesh) instead of "
+                        "re-planning")
     p.add_argument("--heartbeat-timeout", type=float, default=30.0)
+    p.add_argument("--autotune", action="store_true",
+                   help="search the mesh x microbatch x remat x ZeRO plan "
+                        "lattice (tune/) with memory-model pruning and "
+                        "measured trials, write the winning plan artifact "
+                        "(--plan sets the path), then train under it")
+    p.add_argument("--plan", dest="plan_file", type=str, default=None,
+                   metavar="FILE",
+                   help="apply a plan artifact from a previous --autotune "
+                        "run (rejected if its key does not match this "
+                        "workload/geometry/topology); with --autotune, "
+                        "where to write the search result")
     p.add_argument("--generate", dest="generate_tokens", type=int,
                    default=0, metavar="N",
                    help="gpt: after training, print N-token greedy "
@@ -607,6 +633,18 @@ def parse_args(argv: Sequence[str] | None = None,
                                    or args.sentinel_factor <= 1.0):
         raise SystemExit("--sentinel-window must be >= 1 and "
                          "--sentinel-factor > 1")
+    # the JAX CLI's resharding checks (utils/config.py:952-962 there)
+    if args.reshard and not (args.resume or args.elastic):
+        raise SystemExit("--reshard requires --resume or --elastic (it "
+                         "changes how an existing checkpoint is restored; "
+                         "a fresh run has nothing to reshard)")
+    if args.reshard and not args.checkpoint_dir:
+        raise SystemExit("--reshard requires --checkpoint-dir (the "
+                         "topology manifest lives next to the checkpoint)")
+    if args.target_mesh and not args.reshard:
+        raise SystemExit("--target-mesh requires --reshard (without the "
+                         "resharding restore a mesh change would restore "
+                         "garbage; use --mesh to shape a fresh run)")
     # the JAX CLI's serving checks (utils/config.py:1012-1020, 1029-1033)
     if args.max_slots <= 0:
         raise SystemExit(f"--max-slots {args.max_slots}: must be >= 1 "
@@ -755,6 +793,10 @@ def parse_args(argv: Sequence[str] | None = None,
         raise SystemExit("--comm-overlap requires --comm bf16|int8 (it "
                          "selects the ring schedule for the explicit "
                          "collectives --comm turns on)")
+    if args.plan_file and not args.autotune and \
+            not os.path.exists(args.plan_file):
+        raise SystemExit(f"--plan {args.plan_file}: no such file (run "
+                         "--autotune to produce one)")
     # the JAX CLI's --obs checks (utils/config.py:1000-1011 there)
     if args.obs_file and not args.obs:
         raise SystemExit("--obs-file requires --obs (the path names the "
@@ -831,7 +873,9 @@ def parse_args(argv: Sequence[str] | None = None,
         prefill_workers=args.prefill_workers, profile_dir=args.profile_dir,
         metrics_file=args.metrics_file, obs=args.obs, obs_file=args.obs_file,
         obs_trace=args.obs_trace, obs_rotate_mb=args.obs_rotate_mb,
-        obs_blackbox=args.obs_blackbox)
+        obs_blackbox=args.obs_blackbox, reshard=args.reshard,
+        target_mesh=parse_mesh_arg(args.target_mesh, flag="--target-mesh"),
+        autotune=args.autotune, plan_file=args.plan_file)
 
 
 #: ``--admission`` spec keys → (AdmissionController kwarg, converter,

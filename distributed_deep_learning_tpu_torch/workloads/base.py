@@ -57,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import sys
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -91,7 +92,7 @@ from distributed_deep_learning_tpu_torch.parallel.shards import (
 from distributed_deep_learning_tpu_torch.utils.checkpoint import (
     Checkpointer, load_payload, state_payload, whole_state_dict)
 from distributed_deep_learning_tpu_torch.utils.config import (
-    REMAT_POLICIES, ROADMAP_ITEMS, Config, Mode)
+    Config, Mode)
 from distributed_deep_learning_tpu_torch.utils import profiling
 from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 
@@ -101,8 +102,7 @@ class WorkloadSpec:
     """What differs between workloads (the JAX spec's fields that the
     ported paths read).  ``pre_train_check(config, dataset)`` rejects a
     run before training; ``post_train(config, state, logger, dataset)``
-    runs ``--generate``/``--serve`` after it.  ``remat_policies``: the
-    ``--remat-policy`` values the model takes; ``double_softmax``: whether
+    runs ``--generate``/``--serve`` after it.  ``double_softmax``: whether
     its head takes ``--double-softmax``.  The staged modes read
     ``build_layers(config, dataset)`` (the partitionable layer list),
     ``partitioner(n_layers, n_stages)`` and ``stage_input(config)`` (the
@@ -126,7 +126,6 @@ class WorkloadSpec:
     build_pipelined: Optional[Callable[[Config, Any, int], nn.Module]] = None
     pre_train_check: Optional[Callable[[Config, Any], None]] = None
     post_train: Optional[Callable[..., None]] = None
-    remat_policies: tuple[str, ...] = REMAT_POLICIES
     double_softmax: bool = False
     decoder_options: bool = False
     token_ce: bool = False
@@ -214,7 +213,7 @@ def resolve_lr(config: Config, epoch_steps: int, base_lr: float):
 
 
 def _maybe_checkpointer(config: Config, rank: int, shared: bool,
-                        topology: dict | None = None,
+                        mesh: dict | None = None,
                         replicated_generator: bool = False):
     """``(checkpointer, ckpt_step, start_epoch, resume_batch,
     resume_totals)`` from ``--checkpoint-dir``/``--resume``; a directory
@@ -222,15 +221,16 @@ def _maybe_checkpointer(config: Config, rank: int, shared: bool,
     saves would be skipped in favour of the old run's steps).  ``shared``:
     the ranks train one model and save it together; otherwise (quirk Q1)
     each rank keeps its own replica, rank r > 0 under ``rank-<r>/``.
-    ``topology``: the run's mesh and ``--zero``, recorded in and checked
-    against each checkpoint's manifest.  ``--elastic`` is exempt from the
+    ``mesh``: the sizes of the mesh the state lies on; each checkpoint's
+    manifest records the state's topology over it, and a restore checks
+    it (:mod:`..reshard.manifest`).  ``--elastic`` is exempt from the
     dirty-directory refusal: resuming on a restart is its contract (it
     logs what it restored)."""
     if not config.checkpoint_dir:
         return None, None, 1, 0, None
     directory = config.checkpoint_dir if shared or rank == 0 \
         else os.path.join(config.checkpoint_dir, f"rank-{rank}")
-    ckpt = Checkpointer(directory, shared=shared, topology=topology,
+    ckpt = Checkpointer(directory, shared=shared, mesh=mesh,
                         replicated_generator=replicated_generator,
                         publish_dir=config.publish_weights)
     if not config.resume:
@@ -245,11 +245,20 @@ def _maybe_checkpointer(config: Config, rank: int, shared: bool,
 
 
 def _restore_resume(ckpt, state, ckpt_step, start_epoch, resume_batch,
-                    resume_totals, logger):
+                    resume_totals, logger, restore_fn=None, telemetry=None):
     """Verified restore for ``--resume``: a torn or corrupt step is
     quarantined and the newest good one restored, and the resume point is
-    decoded again from the step actually restored."""
-    restored, used = ckpt.restore_verified(state, step=ckpt_step)
+    decoded again from the step actually restored.  ``restore_fn`` (same
+    contract as ``restore_verified``) swaps in the resharding restore
+    under ``--reshard``; with ``telemetry`` that case lands in the
+    ``reshard`` span, a plain verified restore in ``recovery``."""
+    restore = restore_fn or ckpt.restore_verified
+    if telemetry is None:
+        restored, used = restore(state, step=ckpt_step)
+    else:
+        kind = "reshard" if restore_fn is not None else "recovery"
+        with telemetry.timeline.span(kind):
+            restored, used = restore(state, step=ckpt_step)
     if used is None:
         logger.info("checkpoint integrity: no verifiable checkpoint "
                     "survives; starting fresh")
@@ -450,7 +459,8 @@ def _reset_fn(state: TrainState) -> Callable[[], TrainState]:
 
 
 def _fit_elastic(config: Config, logger, make_state, train_step, eval_step,
-                 loaders, ckpt, sentinel=None, telemetry=None):
+                 loaders, ckpt, sentinel=None, telemetry=None,
+                 restore_fn=None):
     """``--elastic``: checkpointed restart on a failure
     (:func:`..train.elastic.fit_with_recovery`), with heartbeats and a
     failure monitor under ``--heartbeat-dir``, stopped in ``finally``."""
@@ -479,7 +489,8 @@ def _fit_elastic(config: Config, logger, make_state, train_step, eval_step,
                                  checkpointer=ckpt, logger=logger,
                                  monitor=monitor,
                                  checkpoint_every=config.checkpoint_every,
-                                 sentinel=sentinel, telemetry=telemetry)
+                                 sentinel=sentinel, telemetry=telemetry,
+                                 restore_fn=restore_fn)
     finally:
         if monitor is not None:
             monitor.stop()
@@ -531,11 +542,6 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
     if config.grad_accum > 1 and config.remat:
         raise ValueError("--remat with --grad-accum is not implemented; "
                          "drop one of the two")
-    if config.remat and config.remat_policy not in spec.remat_policies:
-        raise NotImplementedError(
-            f"--remat-policy {config.remat_policy} is not ported for "
-            f"{spec.name!r} (it takes {'/'.join(spec.remat_policies)}): "
-            f"{ROADMAP_ITEMS[16]}")
     if config.double_softmax and not spec.double_softmax:
         raise ValueError(f"--double-softmax is not supported by workload "
                          f"{spec.name!r} (mlp and cnn only)")
@@ -545,7 +551,10 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
         torch.backends.cuda.matmul.allow_tf32 = False
     spmd = config.mode is Mode.PIPELINE and spec.build_pipelined is not None
     _mesh_refusals(config, spmd_pipeline=spmd)
-    if config.mode in (Mode.MODEL, Mode.PIPELINE):
+    # a plan runs -m data (Plan.to_overrides pins the mode), so --autotune
+    # and --plan runs take the data-parallel path whatever their -m
+    planned = bool(config.autotune or config.plan_file)
+    if config.mode in (Mode.MODEL, Mode.PIPELINE) and not planned:
         if spmd:
             return _run_spmd_pipelined(spec, config, init_state_dict)
         if config.world_size > 1 or bootstrap.env_topology()[1] > 1:
@@ -557,7 +566,7 @@ def run_workload(spec: WorkloadSpec, config: Config, *,
                 "pipeline with transformer/bert/gpt for a data x stage "
                 "grid of ranks")
         return _run_staged(spec, config, init_state_dict)
-    if config.mode is Mode.SEQUENTIAL:
+    if config.mode is Mode.SEQUENTIAL and not planned:
         return _train(spec, config, bootstrap.DistEnv(
             device=resolve_device(config.device)), init_state_dict)
     env, created = _data_parallel_env(config)
@@ -582,9 +591,11 @@ def build_dataset(spec: WorkloadSpec, config: Config):
     return spec.build_dataset(config)
 
 
-def _dataset_splits(spec, config):
-    """The dataset (checked by ``pre_train_check``) and its split."""
-    dataset = build_dataset(spec, config)
+def _dataset_splits(spec, config, dataset=None):
+    """The dataset (checked by ``pre_train_check``; built unless given)
+    and its split."""
+    if dataset is None:
+        dataset = build_dataset(spec, config)
     if spec.pre_train_check is not None:
         spec.pre_train_check(config, dataset)
     # DDL_DATA_LIMIT caps the examples considered (CI / smoke runs)
@@ -634,12 +645,14 @@ def _shard_fn(spec, config, sharding, layout):
     return None
 
 
-def train_setup(spec, config, env, init_state_dict, logger, registry=None):
+def train_setup(spec, config, env, init_state_dict, logger, registry=None,
+                dataset=None):
     """``(state, train_step, eval_step, loaders, dataset, checkpointer
     parts, sentinel config)`` of a sequential or ``-m data`` run (see
-    :func:`_train`); ``registry`` counts ``--comm``'s wire bytes a step."""
+    :func:`_train`); ``registry`` counts ``--comm``'s wire bytes a step;
+    ``dataset`` is built unless given (the tuner's trials share one)."""
     device = env.device
-    dataset, splits = _dataset_splits(spec, config)
+    dataset, splits = _dataset_splits(spec, config, dataset)
     sentinel = _sentinel_config(config)
     data_parallel = config.mode is Mode.DATA
     if data_parallel and not config.sync_in_local_data_mode:
@@ -690,10 +703,9 @@ def train_setup(spec, config, env, init_state_dict, logger, registry=None):
         logger.info(f"mesh {layout.sizes}: state "
                     f"{sharding or 'replicated'}, batch split "
                     f"{layout.batch_world} ways")
-    topology = {"mesh": layout.sizes, "zero": config.zero} \
-        if data_parallel else None
-    ckpt_parts = _maybe_checkpointer(config, env.rank, shared=data_parallel,
-                                     topology=topology)
+    ckpt_parts = _maybe_checkpointer(
+        config, env.rank, shared=data_parallel,
+        mesh=layout.sizes if data_parallel else None)
     ddp, synced = None, data_parallel and layout.batch_world > 1
     loss_fn = spec.build_loss(config)
     if data_parallel and not local_mean:
@@ -756,39 +768,206 @@ def _explicit_fsdp(config: Config, state: TrainState, layout, tx, loss_fn,
 def _train(spec, config, env, init_state_dict):
     with _run_context(config, bootstrap.is_coordinator()) as (logger,
                                                               telemetry):
-        state, train_step, eval_step, loaders, dataset, ckpt_parts, \
-            sentinel = train_setup(
-                spec, config, env, init_state_dict, logger,
-                telemetry.registry if telemetry is not None else None)
-        ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
-            ckpt_parts
-        if telemetry is not None:
-            telemetry.count_train_flops(n_devices=env.world)
-        with profiling.trace(config.profile_dir):
-            if config.elastic:
-                state, history = _fit_elastic(
-                    config, logger, _reset_fn(state), train_step,
-                    eval_step, loaders, ckpt, sentinel=sentinel,
-                    telemetry=telemetry)
-            else:
-                if ckpt is not None and ckpt_step is not None:
-                    state, start_epoch, resume_batch, resume_totals = \
-                        _restore_resume(ckpt, state, ckpt_step, start_epoch,
-                                        resume_batch, resume_totals, logger)
-                state, history = fit(
-                    state, train_step, eval_step, *loaders,
-                    epochs=config.epochs, logger=logger, checkpointer=ckpt,
-                    start_epoch=start_epoch,
-                    checkpoint_every=config.checkpoint_every,
-                    resume_batch=resume_batch, resume_totals=resume_totals,
-                    sentinel=sentinel, telemetry=telemetry)
-        # every rank runs the hook, as in the JAX package; rank 0 logs
-        if (config.generate_tokens or config.serve) and \
-                spec.post_train is not None:
-            spec.post_train(config,
-                            whole_state(spec, config, dataset, state),
-                            logger, dataset)
-        return state, history
+        dataset = down = None
+        if config.autotune or config.plan_file:
+            # plan fields never affect the dataset: the search's trials
+            # and the run share one
+            dataset = build_dataset(spec, config)
+            config = _resolve_plan(spec, config, logger, dataset)
+        if config.reshard and config.mode is Mode.DATA:
+            # before any mesh exists: peek at the saved topology and, when
+            # it no longer matches the launched ranks, let tune/ re-plan
+            # this restart's mesh (--target-mesh overrides the search)
+            from distributed_deep_learning_tpu_torch.reshard.replan import \
+                resolve_restart_topology
+            from distributed_deep_learning_tpu_torch.tune.trial import \
+                launched_devices
+
+            if dataset is None:
+                dataset = build_dataset(spec, config)
+            config = resolve_restart_topology(
+                spec, config, launched_devices(config), logger,
+                dataset=dataset)
+            down = _StepDown.of(config, env, logger)
+            if down is not None:
+                if down.sits_out:
+                    down.wait()
+                    return None, []
+                config, env = down.config, down.env
+        try:
+            return _fit_run(spec, config, env, init_state_dict, logger,
+                            telemetry, dataset)
+        finally:
+            if down is not None:
+                down.finish()
+
+
+def _resolve_plan(spec: WorkloadSpec, config: Config, logger,
+                  dataset) -> Config:
+    """``--autotune`` / ``--plan FILE`` → the config the run actually uses
+    (JAX's).  Autotune searches the plan lattice with measured trials
+    (reusing the already-built dataset; every rank in lockstep), rank 0
+    writes the artifact, and the winner applies; ``--plan`` alone loads an
+    artifact, verifies its key against this run's (workload, geometry,
+    topology), and applies it.  Either way the result is plain ``Config``
+    field overrides — every downstream code path is unchanged."""
+    from distributed_deep_learning_tpu_torch.tune import \
+        artifact as plan_artifact
+    from distributed_deep_learning_tpu_torch.tune.space import apply_plan
+    from distributed_deep_learning_tpu_torch.tune.trial import (
+        device_identity, launched_devices)
+
+    devices = launched_devices(config)
+    platform, device_kind = device_identity(devices)
+    key = plan_artifact.plan_key(spec.name, config, len(devices),
+                                 platform, device_kind)
+    if config.autotune:
+        from distributed_deep_learning_tpu_torch.tune.search import \
+            run_search
+
+        result = run_search(spec, config, devices=devices, dataset=dataset,
+                            logger=logger)
+        path = config.plan_file or f"autotune_{spec.name}.plan.json"
+        if bootstrap.is_coordinator():
+            plan_artifact.save_plan(
+                path, result.best, key=key, workload=spec.name,
+                topology={"n_devices": len(devices), "platform": platform,
+                          "device_kind": device_kind},
+                search=result.record())
+        logger.info(
+            f"autotune: best plan {plan_artifact.plan_hash(result.best)} "
+            f"[{result.best.describe()}] "
+            f"{result.best_sps:.2f} steps/s vs baseline "
+            f"{result.baseline_sps:.2f}; artifact -> {path}")
+        return apply_plan(config, result.best)
+    plan, record = plan_artifact.load_plan(config.plan_file,
+                                           expected_key=key)
+    logger.info(f"plan {record['plan_hash']} [{plan.describe()}] applied "
+                f"from {config.plan_file}")
+    return apply_plan(config, plan)
+
+
+class _StepDown:
+    """A re-plan onto fewer ranks than were launched (6 survivors at a
+    batch of 64 re-plan onto 4).  JAX leaves the spare devices idle; the
+    port runs one process a rank, so the plan's ranks (the lowest) form a
+    new default group among themselves, and each rank beyond them logs
+    that it sits the run out, waits for the run's end on a key-value
+    store that rank 0 keeps, and returns."""
+
+    WAIT = 7200.0   # seconds a sitting-out rank waits for the run's end
+
+    def __init__(self, store, rank: int, need: int, world: int,
+                 config: Config, env):
+        self.store, self.rank, self.need, self.world = store, rank, need, \
+            world
+        self.sits_out = rank >= need
+        self.config, self.env = config, env
+
+    @classmethod
+    def of(cls, config: Config, env, logger) -> "_StepDown | None":
+        import datetime
+
+        import torch.distributed as dist
+
+        from distributed_deep_learning_tpu_torch.runtime.mesh import MeshSpec
+
+        sizes = MeshSpec.from_dict(config.mesh_shape or {"data": -1}).sizes()
+        need = env.world if -1 in sizes else int(np.prod(sizes))
+        if need >= env.world:
+            return None
+        box = [[bootstrap.free_port(), bootstrap.free_port()]]
+        dist.broadcast_object_list(box, src=0)
+        ports = box[0]
+        addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        store = dist.TCPStore(addr, ports[1], is_master=env.rank == 0,
+                              wait_for_workers=False,
+                              timeout=datetime.timedelta(seconds=cls.WAIT))
+        backend = dist.get_backend()
+        dist.barrier()
+        bootstrap.shutdown()
+        if env.rank >= need:
+            print(f"reshard: rank {env.rank} sits out: the re-planned mesh "
+                  f"{config.mesh_shape} takes ranks 0-{need - 1} of the "
+                  f"{env.world} launched; waiting for the run's end",
+                  file=sys.stderr, flush=True)
+            return cls(store, env.rank, need, env.world, config, None)
+        # the launch's backend again (gloo ranks may share a card)
+        dist.init_process_group(backend, init_method=f"tcp://{addr}:"
+                                f"{ports[0]}", world_size=need,
+                                rank=env.rank, device_id=env.device
+                                if backend == "nccl" else None)
+        os.environ.update(WORLD_SIZE=str(need), MASTER_PORT=str(ports[0]))
+        new_env = bootstrap.DistEnv(env.rank, need, env.device)
+        logger.info(f"reshard: the re-planned mesh {config.mesh_shape} "
+                    f"takes {need} of the {env.world} launched ranks; "
+                    f"ranks {need}-{env.world - 1} sit out")
+        return cls(store, env.rank, need, env.world,
+                   config.replace(world_size=need), new_env)
+
+    def wait(self) -> None:
+        """A sitting-out rank: wait for rank 0's word, then acknowledge."""
+        self.store.wait(["done"])
+        self.store.set(f"ack-{self.rank}", "1")
+
+    def finish(self) -> None:
+        """The run's end: rank 0 releases the ranks that sat out and
+        waits until each has read it (its store must outlive their
+        reads)."""
+        if self.rank == 0:
+            self.store.set("done", "1")
+            self.store.wait([f"ack-{r}" for r in range(self.need,
+                                                       self.world)])
+
+
+def _fit_run(spec, config, env, init_state_dict, logger, telemetry,
+             dataset):
+    """:func:`_train`'s setup and fit, once the run's layout is known."""
+    state, train_step, eval_step, loaders, dataset, ckpt_parts, \
+        sentinel = train_setup(
+            spec, config, env, init_state_dict, logger,
+            telemetry.registry if telemetry is not None else None,
+            dataset=dataset)
+    ckpt, ckpt_step, start_epoch, resume_batch, resume_totals = \
+        ckpt_parts
+    restore_fn = None
+    if config.reshard and ckpt is not None:
+        # restores go through the resharding path: same-topology and
+        # legacy checkpoints restore plainly, anything else is
+        # redistributed onto this run's layout
+        from distributed_deep_learning_tpu_torch.reshard.restore import \
+            make_restore_fn
+
+        restore_fn = make_restore_fn(ckpt, ckpt.mesh, logger=logger)
+    if telemetry is not None:
+        telemetry.count_train_flops(n_devices=env.world)
+    with profiling.trace(config.profile_dir):
+        if config.elastic:
+            state, history = _fit_elastic(
+                config, logger, _reset_fn(state), train_step,
+                eval_step, loaders, ckpt, sentinel=sentinel,
+                telemetry=telemetry, restore_fn=restore_fn)
+        else:
+            if ckpt is not None and ckpt_step is not None:
+                state, start_epoch, resume_batch, resume_totals = \
+                    _restore_resume(ckpt, state, ckpt_step, start_epoch,
+                                    resume_batch, resume_totals, logger,
+                                    restore_fn=restore_fn,
+                                    telemetry=telemetry)
+            state, history = fit(
+                state, train_step, eval_step, *loaders,
+                epochs=config.epochs, logger=logger, checkpointer=ckpt,
+                start_epoch=start_epoch,
+                checkpoint_every=config.checkpoint_every,
+                resume_batch=resume_batch, resume_totals=resume_totals,
+                sentinel=sentinel, telemetry=telemetry)
+    # every rank runs the hook, as in the JAX package; rank 0 logs
+    if (config.generate_tokens or config.serve) and \
+            spec.post_train is not None:
+        spec.post_train(config,
+                        whole_state(spec, config, dataset, state),
+                        logger, dataset)
+    return state, history
 
 
 # ---------------------------------------------------------------------------

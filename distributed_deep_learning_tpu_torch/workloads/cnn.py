@@ -80,7 +80,6 @@ SPEC = WorkloadSpec(
     build_layers=_layers,
     partitioner=block_partition,   # reference CNN/model.py:196-201
     stage_input=nchw_input,
-    remat_policies=("nothing",),
     double_softmax=True,
     build_optimizer=lambda c, steps: reference_optimizer(
         "cnn", c.learning_rate if c.learning_rate != 1e-3 else None,

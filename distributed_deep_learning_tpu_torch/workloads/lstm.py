@@ -66,7 +66,6 @@ SPEC = WorkloadSpec(
     build_layers=_layers,
     partitioner=lstm_aware_partition,   # reference LSTM/model.py:98-124
     stage_input=cast_input,
-    remat_policies=("nothing",),
     build_optimizer=lambda c, steps: reference_optimizer("lstm",
                                                          c.learning_rate),
 )

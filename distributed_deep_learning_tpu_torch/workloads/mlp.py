@@ -71,7 +71,6 @@ SPEC = WorkloadSpec(
     build_layers=_layers,
     partitioner=balanced_partition,   # reference MLP/model.py:62-76
     stage_input=cast_input,
-    remat_policies=("nothing",),
     double_softmax=True,
     build_optimizer=lambda c, steps: reference_optimizer("mlp",
                                                          c.learning_rate),

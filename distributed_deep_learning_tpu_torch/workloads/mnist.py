@@ -91,7 +91,6 @@ SPEC = WorkloadSpec(
     build_layers=_layers,
     partitioner=balanced_partition,
     stage_input=nchw_input,
-    remat_policies=("nothing",),
     build_optimizer=lambda c, steps: Optimizer(
         "adam", resolve_lr(c, steps, c.learning_rate)),
 )

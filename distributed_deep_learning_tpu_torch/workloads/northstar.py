@@ -151,7 +151,6 @@ RESNET_SPEC = WorkloadSpec(
     build_layers=_resnet_layers,
     partitioner=balanced_partition,
     stage_input=nchw_input,
-    remat_policies=("nothing",),
     # optax.sgd(lr, momentum=0.9), lr 0.1 unless --lr moves it off 1e-3
     build_optimizer=lambda c, steps: Optimizer("momentum", resolve_lr(
         c, steps, c.learning_rate if c.learning_rate != 1e-3 else 0.1)),

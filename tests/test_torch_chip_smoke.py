@@ -16,6 +16,7 @@ from concurrent.futures import Future
 from fractions import Fraction
 from pathlib import Path
 
+import numpy as np
 import pytest
 from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
@@ -194,7 +195,8 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               30: "phase_moe", 31: "phase_sharded", 32: "phase_comm",
               33: "phase_grid", 34: "phase_resilience",
               35: "phase_serving_resilience", 36: "phase_disagg",
-              37: "phase_obs"}
+              37: "phase_obs", 38: "phase_remat", 39: "phase_tune",
+              40: "phase_reshard"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -234,11 +236,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_comm", {"comm": {}, "seq": {}}),
             ("phase_grid", {}), ("phase_resilience", {}),
             ("phase_serving_resilience", {}), ("phase_disagg", {}),
-            ("phase_obs", {})):
+            ("phase_obs", {}), ("phase_remat", {}), ("phase_tune", {}),
+            ("phase_tune_oom", None), ("phase_reshard", {})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 38)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 41)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -617,6 +620,8 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
         "phase_grid": {"1f1b f32 2 ranks": {"launches": flash}},
         "phase_resilience": {"launches": flash},
         "phase_obs": flash, "phase_disagg": {"at_rest": 4, "int8": 4},
+        "phase_tune": {"autotune": flash},
+        "phase_reshard": {"(a) data=3": flash},
         "_write_tokens": ROOT}
     for name in [n for n in dir(chip_smoke) if n.startswith("phase_")] + \
             ["start_builds", "_write_tokens"]:
@@ -634,23 +639,29 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
         assert kernels[name]["grid_launches"] == {"1f1b f32 2 ranks": n}
         assert kernels[name]["resilience_launches"] == n
         assert kernels[name]["obs_launches"] == n
+        assert kernels[name]["tune_launches"] == {"autotune": n}
+        assert kernels[name]["reshard_launches"] == {"(a) data=3": n}
     assert kernels["paged_flash_decode"]["disagg_launches"] == {
         "at_rest": 4, "int8": 4}
 
 
 def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
     """Phases 35 and 36 run inside phase 4's block (its model and trace),
-    after phase 20 and before the model leaves the card; phase 37 runs
-    after the training phases; the complete run is phases 1-37 and their
-    launches land on the kernels' entries."""
+    after phase 20 and before the model leaves the card; phases 37-39
+    run after the training phases, 40 beside them (39's OOM trial alone
+    at the end); the complete run is phases 1-40 and their launches land
+    on the kernels' entries."""
     src = inspect.getsource(chip_smoke.main)
     assert src.index("phase_window(rec)") < src.index(
         "phase_serving_resilience(rec)") < src.index(
         "phase_disagg()") < src.index("_full_width.cache_clear()") < \
-        src.index("phase_resilience(") < src.index("phase_obs(")
+        src.index("phase_resilience(") < src.index("phase_reshard, tokens") \
+        < src.index("phase_obs(tokens)") < src.index("phase_remat()") < \
+        src.index("phase_tune(tokens)") < src.index("phase_tune_oom(tokens)")
     assert '"resilience_serve_launches"' in src
     assert '"disagg_launches"' in src and '"obs_launches"' in src
-    assert "set(range(1, 38))" in src
+    assert '"tune_launches"' in src and '"reshard_launches"' in src
+    assert "set(range(1, 41))" in src
 
 
 def _tiny_paged():
@@ -809,3 +820,113 @@ def test_phase_37_reads_kernels_and_idle_share_from_a_chrome_trace(
     assert names == {"flash_fwd_kernel<float>", "ampere_sgemm",
                      "flash_dq_kernel<float>"}
     assert (busy, window) == (0.1, 0.1)
+
+
+def test_remat_steps_keep_the_losses_of_the_run_without_remat():
+    """Phase 38's step runs on a CPU stand-in: ``cnn`` (BatchNorm) under
+    each policy repeats the losses of the run without remat within
+    ``REMAT_TOL`` (bit for bit here); no device number on the CPU."""
+    argv = ["-l", "1", "-s", "2", "-b", "8"]
+    plain = chip_smoke.remat_steps("cnn", argv, None, device="cpu")
+    assert plain[2] is None and len(plain[0]) == chip_smoke.REMAT_STEPS
+    for policy in chip_smoke.REMAT_CASES[1:]:
+        losses, _, _ = chip_smoke.remat_steps("cnn", argv, policy,
+                                              device="cpu")
+        assert chip_smoke._loss_gap(losses, plain[0]) <= \
+            chip_smoke.REMAT_TOL
+        assert losses == plain[0]
+
+
+def test_tune_launch_check_holds_on_a_cpu_stand_in(monkeypatch, tmp_path):
+    """Phase 39's launch accounting on the CPU: a small ``gpt -m data
+    --autotune --plan`` through the CLI, its flash calls counted by
+    stand-ins (the wrappers run their plain versions uncounted here),
+    equals each trial's step calls (first step, FLOP count, warm-up,
+    timed steps) times its plan's kernels a step (remat recomputes the
+    forward, accumulation runs each microbatch), plus the epoch's under
+    the chosen plan; one trial's calls less fails the check."""
+    from distributed_deep_learning_tpu_torch.__main__ import main
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+    from distributed_deep_learning_tpu_torch.tune import Plan, load_plan
+
+    def forward(q, k, v, key_valid, **kw):
+        forward.launches += 1
+        return fa.flash_attention_reference(q, k, v, key_valid=key_valid,
+                                            **kw)
+
+    def backward(*args, **kw):
+        backward.launches += 1
+        return fa.flash_backward_reference(*args, **kw)
+
+    forward.launches = backward.launches = 0
+    monkeypatch.setattr(fa, "flash_forward", forward)
+    monkeypatch.setattr(fa, "flash_backward", backward)
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "tokens.npy",
+            rng.integers(1, 61, (32, 17)).astype(np.int32))
+    path = str(tmp_path / "p.json")
+    # the lattice's plans take --attention auto (dense on the CPU); the
+    # hand-set baseline keeps flash and rides every rung
+    main(["gpt", "-m", "data", "-l", "2", "-s", "32", "-e", "1", "-b", "4",
+          "--attention", "flash", "-d", "cpu", "--data-dir", str(tmp_path),
+          "--autotune", "--plan", path])
+    plan, record = load_plan(path)
+    trials = [(Plan.from_dict(t["plan"]), t)
+              for t in record["search"]["trials"]]
+    assert {(p.attention, p.remat) for p, _ in trials} >= {
+        ("flash", False), ("auto", True)}
+    want = {}
+    for p, t in trials:
+        want = chip_smoke._add(want, chip_smoke._plan_launches(
+            p, chip_smoke._trial_calls(t, chip_smoke.TUNE_WARMUP),
+            layers=2, device="cpu"))
+        if p.attention == "flash":
+            # the FLOP count's backward: on the card its counted ops call
+            # the dQ and dK/dV wrappers, on the CPU their plain versions
+            # (not the stand-ins)
+            for k in ("flash_backward_dq", "flash_backward_dkv"):
+                want[k] -= 2 * p.grad_accum
+    fwd = (2 if plan.remat else 1) * plan.grad_accum
+    epoch = chip_smoke.expected_launches(2, chip_smoke.split_steps(32, 4),
+                                         fwd, plan.grad_accum)
+    if plan.attention != "flash":
+        epoch = {k: 0 for k in epoch}
+    want = chip_smoke._add(want, epoch)
+    got = {"flash_forward": forward.launches,
+           "flash_backward_dq": backward.launches,
+           "flash_backward_dkv": backward.launches}
+    chip_smoke.check_launches("stand-in", got, want)
+    with pytest.raises(RuntimeError, match="flash kernels"):
+        chip_smoke.check_launches("planted", got, chip_smoke._add(
+            want, chip_smoke._plan_launches(Plan(attention="flash"), 1,
+                                            layers=2, device="cpu")))
+
+
+def test_restored_parts_check_holds_and_fails_a_planted_moment(tmp_path):
+    """Phase 40's in-place check on the CPU: a state restored from a
+    checkpoint equals its saved whole tensors part by part; one Adam
+    moment nudged after the restore fails it."""
+    import torch
+
+    from distributed_deep_learning_tpu_torch.models.mlp import MLP
+    from distributed_deep_learning_tpu_torch.train.state import (
+        Optimizer, create_train_state)
+    from distributed_deep_learning_tpu_torch.utils.checkpoint import \
+        Checkpointer
+
+    def state(seed):
+        s = create_train_state(MLP(8, hidden_size=4), seed,
+                               Optimizer("adam", 1e-3), device="cpu")
+        s.optimizer.zero_grad()
+        s.model(torch.ones(2, 8)).sum().backward()
+        s.apply_gradients()
+        return s
+
+    ck = Checkpointer(tmp_path)
+    ck.save(1, state(0))
+    whole = torch.load(tmp_path / "ckpt-1.pt", weights_only=True)
+    got = ck.restore(state(1))
+    assert chip_smoke.restored_parts_exact(got, whole)
+    moment = next(iter(got.optimizer.state.values()))["exp_avg"]
+    moment.view(-1)[0] += 1e-3
+    assert not chip_smoke.restored_parts_exact(got, whole)

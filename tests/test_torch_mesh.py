@@ -7,6 +7,7 @@ package's: ``MeshSpec`` (``from_dict``, ``resolve`` with one -1 fill),
 
 import jax
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from distributed_deep_learning_tpu.parallel import zero as jzero
@@ -130,24 +131,43 @@ def test_derive_state_spec_decides_as_jax(workload, argv, sizes, want):
 
 
 def test_checkpoint_of_another_layout_is_refused(tmp_path):
-    """A checkpoint records the run's mesh and ``--zero``; restoring it
-    under another layout is ``--reshard``'s (item 14), and one that
-    records none restores anywhere."""
+    """A checkpoint records the state's topology over the run's mesh
+    (:mod:`..reshard.manifest`); restoring it under another layout is
+    ``--reshard``'s (the refusal names it), whose resharding restore
+    gives the bytes of a same-layout restore.  One that records no
+    topology, or the earlier ``{"mesh", "zero"}`` block, restores
+    anywhere (legacy)."""
+    import json
+
     from distributed_deep_learning_tpu_torch.models.mlp import MLP
+    from distributed_deep_learning_tpu_torch.reshard.restore import \
+        restore_resharded
     from distributed_deep_learning_tpu_torch.train.state import (
         Optimizer, create_train_state)
-    from distributed_deep_learning_tpu_torch.utils.checkpoint import \
-        Checkpointer
+    from distributed_deep_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer, state_payload)
 
-    def state():
-        return create_train_state(MLP(8, hidden_size=4), 0,
+    def state(seed=0):
+        return create_train_state(MLP(8, hidden_size=4), seed,
                                   Optimizer("adam", 1e-3), device="cpu")
 
-    fsdp = {"mesh": {a: 1 for a in tmesh.AXES}, "zero": "fsdp"}
-    plain = dict(fsdp, zero="none")
-    Checkpointer(tmp_path / "a", topology=fsdp).save(1, state())
-    with pytest.raises(ValueError, match="item 14"):
-        Checkpointer(tmp_path / "a", topology=plain).restore(state())
-    assert Checkpointer(tmp_path / "a", topology=fsdp).restore(state())
+    two = {a: 1 for a in tmesh.AXES} | {"data": 2}
+    one = dict(two, data=1)
+    saved = state()
+    Checkpointer(tmp_path / "a", mesh=two).save(1, saved)
+    with pytest.raises(ValueError, match="needs --reshard"):
+        Checkpointer(tmp_path / "a", mesh=one).restore(state(1))
+    assert Checkpointer(tmp_path / "a", mesh=two).restore(state(1))
+    got, step, info = restore_resharded(
+        Checkpointer(tmp_path / "a", mesh=one), state(1), mesh=one)
+    assert (step, info["mode"]) == (1, "chunked")
+    for (k, a), b in zip(state_payload(saved)["params"].items(),
+                         state_payload(got)["params"].values()):
+        assert torch.equal(a, b), k
     Checkpointer(tmp_path / "b").save(1, state())
-    assert Checkpointer(tmp_path / "b", topology=plain).restore(state())
+    assert Checkpointer(tmp_path / "b", mesh=one).restore(state())
+    path = tmp_path / "a" / "manifest-1.json"
+    manifest = json.loads(path.read_text())
+    manifest["topology"] = {"mesh": one, "zero": "fsdp"}
+    path.write_text(json.dumps(manifest))
+    assert Checkpointer(tmp_path / "a", mesh=one).restore(state())

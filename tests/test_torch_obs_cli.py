@@ -8,7 +8,7 @@ the trace, the metrics file and the profiler's trace are written.  The
 losses with telemetry on equal those with it off, bit for bit.  A
 planted anomaly that the sentinel contains trips the flight recorder
 into the black box JAX's drill leaves.  The flags of items 14(b) and
-14(c) still raise, naming them.
+14(c), refused until they were ported, parse as JAX's CLI parses them.
 """
 
 import json
@@ -132,8 +132,19 @@ def test_contained_anomaly_leaves_jax_black_box(tmp_path):
     (["--reshard"], "14(b)"), (["--target-mesh", "data=2"], "14(b)"),
     (["--autotune"], "14(c)"), (["--plan", "p.json"], "14(c)")])
 def test_resharding_and_tuning_flags_still_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item.replace(
-            "(", r"\(").replace(")", r"\)")):
-        tconfig.parse_args(argv, "gpt")
-    assert sorted(tconfig.UNPORTED_FLAGS) == [
-        "--autotune", "--plan=", "--reshard", "--target-mesh="]
+    """The flags that raised naming their item (``item``) until it was
+    ported now raise only where JAX's CLI refuses them, with its message
+    (``--reshard`` without ``--resume``, ``--target-mesh`` without
+    ``--reshard``, ``--plan`` of a missing file); ``--autotune`` parses
+    to JAX's fields.  No flag is left unported."""
+    try:
+        theirs = jconfig.parse_args(argv, "gpt")
+    except SystemExit as e:
+        with pytest.raises(SystemExit) as mine:
+            tconfig.parse_args(argv, "gpt")
+        assert str(mine.value) == str(e), item
+    else:
+        mine = tconfig.parse_args(argv, "gpt")
+        for field in ("autotune", "plan_file", "reshard", "target_mesh"):
+            assert getattr(mine, field) == getattr(theirs, field), field
+    assert tconfig.UNPORTED_FLAGS == {} and tconfig.ROADMAP_ITEMS == {}

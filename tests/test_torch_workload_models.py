@@ -276,10 +276,22 @@ def test_remat_leaves_gradients_and_running_stats_unchanged(name):
 
 
 def test_remat_policies_other_than_nothing_are_refused():
+    """The policies other than ``nothing`` were refused on these models
+    until they had JAX's selective policies; now ``dots`` and
+    ``dots_no_batch`` leave DenseNet's gradients and running statistics
+    as they are without remat, and a name JAX does not have is refused."""
+    plain, loss = _port_step("densenet_small")
+    for policy in ("dots", "dots_no_batch"):
+        remat, loss_r = _port_step("densenet_small", remat=policy)
+        assert loss_r == loss
+        want = [p.grad for p in plain.parameters()] + list(plain.buffers())
+        got = [p.grad for p in remat.parameters()] + list(remat.buffers())
+        for a, b in zip(want, got):
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
     tm = _port("densenet_small").train()
     x, _ = _inputs(CASES["densenet_small"][3])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tm(torch.from_numpy(x), remat="dots")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tm(torch.from_numpy(x), remat="everything")
 
 
 def test_port_parameters_are_flax_shaped_and_initialised():

@@ -247,7 +247,8 @@ def test_mid_epoch_resume_is_bit_identical(zero, runs):
 def test_sharded_checkpoints_hold_the_leaves_of_data_parallel(runs):
     """A ``--zero 1`` or ``--zero fsdp`` checkpoint is saved whole: the
     manifest lists the leaves, shapes and dtypes of a ``-m data`` one,
-    and records the run's topology."""
+    and records the run's topology: the mesh, the rank count and each
+    leaf's split (``reshard.manifest``)."""
     _, _, tmp = runs
 
     def manifest(zero):
@@ -262,5 +263,14 @@ def test_sharded_checkpoints_hold_the_leaves_of_data_parallel(runs):
                 mine["leaves"].items()} == \
             {k: (v.get("shape"), v.get("dtype"))
              for k, v in plain["leaves"].items()}
-        assert mine["topology"]["zero"] == zero
-        assert mine["topology"]["mesh"]["data"] == 2
+        topo = mine["topology"]          # reshard.manifest.Topology's
+        assert (topo["format"], topo["n_devices"]) == (1, 2)
+        assert topo["mesh"]["data"] == 2
+        specs = topo["leaf_specs"]
+        params = [k for k in specs if k.startswith("/params/")]
+        if zero == "1":                  # each leaf's moments on one rank
+            assert specs["/optimizer/state/0"] == ["@data"]
+            assert all(specs[k] == [] for k in params)
+        else:                            # FSDP2's Shard(0) over data
+            assert specs["/optimizer/state/0"] == specs[params[0]]
+            assert {tuple(specs[k]) for k in params} == {("data",)}
