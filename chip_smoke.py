@@ -360,8 +360,7 @@ Phases, in order; any failure raises and exits non-zero:
     ``--disagg`` on one card; ``disagg_serving_bench``'s record (speedup
     against the unified engine, ITL p99s, migration GiB/s, agreement,
     ``prefill_util``).
-37. observability (beside phase 40's ranks, so its times are contended):
-    phase 31's bf16 ``gpt`` on 32 rows through the CLI
+37. observability: phase 31's bf16 ``gpt`` on 32 rows through the CLI
     with ``--obs --obs-trace --obs-blackbox --metrics-file
     --profile-dir``, and again without: the losses equal bit for bit, the
     flash launches those of the epoch (its first train step counted); the
@@ -373,10 +372,8 @@ Phases, in order; any failure raises and exits non-zero:
     35's 8 requests served under telemetry, a tracer and a recorder, a
     planted SLO breach tripping it; a captured decode tick replayed under
     the profiler (its idle share).
-38. remat on the conv models (beside phase 40's ranks, so its step times
-    are contended; its peaks are its own): ResNet-18 f32 at phase 24's
-    shape, three train steps each without remat and under
-    ``--remat-policy nothing``,
+38. remat on the conv models: ResNet-18 f32 at phase 24's shape, three
+    train steps each without remat and under ``--remat-policy nothing``,
     ``dots`` and ``dots_no_batch`` (losses, step time, peak): every
     policy's losses within ``REMAT_TOL`` of the run without remat, the
     ``dots`` peak below it; one ``dots`` run each of ``mlp``, ``lstm``,
@@ -387,23 +384,24 @@ Phases, in order; any failure raises and exits non-zero:
     then ``--plan FILE``, whose losses equal the searched run's bit for
     bit; flash launches equal the trials' step calls times each plan's
     kernels a step, plus the epoch's.  A real OOM: ``run_search`` with
-    ``--attention dense`` at ``TUNE_OOM_BATCH`` over no remat and remat
-    ``nothing``, the analytic model told to prune nothing: the allocator
-    refuses the first, ``memory_allocated`` after the search is what it
-    was before, the remat plan is chosen.  ``run_calibration``: each
+    ``--attention dense`` at ``TUNE_OOM_BATCH`` over the one-device
+    lattice's four remat corners, the analytic model told to prune
+    nothing: the allocator refuses the plan without remat,
+    ``memory_allocated`` after the search is what it was before, a remat
+    plan is chosen.  ``run_calibration``: each
     corner's fitted activation fraction and recompute cost against JAX's
     priors, analytic against calibrated error.
-40. resharding, run beside phases 37-39 (39's OOM trial waits for it):
-    phase 31's ``gpt`` (f32, 24 rows) at ``-b 12`` on gloo ranks sharing
-    card 0: ``--zero 1`` on 4 ranks saves epoch 1,
-    and the same ranks resume a copy as it was; (a) ``-r 3 --reshard
-    --resume`` re-plans onto ``data=3``, (b) ``-r 2 --reshard --resume
-    --target-mesh fsdp=2 --zero fsdp``.  Each leg: every rank restores
-    ``chunked``, its part of every leaf equal to the same part of the
-    saved tensors bit for bit, the first epoch-2 loss within
-    ``REMAT_TOL`` of the 4-rank resume's, the flash launches exact;
-    restore seconds, bytes copied to each rank's card, each rank's peak
-    and rank 0's seconds (start-up, set-up, training, saves) printed.
+40. resharding, after phases 37-39: phase 31's ``gpt`` (f32) on 36
+    rows (two train steps an epoch) at ``-b 12`` on gloo ranks sharing
+    card 0: ``--zero 1`` on 4 ranks
+    trains 2 epochs, saving each; from epoch 1's checkpoint, the two
+    legs side by side: (a) ``-r 3 --reshard --resume`` re-plans onto
+    ``data=3``, (b) ``-r 2 --reshard --resume --target-mesh fsdp=2 --zero
+    fsdp``.  Each leg: every rank restores ``chunked``, its part of every
+    leaf equal to the same part of the saved tensors bit for bit, every
+    epoch-2 loss within ``REMAT_TOL`` of the 4 ranks' second epoch, the
+    flash launches exact; restore seconds, bytes copied to each rank's
+    card and each rank's peaks printed.
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -6142,8 +6140,8 @@ def phase_tune(data_dir: Path) -> dict:
 
 
 def phase_tune_oom(data_dir: Path) -> None:
-    """Phase 39's real OOM: no remat against remat ``nothing`` with dense
-    attention, the card to itself."""
+    """Phase 39's real OOM: a search over the one-device lattice's remat
+    corners with dense attention, the card to itself."""
     import torch
 
     from distributed_deep_learning_tpu_torch.runtime import bootstrap
@@ -6178,64 +6176,59 @@ def phase_tune_oom(data_dir: Path) -> None:
                 warmup=1, max_rungs=1, max_trials=None,
                 oom_hook=lambda p: starts.append(time.perf_counter()),
                 space_options=dict(grad_accum_options=(1,),
-                                   attention_options=("dense",),
-                                   remat_options=((False, "nothing"),
-                                                  (True, "nothing"))))
+                                   attention_options=("dense",)))
+            starts.append(time.perf_counter())
             gc.collect()
             torch.cuda.empty_cache()
             after = torch.cuda.memory_allocated()
         finally:
             if created:
                 bootstrap.shutdown()
-        oomed = [t for t in result.trials if t.infeasible]
-        kept = [t for t in result.trials if not t.infeasible]
-        oom_s = starts[1] - starts[0] if len(starts) == 2 else float("nan")
+        for t, t0, t1 in zip(result.trials, starts, starts[1:]):
+            print(f"tune[oom]: [{t.plan.describe()}] {t1 - t0:.3f} s: "
+                  + (t.error[:160] if t.infeasible else
+                     f"{t.steps_per_sec:.4f} steps/s"))
         print(f"tune[oom]: {len(result.trials)} trials in "
-              f"{result.search_seconds:.2f} s; the OOM trial "
-              f"{oom_s:.3f} s: {oomed[0].error[:160] if oomed else None}; "
-              f"memory_allocated {before} B before the search, {after} B "
-              f"after; chosen [{result.best.describe()}] "
-              f"{result.best_sps:.4f} steps/s")
-        if not (len(result.trials) == 2 and len(oomed) == 1
-                and not oomed[0].plan.remat
-                and oomed[0].oom and "OutOfMemoryError" in oomed[0].error):
+              f"{result.search_seconds:.2f} s; memory_allocated {before} B "
+              f"before the search, {after} B after; chosen "
+              f"[{result.best.describe()}] {result.best_sps:.4f} steps/s")
+        plain = [t for t in result.trials if not t.plan.remat]
+        if not (len(plain) == 1 and plain[0].infeasible and plain[0].oom
+                and "OutOfMemoryError" in plain[0].error
+                and all(t.oom for t in result.trials if t.infeasible)):
             raise RuntimeError("tune[oom]: the plan without remat was not "
                                "refused by the allocator")
-        if not (kept and result.best.remat and after == before):
-            raise RuntimeError("tune[oom]: the remat plan was not chosen, or "
+        if not (result.best.remat and after == before):
+            raise RuntimeError("tune[oom]: a remat plan was not chosen, or "
                                "the OOM trial left memory behind")
         check_launches("tune[oom] (dense)", {
             c.__name__: c.launches for c in _kernel_counters()[:3]},
             {name: 0 for name in FLASH_REPLACES})
 
 
-
-#: phase 40: phase 31's gpt (f32, 24 rows) at a batch 4, 3 and 2 ranks
-#: divide; the ranks share card 0 over gloo
-RESHARD_BATCH = 12
+#: phase 40: phase 31's gpt (f32) at a batch 4, 3 and 2 ranks divide, on
+#: rows that make two train steps an epoch (the second reads the restored
+#: optimizer moments); the ranks share card 0 over gloo
+RESHARD_BATCH, RESHARD_ROWS = 12, 36
 
 RESHARD_RANK = r"""
-import faulthandler, json, os, shutil, sys, time
+import faulthandler, json, os, sys, time
 faulthandler.enable()
-t_start = time.time()
 import torch
 import torch.distributed as dist
 from distributed_deep_learning_tpu_torch.__main__ import main as cli
 from distributed_deep_learning_tpu_torch.ops import attention as fa
 from distributed_deep_learning_tpu_torch.reshard import restore as rs
-from distributed_deep_learning_tpu_torch.utils import checkpoint as ck
-from distributed_deep_learning_tpu_torch.workloads import base
 from chip_smoke import restored_parts_exact
 
-# runs: [{"argv": CLI argv, "copy": [src, dst] or null}], one after the
-# other in this process (rank 0 copies src to dst before its run)
-runs, port, saved, gate = (json.loads(sys.argv[1]), sys.argv[2],
+# the CLI's argv (JSON), a port, the checkpoint file a restore is held
+# to, and a file to wait for before the run
+argv, port, saved, gate = (json.loads(sys.argv[1]), sys.argv[2],
                            sys.argv[3], sys.argv[4])
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 torch.cuda.set_device(0)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
-out = {"t_group": time.time() - t_start, "runs": []}
 rec, real = {}, rs.restore_resharded
 
 
@@ -6258,72 +6251,47 @@ def restore(ckpt, target, **kw):
 
 
 rs.restore_resharded = restore
-
-
-def timed(owner, name, key):
-    # seconds a rank spends in owner.name a run, summed over its calls
-    real = getattr(owner, name)
-
-    def wrapper(*args, **kw):
-        t0 = time.perf_counter()
-        try:
-            return real(*args, **kw)
-        finally:
-            rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
-
-    setattr(owner, name, wrapper)
-
-
-timed(base, "train_setup", "t_setup")
-timed(ck.Checkpointer, "save", "t_save")
-timed(ck, "state_payload", "t_payload")
-timed(ck, "_snapshot", "t_snapshot")
-timed(ck.Checkpointer, "_write", "t_write")
 counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
-# a leg starts with the process, then waits for its checkpoint (the
-# orchestrator's gate file), so its start-up overlaps the leg before it
-t_gate = time.time()
+# a leg's ranks start with the saving ranks and wait for their checkpoint
+# (the orchestrator's gate file), so that their start-up overlaps it
 while gate and not os.path.exists(gate):
     time.sleep(0.1)
-out["t_gate"] = time.time() - t_gate
-for run in runs:
-    if run["copy"] and rank == 0:
-        shutil.copytree(*run["copy"])
-    dist.barrier()
-    rec.clear()
-    for c in counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t_cli = time.time()
-    state, hist = cli(run["argv"])
-    torch.cuda.synchronize()
-    train = [h for h in hist if h.phase == "train"]
-    del state
-    rec.update(losses=[x for h in train for x in h.step_losses],
-               launches={c.__name__: c.launches for c in counters},
-               peak=torch.cuda.max_memory_allocated(),
-               t_cli=time.time() - t_cli,
-               t_train=sum(h.seconds for h in train))
-    out["runs"].append(dict(rec))
+dist.barrier()
+for c in counters:
+    c.launches = 0
+torch.cuda.reset_peak_memory_stats()
+state, hist = cli(argv)
+torch.cuda.synchronize()
+del state
+rec.update(losses=[x for h in hist if h.phase == "train"
+                   for x in h.step_losses],
+           launches={c.__name__: c.launches for c in counters},
+           peak=torch.cuda.max_memory_allocated())
 dist.destroy_process_group()
-out["t_total"] = time.time() - t_start
-print("RESHARD_RANK " + json.dumps(out), flush=True)
+print("RESHARD_RANK " + json.dumps(rec), flush=True)
 """
 
 
 def restored_parts_exact(state, whole: dict) -> bool:
     """Whether this rank's part of every parameter, buffer and optimizer
     moment of ``state`` equals the same part of the saved whole tensors
-    ``whole`` (a checkpoint's payload), bit for bit, with no gather: a
-    split parameter's part as :func:`..reshard.redistribute.
-    host_local_part` cuts it, ZeRO-1's moments of the parameters this
-    rank owns."""
+    ``whole`` (a checkpoint's payload), bit for bit, with no gather.  The
+    parts are cut here by the rank number, apart from the restore's own
+    code: FSDP2 splits dim 0 of a parameter and of its moments over every
+    rank (``torch.chunk``); ZeRO-1 keeps the moments of the parameters a
+    rank owns, whole."""
     import torch
+    import torch.distributed as dist
 
     from distributed_deep_learning_tpu_torch.parallel.shards import (
-        local, resharded)
-    from distributed_deep_learning_tpu_torch.reshard.redistribute import \
-        host_local_part
+        is_dtensor, local, resharded)
+
+    def part(p, want):
+        if not is_dtensor(p):
+            return want
+        chunks = torch.chunk(want, dist.get_world_size(), dim=0)
+        rank = dist.get_rank()
+        return chunks[rank] if rank < len(chunks) else want[:0]
 
     def equal(got, want):
         return bool(torch.equal(got.detach().cpu(), want.to(got.dtype)))
@@ -6334,7 +6302,7 @@ def restored_parts_exact(state, whole: dict) -> bool:
         p = params.get(name)
         want = whole["params"][name]
         ok &= equal(local(p) if p is not None else t,
-                    host_local_part(p, want) if p is not None else want)
+                    part(p, want) if p is not None else want)
     opt = state.optimizer
     inner = getattr(opt, "optim", opt)            # ZeRO-1's local one
     moments = 0
@@ -6342,40 +6310,23 @@ def restored_parts_exact(state, whole: dict) -> bool:
         for k, v in inner.state.get(p, {}).items():
             want = whole["optimizer"]["state"][i][k]
             if isinstance(v, torch.Tensor) and v.dim() > 0:
-                v = local(v)
-                ok &= equal(v, want if tuple(v.shape) == tuple(want.shape)
-                            else host_local_part(p, want))
+                ok &= equal(local(v), part(p, want))
                 moments += 1
             else:
                 ok &= float(v) == float(want)
     return ok and moments > 0
 
 
-def _rank_times(ranks, run: int = 0) -> str:
-    """Rank 0's seconds: to its process group, waiting at its gate, in
-    its ``run``-th CLI run (its set-up, training and saves), in all."""
-    r, c = ranks[0], ranks[0]["runs"][run]
-    return (f"rank 0: group {r['t_group']:.1f} s, gate {r['t_gate']:.1f} "
-            f"s, CLI {c['t_cli']:.1f} s (set-up {c.get('t_setup', 0):.1f}, "
-            f"training {c['t_train']:.1f}, saves {c.get('t_save', 0):.1f}: "
-            f"payload {c.get('t_payload', 0):.1f}, snapshot "
-            f"{c.get('t_snapshot', 0):.1f}; writing {c.get('t_write', 0):.1f}"
-            f"), process {r['t_total']:.1f} s")
-
-
-def _reshard_ranks(n: int, runs: list, saved: str = "",
+def _reshard_ranks(n: int, argv: list, saved: str = "",
                    gate: str = "") -> list[dict]:
     """:data:`RESHARD_RANK` as ``n`` ranks on card 0, each running the CLI
-    ``runs`` in turn; ``gate``: a file each rank waits for after its
-    start-up, before its first run."""
+    with ``argv`` after ``gate`` (a file) exists."""
     from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
         free_port
 
-    # its rows in the ranks' environment, not this process's: phase 40
-    # runs beside phases 38 and 39, which set their own
-    return _n_ranks(RESHARD_RANK, [json.dumps(runs), str(free_port()),
+    return _n_ranks(RESHARD_RANK, [json.dumps(argv), str(free_port()),
                                    saved, gate], "RESHARD_RANK ", n,
-                    env={"DDL_DATA_LIMIT": str(SHARD_ROWS)})
+                    env={"DDL_DATA_LIMIT": str(RESHARD_ROWS)})
 
 
 def phase_reshard(data_dir: Path) -> dict:
@@ -6389,85 +6340,83 @@ def phase_reshard(data_dir: Path) -> dict:
     base.mkdir(parents=True)
     flags = ["gpt", "-m", "data", "--zero", "1", "-l", str(TRAIN_LAYERS),
              "-s", "768", "-b", str(RESHARD_BATCH), "--attention", "flash",
-             "--data-dir", str(data_dir)]
-    steps = split_steps(SHARD_ROWS, RESHARD_BATCH)
+             "--data-dir", str(data_dir), "-e", "2"]
+    steps = split_steps(RESHARD_ROWS, RESHARD_BATCH)
     want = expected_launches(TRAIN_LAYERS, steps)
-    saved_dir, same_dir = base / "epoch1", base / "same"
-    saved = str(saved_dir / f"ckpt-{steps[0]}.pt")
-
-    def resume(n, name, *extra):
-        return {"argv": flags + ["-r", str(n), "-e", "2", "--resume",
-                                 "--checkpoint-dir", str(base / name),
-                                 *extra], "copy": None}
-
-    legs = {"(a) data=3": (3, [resume(3, "data=3", "--reshard")]),
-            "(b) fsdp=2": (2, [resume(2, "fsdp=2", "--reshard",
-                                      "--target-mesh", "fsdp=2", "--zero",
-                                      "fsdp")])}
+    run_dir = base / "4 ranks"
+    saved = str(run_dir / "ckpt-1.pt")       # a save an epoch
+    legs = {"(a) data=3": (3, ["--reshard"]),
+            "(b) fsdp=2": (2, ["--reshard", "--target-mesh", "fsdp=2",
+                               "--zero", "fsdp"])}
+    argv = {label: flags + ["-r", str(n), "--resume", "--checkpoint-dir",
+                            str(base / label.split()[-1]), *extra]
+            for label, (n, extra) in legs.items()}
     gate = base / "legs.go"
-    out = {}
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(legs)) as pool:
-        # the legs' ranks start with the first four's and wait at the
-        # gate: the card holds the four ranks' two runs (epoch 1 saved,
-        # then resumed as it was on a copy) or the two legs, not both
-        t0 = time.perf_counter()
-        futures = {label: pool.submit(_reshard_ranks, n, runs, saved,
+        # the legs' ranks start with the four and wait at the gate; the
+        # card holds the four ranks' run or the two legs, not both
+        futures = {label: pool.submit(_reshard_ranks, n, argv[label], saved,
                                       str(gate))
-                   for label, (n, runs) in legs.items()}
+                   for label, (n, _) in legs.items()}
         try:
-            first = _reshard_ranks(4, [
-                {"argv": flags + ["-r", "4", "-e", "1", "--checkpoint-dir",
-                                  str(saved_dir)], "copy": None},
-                {**resume(4, "same"), "copy": [str(saved_dir),
-                                               str(same_dir)]}])
-            step = Checkpointer(same_dir, shared=False).all_steps()[0]
-            print(f"reshard[save]: 4 ranks, --zero 1, epoch 1 saved at "
-                  f"step {step}; peaks "
-                  + ", ".join(f"{r['runs'][0]['peak'] / 2**30:.2f}"
-                              for r in first)
-                  + " GiB; " + _rank_times(first))
-            if step != steps[0]:
-                raise RuntimeError(f"reshard[save]: saved step {step}, "
-                                   f"expected {steps[0]}")
+            first = _reshard_ranks(4, flags + ["-r", "4", "--checkpoint-dir",
+                                               str(run_dir)])
+            saves = Checkpointer(run_dir, shared=False).all_steps()
+            print(f"reshard[save]: 4 ranks, --zero 1, epochs {saves} "
+                  f"saved; peaks "
+                  + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in first)
+                  + " GiB")
+            if saves != [1, 2]:
+                raise RuntimeError(f"reshard[save]: saved {saves}, not "
+                                   "epochs 1 and 2")
             for r in first:
-                for run in r["runs"]:
-                    check_launches("reshard[save|same] a rank",
-                                   run["launches"], want)
-            for label in legs:
-                shutil.copytree(saved_dir, base / label.split()[-1])
+                check_launches("reshard[save] a rank", r["launches"], _add(
+                    want, expected_launches(TRAIN_LAYERS,
+                                            [steps[0], steps[1], 0])))
+            for label in legs:          # epoch 1's checkpoint alone
+                leg_dir = base / label.split()[-1]
+                leg_dir.mkdir()
+                for f in run_dir.glob("*-1.*"):
+                    shutil.copy(f, leg_dir / f.name)
         finally:
             gate.touch()                # no leg waits forever
         runs = {label: f.result() for label, f in futures.items()}
-        print(f"reshard: all runs in {time.perf_counter() - t0:.1f} s")
-    ref = first[0]["runs"][1]["losses"][0]
-    print(f"reshard[same]: the 4 ranks resumed, first epoch-2 loss "
-          f"{ref:.9f}; " + _rank_times(first, 1))
+    # each leg's epoch-2 losses against the four ranks' (their second
+    # epoch): the first reads the restored parameters, the second the
+    # restored optimizer moments too
+    ref = first[0]["losses"][steps[0]:]
+    out = {}
     for label, ranks in runs.items():
-        legs_runs = [r["runs"][0] for r in ranks]
-        gap = abs(legs_runs[0]["losses"][0] - ref) / abs(ref)
+        losses = ranks[0]["losses"]
+        gap = _loss_gap(losses, ref) if len(losses) == len(ref) \
+            else float("inf")
         print(f"reshard{label}: {len(ranks)} ranks, modes "
-              f"{[r['mode'] for r in legs_runs]}, restore s "
-              + ", ".join(f"{r['seconds']:.3f}" for r in legs_runs)
+              f"{[r['mode'] for r in ranks]}, restore s "
+              + ", ".join(f"{r['seconds']:.3f}" for r in ranks)
               + ", MiB to each rank's card "
-              + ", ".join(f"{r['bytes'] / 2**20:.1f}" for r in legs_runs)
-              + ", peaks " + ", ".join(f"{r['peak'] / 2**30:.2f}"
-                                       for r in legs_runs)
+              + ", ".join(f"{r['bytes'] / 2**20:.1f}" for r in ranks)
+              + ", restore peaks " + ", ".join(
+                  f"{r['restore_peak'] / 2**30:.2f}" for r in ranks)
+              + ", run peaks " + ", ".join(f"{r['peak'] / 2**30:.2f}"
+                                           for r in ranks)
               + f" GiB; each rank's parts equal to the saved tensors: "
-              f"{[r['exact'] for r in legs_runs]}; first epoch-2 loss "
-              f"{legs_runs[0]['losses'][0]:.9f}, gap {gap:.2e} from the "
-              f"4-rank resume (tol {REMAT_TOL:g}); " + _rank_times(ranks))
-        if any(r["mode"] != "chunked" for r in legs_runs):
+              f"{[r['exact'] for r in ranks]}; epoch-2 losses "
+              + " ".join(f"{x:.9f}" for x in losses) + " against the 4 "
+              "ranks' " + " ".join(f"{x:.9f}" for x in ref)
+              + f", largest gap {gap:.2e} (tol {REMAT_TOL:g})")
+        if any(r["mode"] != "chunked" for r in ranks):
             raise RuntimeError(f"reshard{label}: a rank did not restore "
                                "chunked")
-        if not all(r["exact"] for r in legs_runs):
+        if not all(r["exact"] for r in ranks):
             raise RuntimeError(f"reshard{label}: the restored state is not "
                                "the saved one")
         if not gap <= REMAT_TOL:
-            raise RuntimeError(f"reshard{label}: the loss moved")
-        for r in legs_runs:
+            raise RuntimeError(f"reshard{label}: the losses moved")
+        for r in ranks:
             check_launches(f"reshard{label} a rank", r["launches"], want)
-        out[label] = {k: sum(r["launches"][k] for r in legs_runs)
-                      for k in want}
+        out[label] = {k: sum(r["launches"][k] for r in ranks) for k in want}
+    print(f"reshard: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(base, ignore_errors=True)
     return out
 
@@ -6625,25 +6574,22 @@ def main(argv=None) -> int:
         lap(34)
     observed = tuned = resharded = {}
     if phases & {37, 38, 39, 40}:
-        # phase 40's ranks run beside phases 37-39 (their memory fits
-        # beside each other; a peak read here is this process's own), so
-        # 37-39's times are contended; 39's OOM trial then has the card
-        # to itself
+        # in turn: 37's and 39's timings and 38's peaks have the card to
+        # themselves
         tokens = _write_tokens()
-        with ThreadPoolExecutor(1) as side:
-            resharding = side.submit(phase_reshard, tokens) \
-                if 40 in phases else None
-            if 37 in phases:
-                builds["paged_decode"].result()
-                observed = phase_obs(tokens)
-                lap(37)
-            if 38 in phases:
-                phase_remat()
-            tuned = phase_tune(tokens) if 39 in phases else {}
-            resharded = resharding.result() if resharding else {}
+        if 37 in phases:
+            builds["paged_decode"].result()
+            observed = phase_obs(tokens)
+            lap(37)
+        if 38 in phases:
+            phase_remat()
         if 39 in phases:
+            tuned = phase_tune(tokens)
             phase_tune_oom(tokens)
-        lap("38-40")
+        lap("38-39")
+        if 40 in phases:
+            resharded = phase_reshard(tokens)
+            lap(40)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_deep_learning_tpu_torch.models.layers import (
-    Dense, as_tensor, dense_state, lecun_normal_, reset_all, run_layers)
+    Dense, as_tensor, dense_state, lecun_normal_, recomputable, reset_all,
+    run_layers)
 
 GATES = ("i", "f", "g", "o")
 
@@ -54,8 +55,9 @@ class PdMConvStem(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.relu(F.conv1d(x, self.weight.to(x.dtype),
-                               self.bias.to(x.dtype)))
+        return F.relu(recomputable(
+            F.conv1d, x, recomputable(self.weight.to, x.dtype),
+            recomputable(self.bias.to, x.dtype), kind="conv"))
 
     @staticmethod
     def flax_state(params, stats=None) -> dict:
@@ -104,9 +106,12 @@ class LSTMLayer(nn.Module):
     def forward(self, x):
         B, H = x.shape[0], self.hidden_size
         state = x.new_zeros(1, B, H)
-        params = [self.weight_ih.to(x.dtype), self.weight_hh.to(x.dtype),
+        # the LSTM's gate products lie inside its one op, whose output
+        # every remat policy keeps
+        params = [recomputable(self.weight_ih.to, x.dtype),
+                  recomputable(self.weight_hh.to, x.dtype),
                   torch.zeros_like(self.bias, dtype=x.dtype),
-                  self.bias.to(x.dtype)]
+                  recomputable(self.bias.to, x.dtype)]
         with warnings.catch_warnings():
             # cuDNN copies weights that are not one flat buffer
             warnings.filterwarnings("ignore", message="RNN module weights")

@@ -38,7 +38,7 @@ from torch import nn
 
 from distributed_deep_learning_tpu_torch.models.layers import (
     Conv2d, Dense, as_tensor, conv2d_weight, dense_state, he_normal_,
-    recomputing, reset_all, run_layers)
+    recomputable, recomputing, reset_all, run_layers)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # flax's convention: running = m·running + (1-m)·batch
@@ -85,7 +85,9 @@ class BatchNorm(nn.Module):
         return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
     def forward(self, x):
-        xf = x.float()
+        # under a dots remat policy the backward computes the centred
+        # input and the output again from the kept input and statistics
+        xf = recomputable(torch.Tensor.float, x)
         if self.training:
             mean, var = self.batch_statistics(xf)
             if not recomputing():
@@ -99,8 +101,13 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        centred = recomputable(torch.sub, xf, mean.view(shape))
+        return recomputable(_scale_shift, centred, mul.view(shape),
+                            self.bias.view(shape), x.dtype)
+
+
+def _scale_shift(centred, mul, bias, dtype):
+    return (centred * mul + bias).to(dtype)
 
 
 def global_batch_statistics(model: nn.Module, enabled: bool = True):
@@ -128,8 +135,8 @@ class DenseLayer(nn.Module):
         self.conv1 = _conv(bn_size * growth_rate, growth_rate, 3, padding=1)
 
     def forward(self, x):
-        y = self.conv0(F.relu(self.norm0(x)))
-        return self.conv1(F.relu(self.norm1(y)))
+        y = self.conv0(recomputable(F.relu, self.norm0(x)))
+        return self.conv1(recomputable(F.relu, self.norm1(y)))
 
 
 class DenseBlock(nn.Module):
@@ -144,7 +151,7 @@ class DenseBlock(nn.Module):
 
     def forward(self, x):
         for layer in self.layers:
-            x = torch.cat([x, layer(x)], dim=1)
+            x = recomputable(_concat, x, layer(x))
         return x
 
     @staticmethod
@@ -161,6 +168,10 @@ class DenseBlock(nn.Module):
         return sd
 
 
+def _concat(x, new):
+    return torch.cat([x, new], dim=1)
+
+
 class Transition(nn.Module):
     """BN→ReLU→Conv1×1(halve channels)→AvgPool2×2."""
 
@@ -170,7 +181,8 @@ class Transition(nn.Module):
         self.conv = _conv(in_features, out_features, 1)
 
     def forward(self, x):
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+        return F.avg_pool2d(self.conv(recomputable(F.relu, self.norm(x))),
+                            2, 2)
 
     @staticmethod
     def flax_state(params, stats) -> dict:

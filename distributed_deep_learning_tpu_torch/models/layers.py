@@ -1,8 +1,9 @@
 """Building blocks of the conv and BatchNorm models (``mlp``, ``cnn``,
 ``lstm``, ``mnist``, ``resnet``): flax's initialisers, ``Dense`` and
 ``Conv`` layers that compute in their input's dtype over f32 parameters
-(flax's ``dtype=...`` with ``param_dtype=f32``), and the ``--remat``
-driver of a layer sequence.
+(flax's ``dtype=...`` with ``param_dtype=f32``), and ``--remat``: the
+policies of every model family (:data:`REMAT_SAVED_OPS`,
+:func:`remat_call`) and :func:`run_layers` over a layer sequence.
 
 Initialisers draw from a ``torch.Generator`` (the port cannot reproduce
 JAX's random streams, only their distributions): flax's
@@ -23,8 +24,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
-
-from distributed_deep_learning_tpu_torch.utils.config import REMAT_POLICIES
 
 #: the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -57,8 +56,9 @@ class Dense(nn.Linear):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype))
+        return F.linear(x, recomputable(self.weight.to, x.dtype),
+                        None if self.bias is None else
+                        recomputable(self.bias.to, x.dtype))
 
 
 class Conv2d(nn.Conv2d):
@@ -77,9 +77,11 @@ class Conv2d(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype),
-                        self.stride, self.padding)
+        return recomputable(
+            F.conv2d, x, recomputable(self.weight.to, x.dtype),
+            None if self.bias is None else
+            recomputable(self.bias.to, x.dtype), self.stride, self.padding,
+            kind="conv")
 
 
 def reset_all(model: nn.Module, generator: Optional[torch.Generator]):
@@ -155,63 +157,210 @@ def collect_losses():
         _state.losses = before
 
 
-def _saved_ops(policy: str) -> frozenset:
-    """The ops whose outputs the backward keeps under ``--remat-policy
-    policy``, as JAX's policies name them: ``dots_saveable`` keeps every
-    ``dot_general`` and ``conv_general_dilated`` output,
-    ``dots_with_no_batch_dims_saveable`` only the products without a batch
-    dimension (a ``Dense`` on ``(B, ...)`` rows folds to one ``mm``).  An
-    LSTM's gate products lie inside its one op (cuDNN's, or oneDNN's on
-    the CPU), so that op's outputs are kept under both."""
-    aten = torch.ops.aten
-    ops = [aten.mm, aten.addmm, aten._cudnn_rnn, aten.mkldnn_rnn_layer]
-    if policy == "dots":
-        ops += [aten.bmm, aten.baddbmm, aten.convolution]
-    return frozenset(ops)
+#: ``--remat-policy`` -> the kinds of product whose outputs the backward
+#: keeps, as JAX's policies of that name keep them: ``dots_saveable``
+#: every ``dot_general`` and ``conv_general_dilated``,
+#: ``dots_with_no_batch_dims_saveable`` only the products without a batch
+#: dimension (a ``Dense`` over rows).  An output a layer marks
+#: (:func:`recomputable`) of another kind, or of none, is computed again
+#: in the backward.  The dense attention's batched products are marked
+#: recomputed under either (the flash kernels have none to keep); an
+#: LSTM's gate products lie inside its one op, whose output is kept under
+#: either.  ``nothing`` recomputes every op of the layer.
+REMAT_SAVED_OPS = {
+    "nothing": (),
+    "dots": ("Dense", "conv"),
+    "dots_no_batch": ("Dense",),
+}
 
 
-def _selective(policy: str):
-    """``checkpoint``'s ``context_fn`` for ``policy``: selective activation
-    checkpointing that keeps :func:`_saved_ops`' outputs and recomputes
-    every other op of the layer in the backward."""
-    from torch.utils.checkpoint import (CheckpointPolicy,
-                                        create_selective_checkpoint_contexts)
+class _Recompute:
+    """The ``dots`` policies for one layer's forward: every tensor
+    autograd saves passes through :meth:`pack`, and the outputs the layer
+    marks recomputable (:func:`recomputable`: its norms, casts, attention,
+    activations and pools, and under ``dots_no_batch`` its convolutions)
+    are dropped when the layer's forward ends and computed again when the
+    backward unpacks one of them.  A saved tensor is matched to a marked
+    output by its storage (device and address, both alive until
+    :meth:`finish`), so views of it (a reshape a matmul saves) are rebuilt
+    from the recomputed tensor with the same strides; a marked output that
+    another one's recipe reads is itself computed again for it."""
 
-    saved = _saved_ops(policy)
+    active: Optional["_Recompute"] = None
 
-    def decide(ctx, op, *args, **kwargs):
-        return CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved \
-            else CheckpointPolicy.PREFER_RECOMPUTE
+    def __init__(self, kept=()):
+        self.kept = kept       # the kinds of output kept (REMAT_SAVED_OPS)
+        self.marked = []       # (tensor, fn, args)
+        self.saved = []        # every pack's handle, resolved in finish()
 
-    return lambda: create_selective_checkpoint_contexts(decide)
+    def mark(self, out, fn, args):
+        # only a non-empty dense tensor that owns its whole storage, and
+        # not an argument's (a view of it): anything else sharing that
+        # storage is a view of it
+        key = out.numel() and _storage_key(out)
+        if key and all(_storage_key(a) != key for a in args
+                       if isinstance(a, torch.Tensor) and a.numel()) and (
+                out.is_contiguous() or out.is_contiguous(
+                memory_format=torch.channels_last)) and \
+                out.storage_offset() == 0 and \
+                out.untyped_storage().nbytes() == \
+                out.numel() * out.element_size():
+            self.marked.append((out, fn, args))
+
+    def pack(self, t):
+        handle = [t, None]     # the tensor, or a recipe once finished
+        self.saved.append(handle)
+        return handle
+
+    @staticmethod
+    def unpack(handle):
+        t, recipe = handle
+        if recipe is None:
+            return t
+        return recipe.view(id(handle))
+
+    def finish(self):
+        recipes = {}
+        for out, fn, args in self.marked:
+            recipes[_storage_key(out)] = _Recipe(fn, args)
+
+        def dropped(t):
+            recipe = recipes.get(_storage_key(t)) \
+                if isinstance(t, torch.Tensor) and t.numel() else None
+            return t if recipe is None else _Dropped(recipe, t)
+
+        for recipe in recipes.values():
+            recipe.args = tuple(dropped(a) for a in recipe.args)
+        for handle in self.saved:
+            t = handle[0]
+            recipe = recipes.get(_storage_key(t))
+            if recipe is None:
+                continue
+            recipe.views[id(handle)] = (t.size(), t.stride(),
+                                        t.storage_offset())
+            recipe.waiting.add(id(handle))
+            handle[:] = [None, recipe]
+        self.marked = self.saved = None
+
+
+def _storage_key(t):
+    return t.device, t.untyped_storage().data_ptr()
+
+
+class _Recipe:
+    """How to compute one dropped output again, cached until each saved
+    view of it has been unpacked once (a second backward through a
+    retained graph computes it again at each unpack).  It is computed
+    with :func:`recomputing` true, so no BatchNorm updates its running
+    statistics a second time."""
+
+    def __init__(self, fn, args):
+        self.fn, self.args, self.out = fn, args, None
+        self.views = {}        # handle id -> (size, stride, offset)
+        self.waiting = set()   # handle ids not unpacked yet
+
+    def value(self):
+        out = self.out
+        if out is None:
+            with torch.no_grad(), _recompute():
+                out = self.fn(*(a.value() if isinstance(a, _Dropped)
+                                else a for a in self.args))
+            self.out = out if self.waiting else None
+        return out
+
+    def view(self, key):
+        out = self.value()
+        self.waiting.discard(key)
+        if not self.waiting:
+            self.out = None
+        return out.as_strided(*self.views[key])
+
+
+class _Dropped:
+    """A recipe's argument that is another dropped output (or a view of
+    one): computed again from that output's recipe."""
+
+    def __init__(self, recipe, t):
+        self.recipe = recipe
+        self.layout = (t.size(), t.stride(), t.storage_offset())
+
+    def value(self):
+        return self.recipe.value().as_strided(*self.layout)
+
+
+def recomputable(fn, *args, kind: Optional[str] = None):
+    """``fn(*args)``; under a ``dots`` policy the backward computes it
+    again instead of keeping it (see :class:`_Recompute`), unless the
+    policy keeps outputs of ``kind`` (``"conv"``: a convolution)."""
+    out = fn(*args)
+    rc = _Recompute.active
+    if rc is not None and kind not in rc.kept and \
+            out.grad_fn is not None and all(out is not a for a in args):
+        rc.mark(out, fn, args)
+    return out
+
+
+def remat_call(fn, x, policy: str,
+               generator: Optional[torch.Generator] = None):
+    """``fn(x)`` with its activations recomputed in the backward, with
+    :func:`recomputing` true while they are (no BatchNorm updates its
+    running statistics twice); a recompute computes the same values, so
+    the gradients are those of the run without remat.
+
+    ``nothing``: ``torch.utils.checkpoint`` (non-reentrant) keeps only
+    ``x`` and recomputes all of ``fn``.  ``checkpoint`` restores the
+    default generators' state, not ``generator``'s, so the recompute
+    rewinds ``generator`` to where the forward found it (the same dropout
+    masks) and puts it back after.
+
+    ``dots`` and ``dots_no_batch``: the outputs of the products the policy
+    keeps (:data:`REMAT_SAVED_OPS`) stay, and what the layer marks
+    recomputable is computed again when the backward needs it
+    (:class:`_Recompute`, through saved-tensor hooks; no op-level
+    dispatch).  Dropout masks are kept, so nothing random is replayed."""
+    if policy not in REMAT_SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy!r}; choose from "
+                         f"{'/'.join(REMAT_SAVED_OPS)}")
+    if REMAT_SAVED_OPS[policy]:
+        rc, outer = _Recompute(REMAT_SAVED_OPS[policy]), _Recompute.active
+        _Recompute.active = rc
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(rc.pack,
+                                                          rc.unpack):
+                y = fn(x)
+        finally:
+            _Recompute.active = outer
+        rc.finish()
+        return y
+    before, ran = None if generator is None else generator.get_state(), []
+
+    def replay(x):
+        if not ran:                 # the forward: draw as usual
+            ran.append(True)
+            return fn(x)
+        after = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(before)
+        try:
+            with _recompute():
+                return fn(x)
+        finally:
+            if generator is not None:
+                generator.set_state(after)
+
+    return checkpoint(replay, x, use_reentrant=False)
 
 
 def run_layers(layers: Sequence[Callable], x, remat: Optional[str] = None):
-    """``x`` through ``layers`` in order.  ``remat`` recomputes each layer
-    in the backward (``torch.utils.checkpoint``), with :func:`recomputing`
-    true during the recompute so that no BatchNorm updates its running
-    statistics twice: ``"nothing"`` keeps only each layer's input;
-    ``"dots"`` and ``"dots_no_batch"`` also keep the products that JAX's
-    policy of that name keeps (:func:`_saved_ops`), through selective
-    checkpointing.  A recompute computes the same values, so the
-    gradients are those of the run without ``remat``."""
-    if remat is not None and remat not in REMAT_POLICIES:
+    """``x`` through ``layers`` in order; ``remat`` (a policy of
+    :data:`REMAT_SAVED_OPS`) recomputes each layer in the backward
+    (:func:`remat_call`)."""
+    if remat is not None and remat not in REMAT_SAVED_OPS:
         raise ValueError(f"unknown remat policy {remat!r}; choose from "
-                         f"{'/'.join(REMAT_POLICIES)}")
-    kw = {} if remat in (None, "nothing") else \
-        {"context_fn": _selective(remat)}
+                         f"{'/'.join(REMAT_SAVED_OPS)}")
     for layer in layers:
         if remat is None or not torch.is_grad_enabled():
             x = layer(x)
-            continue
-        ran = []
-
-        def replay(x, layer=layer, ran=ran):
-            if not ran:                  # the forward
-                ran.append(True)
-                return layer(x)
-            with _recompute():
-                return layer(x)
-
-        x = checkpoint(replay, x, use_reentrant=False, **kw)
+        else:
+            x = remat_call(layer, x, remat)
     return x

@@ -33,8 +33,8 @@ from torch import nn
 
 from distributed_deep_learning_tpu_torch.models import densenet
 from distributed_deep_learning_tpu_torch.models.layers import (
-    Conv2d, Dense, as_tensor, conv2d_weight, dense_state, reset_all,
-    run_layers)
+    Conv2d, Dense, as_tensor, conv2d_weight, dense_state, recomputable,
+    reset_all, run_layers)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax's convention: running = m·running + (1-m)·batch
@@ -82,17 +82,20 @@ class FlaxConv2d(Conv2d):
                               same_padding(x.shape[3], k, s))
         else:
             (t, b), (l, r) = self.pad
-        w = self.weight if self.mask is None else self.weight * self.mask
-        w = w.to(x.dtype)
+        w = self.weight if self.mask is None else \
+            recomputable(torch.mul, self.weight, self.mask)
+        w = recomputable(torch.Tensor.to, w, x.dtype)
         if k == 1 and s > 1 and x.device.type == "cpu":
             # the same function: a 1x1 conv reads one pixel of each
             # window, and SAME pads a 1x1 kernel by 0.  On the CPU torch's
             # oneDNN backward of a strided 1x1 channels-last conv corrupts
             # the heap at small widths (8 -> 16 channels)
-            return F.conv2d(x[:, :, ::s, ::s], w)
+            return recomputable(F.conv2d, x[:, :, ::s, ::s], w, kind="conv")
         if t == b and l == r:
-            return F.conv2d(x, w, None, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), w, None, self.stride)
+            return recomputable(F.conv2d, x, w, None, self.stride, (t, l),
+                                kind="conv")
+        return recomputable(F.conv2d, recomputable(F.pad, x, (l, r, t, b)),
+                            w, None, self.stride, kind="conv")
 
 
 class BatchNorm(densenet.BatchNorm):
@@ -146,7 +149,7 @@ class BasicBlock(nn.Module):
         self.proj, self.proj_bn = _projection(cin, features, strides)
 
     def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
+        y = recomputable(F.relu, self.bn0(self.conv0(x)))
         y = self.bn1(self.conv1(y))
         if self.proj is not None:
             x = self.proj_bn(self.proj(x))
@@ -172,8 +175,8 @@ class BottleneckBlock(nn.Module):
         self.proj, self.proj_bn = _projection(cin, 4 * features, strides)
 
     def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
-        y = F.relu(self.bn1(self.conv1(y)))
+        y = recomputable(F.relu, self.bn0(self.conv0(x)))
+        y = recomputable(F.relu, self.bn1(self.conv1(y)))
         y = self.bn2(self.conv2(y))
         if self.proj is not None:
             x = self.proj_bn(self.proj(x))
@@ -241,10 +244,10 @@ class Stem(nn.Module):
         self.bn = BatchNorm(width)
 
     def forward(self, x):
-        x = F.relu(self.bn(self.conv(x)))
-        if not self.small_inputs:
-            x = F.max_pool2d(x, 3, 2, padding=1)
-        return x
+        x = self.bn(self.conv(x))
+        if self.small_inputs:
+            return F.relu(x)
+        return F.max_pool2d(recomputable(F.relu, x), 3, 2, padding=1)
 
 
 class Head(nn.Module):
@@ -368,6 +371,11 @@ def resnet152(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 8, 36, 3), block_cls=BottleneckBlock, **kw)
 
 
+def _flatten_nhwc(x):
+    """``(N, C, H, W)`` → ``(N, H·W·C)`` in NHWC order (flax's Flatten)."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
 class MnistCNN(nn.Module):
     """The classic MNIST conv net over NHWC images: Conv3×3(32) → ReLU →
     MaxPool2 → Conv3×3(64) → ReLU → MaxPool2 → Flatten (NHWC order) →
@@ -397,14 +405,13 @@ class MnistCNN(nn.Module):
                            self._hidden, self._head), x, remat)
 
     def _conv_pool0(self, x):
-        return F.max_pool2d(F.relu(self.conv0(x)), 2, 2)
+        return F.max_pool2d(recomputable(F.relu, self.conv0(x)), 2, 2)
 
     def _conv_pool1(self, x):
-        return F.max_pool2d(F.relu(self.conv1(x)), 2, 2)
+        return F.max_pool2d(recomputable(F.relu, self.conv1(x)), 2, 2)
 
     def _hidden(self, x):
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return F.relu(self.dense0(x))
+        return F.relu(self.dense0(recomputable(_flatten_nhwc, x)))
 
     def _head(self, x):
         return self.dense1(x).float()

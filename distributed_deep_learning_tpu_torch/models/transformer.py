@@ -20,8 +20,8 @@ f32, and the tied head stays f32 on both operands.  The casts are explicit
 (not ``torch.autocast``, whose op lists put them elsewhere: under it
 ``layer_norm`` returns f32).  ``remat`` recomputes each layer in the
 backward: under the policy ``nothing`` all of it (``torch.utils.checkpoint``,
-replaying its dropout masks), under ``dots`` only what lies between the
-``Dense`` products (:func:`remat_call`).  :meth:`CausalLM.loss` is the
+replaying its dropout masks), under ``dots`` and ``dots_no_batch`` only
+what lies between the ``Dense`` products (:func:`..layers.remat_call`).  :meth:`CausalLM.loss` is the
 tied head fused with the token cross-entropy (:mod:`..ops.fused_ce`),
 which never holds the ``(N, V)`` logits.
 
@@ -53,9 +53,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from distributed_deep_learning_tpu_torch.models.layers import lecun_normal_
+from distributed_deep_learning_tpu_torch.models.layers import (  # noqa: F401
+    REMAT_SAVED_OPS, lecun_normal_, recomputable, remat_call)
 from distributed_deep_learning_tpu_torch.ops.attention import flash_attention
 from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy
@@ -70,106 +70,6 @@ Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 MASK_FILL = -1e9   # the JAX package's fill: finite in bf16 as well
 ATTENTIONS = ("dense", "flash")
 DTYPES = (torch.float32, torch.bfloat16)
-
-#: ``--remat-policy`` -> the products whose outputs the backward keeps
-#: (jax's ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``: in
-#: this model the batched dots are the dense attention's, whose output the
-#: port recomputes under either); "nothing" recomputes every op of the layer
-REMAT_SAVED_OPS = {
-    "nothing": (),
-    "dots": ("Dense",),
-    "dots_no_batch": ("Dense",),
-}
-
-
-class _Recompute:
-    """The ``dots`` policy for one layer's forward: every tensor autograd
-    saves passes through :meth:`pack`, and the outputs the layer marks
-    recomputable (:func:`recomputable`: its LayerNorms, casts, attention
-    and GELU, everything but a ``Dense`` product) are dropped when the
-    layer's forward ends and computed again when the backward unpacks one
-    of them.  A saved tensor is matched to a marked output by its storage
-    (device and address, both alive until :meth:`finish`), so views of it
-    (a reshape a matmul saves) are rebuilt from the recomputed tensor with
-    the same strides."""
-
-    active: Optional["_Recompute"] = None
-
-    def __init__(self):
-        self.marked = []       # (tensor, fn, args)
-        self.saved = []        # every pack's handle, resolved in finish()
-
-    def mark(self, out, fn, args):
-        # only a non-empty tensor that owns its whole storage: anything
-        # else sharing that storage is a view of it
-        if out.numel() and out.is_contiguous() and \
-                out.storage_offset() == 0 and \
-                out.untyped_storage().nbytes() == \
-                out.numel() * out.element_size():
-            self.marked.append((out, fn, args))
-
-    def pack(self, t):
-        handle = [t, None]     # the tensor, or a recipe once finished
-        self.saved.append(handle)
-        return handle
-
-    @staticmethod
-    def unpack(handle):
-        t, recipe = handle
-        if recipe is None:
-            return t
-        return recipe.view(id(handle))
-
-    def finish(self):
-        recipes = {}
-        for out, fn, args in self.marked:
-            recipes[_storage_key(out)] = _Recipe(fn, args)
-        for handle in self.saved:
-            t = handle[0]
-            recipe = recipes.get(_storage_key(t))
-            if recipe is None:
-                continue
-            recipe.views[id(handle)] = (t.size(), t.stride(),
-                                        t.storage_offset())
-            recipe.waiting.add(id(handle))
-            handle[:] = [None, recipe]
-        self.marked = self.saved = None
-
-
-def _storage_key(t):
-    return t.device, t.untyped_storage().data_ptr()
-
-
-class _Recipe:
-    """How to compute one dropped output again, cached until each saved
-    view of it has been unpacked once (a second backward through a
-    retained graph computes it again at each unpack)."""
-
-    def __init__(self, fn, args):
-        self.fn, self.args, self.out = fn, args, None
-        self.views = {}        # handle id -> (size, stride, offset)
-        self.waiting = set()   # handle ids not unpacked yet
-
-    def view(self, key):
-        out = self.out
-        if out is None:
-            with torch.no_grad():
-                out = self.fn(*self.args)
-        self.waiting.discard(key)
-        self.out = out if self.waiting else None
-        return out.as_strided(*self.views[key])
-
-
-def recomputable(fn, *args):
-    """``fn(*args)``; under the ``dots`` policy the backward computes it
-    again instead of keeping it (see :class:`_Recompute`)."""
-    out = fn(*args)
-    rc = _Recompute.active
-    if rc is not None and out.grad_fn is not None and \
-            all(out is not a for a in args):
-        rc.mark(out, fn, args)
-    return out
-
 
 class Dense(nn.Linear):
     """``nn.Linear`` whose weight and bias are cast to the input's dtype
@@ -196,52 +96,6 @@ class LayerNorm(nn.LayerNorm):
                             self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(
                                 self.out_dtype or x.dtype)
-
-
-def remat_call(fn, x, policy: str, generator: Optional[torch.Generator]):
-    """``fn(x)`` with its activations recomputed in the backward.
-
-    ``nothing``: ``torch.utils.checkpoint`` (non-reentrant) keeps only
-    ``x`` and recomputes all of ``fn``.  ``checkpoint`` restores the
-    default generators' state, not ``generator``'s, so the recompute
-    rewinds ``generator`` to where the forward found it (the same dropout
-    masks) and puts it back after.
-
-    ``dots`` and ``dots_no_batch``: the outputs of the ``Dense`` products
-    are kept, and what lies between them (LayerNorms, casts, the attention
-    and the GELU) is computed again when the backward needs it
-    (:class:`_Recompute`, through saved-tensor hooks; no op-level
-    dispatch).  Dropout masks are kept, so nothing random is replayed."""
-    if policy not in REMAT_SAVED_OPS:
-        raise ValueError(f"unknown remat policy {policy!r}; choose from "
-                         f"{sorted(REMAT_SAVED_OPS)}")
-    if REMAT_SAVED_OPS[policy]:
-        rc, outer = _Recompute(), _Recompute.active
-        _Recompute.active = rc
-        try:
-            with torch.autograd.graph.saved_tensors_hooks(rc.pack,
-                                                          rc.unpack):
-                y = fn(x)
-        finally:
-            _Recompute.active = outer
-        rc.finish()
-        return y
-    if generator is None:
-        return checkpoint(fn, x, use_reentrant=False)
-    before, ran = generator.get_state(), []
-
-    def replay(x):
-        if not ran:                 # the forward: draw as usual
-            ran.append(True)
-            return fn(x)
-        after = generator.get_state()
-        generator.set_state(before)
-        try:
-            return fn(x)
-        finally:
-            generator.set_state(after)
-
-    return checkpoint(replay, x, use_reentrant=False)
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):

@@ -199,7 +199,6 @@ def enumerate_plans(n_devices: int, batch_size: int, *,
                     paged_options: Sequence[bool] = (False,),
                     kv_dtype_options: Sequence[str] = ("none",),
                     weight_dtype_options: Sequence[str] = ("none",),
-                    remat_options: Sequence[tuple[bool, str]] | None = None,
                     ) -> list[Plan]:
     """Enumerate the legal plan lattice, in deterministic order.
 
@@ -220,10 +219,6 @@ def enumerate_plans(n_devices: int, batch_size: int, *,
       needs ``paged=True`` (per-position scales live in the block
       pools; the v1 slot table supports bf16 only), mirroring the
       ``--kv-dtype int8 requires --paged`` CLI rejection
-
-    ``remat_options`` (the port's; default: every ``(remat, policy)``
-    corner, JAX's lattice) restricts the remat corners, for a caller that
-    measures chosen ones.
     """
     plans: list[Plan] = []
     for mesh in _mesh_candidates(n_devices):
@@ -239,7 +234,7 @@ def enumerate_plans(n_devices: int, batch_size: int, *,
             for zero in zero_options:
                 if zero != "none" and shard_axis_size <= 1:
                     continue
-                for remat, policy in (remat_options or _remat_options()):
+                for remat, policy in _remat_options():
                     if accum > 1 and remat:
                         continue
                     for compress in compress_options:

@@ -24,6 +24,14 @@ a collective step): after the hook, the build, the first step and the
 timed steps the ranks exchange their verdicts, so a plan that failed on
 one rank is infeasible on all, with the lowest failing rank's error; the
 rates are rank 0's, broadcast, so every rank takes the same decisions.  A
+rank must not fail while the others wait for it in a collective, so the
+verdicts are exchanged before the state's first collective (once each
+rank's model and optimizer are on its device, before the DDP wrap
+broadcasts the parameters), and over several ranks the first step is a
+rank-local one (:func:`rank_local`: no gradient all-reduce, no global
+statistics, ZeRO-1's update without its broadcast) before any synced
+step.  A plan whose forward gathers its parameters (``--zero fsdp``,
+``--comm``) has no rank-local step: its first step is its own.  A
 trial's process groups (its ``DeviceMesh``) are destroyed with it.
 Tests inject fakes through ``oom_hook``; ``measure`` swaps the timing
 loop for a deterministic stand-in so search-logic tests build nothing.
@@ -31,6 +39,7 @@ loop for a deterministic stand-in so search-logic tests build nothing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -124,6 +133,47 @@ def agree(error: str | None, oom: bool = False) -> tuple[str | None, bool]:
     verdicts: list = [None] * _world()
     dist.all_gather_object(verdicts, (error, oom))
     return next((v for v in verdicts if v[0] is not None), (None, False))
+
+
+class _PeerFailed(Exception):
+    """Another rank failed a stage, and the ranks have agreed on it."""
+
+    def __init__(self, verdict):
+        super().__init__(verdict[0])
+        self.verdict = verdict
+
+
+def _agreed() -> None:
+    """Raise :class:`_PeerFailed` unless every rank got here."""
+    verdict = agree(None)
+    if verdict[0] is not None:
+        raise _PeerFailed(verdict)
+
+
+@contextlib.contextmanager
+def rank_local(state):
+    """``state`` with no collective of its own: BatchNorm statistics and
+    MoE routing over this rank's rows, and ZeRO-1's optimizer swapped
+    for its local one (its update of this rank's parameters, without
+    their broadcast)."""
+    from distributed_deep_learning_tpu_torch.models.densenet import BatchNorm
+    from distributed_deep_learning_tpu_torch.models.moe import MoEMLP
+
+    saved = [(state, "optimizer", getattr(state.optimizer, "optim",
+                                          state.optimizer))]
+    for mod in state.model.modules():
+        if isinstance(mod, BatchNorm):
+            saved.append((mod, "global_stats", False))
+        elif isinstance(mod, MoEMLP):
+            saved.append((mod, "group", None))
+    before = [getattr(obj, name) for obj, name, _ in saved]
+    try:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+        yield state
+    finally:
+        for (obj, name, _), value in zip(saved, before):
+            setattr(obj, name, value)
 
 
 def from_rank0(value):
@@ -227,10 +277,13 @@ class TrialHarness:
             top_buffers=top, context="trial")
 
     def _stage(self, cfg, plan: Plan, fn) -> tuple[str | None, bool]:
-        """``fn()`` on every rank, then their verdicts exchanged."""
+        """``fn()`` on every rank, then their verdicts exchanged (unless
+        ``fn`` exchanged them already, another rank having failed)."""
         try:
             fn()
             mine = (None, False)
+        except _PeerFailed as err:
+            return err.verdict
         except Exception as err:
             mine = self._failure(cfg, plan, err)
         return agree(*mine)
@@ -238,6 +291,8 @@ class TrialHarness:
     def _run_real(self, cfg, plan: Plan, steps: int):
         """``(result, (None, False))`` or ``(None, (error, oom))``."""
         from distributed_deep_learning_tpu_torch.runtime import bootstrap
+        from distributed_deep_learning_tpu_torch.train.step import \
+            make_step_fns
         from distributed_deep_learning_tpu_torch.utils.logging import \
             PhaseLogger
         from distributed_deep_learning_tpu_torch.workloads import base
@@ -259,23 +314,36 @@ class TrialHarness:
         def build():
             state, train_step, _, loaders, _, _, _ = base.train_setup(
                 self.spec, cfg, env, None, PhaseLogger(verbose=False),
-                dataset=self.dataset)
+                dataset=self.dataset, built=lambda state: _agreed())
             kit.update(state=state, step=train_step,
                        batch=loaders[0].local_batch(
                            np.arange(cfg.batch_size)))
+            if _world() > 1 and cfg.zero != "fsdp" and cfg.comm == "none":
+                kit["local"] = make_step_fns(
+                    self.spec.build_loss(cfg), remat=cfg.remat,
+                    remat_policy=cfg.remat_policy,
+                    accum_steps=max(1, cfg.grad_accum))[0]
 
-        def call():
+        def call(step="step"):
             out.step_calls += 1
-            state, metrics = kit["step"](kit["state"], *kit["batch"])
+            state, metrics = kit[step](kit["state"], *kit["batch"])
             return metrics
+
+        def probe():
+            # the first step: over several ranks a rank-local one, so
+            # that a rank that runs out of memory strands no other
+            if "local" not in kit:
+                return call()
+            with rank_local(kit["state"]):
+                return call("local")
 
         def first():
             t0 = time.perf_counter()
             if env.device.type == "cuda":
-                out.memory = profiling.memory_analysis(call,
+                out.memory = profiling.memory_analysis(probe,
                                                        device=env.device)
             else:                    # no allocator ledger on the CPU
-                call()
+                probe()
                 out.memory = {"memory_fields_missing": list(MEMORY_FIELDS)}
             out.compile_seconds = time.perf_counter() - t0
 

@@ -34,8 +34,8 @@ import enum
 import os
 from typing import Sequence
 
-#: ``--remat-policy`` names, as the JAX CLI's; the model maps each to the
-#: matmuls its backward keeps (``models.transformer.REMAT_SAVED_OPS``)
+#: ``--remat-policy`` names, as the JAX CLI's; the models map each to the
+#: products their backward keeps (``models.layers.REMAT_SAVED_OPS``)
 REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
 
 

@@ -646,11 +646,14 @@ def _shard_fn(spec, config, sharding, layout):
 
 
 def train_setup(spec, config, env, init_state_dict, logger, registry=None,
-                dataset=None):
+                dataset=None, built=None):
     """``(state, train_step, eval_step, loaders, dataset, checkpointer
     parts, sentinel config)`` of a sequential or ``-m data`` run (see
     :func:`_train`); ``registry`` counts ``--comm``'s wire bytes a step;
-    ``dataset`` is built unless given (the tuner's trials share one)."""
+    ``dataset`` is built unless given (the tuner's trials share one);
+    ``built(state)`` runs once the model and its optimizer are on the
+    device, before the state's first collective (the tuner's ranks agree
+    there that every rank could build it)."""
     device = env.device
     dataset, splits = _dataset_splits(spec, config, dataset)
     sentinel = _sentinel_config(config)
@@ -699,6 +702,8 @@ def train_setup(spec, config, env, init_state_dict, logger, registry=None,
 
         state.optimizer = zero1_optimizer(
             tx, state.model, layout.mesh.get_group(zero_axis(layout.sizes)))
+    if built is not None:
+        built(state)
     if layout.mesh is not None:
         logger.info(f"mesh {layout.sizes}: state "
                     f"{sharding or 'replicated'}, batch split "

@@ -647,17 +647,17 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
 
 def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
     """Phases 35 and 36 run inside phase 4's block (its model and trace),
-    after phase 20 and before the model leaves the card; phases 37-39
-    run after the training phases, 40 beside them (39's OOM trial alone
-    at the end); the complete run is phases 1-40 and their launches land
-    on the kernels' entries."""
+    after phase 20 and before the model leaves the card; phases 37-40
+    run after the training phases, in turn; the complete run is phases
+    1-40 and their launches land on the kernels' entries."""
     src = inspect.getsource(chip_smoke.main)
     assert src.index("phase_window(rec)") < src.index(
         "phase_serving_resilience(rec)") < src.index(
         "phase_disagg()") < src.index("_full_width.cache_clear()") < \
-        src.index("phase_resilience(") < src.index("phase_reshard, tokens") \
-        < src.index("phase_obs(tokens)") < src.index("phase_remat()") < \
-        src.index("phase_tune(tokens)") < src.index("phase_tune_oom(tokens)")
+        src.index("phase_resilience(") < src.index("phase_obs(tokens)") < \
+        src.index("phase_remat()") < src.index("phase_tune(tokens)") < \
+        src.index("phase_tune_oom(tokens)") < \
+        src.index("phase_reshard(tokens)")
     assert '"resilience_serve_launches"' in src
     assert '"disagg_launches"' in src and '"obs_launches"' in src
     assert '"tune_launches"' in src and '"reshard_launches"' in src

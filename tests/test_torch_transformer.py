@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from distributed_deep_learning_tpu.models import transformer as jtr
+from distributed_deep_learning_tpu_torch.models import layers as tlayers
 from distributed_deep_learning_tpu_torch.models import transformer as ttr
 from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
@@ -153,7 +154,7 @@ def test_dots_recomputes_each_dropped_output_once(attention, monkeypatch):
     are dropped and computed again exactly once in the backward, and the
     gradients equal the run that keeps them (exactly: the same ops)."""
     recipes, calls = [], []
-    init = ttr._Recipe.__init__
+    init = tlayers._Recipe.__init__
 
     def counting_init(self, fn, args):
         def counted(*a):
@@ -162,7 +163,7 @@ def test_dots_recomputes_each_dropped_output_once(attention, monkeypatch):
         init(self, counted, args)
         recipes.append(self)
 
-    monkeypatch.setattr(ttr._Recipe, "__init__", counting_init)
+    monkeypatch.setattr(tlayers._Recipe, "__init__", counting_init)
     got = _remat_grads("dots", attention=attention)
     dropped = [r for r in recipes if r.views]
     # ln_attn, the attention, ln_mlp and the GELU in each of the layers

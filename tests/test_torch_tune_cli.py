@@ -8,9 +8,10 @@
   same decisions (their deterministic records, rank 0's rates, are
   equal), and through the CLI rank 0 writes the artifact and the replay
   applies it on both ranks.
-* An ``oom_hook`` that raises on rank 1 only: both ranks mark those
-  plans infeasible with rank 1's error and go on, with no hang (each
-  rank runs under a timeout).
+* Out-of-memory errors on rank 1 only, raised by an ``oom_hook``, by the
+  model's build, and by the model's forward in the trial's first step:
+  both ranks mark those plans infeasible with rank 1's error and go on,
+  with no hang (each rank runs under a timeout).
 """
 
 import json
@@ -35,7 +36,7 @@ RANK_TIMEOUT = 240
 
 #: one gloo rank of a lockstep search: argv rank world port out
 RANK = r"""
-import json, sys
+import dataclasses, json, sys
 import torch
 import torch.distributed as dist
 rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
@@ -43,17 +44,38 @@ rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
+from distributed_deep_learning_tpu_torch.models.mlp import MLP
 from distributed_deep_learning_tpu_torch.tune import plan_hash, run_search
 from distributed_deep_learning_tpu_torch.utils.config import parse_args
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 
+# rank 1 runs out of memory: in the hook under remat dots, in the
+# model's build under dots_no_batch, in the forward under nothing
 def oom_hook(plan):
-    if rank == 1 and plan.remat:
+    if rank == 1 and plan.remat_policy == "dots":
         raise RuntimeError("RESOURCE_EXHAUSTED: rank 1 only")
 
+spec = get_spec("mlp")
+
+def build_model(config, dataset):
+    if rank == 1 and config.remat and config.remat_policy == "dots_no_batch":
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory: rank 1 "
+                                          "only, building")
+    return spec.build_model(config, dataset)
+
+forward = MLP.forward
+
+def oom_forward(self, x, generator=None, remat=None):
+    if rank == 1 and remat == "nothing":
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory: rank 1 "
+                                          "only, forward")
+    return forward(self, x, generator, remat)
+
+MLP.forward = oom_forward
 cfg = parse_args(["-b", "32", "-m", "data", "-d", "cpu"], "mlp")
-result = run_search(get_spec("mlp"), cfg, trial_steps=2, warmup=1,
-                    max_trials=None, oom_hook=oom_hook,
+result = run_search(dataclasses.replace(spec, build_model=build_model), cfg,
+                    trial_steps=2, warmup=1, max_trials=None,
+                    oom_hook=oom_hook,
                     space_options=dict(grad_accum_options=(1,),
                                        zero_options=("none",),
                                        compress_options=("none",)))
@@ -102,11 +124,23 @@ def test_two_rank_search_in_lockstep_survives_a_one_rank_oom(tmp_path):
     a, b = (json.load(open(f"{out}.{r}")) for r in range(2))
     assert a["best"] == b["best"] and a["record"] == b["record"]
     trials = a["record"]["trials"]
-    oomed = [t for t in trials if t["infeasible"]]
-    assert oomed and all(t["plan"]["remat"] and t["oom"]
-                         and "rank 1 only" in t["error"] for t in oomed)
-    assert not any(t["plan"]["remat"] for t in trials
-                   if not t["infeasible"])
+
+    def fault(plan):
+        if plan["remat"] and plan["remat_policy"] == "dots_no_batch":
+            return "OutOfMemoryError: CUDA out of memory: rank 1 only, " \
+                "building"
+        if plan["remat"] and plan["remat_policy"] == "nothing":
+            return "OutOfMemoryError: CUDA out of memory: rank 1 only, " \
+                "forward"
+        if plan["remat"] and plan["remat_policy"] == "dots":
+            return "RuntimeError: RESOURCE_EXHAUSTED: rank 1 only"
+        return None
+
+    faults = {fault(t["plan"]) for t in trials}
+    assert len(faults) == 4      # each fault was met, and a feasible plan
+    for t in trials:
+        assert t["infeasible"] == t["oom"] == (fault(t["plan"]) is not None)
+        assert t["error"] == fault(t["plan"]), t
     # the trials' DeviceMesh groups went with them: the default group
     # is all that is left
     assert a["groups"] == b["groups"] == 1
