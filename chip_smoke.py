@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases 1,35  # serving resilience and the fleet
     python3 chip_smoke.py --phases 1,36,37  # disaggregation, observability
     python3 chip_smoke.py --phases 1,38,39,40  # remat, tuning, resharding
+    python3 chip_smoke.py --phases 1,41  # the scripts and examples
     python3 chip_smoke.py --phases 1,2,3 --waves 4  # another split rule
 
 Phases, in order; any failure raises and exits non-zero:
@@ -401,7 +402,35 @@ Phases, in order; any failure raises and exits non-zero:
     leaf equal to the same part of the saved tensors bit for bit, every
     epoch-2 loss within ``REMAT_TOL`` of the 4 ranks' second epoch, the
     flash launches exact; restore seconds, bytes copied to each rank's
-    card and each rank's peaks printed.
+    card and each rank's peaks printed;
+41. the scripts and examples (``distributed_deep_learning_tpu_torch.
+    scripts``/``examples``) on the card, each through its ``main(argv)``:
+    ``serve_bench --paged --obs --obs-trace`` at phase 4's width with the
+    flags nearest phase 4's load (``P41_SERVE``), its tokens equal to a
+    direct ``paged_serving_bench`` call on the load it built, the decode
+    launches of each its ``decode_ticks`` x 12; ``obs_report --trace`` and ``--window`` over
+    the stream that run wrote (one request trace a request served);
+    ``disagg_bench --requests 8`` on card 0 twice; ``autotune gpt -l 12
+    -s 768 -b 4 --dry-run`` against the card's memory; ``data_soak
+    --small --only mqtt`` onto the card; examples 01, 04, 06 and 08; then,
+    as two ranks sharing card 0 over gloo, ``comm_bench`` and examples
+    02, 03, 05 and 07 in turn (ring exactness, FSDP parity within JAX's
+    1e-5, a falling int8 loss; each pass line).  Every call exits 0 and
+    its flash and decode launches are the ones its calls predict (the
+    disaggregation bench's: the decode ticks of both arms' warm and timed
+    runs, counted as they are called, x its model's layers).
+    ``chaos_drill``, ``pack_dataset``, ``feed_bench`` and
+    ``obs_report``'s JSON-only modes are host code or phases 35 and 40's
+    calls, and do not run here.
+
+Phases 31, 32, 33 and 41's rank work runs in one launch of ranks a
+world (``start_ranks``: two ranks, and four for phase 33's four-rank
+case), started before phase 23, whose timings no one reads: the ranks
+import, make their group and wait at a gate file that the first phase
+to read their records opens (``rank_records``), then run the jobs of the
+phases asked for in turn.  Every set of ranks rendezvouses through a
+store that this process holds on a port the OS picks
+(``runtime.bootstrap.host_store``).
 
 Phases 21 and 24 also run item 18's A/B (``prefetch_ab``) on one
 workload each (``cnn``; ResNet-50 from the packed cache): the train
@@ -3739,8 +3768,8 @@ SHARD_ROWS, MOE_SHARD_ROWS = 24, 192
 #: values), and across two ranks the split products' sums
 SHARD_FIRST_LOSS_TOL, TWO_RANK_FIRST_LOSS_TOL = 1e-6, 1e-5
 
-#: one rank of the two-rank legs: a gloo group of its own on card 0 (the
-#: CLI's bootstrap takes it up), a probe of the collectives the modes
+#: one rank of the two-rank legs, a job of :data:`RANK_JOBS` (the CLI's
+#: bootstrap takes up its gloo group on card 0): a probe of the collectives the modes
 #: need on CUDA tensors, then each leg through the CLI, the flash
 #: kernels' launches and the head counts they saw recorded
 TWO_RANK = r"""
@@ -3750,12 +3779,9 @@ import torch.distributed as dist
 from distributed_deep_learning_tpu_torch.__main__ import main as cli
 from distributed_deep_learning_tpu_torch.ops import attention as fa
 
-legs, port = json.loads(sys.argv[1]), sys.argv[2]
+legs = json.loads(sys.argv[1])
 rank = int(os.environ["RANK"])
 dev = torch.device("cuda", 0)
-torch.cuda.set_device(dev)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=2)
 probe = []
 for op, fn in (
         ("all_reduce", lambda t: dist.all_reduce(t)),
@@ -3860,25 +3886,9 @@ if all(err is None for _, err in probe):
             "launches": {c.__name__: c.launches for c in counters},
             "heads": dict(heads),
             "peak": torch.cuda.max_memory_allocated()}
-dist.destroy_process_group()
+    os.environ.pop("DDL_DATA_LIMIT", None)
 print("TWO_RANK " + json.dumps(out), flush=True)
 """
-
-
-def _two_rank_legs(legs: dict, timeout: float = 300.0) -> list[dict]:
-    """Run :data:`TWO_RANK` as two ranks on card 0; returns each rank's
-    record (:func:`_two_ranks`)."""
-    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
-        free_port
-
-    return _two_ranks(TWO_RANK, [json.dumps(legs), str(free_port())],
-                      "TWO_RANK ", timeout)
-
-
-def _two_ranks(script: str, args: list, tag: str,
-               timeout: float = 300.0) -> list[dict]:
-    """Run ``script`` as two ranks on card 0 (:func:`_n_ranks`)."""
-    return _n_ranks(script, args, tag, 2, timeout)
 
 
 def sharded_busy_share(data_dir: Path, *flags, steps: int = 4,
@@ -3913,6 +3923,17 @@ def sharded_busy_share(data_dir: Path, *flags, steps: int = 4,
     finally:
         if created:
             bootstrap.shutdown()
+
+
+def sharded_legs(data_dir: Path) -> dict:
+    """Phase 31's two-rank legs (:data:`TWO_RANK`)."""
+    gpt_argv = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768",
+                "-e", "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
+                "--data-dir", str(data_dir), "--mesh", "model=2"]
+    return {"gpt model=2": {"argv": gpt_argv, "rows": SHARD_ROWS},
+            "moe expert=2": {"argv": ["moe", "-m", "data", *MOE_BASE, "-b",
+                                      "32", "--mesh", "expert=2"],
+                             "rows": MOE_SHARD_ROWS}}
 
 
 def phase_sharded(data_dir: Path, data_perf=None) -> dict:
@@ -3980,17 +4001,7 @@ def phase_sharded(data_dir: Path, data_perf=None) -> dict:
                                              "tokens", 32 * 64)
     finally:
         os.environ.pop("DDL_DATA_LIMIT", None)
-    gpt_argv = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768",
-                "-e", "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
-                "--data-dir", str(data_dir), "--mesh", "model=2"]
-    legs = {"gpt model=2": {"argv": gpt_argv, "rows": SHARD_ROWS},
-            "moe expert=2": {"argv": ["moe", *moe_argv, "--mesh",
-                                      "expert=2"],
-                             "rows": MOE_SHARD_ROWS}}
-    t0 = time.perf_counter()
-    records = _two_rank_legs(legs)
-    print(f"two ranks on one card: {time.perf_counter() - t0:.1f} s for "
-          "the probe and both legs (two processes, gloo)")
+    records = rank_records(2, "TWO_RANK ")
     for op, err in records[0]["probe"]:
         print(f"two ranks on one card: gloo {op} of CUDA tensors: "
               + ("ok" if err is None else f"FAILED ({err})"))
@@ -4055,12 +4066,9 @@ from distributed_deep_learning_tpu_torch.ops import attention as fa
 from distributed_deep_learning_tpu_torch.parallel import (ring_attention,
                                                           ulysses)
 
-spec, port = json.loads(sys.argv[1]), sys.argv[2]
+spec = json.loads(sys.argv[1])
 rank = int(os.environ["RANK"])
 dev = torch.device("cuda", 0)
-torch.cuda.set_device(dev)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=2)
 group = dist.group.WORLD
 B, H, D, T = (spec["shape"][x] for x in "BHDT")
 counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
@@ -4132,9 +4140,26 @@ for label, dtype, causal, window, padded in spec["cases"]:
             rec[name]["padded_zero"] = None if kv is None else \
                 bool((got[0][~seen] == 0).all())
     out[label] = rec
-dist.destroy_process_group()
 print("SEQ_RANK " + json.dumps(out), flush=True)
 """
+
+
+def comm_legs(data_dir: Path) -> dict:
+    """Phase 32's two-rank legs (:data:`TWO_RANK`)."""
+    base = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768", "-e",
+            "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
+            "--data-dir", str(data_dir)]
+    return {label: {"argv": base + flags, "rows": SHARD_ROWS}
+            for label, flags in (
+                ("gpt grad-compress int8", ["--grad-compress", "int8"]),
+                ("gpt fsdp comm int8 overlap",
+                 ["--zero", "fsdp", "--comm", "int8", "--comm-overlap"]),
+                ("gpt fsdp comm bf16", ["--zero", "fsdp", "--comm", "bf16"]))}
+
+
+def _seq_payload() -> str:
+    """Phase 32's ring attention and Ulysses cases (:data:`SEQ_RANK`)."""
+    return json.dumps({"shape": SEQ_SHAPE, "cases": SEQ_CASES})
 
 
 def phase_comm(data_dir: Path, sharded: dict) -> dict:
@@ -4169,19 +4194,8 @@ def phase_comm(data_dir: Path, sharded: dict) -> dict:
                                    "losses")
     finally:
         os.environ.pop("DDL_DATA_LIMIT", None)
-    base = ["gpt", "-m", "data", "-l", str(TRAIN_LAYERS), "-s", "768", "-e",
-            "1", "-b", str(TRAIN_BATCH), "--attention", "flash",
-            "--data-dir", str(data_dir)]
-    legs = {label: {"argv": base + flags, "rows": SHARD_ROWS}
-            for label, flags in (
-                ("gpt grad-compress int8", ["--grad-compress", "int8"]),
-                ("gpt fsdp comm int8 overlap",
-                 ["--zero", "fsdp", "--comm", "int8", "--comm-overlap"]),
-                ("gpt fsdp comm bf16", ["--zero", "fsdp", "--comm", "bf16"]))}
-    t0 = time.perf_counter()
-    records = _two_rank_legs(legs)
-    print(f"comm: {time.perf_counter() - t0:.1f} s for the probe and three "
-          "two-rank legs (two processes on one card, gloo)")
+    legs = comm_legs(data_dir)
+    records = rank_records(2, "TWO_RANK ")
     for op, err in records[0]["probe"]:
         if "(" in op:                    # the explicit collectives' ops
             print(f"comm probe: {op} of CUDA tensors: "
@@ -4220,15 +4234,7 @@ def phase_comm(data_dir: Path, sharded: dict) -> dict:
         out["comm"][label] = {"launches": records[0][label]["launches"],
                               "step_s": records[0][label]["step_s"]}
     # ring attention and Ulysses over the two ranks
-    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
-        free_port
-
-    port = str(free_port())
-    payload = json.dumps({"shape": SEQ_SHAPE, "cases": SEQ_CASES})
-    t0 = time.perf_counter()
-    records = _two_ranks(SEQ_RANK, [payload, port], "SEQ_RANK ")
-    print(f"seq: {time.perf_counter() - t0:.1f} s for ring attention and "
-          "Ulysses over two ranks (one card, gloo)")
+    records = rank_records(2, "SEQ_RANK ")
     Tl = SEQ_SHAPE["T"] // 2
     for label, dtype, causal, window, padded in SEQ_CASES:
         tol_o, tol_g = FLASH_TOL[dtype]
@@ -4280,8 +4286,7 @@ GRID_CASES = {
     "1f1b f32 4 ranks": (4, "1f1b", ()),
 }
 
-#: one rank of phase 33: a gloo group of its own on card 0, then each
-#: case as the CLI builds it (``pipelined_setup`` over the grid), one
+#: one rank of phase 33, a job of :data:`RANK_JOBS`: each case as the CLI builds it (``pipelined_setup`` over the grid), one
 #: train step with its loss, launches, peak and boundary bytes and this
 #: rank's trunk gradients (a file a case), then a second step timed
 GRID_RANK = r"""
@@ -4295,11 +4300,8 @@ from distributed_deep_learning_tpu_torch.utils.logging import PhaseLogger
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 
-cases, port, out_dir = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+cases, out_dir = json.loads(sys.argv[1]), sys.argv[2]
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-torch.cuda.set_device(0)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
 counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
 out = {}
 for label, argv in cases.items():
@@ -4344,7 +4346,6 @@ for label, argv in cases.items():
     del state, step, train, batches
     gc.collect()
     torch.cuda.empty_cache()
-dist.destroy_process_group()
 print("GRID " + json.dumps(out), flush=True)
 """
 
@@ -4369,10 +4370,23 @@ def _n_ranks(script: str, args: list, tag: str, n: int,
              timeout: float = 300.0, env: dict | None = None) -> list[dict]:
     """Run ``script`` as ``n`` ranks on card 0 (torchrun's environment,
     the one card each rank's ``LOCAL_RANK``, and ``env``); returns the
-    JSON each rank printed after ``tag``.  A rank that fails or is still
+    JSON each rank printed after ``tag``.  This process holds the ranks'
+    rendezvous store on a port the OS picks
+    (``runtime.bootstrap.host_store``; the ranks ``join`` it), so no other
+    process can take the port first.  A rank that fails or is still
     running at ``timeout`` fails the phase (every rank is stopped)."""
+    return _tagged(_collect(_spawn(script, args, n, env), timeout), tag, n)
+
+
+def _spawn(script: str, args: list, n: int, env: dict | None) -> tuple:
+    """Start ``script`` as ``n`` ranks on card 0 (see :func:`_n_ranks`);
+    returns ``(processes, store)`` for :func:`_collect`."""
+    from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+        host_store, hosted_env)
+
     procs = []
-    extra = dict(env or {})
+    store = host_store()
+    extra = {**hosted_env(store), **(env or {})}
     try:
         for rank in range(n):
             env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
@@ -4381,32 +4395,187 @@ def _n_ranks(script: str, args: list, tag: str, n: int,
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    except BaseException:
+        _kill(procs)
+        raise
+    return procs, store
+
+
+def _kill(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _collect(launch: tuple, timeout: float) -> list:
+    """Wait for a launch's ranks (:func:`_spawn`), stopping any still
+    running at ``timeout``; each rank's ``(exit code, output)``."""
+    procs, store = launch
+    outs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(timeout=timeout)[0]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        _kill(procs)
+        del store                       # the ranks have ended
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
+def _tagged(outputs: list, tag: str, n: int) -> list[dict]:
+    """The JSON each rank printed once after ``tag``."""
     records = []
-    for rank, (p, o) in enumerate(zip(procs, outs)):
+    for rank, (code, o) in enumerate(outputs):
         found = [line for line in o.splitlines() if line.startswith(tag)]
-        if p.returncode or len(found) != 1:
+        if code or len(found) != 1:
             raise RuntimeError(f"{n} ranks on one card: rank {rank} exited "
-                               f"{p.returncode}:\n{o[-3000:]}")
+                               f"{code}:\n{o[-3000:]}")
         records.append(json.loads(found[0][len(tag):]))
     return records
+
+
+#: the phases whose work runs as ranks sharing card 0 (:func:`start_ranks`)
+RANK_PHASES = {31, 32, 33, 41}
+
+#: one launch of ranks: a gloo group on card 0 (the store
+#: :func:`_spawn` holds), then, once the file ``SMOKE_GATE`` exists, the
+#: rank scripts of this module listed in argv[1] (JSON ``[tag, script's
+#: name, its arguments]``) in turn in that group, each job's seconds
+#: printed after ``JOB_SECONDS``
+RANK_JOBS = r"""
+import gc, json, os, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
+
+torch.cuda.set_device(0)
+join("gloo", int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]))
+gate, t0 = os.environ["SMOKE_GATE"], time.monotonic()
+while not os.path.exists(gate):
+    if time.monotonic() - t0 > chip_smoke.GATE_TIMEOUT:
+        sys.exit(f"the gate {gate} never opened")
+    time.sleep(0.2)
+seconds = {}
+for tag, name, args in json.loads(sys.argv[1]):
+    sys.argv = ["-c", *args]
+    t0 = time.perf_counter()
+    exec(compile(getattr(chip_smoke, name), name, "exec"),
+         {"__name__": "__main__"})
+    seconds[tag] = time.perf_counter() - t0
+    gc.collect()                   # the next job starts from an empty card
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+print("JOB_SECONDS " + json.dumps(seconds), flush=True)
+"""
+
+#: seconds ranks wait at their gate before they give up
+GATE_TIMEOUT = 3600.0
+
+#: each world's launch waiting at its gate: ``{world: (launch, gate,
+#: jobs)}`` (:func:`start_ranks`)
+LAUNCHES: dict = {}
+
+#: each world's records once its launch ended: ``{world: {tag: each
+#: rank's record}}`` (:func:`rank_records`)
+RECORDS: dict = {}
+
+
+def rank_jobs(phases: set, data_dir: Path) -> dict:
+    """The ranks' jobs of ``phases``, by world: ``{world: [[tag, script's
+    name, its arguments], ...]}``; phases 31 and 32's CLI legs share one
+    job (:data:`TWO_RANK`)."""
+    legs, jobs = {}, {}
+    if 31 in phases:
+        legs.update(sharded_legs(data_dir))
+    if 32 in phases:
+        legs.update(comm_legs(data_dir))
+    if legs:
+        jobs.setdefault(2, []).append(
+            ["TWO_RANK ", "TWO_RANK", [json.dumps(legs)]])
+    if 32 in phases:
+        jobs.setdefault(2, []).append(
+            ["SEQ_RANK ", "SEQ_RANK", [_seq_payload()]])
+    if 33 in phases:
+        for world, cases in grid_cases(data_dir).items():
+            jobs.setdefault(world, []).append(
+                ["GRID ", "GRID_RANK", [json.dumps(cases), str(GRID_DIR)]])
+    if 41 in phases:
+        jobs.setdefault(2, []).append(
+            ["P41_RANK ", "P41_RANK", [json.dumps(P41_RANK_CALLS)]])
+    return jobs
+
+
+def start_ranks(phases: set, data_dir: Path) -> None:
+    """Start one launch of ranks a world for the jobs of ``phases``
+    (:func:`rank_jobs`): the ranks import torch and the port, make their
+    group and wait at a gate file, which the first phase to read their
+    records opens (:func:`rank_records`), so their start-up is off the
+    phases' clocks.  Idle ranks hold a CUDA context each (peaks are read
+    a process, so no phase's figures move); every one is stopped at
+    exit."""
+    import atexit
+
+    work = ROOT / "build" / "chip_smoke_gates"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if 33 in phases:
+        _fresh_grid_dir()
+    atexit.register(_stop_ranks)
+    for world, jobs in rank_jobs(phases, data_dir).items():
+        gate = work / f"world{world}.go"
+        LAUNCHES[world] = (_spawn(RANK_JOBS, [json.dumps(jobs)], world,
+                                  {"SMOKE_GATE": str(gate)}), gate, jobs)
+
+
+def rank_records(world: int, tag: str) -> list[dict]:
+    """Each rank's record of the job ``tag`` of ``world``'s launch; the
+    first call for a world opens its gate and waits for all its jobs."""
+    if world not in RECORDS:
+        t0 = time.perf_counter()
+        launch, gate, jobs = LAUNCHES.pop(world)
+        gate.touch()
+        outputs = _collect(launch, 900.0)
+        tags = [job[0] for job in jobs] + ["JOB_SECONDS "]
+        RECORDS[world] = {t: _tagged(outputs, t, world) for t in tags}
+        spent = RECORDS[world]["JOB_SECONDS "][0]
+        print(f"{world} ranks on one card: {time.perf_counter() - t0:.1f} s"
+              " for one launch of " + ", ".join(
+                  f"{t.strip()} ({spent[t]:.1f} s on rank 0)"
+                  for t in tags[:-1]) + " (gloo)")
+    return RECORDS[world][tag]
+
+
+def _stop_ranks() -> None:
+    for (procs, _), _, _ in LAUNCHES.values():
+        _kill(procs)
+    LAUNCHES.clear()
+
+
+#: where phase 33's ranks leave their trunk gradients
+GRID_DIR = ROOT / "build" / "chip_smoke_grid"
+
+
+def grid_cases(data_dir: Path) -> dict:
+    """Phase 33's cases by world: ``{world: {label: the CLI's argv}}``."""
+    by_world: dict = {}
+    for label, (world, schedule, extra) in GRID_CASES.items():
+        by_world.setdefault(world, {})[label] = [
+            *GRID_FLAGS, *SCHEDULES[schedule][:2], *extra, "--data-dir",
+            str(data_dir), "-d", "cuda"]
+    return by_world
+
+
+def _fresh_grid_dir() -> None:
+    shutil.rmtree(GRID_DIR, ignore_errors=True)
+    GRID_DIR.mkdir(parents=True)
 
 
 def phase_grid(data_dir: Path) -> dict:
     """Phase 33; returns each case's launches summed over its ranks."""
     import torch
 
-    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
-        free_port
-
-    out_dir = ROOT / "build" / "chip_smoke_grid"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
+    out_dir = GRID_DIR
     refs = {}
     for label, (_, schedule, extra) in GRID_CASES.items():
         key = (schedule, extra)
@@ -4415,16 +4584,8 @@ def phase_grid(data_dir: Path) -> dict:
                                       str(GRID_S), "-p", "2", *extra)
             gc.collect()
             torch.cuda.empty_cache()
-    by_world: dict = {}
-    for label, (world, schedule, extra) in GRID_CASES.items():
-        by_world.setdefault(world, {})[label] = [
-            *GRID_FLAGS, *SCHEDULES[schedule][:2], *extra, "--data-dir",
-            str(data_dir), "-d", "cuda"]
-    ranks = {}
-    for world, cases in by_world.items():
-        ranks[world] = _n_ranks(GRID_RANK, [json.dumps(cases),
-                                            str(free_port()), str(out_dir)],
-                                "GRID ", world)
+    ranks = {world: rank_records(world, "GRID ")
+             for world in grid_cases(data_dir)}
     summed = {}
     for label, (world, schedule, extra) in GRID_CASES.items():
         ref = refs[(schedule, extra)]
@@ -6221,14 +6382,14 @@ from distributed_deep_learning_tpu_torch.ops import attention as fa
 from distributed_deep_learning_tpu_torch.reshard import restore as rs
 from chip_smoke import restored_parts_exact
 
-# the CLI's argv (JSON), a port, the checkpoint file a restore is held
-# to, and a file to wait for before the run
-argv, port, saved, gate = (json.loads(sys.argv[1]), sys.argv[2],
-                           sys.argv[3], sys.argv[4])
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
+
+# the CLI's argv (JSON), the checkpoint file a restore is held to, and a
+# file to wait for before the run
+argv, saved, gate = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 torch.cuda.set_device(0)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)      # the launcher's store (_n_ranks)
 rec, real = {}, rs.restore_resharded
 
 
@@ -6321,11 +6482,8 @@ def _reshard_ranks(n: int, argv: list, saved: str = "",
                    gate: str = "") -> list[dict]:
     """:data:`RESHARD_RANK` as ``n`` ranks on card 0, each running the CLI
     with ``argv`` after ``gate`` (a file) exists."""
-    from distributed_deep_learning_tpu_torch.runtime.bootstrap import \
-        free_port
-
-    return _n_ranks(RESHARD_RANK, [json.dumps(argv), str(free_port()),
-                                   saved, gate], "RESHARD_RANK ", n,
+    return _n_ranks(RESHARD_RANK, [json.dumps(argv), saved, gate],
+                    "RESHARD_RANK ", n,
                     env={"DDL_DATA_LIMIT": str(RESHARD_ROWS)})
 
 
@@ -6421,12 +6579,341 @@ def phase_reshard(data_dir: Path) -> dict:
     return out
 
 
+# --- phase 41: the scripts and examples on the card -------------------------
+
+#: ``scripts.serve_bench``'s argv in phase 41: the main path's full width
+#: and the script's flags nearest phase 4's load (FULL_LOAD's two prompt
+#: ranges and ``long_frac`` have no flags, so its record is not phase 4's)
+P41_SERVE = ["--paged", "--layers", "12", "--d-model", "768", "--heads",
+             "12", "--mlp-dim", "3072", "--vocab", "32768", "--max-len",
+             "1024", "--requests", "16", "--arrival", "poisson",
+             "--prompt-min", "16", "--prompt-max", "512",
+             "--shared-prefix-len", "64", "--shared-frac", "0.6",
+             "--new-min", "16", "--new-max", "64", "--max-slots", "8",
+             "--prefill-chunk", "64"]
+#: the multi-rank calls of phase 41, in turn in one launch of two ranks on
+#: card 0 (``[package, module, argv]``)
+P41_RANK_CALLS = [["scripts", "comm_bench", ["--device", "cuda"]],
+                  ["examples", "02_long_context_ring_attention", []],
+                  ["examples", "03_fsdp_sharded_training", []],
+                  ["examples", "05_tensor_parallel_gpt_cli", []],
+                  ["examples", "07_moe_expert_parallel_cli", []]]
+#: the CLI examples' epochs, batch and rows (``DDL_DATA_LIMIT``)
+P41_EPOCHS, P41_BATCH, P41_ROWS = 2, 16, 256
+
+#: one rank of phase 41's multi-rank calls, a job of :data:`RANK_JOBS`:
+#: each call's exit code, output, seconds and kernel launches (counted
+#: from 0 for each call)
+P41_RANK = r"""
+import contextlib, importlib, io, json, os, sys, time
+import torch
+import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.ops import attention as fa
+from distributed_deep_learning_tpu_torch.ops import paged_decode as pd
+
+calls = json.loads(sys.argv[1])
+counters = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+            pd.paged_flash_decode)
+out = {}
+for pkg, name, argv in calls:
+    os.environ.pop("DDL_DATA_LIMIT", None)
+    for c in counters:
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(
+            f"distributed_deep_learning_tpu_torch.{pkg}.{name}").main(argv)
+    torch.cuda.synchronize()
+    dist.barrier()
+    out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                 "launches": {c.__name__: c.launches for c in counters},
+                 "out": buf.getvalue()[-6000:]}
+print("P41_RANK " + json.dumps(out), flush=True)
+"""
+
+
+def _cli_launches(layers: int, rows: int = P41_ROWS,
+                  batch: int = P41_BATCH, epochs: int = P41_EPOCHS) -> dict:
+    """A ``-m data``/sequential CLI run's flash launches a rank: every
+    attention forward a train and validation step of each epoch and a
+    test step, dQ and dK/dV a train step."""
+    train, val, test = split_steps(rows, batch)
+    return {"flash_forward": layers * (epochs * (train + val) + test),
+            "flash_backward_dq": layers * epochs * train,
+            "flash_backward_dkv": layers * epochs * train}
+
+
+def _no_launches() -> dict:
+    return {"flash_forward": 0, "flash_backward_dq": 0,
+            "flash_backward_dkv": 0}
+
+
+def phase_scripts() -> dict:
+    """Phase 41; returns the phase's seconds (its calls here and its
+    ranks' calls) and its launches by kernel."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+    from distributed_deep_learning_tpu_torch.ops import paged_decode as pd
+    from distributed_deep_learning_tpu_torch.parallel.ring_attention import \
+        ring_hops
+    from distributed_deep_learning_tpu_torch.serve import bench as sbench
+
+    counters = (fa.flash_forward, fa.flash_backward_dq,
+                fa.flash_backward_dkv, pd.paged_flash_decode)
+    work = ROOT / "build" / "chip_smoke_scripts"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = {c.__name__: 0 for c in counters}
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    def call(pkg: str, name: str, argv: list, label: str | None = None):
+        label = label or name
+        os.environ.pop("DDL_DATA_LIMIT", None)
+        for c in counters:
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = importlib.import_module(
+                f"distributed_deep_learning_tpu_torch.{pkg}.{name}").main(
+                    list(argv))
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        for k, v in launches.items():
+            total[k] += v
+        print(f"scripts[{label}]: exit {rc} in {seconds[label]:.2f} s; "
+              f"launches {launches}")
+        if rc != 0:
+            raise RuntimeError(f"scripts[{label}]: exit {rc}:\n"
+                               f"{buf.getvalue()[-3000:]}")
+        return buf.getvalue(), launches
+
+    def json_line(text: str) -> dict:
+        return json.loads([ln for ln in text.splitlines()
+                           if ln.startswith("{")][-1])
+
+    def want_launches(label, got, flash=None, decode=0):
+        want = {**(flash or _no_launches()), "paged_flash_decode": decode}
+        check_launches(f"scripts[{label}]", got, want)
+
+    # 1. the serving bench at full width, with telemetry; its tokens against
+    #    a direct paged_serving_bench call on the same seed and load; each
+    #    run's decode launches are its decode ticks x layers
+    layers = FULL_MODEL["num_layers"]
+    events, trace = work / "obs_events.jsonl", work / "serve_trace.json"
+    seen = {}
+    real = sbench.paged_serving_bench
+
+    def captured(**kw):
+        rec = real(**kw)
+        seen.update(kw=kw, results=dict(rec["results"]))
+        return rec
+
+    sbench.paged_serving_bench = captured
+    try:
+        text, got = call("scripts", "serve_bench",
+                         [*P41_SERVE, "--obs", "--obs-file", str(events),
+                          "--obs-trace", str(trace)])
+    finally:
+        sbench.paged_serving_bench = real
+    rec = json_line(text)
+    pe = rec["paged_engine"]
+    print(f"scripts[serve_bench]: {pe['generated_tokens']} tokens at "
+          f"{pe['tokens_per_sec']:.1f} tok/s on {rec['device']}, "
+          f"{pe['decode_ticks']} ticks, {pe['decode_captures']} capture(s), "
+          f"prefix hit rate {pe['prefix_hit_rate']:.3f}; slot engine "
+          f"{rec['engine_v1']['tokens_per_sec']:.1f} tok/s")
+    if not rec["device"].startswith("cuda") or rec["errors"] or \
+            pe["nonfinite_tokens"] or not pe["paged_decode_launches"]:
+        raise RuntimeError("scripts[serve_bench]: not served on the card "
+                           "through the decode kernel, or requests failed")
+    want_launches("serve_bench", got, decode=pe["decode_ticks"] * layers)
+    pd.paged_flash_decode.launches = 0
+    t0 = time.perf_counter()
+    direct = real(**{**seen["kw"], "telemetry": None,
+                     "compare_engine": False})
+    torch.cuda.synchronize()
+    seconds["serve_bench direct"] = time.perf_counter() - t0
+    n = pd.paged_flash_decode.launches
+    want = direct["paged_engine"]["decode_ticks"] * layers
+    print(f"scripts[serve_bench direct]: paged_flash_decode launches {n}, "
+          f"decode_ticks x layers {want}")
+    if n != want:
+        raise RuntimeError("scripts[serve_bench direct]: the decode did not "
+                           "launch the kernel once per layer per tick")
+    total["paged_flash_decode"] += n
+    same = direct["results"] == seen["results"]
+    print(f"scripts[serve_bench]: tokens of all {len(seen['results'])} "
+          f"requests equal to a direct paged_serving_bench call on "
+          f"load_kw {seen['kw']['load_kw']}: {same}")
+    if not same:
+        raise RuntimeError("scripts[serve_bench]: the script's tokens are "
+                           "not the library call's")
+    served = len(seen["results"])
+
+    # 2. the report over the stream that run wrote
+    text, got = call("scripts", "obs_report", [str(events), "--trace"],
+                     "obs_report --trace")
+    head = text.splitlines()[0]
+    print(f"scripts[obs_report --trace]: {head}")
+    if f", {served} request traces) ==" not in head:
+        raise RuntimeError("scripts[obs_report]: the trace's requests are "
+                           "not the requests served")
+    want_launches("obs_report --trace", got)
+    text, got = call("scripts", "obs_report", [str(events), "--window"],
+                     "obs_report --window")
+    lines = text.splitlines()
+    print(f"scripts[obs_report --window]: {lines[0]}")
+    if not lines[0].startswith("== live windows") or len(lines) < 3:
+        raise RuntimeError("scripts[obs_report]: no live windows")
+
+    # 3. disaggregation on one card (card 0 twice): the decode ticks of
+    #    both arms' warm and timed runs, counted as they are called
+    with _tick_calls() as ticks:
+        text, got = call("scripts", "disagg_bench", ["--requests", "8"])
+    rec = json_line(text)
+    dis = rec["disagg"]
+    nl = rec["model"]["num_layers"]
+    print(f"scripts[disagg_bench]: on {rec['device']}, speedup "
+          f"{rec['speedup']}, token agreement {rec['token_agreement']}; "
+          f"{ticks['n']} decode ticks over both arms' warm and timed runs; "
+          f"the timed disaggregated run {dis['paged_decode_launches']} "
+          f"decode launches over {dis['decode_ticks']} ticks")
+    if not rec["device"].startswith("cuda") or rec["errors"] or \
+            not dis["decode_ticks"] or \
+            dis["paged_decode_launches"] != dis["decode_ticks"] * nl:
+        raise RuntimeError("scripts[disagg_bench]: not served on the card "
+                           "through the decode kernel once per layer per "
+                           "tick")
+    want_launches("disagg_bench", got, decode=ticks["n"] * nl)
+
+    # 4. the planner's dry run against the card's memory
+    text, got = call("scripts", "autotune",
+                     ["gpt", "-l", "12", "-s", "768", "-b", "4",
+                      "--dry-run"])
+    rec = json_line(text)
+    print(f"scripts[autotune]: {rec}")
+    if not (rec["budget_bytes"] or 0) > 0 or rec["n_candidates"] < 1:
+        raise RuntimeError("scripts[autotune]: no budget from the card")
+    want_launches("autotune", got)
+
+    # 5. one soak's batches onto the card
+    text, got = call("scripts", "data_soak", ["--small", "--only", "mqtt"])
+    rec = json_line(text)
+    print(f"scripts[data_soak]: {rec}")
+    if not rec["device"].startswith("cuda"):
+        raise RuntimeError("scripts[data_soak]: the batches did not reach "
+                           "the card")
+    want_launches("data_soak", got)
+
+    # 6. the single-process examples
+    passes = {"01_train_mlp_library_api": ("library API on cuda",
+                                           _no_launches()),
+              "04_pipelined_gpt_cli": ("pipelined train loss on cuda", None),
+              "06_elastic_mid_epoch_resume": (
+                  "survived the injected step-5 failure on cuda",
+                  _no_launches()),
+              "08_profiling_toolkit": ("trace: wrote", _no_launches())}
+    for name, (line, flash) in passes.items():
+        text, got = call("examples", name, [])
+        if line not in text or "on cuda" not in text:
+            raise RuntimeError(f"scripts[{name}]: no pass line on the card")
+        if flash is None:
+            flash = pipeline_cli_launches()
+        want_launches(name, got, flash)
+
+    # 7. the multi-rank calls, a job of the two ranks' launch (run at the
+    #    first phase that read its records: the wait is not this job's)
+    t0 = time.perf_counter()
+    ranks = rank_records(2, "P41_RANK ")
+    waited = time.perf_counter() - t0
+    seconds["ranks"] = rank_records(2, "JOB_SECONDS ")[0]["P41_RANK "]
+    T = 4096
+    for name in [c[1] for c in P41_RANK_CALLS]:
+        for rank, r in enumerate(ranks):
+            got = r[name]["launches"]
+            if name.startswith("02"):
+                hops = sum(m is not None for _, m in ring_hops(
+                    rank, 2, T // 2, T // 2, True, None))
+                flash = {"flash_forward": hops, "flash_backward_dq": hops,
+                         "flash_backward_dkv": hops}
+            elif name.startswith(("05", "07")):   # 2 layers, whole batch
+                flash = _cli_launches(2)
+            else:
+                flash = None
+            if r[name]["rc"] != 0:
+                raise RuntimeError(f"scripts[{name}] rank {rank}: exit "
+                                   f"{r[name]['rc']}")
+            want_launches(f"{name} rank {rank}", got, flash)
+            for k, v in got.items():
+                total[k] += v
+        print(f"scripts[{name}]: {ranks[0][name]['seconds']:.2f} s on rank "
+              f"0; its output's tail: {ranks[0][name]['out'][-300:]!r}")
+    out0 = {c[1]: ranks[0][c[1]]["out"] for c in P41_RANK_CALLS}
+    rec = json.loads(out0["comm_bench"][out0["comm_bench"].index("{"):])
+    par, num, ov = rec["parity"], rec["numerics"], rec["overlap"]
+    print(f"scripts[comm_bench]: on {rec['device']}, wire bytes "
+          f"{rec['bytes']}, ring exact {num['ring_all_gather_exact']}/"
+          f"{num['ring_reduce_scatter_exact']}, overlap fraction "
+          f"{ov['overlap_fraction']} (host-staged {ov['host_staged']}: "
+          f"the fraction measures gloo's staging through host memory), "
+          f"FSDP parity none {par['explicit_none_max_abs_delta']}, int8 "
+          f"{par['int8_ef_max_abs_delta']}")
+    losses = par["losses"]
+    if not rec["device"].startswith("cuda") or not (
+            num["ring_all_gather_exact"] and num["ring_reduce_scatter_exact"]
+            and all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(
+                losses["explicit_none"], losses["annotation"]))
+            and losses["explicit_int8_ef"][-1]
+            < losses["explicit_int8_ef"][0]):
+        raise RuntimeError("scripts[comm_bench]: a gate failed")
+    for name, line in (("02_long_context_ring_attention", "max|ring - dense|"),
+                       ("03_fsdp_sharded_training", "loss:"),
+                       ("05_tensor_parallel_gpt_cli", "tensor-parallel"),
+                       ("07_moe_expert_parallel_cli", "expert-parallel")):
+        found = [ln for ln in out0[name].splitlines() if line in ln]
+        print(f"scripts[{name}]: {found[-1] if found else 'NO PASS LINE'}")
+        if not found:
+            raise RuntimeError(f"scripts[{name}]: no pass line")
+    took = time.perf_counter() - t_phase - waited + seconds["ranks"]
+    print(f"scripts: phase 41 {took:.1f} s (its ranks' calls "
+          f"{seconds['ranks']:.1f} s); "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    return {"seconds": took, "launches": total}
+
+
+def pipeline_cli_launches() -> dict:
+    """Example 04's flash launches: ``gpt -l 4 -m pipeline --nstages 4
+    --pipeline-schedule 1f1b -b 16`` (``-p 2``: 8 microbatches) walked by
+    one process, 2 epochs of 256 rows.  A train step runs each layer's
+    forward twice a microbatch (the recompute) but the last stage's once,
+    dQ and dK/dV once; an evaluation step each layer's forward once a
+    microbatch."""
+    layers, stages, m = 4, 4, 16 // 2
+    train, val, test = split_steps(P41_ROWS, P41_BATCH)
+    fwd = sum(grid_launches("1f1b", s, stages, 1, layers, m)["flash_forward"]
+              for s in range(stages))
+    back = layers * m
+    return {"flash_forward": P41_EPOCHS * train * fwd
+            + (P41_EPOCHS * val + test) * layers * m,
+            "flash_backward_dq": P41_EPOCHS * train * back,
+            "flash_backward_dkv": P41_EPOCHS * train * back}
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(1, 41)),
+                    default=",".join(str(i) for i in range(1, 42)),
                     help="comma-separated phases to run; the result lines "
                          "are printed only when all run")
     ap.add_argument("--waves", type=int, default=None,
@@ -6435,7 +6922,7 @@ def main(argv=None) -> int:
                          "result lines)")
     opts = ap.parse_args(argv)
     phases = {int(x) for x in opts.phases.split(",")}
-    complete = phases == set(range(1, 41)) and opts.waves is None
+    complete = phases == set(range(1, 42)) and opts.waves is None
     if opts.waves is not None:
         from distributed_deep_learning_tpu_torch.ops import paged_decode
         paged_decode.WAVES = opts.waves
@@ -6454,7 +6941,7 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build(builds["paged_decode"])
     decode = rec = None
-    if phases & {3, 4, 5, 13, 14, 18, 19, 20, 35, 36}:
+    if phases & {3, 4, 5, 13, 14, 18, 19, 20, 35, 36, 41}:
         builds["paged_decode"].result()        # not built again at use
         timing = phase_kernel() if 3 in phases else {}
         if phases & {4, 5, 13, 14, 18, 19, 20, 35, 36}:
@@ -6489,7 +6976,7 @@ def main(argv=None) -> int:
         lap("2-5, 13, 14, 18-20, 35, 36")
     if 6 in phases:
         phase_ptxas(builds)
-    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34, 37, 39, 40}
+    if phases & ({7, 25, 26, 28, 29, 30, 31, 32, 33, 34, 37, 39, 40, 41}
                  | set(range(8, 18))):
         builds["flash_attention"].result()     # not built again at use
     records = phase_flash_kernels() if 7 in phases else {}
@@ -6536,6 +7023,10 @@ def main(argv=None) -> int:
         if 22 in phases:
             phase_workload_variants(workloads)
         lap("21-22")
+    if phases & RANK_PHASES:
+        # the ranks start up while phase 23, whose timings no one reads,
+        # runs, and wait at their gates
+        start_ranks(phases, _write_tokens())
     if 23 in phases:
         phase_workload_checkpoint()
     if 24 in phases:
@@ -6590,6 +7081,12 @@ def main(argv=None) -> int:
         if 40 in phases:
             resharded = phase_reshard(tokens)
             lap(40)
+    scripts = {}
+    if 41 in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        scripts = phase_scripts()
+        lap(41)
     for entry in kernels:
         if entry["name"] not in FLASH_REPLACES:
             continue
@@ -6619,7 +7116,14 @@ def main(argv=None) -> int:
                                   for label, run in tuned.items()}
         entry["reshard_launches"] = {label: run[entry["name"]]
                                      for label, run in resharded.items()}
-    print(f"phases {sorted(phases)} done in {time.perf_counter() - t0:.1f} s")
+    for entry in kernels:
+        entry["scripts_launches"] = scripts.get("launches", {}).get(
+            entry["name"])
+    took = time.perf_counter() - t0
+    print(f"phases {sorted(phases)} done in {took:.1f} s"
+          + (f"; without phase 41 ({scripts['seconds']:.1f} s, its calls "
+             f"here and its ranks' calls) {took - scripts['seconds']:.1f} s"
+             if scripts else ""))
     if not complete:
         return 0
     print(json.dumps({"kernels": kernels}))

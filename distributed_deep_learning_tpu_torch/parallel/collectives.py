@@ -326,15 +326,15 @@ def _same(t):
     return t
 
 
-def shard_dim(shape, axis_size: int) -> int:
+def shard_dim(shape, axis_size: int, min_leaf_size: int = 2 ** 14) -> int:
     """Which dim of a flax-layout ``shape`` the JAX rule splits over the
-    comm axis (-1: the leaf stays whole):
-    :func:`..parallel.zero.leaf_shard_spec`."""
+    comm axis (-1: the leaf stays whole; so do leaves below
+    ``min_leaf_size`` elements): :func:`..parallel.zero.leaf_shard_spec`."""
     from distributed_deep_learning_tpu_torch.parallel.zero import \
         leaf_shard_spec
 
     spec = leaf_shard_spec(torch.empty(tuple(shape), device="meta"),
-                           axis_size)
+                           axis_size, min_leaf_size=min_leaf_size)
     for i, entry in enumerate(spec):
         if entry is not None:
             return i
@@ -378,10 +378,12 @@ class ExplicitFSDP:
     (:func:`flax_layouts`), so the split dim and every shard-local
     statistic (``--clip-norm``, LAMB's trust ratio, Adafactor's factors)
     cover JAX's elements; the model's own parameter for the rest.
-    ``layout`` is the rank's ``runtime.mesh.MeshLayout``."""
+    ``layout`` is the rank's ``runtime.mesh.MeshLayout``;
+    ``min_leaf_size`` is the JAX rule's (the CLI's default; the
+    collectives bench splits smaller leaves, as JAX's does)."""
 
     def __init__(self, model: nn.Module, layout, method: str = "none",
-                 overlap: bool = False):
+                 overlap: bool = False, min_leaf_size: int = 2 ** 14):
         if method not in METHODS:
             raise ValueError(f"unknown comm method {method!r}; choose from "
                              f"{METHODS}")
@@ -402,7 +404,7 @@ class ExplicitFSDP:
         self.shapes = {n: tuple(self.flax[n][0](
             torch.empty(p.shape, device="meta")).shape)
             for n, p in self.params.items()}
-        self.dims = {n: shard_dim(self.shapes[n], self.size)
+        self.dims = {n: shard_dim(self.shapes[n], self.size, min_leaf_size)
                      for n in self.params}
         self.masters = {}
         for n, p in self.params.items():

@@ -4,9 +4,13 @@
 
 ``--spawn -r N`` starts N ``python -m distributed_deep_learning_tpu_torch``
 processes with torchrun's environment (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` on loopback and a
-free ``MASTER_PORT``), which :mod:`.bootstrap` reads.  On ``cuda`` each
-rank takes one card, so N beyond the visible cards is refused.
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), which :mod:`.bootstrap` reads.
+The launcher holds the rendezvous store on a loopback port the OS picks
+(:func:`.bootstrap.host_store`) until its ranks end, and sends them to it
+(``MASTER_ADDR``, ``MASTER_PORT``, ``DDL_HOSTED_STORE``): the port is
+never free between its choice and its use, so concurrent launches cannot
+meet in one store.  On ``cuda`` each rank takes one card, so N beyond the
+visible cards is refused.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Sequence
 
 import torch
 
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 
 
 def launch_local(n_processes: int, argv: Sequence[str], *,
@@ -45,7 +50,7 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
             raise RuntimeError(f"--spawn -r {n_processes} on cuda needs "
                                f"{n_processes} cards, {cards} visible "
                                "(one rank per card)")
-    port = str(free_port())
+    store = host_store()
     procs: list[subprocess.Popen] = []
     outputs = [""] * n_processes
 
@@ -56,8 +61,7 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
         for rank in range(n_processes):
             env = dict(os.environ, RANK=str(rank),
                        WORLD_SIZE=str(n_processes), LOCAL_RANK=str(rank),
-                       LOCAL_WORLD_SIZE=str(n_processes),
-                       MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+                       LOCAL_WORLD_SIZE=str(n_processes), **hosted_env(store))
             env.setdefault("OMP_NUM_THREADS", "1")   # as torchrun sets it
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", module, *argv], env=env,
@@ -79,6 +83,7 @@ def launch_local(n_processes: int, argv: Sequence[str], *,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store                       # the ranks have ended
     results = [subprocess.CompletedProcess(p.args, p.returncode,
                                            stdout=outputs[r])
                for r, p in enumerate(procs)]

@@ -97,10 +97,11 @@ def make_trace(n_requests: int, *, vocab_size: int, seed: int = 0,
     return reqs
 
 
-def run_engine(model, requests: Sequence[Request], **engine_kw) -> dict:
+def run_engine(model, requests: Sequence[Request], telemetry=None,
+               **engine_kw) -> dict:
     """One :class:`ServeEngine` lifetime over the trace; returns its
     ``{"results", "errors", "stats"}``."""
-    return ServeEngine(model, **engine_kw).run(requests)
+    return ServeEngine(model, **engine_kw).run(requests, telemetry=telemetry)
 
 
 def run_naive(model, requests: Sequence[Request], batch_size: int) -> dict:
@@ -158,12 +159,13 @@ def serving_bench(*, seed: int = 0, device="cuda", n_requests: int = 32,
                   new_tokens: tuple[int, int] = (4, 64),
                   max_slots: int = 8, stagger: int = 0,
                   skip_naive: bool = False, kv_dtype: Optional[str] = None,
-                  weight_dtype: Optional[str] = None) -> dict:
+                  weight_dtype: Optional[str] = None, telemetry=None) -> dict:
     """The slot engine against the naive baseline on one seeded
     mixed-length trace (:func:`make_trace`) and a seeded model
     (``DEFAULT_MODEL`` overridden by ``model_kw``).  Besides the summary
     the record holds ``results`` (uid -> the engine's tokens) and
-    ``budgets`` (uid -> ``max_new_tokens``)."""
+    ``budgets`` (uid -> ``max_new_tokens``).  ``telemetry`` (an
+    :class:`..obs.RunTelemetry`) records the engine's run, as JAX's does."""
     model = build_model(seed, device, **(model_kw or {}))
     if prompt_lens[1] + new_tokens[1] > model.max_len:
         raise ValueError(
@@ -172,8 +174,9 @@ def serving_bench(*, seed: int = 0, device="cuda", n_requests: int = 32,
     trace = make_trace(n_requests, vocab_size=model.vocab_size, seed=seed,
                        prompt_lens=prompt_lens, new_tokens=new_tokens,
                        stagger=stagger)
-    eng = run_engine(model, trace, device=device, max_slots=max_slots,
-                     kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+    eng = run_engine(model, trace, telemetry=telemetry, device=device,
+                     max_slots=max_slots, kv_dtype=kv_dtype,
+                     weight_dtype=weight_dtype)
     record = {
         "metric": "serving throughput tokens/sec (mixed-length trace)",
         "device": eng["stats"]["device"],
@@ -219,10 +222,11 @@ def _slot_summary(es: dict) -> dict:
     }
 
 
-def run_paged(model, requests: Sequence[Request], **engine_kw) -> dict:
+def run_paged(model, requests: Sequence[Request], telemetry=None,
+              **engine_kw) -> dict:
     """One :class:`PagedEngine` lifetime over the trace; returns its
     ``{"results", "errors", "stats"}``."""
-    return PagedEngine(model, **engine_kw).run(requests)
+    return PagedEngine(model, **engine_kw).run(requests, telemetry=telemetry)
 
 
 def run_supervised(model, requests: Sequence[Request], *,
@@ -291,7 +295,7 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
                         draft_layers: Optional[int] = None, spec_k: int = 4,
                         kv_dtype: Optional[str] = None,
                         weight_dtype: Optional[str] = None,
-                        compare_engine: bool = True) -> dict:
+                        compare_engine: bool = True, telemetry=None) -> dict:
     """One trace-driven load (``DEFAULT_LOAD`` overridden by ``load_kw``)
     through :class:`PagedEngine` on a seeded model (``DEFAULT_MODEL``
     overridden by ``model_kw``).  Besides the summary the record holds
@@ -302,7 +306,9 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
     (``engine_v1``, its tokens under ``results_v1``), with
     ``prefill_tokens_saved_frac`` and ``speedup_vs_v1``.  The slot engine
     prefills each prompt at its true length (the flax one at its padded
-    bucket), so its ``prefill_tokens_computed`` is the prompts' total."""
+    bucket), so its ``prefill_tokens_computed`` is the prompts' total.
+    ``telemetry`` records the paged engine's run (not the comparison
+    leg's), as JAX's does."""
     model = build_model(seed, device, **(model_kw or {}))
     spec = LoadSpec(**{**DEFAULT_LOAD, **(load_kw or {})})
     cap = paged_max_len(model.max_len, kv_block_size,
@@ -313,7 +319,8 @@ def paged_serving_bench(*, seed: int = 0, device="cuda",
             f"trace upper bound {need} tokens exceeds paged capacity "
             f"{cap} (model max_len {model.max_len})")
     trace = make_load(spec, vocab_size=model.vocab_size, seed=seed)
-    res = run_paged(model, trace, device=device, max_slots=max_slots,
+    res = run_paged(model, trace, telemetry=telemetry, device=device,
+                    max_slots=max_slots,
                     max_len=cap, kv_block_size=kv_block_size,
                     prefill_chunk=min(prefill_chunk, cap),
                     decode_attention=decode_attention,

@@ -881,13 +881,19 @@ class _StepDown:
         need = env.world if -1 in sizes else int(np.prod(sizes))
         if need >= env.world:
             return None
-        box = [[bootstrap.free_port(), bootstrap.free_port()]]
-        dist.broadcast_object_list(box, src=0)
-        ports = box[0]
+        # rank 0's store binds a port the OS picks, and only then is the
+        # port sent to the others: no other run can take it in between
         addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
-        store = dist.TCPStore(addr, ports[1], is_master=env.rank == 0,
+        store = dist.TCPStore(addr, 0, is_master=True,
                               wait_for_workers=False,
-                              timeout=datetime.timedelta(seconds=cls.WAIT))
+                              timeout=datetime.timedelta(seconds=cls.WAIT)) \
+            if env.rank == 0 else None
+        box = [store.port if store is not None else None]
+        dist.broadcast_object_list(box, src=0)
+        if store is None:
+            store = dist.TCPStore(addr, box[0], is_master=False,
+                                  timeout=datetime.timedelta(
+                                      seconds=cls.WAIT))
         backend = dist.get_backend()
         dist.barrier()
         bootstrap.shutdown()
@@ -897,12 +903,14 @@ class _StepDown:
                   f"{env.world} launched; waiting for the run's end",
                   file=sys.stderr, flush=True)
             return cls(store, env.rank, need, env.world, config, None)
-        # the launch's backend again (gloo ranks may share a card)
-        dist.init_process_group(backend, init_method=f"tcp://{addr}:"
-                                f"{ports[0]}", world_size=need,
-                                rank=env.rank, device_id=env.device
+        # the launch's backend again (gloo ranks may share a card), met
+        # in the same store
+        dist.init_process_group(backend, store=dist.PrefixStore("plan/",
+                                                                store),
+                                world_size=need, rank=env.rank,
+                                device_id=env.device
                                 if backend == "nccl" else None)
-        os.environ.update(WORLD_SIZE=str(need), MASTER_PORT=str(ports[0]))
+        os.environ.update(WORLD_SIZE=str(need))
         new_env = bootstrap.DistEnv(env.rank, need, env.device)
         logger.info(f"reshard: the re-planned mesh {config.mesh_shape} "
                     f"takes {need} of the {env.world} launched ranks; "

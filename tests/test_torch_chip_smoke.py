@@ -196,7 +196,7 @@ NEW_PHASES = {16: "phase_fused_head", 17: "phase_optimizers",
               33: "phase_grid", 34: "phase_resilience",
               35: "phase_serving_resilience", 36: "phase_disagg",
               37: "phase_obs", 38: "phase_remat", 39: "phase_tune",
-              40: "phase_reshard"}
+              40: "phase_reshard", 41: "phase_scripts"}
 
 
 @pytest.mark.parametrize("phase", sorted(NEW_PHASES))
@@ -237,11 +237,12 @@ def test_new_phases_are_listed_and_selectable(phase, monkeypatch):
             ("phase_grid", {}), ("phase_resilience", {}),
             ("phase_serving_resilience", {}), ("phase_disagg", {}),
             ("phase_obs", {}), ("phase_remat", {}), ("phase_tune", {}),
-            ("phase_tune_oom", None), ("phase_reshard", {})):
+            ("phase_tune_oom", None), ("phase_reshard", {}),
+            ("phase_scripts", {"seconds": 0.0, "launches": {}})):
         monkeypatch.setattr(chip_smoke, name, stub(name, value))
     assert chip_smoke.main(["--phases", str(phase)]) == 0
     assert NEW_PHASES[phase] in called
-    assert "range(1, 41)" in inspect.getsource(chip_smoke.main)
+    assert "range(1, 42)" in inspect.getsource(chip_smoke.main)
 
 
 def test_served_margins_hold_a_speculative_int8_weight_engine():
@@ -622,9 +623,11 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
         "phase_obs": flash, "phase_disagg": {"at_rest": 4, "int8": 4},
         "phase_tune": {"autotune": flash},
         "phase_reshard": {"(a) data=3": flash},
+        "phase_scripts": {"seconds": 1.0,
+                          "launches": {**flash, "paged_flash_decode": 5}},
         "_write_tokens": ROOT}
     for name in [n for n in dir(chip_smoke) if n.startswith("phase_")] + \
-            ["start_builds", "_write_tokens"]:
+            ["start_builds", "_write_tokens", "start_ranks"]:
         value = values.get(name)
         monkeypatch.setattr(chip_smoke, name,
                             lambda *a, _v=value, **k: _v)
@@ -643,6 +646,8 @@ def test_full_run_kernels_line_carries_grid_and_resilience_launches(
         assert kernels[name]["reshard_launches"] == {"(a) data=3": n}
     assert kernels["paged_flash_decode"]["disagg_launches"] == {
         "at_rest": 4, "int8": 4}
+    for name, n in {**flash, "paged_flash_decode": 5}.items():
+        assert kernels[name]["scripts_launches"] == n
 
 
 def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
@@ -661,7 +666,7 @@ def test_phase_35_rides_on_phase_4_and_completes_36_phases(monkeypatch):
     assert '"resilience_serve_launches"' in src
     assert '"disagg_launches"' in src and '"obs_launches"' in src
     assert '"tune_launches"' in src and '"reshard_launches"' in src
-    assert "set(range(1, 41))" in src
+    assert "set(range(1, 42))" in src
 
 
 def _tiny_paged():
@@ -930,3 +935,148 @@ def test_restored_parts_check_holds_and_fails_a_planted_moment(tmp_path):
     moment = next(iter(got.optimizer.state.values()))["exp_avg"]
     moment.view(-1)[0] += 1e-3
     assert not chip_smoke.restored_parts_exact(got, whole)
+
+
+def _counted_flash(monkeypatch):
+    """Stand-ins for the flash wrappers that count their calls (on the CPU
+    the wrappers run their plain versions uncounted)."""
+    from distributed_deep_learning_tpu_torch.ops import attention as fa
+
+    def forward(q, k, v, key_valid, **kw):
+        forward.launches += 1
+        return fa.flash_attention_reference(q, k, v, key_valid=key_valid,
+                                            **kw)
+
+    def backward(*args, **kw):
+        backward.launches += 1
+        return fa.flash_backward_reference(*args, **kw)
+
+    forward.launches = backward.launches = 0
+    monkeypatch.setattr(fa, "flash_forward", forward)
+    monkeypatch.setattr(fa, "flash_backward", backward)
+    return lambda: {"flash_forward": forward.launches,
+                    "flash_backward_dq": backward.launches,
+                    "flash_backward_dkv": backward.launches}
+
+
+@pytest.mark.parametrize("example", ["05", "04"])
+def test_phase_41_launch_check_holds_on_a_cpu_stand_in(example, monkeypatch):
+    """Phase 41's predictions for the CLI examples on the CPU: example
+    05's argv (each rank of ``data=1,model=2`` runs every layer, so one
+    process stands in for a rank) and example 04's pipeline, each with
+    the flash attention the card's ``auto`` picks, counted by stand-ins,
+    give ``_cli_launches`` and ``pipeline_cli_launches``; an epoch fewer
+    fails the check."""
+    import contextlib
+    import io
+
+    from distributed_deep_learning_tpu_torch.__main__ import main
+
+    counted = _counted_flash(monkeypatch)
+    monkeypatch.setenv("DDL_DATA_LIMIT", str(chip_smoke.P41_ROWS))
+    if example == "05":
+        argv = ["gpt", "-l", "2", "-s", "64", "-e", "2", "-b", "16",
+                "-m", "data"]
+        want = chip_smoke._cli_launches(2)
+        short = chip_smoke._cli_launches(2, epochs=1)
+    else:
+        argv = ["gpt", "-l", "4", "-s", "64", "-e", "2", "-b", "16",
+                "-m", "pipeline", "--nstages", "4", "--pipeline-schedule",
+                "1f1b"]
+        want = chip_smoke.pipeline_cli_launches()
+        monkeypatch.setattr(chip_smoke, "P41_EPOCHS", 1)
+        short = chip_smoke.pipeline_cli_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(argv + ["--attention", "flash", "-d", "cpu"])
+    got = counted()
+    chip_smoke.check_launches("stand-in", got, want)
+    with pytest.raises(RuntimeError, match="flash kernels"):
+        chip_smoke.check_launches("planted", got, short)
+
+
+def test_phase_41_runs_the_scripts_and_examples_it_names():
+    """Phase 41 drives every script and example the docstring names
+    through ``main(argv)``, the multi-rank ones in ``P41_RANK_CALLS``, the
+    serving bench at phase 4's width; the ranks' launches start before
+    phase 23."""
+    import importlib
+
+    src = inspect.getsource(chip_smoke.phase_scripts)
+    for name in ("serve_bench", "obs_report", "disagg_bench", "autotune",
+                 "data_soak", "01_train_mlp_library_api",
+                 "04_pipelined_gpt_cli", "06_elastic_mid_epoch_resume",
+                 "08_profiling_toolkit"):
+        assert f'"{name}"' in src
+    for pkg, name, _ in chip_smoke.P41_RANK_CALLS:
+        assert callable(importlib.import_module(
+            f"distributed_deep_learning_tpu_torch.{pkg}.{name}").main)
+    serve = chip_smoke.P41_SERVE
+    for flag, value in (("--layers", "12"), ("--d-model", "768"),
+                        ("--vocab", "32768"), ("--max-len", "1024"),
+                        ("--requests", "16"), ("--max-slots", "8")):
+        assert serve[serve.index(flag) + 1] == value
+    assert str(chip_smoke.FULL_MODEL["d_model"]) in serve
+    assert "host_store" in inspect.getsource(chip_smoke._spawn)
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("start_ranks(") < src.index(
+        "phase_workload_checkpoint()") < src.index("phase_sharded(")
+
+
+@pytest.mark.parametrize("phases, want", [
+    ({41}, {2: ["P41_RANK "]}),
+    ({33}, {2: ["GRID "], 4: ["GRID "]}),
+    ({31, 32}, {2: ["TWO_RANK ", "SEQ_RANK "]}),
+    ({31, 32, 33, 41}, {2: ["TWO_RANK ", "SEQ_RANK ", "GRID ", "P41_RANK "],
+                        4: ["GRID "]}),
+])
+def test_rank_jobs_are_one_launch_a_world(phases, want):
+    """The ranks' work of the phases asked for, and only theirs, in one
+    launch a world; phases 31 and 32's CLI legs share one job; every job
+    names a rank script of the module that compiles and makes no group of
+    its own (``RANK_JOBS`` made it)."""
+    import json
+
+    jobs = chip_smoke.rank_jobs(phases, ROOT)
+    assert {w: [tag for tag, _, _ in js] for w, js in jobs.items()} == want
+    for js in jobs.values():
+        for tag, name, args in js:
+            script = getattr(chip_smoke, name)
+            compile(script, name, "exec")
+            assert "bootstrap import join" not in script
+            assert "init_process_group" not in script
+            assert all(isinstance(a, str) for a in args)
+    if 31 in phases:
+        legs = json.loads(jobs[2][0][2][0])
+        assert set(legs) == set(chip_smoke.sharded_legs(ROOT)) | set(
+            chip_smoke.comm_legs(ROOT))
+    if 33 in phases:
+        for world, cases in chip_smoke.grid_cases(ROOT).items():
+            grid = [a for tag, _, a in jobs[world] if tag == "GRID "][0]
+            assert json.loads(grid[0]) == cases
+
+
+def test_rank_records_open_a_worlds_gate_once(monkeypatch, tmp_path):
+    """The first read of a world's records opens its gate and collects
+    every job's records; later reads take them from there."""
+    import json
+
+    gate = tmp_path / "world2.go"
+    jobs = [["A ", "TWO_RANK", []], ["B ", "SEQ_RANK", []]]
+    outs = [(0, f"A {json.dumps({'r': r})}\nB {json.dumps([r])}\n"
+                f"JOB_SECONDS {json.dumps({'A ': 1.0, 'B ': 2.0})}\n")
+            for r in range(2)]
+    collected = []
+
+    def collect(launch, timeout):
+        assert gate.exists()
+        collected.append(launch)
+        return outs
+
+    monkeypatch.setattr(chip_smoke, "_collect", collect)
+    monkeypatch.setattr(chip_smoke, "LAUNCHES",
+                        {2: ("launch", gate, jobs)})
+    monkeypatch.setattr(chip_smoke, "RECORDS", {})
+    assert chip_smoke.rank_records(2, "A ") == [{"r": 0}, {"r": 1}]
+    assert chip_smoke.rank_records(2, "B ") == [[0], [1]]
+    assert chip_smoke.rank_records(2, "JOB_SECONDS ")[0]["B "] == 2.0
+    assert collected == ["launch"] and not chip_smoke.LAUNCHES

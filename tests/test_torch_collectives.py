@@ -33,7 +33,8 @@ from distributed_deep_learning_tpu.workloads import base as jbase
 from distributed_deep_learning_tpu.workloads import get_spec as jget
 from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.parallel import collectives as coll
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from test_torch_zero import check_history, jax_init
 from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
@@ -68,6 +69,7 @@ import contextlib, io, os, sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from distributed_deep_learning_tpu_torch.parallel import collectives as coll
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.utils.checkpoint import \
@@ -75,10 +77,9 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 
-rank, port, blob = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, blob = int(sys.argv[1]), sys.argv[2]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=4)
+join("gloo", rank, 4)  # the launcher's store
 spec = torch.load(blob, weights_only=False)
 g = dist.group.WORLD
 x = torch.from_numpy(spec["blocks"])
@@ -131,11 +132,12 @@ dist.destroy_process_group()
 def run_ranks(spec: dict, tmp: Path) -> list:
     blob = tmp / "spec.pt"
     torch.save(spec, blob)
-    port = str(free_port())
+    store = host_store()
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store),
                DDL_DATA_LIMIT=LIMIT)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), port, str(blob)], env=env,
+        [sys.executable, "-c", RANK, str(r), str(blob)], env=env,
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(S)]
     try:

@@ -43,7 +43,8 @@ from distributed_deep_learning_tpu.workloads import get_spec as jget
 from distributed_deep_learning_tpu_torch.data.loader import local_rows
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
@@ -62,6 +63,7 @@ RANK = r"""
 import sys
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from torch.nn.parallel import DistributedDataParallel
 from distributed_deep_learning_tpu_torch.data.loader import local_rows
 from distributed_deep_learning_tpu_torch.models import moe
@@ -71,11 +73,10 @@ from distributed_deep_learning_tpu_torch.train.state import (
     Optimizer, create_train_state)
 from distributed_deep_learning_tpu_torch.train.step import make_step_fns
 
-rank, world, port, blob, accum = (int(sys.argv[1]), int(sys.argv[2]),
-                                  sys.argv[3], sys.argv[4], int(sys.argv[5]))
+rank, world, blob, accum = (int(sys.argv[1]), int(sys.argv[2]),
+                           sys.argv[3], int(sys.argv[4]))
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 d = torch.load(blob)
 state = create_train_state(moe.MoELM(**d["lm"]), 0, Optimizer("sgd", d["lr"]),
                            d["init"], device="cpu")
@@ -127,10 +128,11 @@ def _global_batch(seed=11):
 
 
 def _spawn_ranks(blob: Path, accum: int):
-    port = str(free_port())
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    store = host_store()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), str(WORLD), port, str(blob),
+        [sys.executable, "-c", RANK, str(r), str(WORLD), str(blob),
          str(accum)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
     try:

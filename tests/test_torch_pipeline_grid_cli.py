@@ -33,7 +33,8 @@ import torch
 from distributed_deep_learning_tpu.utils import config as jconfig
 from distributed_deep_learning_tpu.workloads import base as jbase
 from distributed_deep_learning_tpu.workloads import get_spec as jget
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec as tget
@@ -63,6 +64,7 @@ CLI_RANK = r"""
 import contextlib, io, os, sys
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
 from distributed_deep_learning_tpu_torch.utils import failures
 from distributed_deep_learning_tpu_torch.utils.checkpoint import \
@@ -70,11 +72,9 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 
-rank, world, port, blob = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                           sys.argv[4])
+rank, world, blob = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 out = {}
 for name, case in torch.load(blob).items():
     prune = case.get("prune")
@@ -111,11 +111,12 @@ dist.destroy_process_group()
 def run_cli_ranks(world: int, cases: dict, tmp: Path) -> list:
     blob = tmp / "cases.pt"
     torch.save(cases, blob)
-    port = str(free_port())
+    store = host_store()
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store),
                DDL_DATA_LIMIT=LIMIT)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", CLI_RANK, str(r), str(world), port,
+        [sys.executable, "-c", CLI_RANK, str(r), str(world),
          str(blob)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:

@@ -34,7 +34,8 @@ from distributed_deep_learning_tpu.runtime.mesh import build_mesh
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
 from distributed_deep_learning_tpu_torch.parallel import ring_attention
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -80,16 +81,15 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from distributed_deep_learning_tpu_torch.models import transformer as ttf
 from distributed_deep_learning_tpu_torch.ops import attention as fa
 from distributed_deep_learning_tpu_torch.parallel import (ring_attention,
                                                           ulysses)
 
-rank, world, port, blob = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                           sys.argv[4])
+rank, world, blob = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 spec = torch.load(blob, weights_only=False)
 S = spec["seq"]
 
@@ -152,10 +152,11 @@ dist.destroy_process_group()
 def run_ranks(spec: dict, world: int, tmp: Path) -> list:
     blob = tmp / "spec.pt"
     torch.save(spec, blob)
-    port = str(free_port())
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    store = host_store()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), str(world), port, str(blob)],
+        [sys.executable, "-c", RANK, str(r), str(world), str(blob)],
         env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
     try:

@@ -38,7 +38,8 @@ from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy
 from distributed_deep_learning_tpu_torch.parallel import \
     tensor_parallel as ttp
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from distributed_deep_learning_tpu_torch.train.objectives import \
     TokenCrossEntropy
 from distributed_deep_learning_tpu_torch.utils import config as tconfig
@@ -139,6 +140,7 @@ RANK = r"""
 import sys
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from distributed_deep_learning_tpu_torch.ops.fused_ce import \
     fused_linear_cross_entropy
 from distributed_deep_learning_tpu_torch.parallel.shards import whole
@@ -149,11 +151,9 @@ from distributed_deep_learning_tpu_torch.runtime.mesh import (
 from distributed_deep_learning_tpu_torch.train.objectives import \
     TokenCrossEntropy
 
-rank, world, port, blob = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                           sys.argv[4])
+rank, world, blob = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 layout = MeshLayout.of(build_mesh({"model": world}, "cpu", world))
 out = {}
 for name, case in torch.load(blob, weights_only=False).items():
@@ -214,10 +214,11 @@ def _cases():
 
 
 def _spawn(blob):
-    port = str(free_port())
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    store = host_store()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), "2", port, str(blob)], env=env,
+        [sys.executable, "-c", RANK, str(r), "2", str(blob)], env=env,
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     try:

@@ -23,7 +23,8 @@ from pathlib import Path
 import pytest
 
 from distributed_deep_learning_tpu_torch import tune as ttune
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from distributed_deep_learning_tpu_torch.runtime.launch import launch_local
 from distributed_deep_learning_tpu_torch.utils.config import parse_args
 from distributed_deep_learning_tpu_torch.workloads import get_spec
@@ -34,16 +35,15 @@ ROOT = Path(__file__).resolve().parent.parent
 ARGV = ["-e", "1", "-b", "32", "-m", "data", "-d", "cpu"]
 RANK_TIMEOUT = 240
 
-#: one gloo rank of a lockstep search: argv rank world port out
+#: one gloo rank of a lockstep search: argv rank world out
 RANK = r"""
 import dataclasses, json, sys
 import torch
 import torch.distributed as dist
-rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
-    sys.argv[4]
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 from distributed_deep_learning_tpu_torch.models.mlp import MLP
 from distributed_deep_learning_tpu_torch.tune import plan_hash, run_search
 from distributed_deep_learning_tpu_torch.utils.config import parse_args
@@ -106,10 +106,11 @@ def test_autotune_then_plan_replay_bit_identical(tmp_path, monkeypatch):
 
 
 def test_two_rank_search_in_lockstep_survives_a_one_rank_oom(tmp_path):
-    port, out = str(free_port()), str(tmp_path / "rank")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    store, out = host_store(), str(tmp_path / "rank")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), "2", port, out], env=env,
+        [sys.executable, "-c", RANK, str(r), "2", out], env=env,
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     try:

@@ -29,7 +29,8 @@ from distributed_deep_learning_tpu.workloads import get_spec as jget
 from distributed_deep_learning_tpu_torch.models import mlp as tmlp
 from distributed_deep_learning_tpu_torch.models.transformer import \
     load_flax_params
-from distributed_deep_learning_tpu_torch.runtime.bootstrap import free_port
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import (
+    host_store, hosted_env)
 from _torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,6 +49,7 @@ CLI_RANK = r"""
 import contextlib, io, os, sys
 import torch
 import torch.distributed as dist
+from distributed_deep_learning_tpu_torch.runtime.bootstrap import join
 from distributed_deep_learning_tpu_torch.parallel.shards import local
 from distributed_deep_learning_tpu_torch.parallel.zero import (
     optimizer_state_bytes, param_bytes)
@@ -57,11 +59,9 @@ from distributed_deep_learning_tpu_torch.utils.checkpoint import \
 from distributed_deep_learning_tpu_torch.workloads import base as tbase
 from distributed_deep_learning_tpu_torch.workloads import get_spec
 
-rank, world, port, blob = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                           sys.argv[4])
+rank, world, blob = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+join("gloo", rank, world)  # the launcher's store
 out = {}
 for name, case in torch.load(blob).items():
     prune = case.get("prune")
@@ -99,11 +99,12 @@ def run_cli_ranks(world: int, cases: dict, tmp: Path, limit: str = LIMIT):
     ``world`` spawned gloo ranks; returns each rank's results."""
     blob = tmp / "cases.pt"
     torch.save(cases, blob)
-    port = str(free_port())
+    store = host_store()
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **hosted_env(store),
                DDL_DATA_LIMIT=limit)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", CLI_RANK, str(r), str(world), port,
+        [sys.executable, "-c", CLI_RANK, str(r), str(world),
          str(blob)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
